@@ -6,22 +6,36 @@
 Runs on the card only (exits non-zero without one) and imports nothing of
 JAX. Phases, each fatal on failure:
   1. card: name, power limit; TF32 off for the float32 comparisons;
-  2. build: the NMS kernel from retinanet_torch/csrc/ with nvcc;
-  3. kernel: the NMS kernel against its plain PyTorch version on the card,
-     at the flagship shape and the edge cases; indices and valid counts
-     equal, scores to rtol 1e-5 / atol 1e-6;
-  4. serving: the flagship config (ResNet50-FPN, 640x640, mixed_bfloat16,
+  2. build: every kernel of retinanet_torch/csrc/ with nvcc, one compiler
+     per source, all started together;
+  3. NMS kernel against its plain PyTorch version on the card, at the
+     flagship shape and the edge cases; indices and valid counts equal,
+     scores to rtol 1e-5 / atol 1e-6;
+  4. matching kernel against its plain version on the card, all four
+     outputs bit-equal: the flagship anchors with 8 images of 100 boxes
+     (0, 1, 7 and 100 valid, a mask that is no prefix, duplicated boxes and
+     boxes centred between anchors so that both argmaxes meet ties, a box
+     that overlaps nothing), and a small ragged case;
+  5. serving: the flagship config (ResNet50-FPN, 640x640, mixed_bfloat16,
      80 classes, PerClassHardNMS) at full width with seeded random weights,
      answering batch-8 and batch-1 requests through `build_serving_fn`;
      the NMS kernel must launch once per request, and its detections must
-     equal those of the plain NMS on the same fused predictions.
-The line before the last is one JSON object describing each kernel
-(launches on the serving run, error, times, bound); the last line is
-{"ok": true, "device": {...}}.
+     equal those of the plain NMS on the same fused predictions;
+  6. training: the same config through `build_trainer`, full width and
+     depth, steps at batch 8 on one repeated seeded batch; the matching
+     kernel must launch once per step, every metric must be finite, the
+     loss must fall, the BatchNorm statistics must move, and the targets
+     through the kernel must equal those through the plain matcher. Batch
+     16 is tried and reported;
+  7. the Triton channel-statistics probe against its plain version.
+The output ends with one JSON object describing each kernel (launches on
+its main-path run, error, times, bound), the card's line again, and
+{"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -38,7 +52,10 @@ FLAGSHIP = (REPO / "configs" / "v3-8"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 NMS_OPS_PER_CANDIDATE_ROUND = 20
-BATCHES = {8: 6, 1: 4}          # batch size -> requests on the serving run
+MATCH_OPS_PER_PAIR = 25         # f32 operations per (anchor, valid box)
+BATCHES = {8: 4, 1: 3}          # batch size -> requests on the serving run
+TRAIN_BATCH = 8                 # what one core of the config's v3-8 gets
+TRAIN_STEPS = 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,19 +80,9 @@ def lanes(rng, n, k):
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Device time of one call, at the card's pace and not the host's."""
+    from retinanet_torch.utils.benchmark import device_time_ms
+    return device_time_ms(fn, reps, warmup)
 
 
 def nms_bound_ms(boxes, md, valid) -> tuple:
@@ -105,7 +112,7 @@ def compare_nms(args, kw):
     return (sc - w_sc).abs().max().item(), valid
 
 
-def phase_kernel() -> float:
+def phase_nms_kernel() -> float:
     from retinanet_torch.ops.nms import batched_nms
     from retinanet_torch.ops.nms_kernel import nms_lanes
     rng = np.random.default_rng(0)
@@ -142,8 +149,7 @@ def phase_kernel() -> float:
     return worst
 
 
-def phase_serving(worst_err: float) -> dict:
-    from retinanet_torch.core.config import Config
+def phase_serving(params, worst_err: float) -> dict:
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
@@ -151,7 +157,6 @@ def phase_serving(worst_err: float) -> dict:
     from retinanet_torch.ops.nms import batched_nms
     from retinanet_torch.ops.nms_kernel import kernel, nms_lanes
 
-    params = Config(str(FLAGSHIP)).params
     model = build_model(params, device="cuda", seed=0)
     with torch.no_grad():
         model.class_head.prediction.conv.bias.zero_()
@@ -259,12 +264,275 @@ def phase_serving(worst_err: float) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def match_bound_ms(num_anchors, gt_valid) -> tuple:
+    """Least time for this call: anchors, boxes and flags read once, the
+    four outputs written once, against the f32 operations of the (anchor,
+    valid box) pairs these inputs hold."""
+    batch, num_gt = gt_valid.shape
+    nbytes = (num_anchors * 16 + batch * num_gt * 17
+              + batch * num_anchors * 8 + batch * num_gt * 8)
+    ops = MATCH_OPS_PER_PAIR * num_anchors * int(gt_valid.sum().item())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def compare_match(anchors, gt_boxes, gt_valid) -> float:
+    """Kernel against plain on the same card tensors, bit for bit; returns
+    max |IoU error| (0 when it passes)."""
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import match_lanes
+    got = match_lanes(anchors, gt_boxes, gt_valid)
+    want = match_lanes_plain(anchors, gt_boxes, gt_valid)
+    torch.cuda.synchronize()
+    names = ("max_iou", "argmax_gt", "gt_best_iou", "gt_best_anchor")
+    for name, g, w in zip(names, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"match {name}: {g.dtype} {tuple(g.shape)} against "
+              f"{w.dtype} {tuple(w.shape)}")
+        check(torch.equal(g, w),
+              f"match {name} differs in {(g != w).sum().item()} places")
+    return max((got[0] - want[0]).abs().max().item(),
+               (got[2] - want[2]).abs().max().item())
+
+
+def match_cases(anchor_gen, rng):
+    """(name, gt_boxes (B, G, 4), gt_valid (B, G)) on the flagship anchors:
+    image by image 0, 1, 7 and 100 valid boxes, a mask that is no prefix,
+    each box twice (ties over the boxes), boxes centred on cell corners
+    (ties over the anchors), and a box that overlaps no anchor."""
+    h, w = anchor_gen.image_height, anchor_gen.image_width
+    g = 100
+
+    def boxes(n):
+        return np.stack([rng.uniform(0.1 * w, 0.9 * w, n),
+                         rng.uniform(0.1 * h, 0.9 * h, n),
+                         rng.uniform(0.03 * w, 0.5 * w, n),
+                         rng.uniform(0.03 * h, 0.5 * h, n)], -1)
+
+    gt = np.stack([boxes(g) for _ in range(8)]).astype(np.float32)
+    valid = np.zeros((8, g), bool)
+    for image, count in enumerate((0, 1, 7, 100)):
+        valid[image, :count] = True
+    valid[4] = rng.uniform(size=g) < 0.3          # no prefix
+    valid[4, 0] = False
+    gt[5, 50:] = gt[5, :50]                        # every box twice
+    valid[5] = True
+    gt[6, :, 0] = 64.0 * rng.integers(1, 9, g)     # centred between anchors
+    gt[6, :, 1] = 64.0 * rng.integers(1, 9, g)
+    gt[6, :, 2:] = 32.0 * rng.integers(1, 9, (g, 1))
+    valid[6, ::2] = True
+    gt[7, 3] = (-5000.0, -5000.0, 10.0, 10.0)      # overlaps no anchor
+    valid[7, :12] = True
+    yield "flagship A=76725 B=8 G=100", gt, valid
+    yield "flagship all 100 valid", gt, np.ones((8, g), bool)
+
+
+def phase_match_kernel(params) -> float:
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import match_lanes
+    rng = np.random.default_rng(0)
+    anchor_gen = from_params(params)
+    anchors = torch.from_numpy(anchor_gen.boxes).cuda()
+    check(anchors.shape[0] == 76725, f"{anchors.shape[0]} flagship anchors")
+    worst = 0.0
+    for name, gt, valid in match_cases(anchor_gen, rng):
+        gt, valid = torch.from_numpy(gt).cuda(), torch.from_numpy(valid).cuda()
+        worst = max(worst, compare_match(anchors, gt, valid))
+        ms = time_ms(lambda: match_lanes(anchors, gt, valid), reps=50)
+        plain_ms = time_ms(lambda: match_lanes_plain(anchors, gt, valid),
+                           reps=5)
+        bound, by = match_bound_ms(anchors.shape[0], valid)
+        print(f"[match] {name} ({int(valid.sum())} valid boxes): all four "
+              f"outputs bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound:.5f} ms ({by})")
+    # ragged: A no multiple of the tile of 256, G = 17, 14 valid
+    small = anchors[1000:1000 + 3 * 256 + 77].contiguous()
+    gt = np.stack([rng.uniform(100, 500, (3, 17)),
+                   rng.uniform(100, 500, (3, 17)),
+                   rng.uniform(20, 200, (3, 17)),
+                   rng.uniform(20, 200, (3, 17))], -1).astype(np.float32)
+    valid = np.zeros((3, 17), bool)
+    valid[:, :14] = True
+    worst = max(worst, compare_match(small, torch.from_numpy(gt).cuda(),
+                                     torch.from_numpy(valid).cuda()))
+    print(f"[match] ragged A={small.shape[0]} B=3 G=17: all four outputs "
+          "bit-equal")
+    return worst
+
+
+def phase_training(params, worst_err: float) -> dict:
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.label_encoder import make_batched_encoder
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import kernel, match_lanes
+    from retinanet_torch.train.trainer import build_trainer
+
+    h, w = params.input.input_shape
+    num_classes = int(params.architecture.head.num_classes)
+    max_boxes = int(params.encoder_params.max_boxes)
+    # PyTorch's default, which a caller of build_trainer gets: the float32
+    # prediction convs and their gradients may run in TF32
+    torch.backends.cudnn.allow_tf32 = True
+    state, step = build_trainer(params, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[training] flagship config through build_trainer, seeded random "
+          f"weights, {n_params} parameters, {params.floatx.precision}, "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        TRAIN_BATCH, (h, w), max_boxes, num_classes, seed=0).items()}
+    check(tuple(batch["boxes"].shape) == (TRAIN_BATCH, max_boxes, 4),
+          "batch shape")
+
+    # step 0's targets through the kernel and through the plain matcher
+    anchors = from_params(params)
+    by_kernel, by_plain = (
+        make_batched_encoder(anchors, params.encoder_params, device="cuda",
+                             matcher=matcher)(
+            batch["boxes"], batch["classes"], batch["valid"])
+        for matcher in (match_lanes, match_lanes_plain))
+    for kind in ("class-targets", "box-targets"):
+        for level in by_kernel[kind]:
+            check(torch.equal(by_kernel[kind][level], by_plain[kind][level]),
+                  f"{kind} P{level}: kernel and plain lanes differ")
+    check(torch.equal(by_kernel["num-positives"], by_plain["num-positives"]),
+          "num-positives: kernel and plain lanes differ")
+    print("[training] step-0 targets through the matching kernel equal "
+          "those through the plain matcher; positives per image "
+          f"{by_kernel['num-positives'].tolist()}")
+
+    stats_before = state.model.backbone.stem_bn.bn.running_mean.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every count at 0 just before, read just after
+    kernel.launches = 0
+    history, times, splits = [], [], []
+    for _ in range(TRAIN_STEPS):
+        marks = []
+        start = time.perf_counter()
+        state, metrics = step(state, batch, marks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        splits.append({name: before[1].elapsed_time(event) for before,
+                       (name, event) in zip(marks, marks[1:])})
+    launches = kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == TRAIN_STEPS, f"matching kernel launched {launches} "
+          f"times in {TRAIN_STEPS} steps")
+    check(state.step == TRAIN_STEPS, f"step is {state.step}")
+    for i, metrics in enumerate(history):
+        for key, value in metrics.items():
+            check(np.isfinite(value), f"step {i}: {key} is {value}")
+    first, last = history[0], history[-1]
+    check(last["total-loss"] < first["total-loss"],
+          f"total-loss {first['total-loss']} -> {last['total-loss']} on a "
+          "repeated batch")
+    check(not torch.equal(stats_before,
+                          state.model.backbone.stem_bn.bn.running_mean),
+          "BatchNorm running statistics did not move")
+    print(f"[training] {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, matching "
+          f"kernel launches {launches}, step {state.step}")
+    print("[training] total-loss "
+          + " ".join(f"{m['total-loss']:.4f}" for m in history))
+    print(f"[training] step 0: {json.dumps(first)}")
+    print(f"[training] step {TRAIN_STEPS - 1}: {json.dumps(last)}")
+    print(f"[training] batch {TRAIN_BATCH}: median "
+          f"{statistics.median(times[1:]):.3f} ms per step over "
+          f"{len(times) - 1} steps after the first ({times[0]:.1f} ms), "
+          f"{TRAIN_BATCH / statistics.median(times[1:]) * 1e3:.2f} images/s,"
+          f" peak memory {peak_gb:.2f} GB")
+    print("[training] split, device ms, median after the first step: "
+          + ", ".join(f"{name} {statistics.median(s[name] for s in splits[1:]):.3f}"
+                      for name in splits[0]))
+
+    # the kernel at the inputs the train step gave it
+    args = (torch.from_numpy(anchors.boxes).cuda(), batch["boxes"],
+            batch["valid"])
+    err = compare_match(*args)
+    ms = time_ms(lambda: match_lanes(*args), reps=50)
+    plain_ms = time_ms(lambda: match_lanes_plain(*args), reps=5)
+    bound, by = match_bound_ms(args[0].shape[0], args[2])
+    print(f"[match] training inputs at batch {TRAIN_BATCH} "
+          f"({int(args[2].sum())} valid boxes): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+
+    # batch 16, reported and no condition
+    big = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        16, (h, w), max_boxes, num_classes, seed=1).items()}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        big_times = []
+        for _ in range(3):
+            start = time.perf_counter()
+            state, metrics = step(state, big)
+            torch.cuda.synchronize()
+            big_times.append((time.perf_counter() - start) * 1e3)
+        print(f"[training] batch 16: {min(big_times[1:]):.3f} ms per step "
+              f"(best of {len(big_times) - 1} after the first), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+              f"total-loss {float(metrics['total-loss']):.4f}")
+    except torch.cuda.OutOfMemoryError:
+        print("[training] batch 16: does not fit in the card's memory")
+    torch.backends.cudnn.allow_tf32 = False
+    return {"name": "match_lanes", "route": "cuda",
+            "source": "retinanet_torch/csrc/match.cu",
+            "replaces": "retinanet_tpu/ops/pallas/matching_kernel.py:41",
+            "launches": launches, "max_abs_err": max(worst_err, err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def phase_channel_stats() -> dict:
+    """The bandwidth probe's Triton kernel: its own entry point is its main
+    path (nothing in the model calls it)."""
+    from retinanet_torch.tools import membw_experiments as probe
+    probe.kernel.launches = 0
+    check(probe.main() == 0, "membw_experiments.main() failed")
+    launches = probe.kernel.launches
+    check(launches > 0, "the probe never launched its Triton kernel")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((819200, probe.LANES), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    got, want = probe.channel_stats(x), probe.channel_stats_plain(x)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("sum", "sumsq"), got, want):
+        check(g.shape == w.shape == (probe.LANES,) and g.dtype == w.dtype,
+              f"channel_stats {name}: shape or dtype")
+        # f32 summation order over 819,200 rows
+        check(torch.allclose(g, w, rtol=1e-3, atol=1e-2),
+              f"channel_stats {name} differs")
+        err = max(err, (g - w).abs().max().item())
+    ms = time_ms(lambda: probe.channel_stats(x), reps=50)
+    plain_ms = time_ms(lambda: probe.channel_stats_plain(x), reps=10)
+    nbytes = x.numel() * 2 + 2 * probe.LANES * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * x.numel() / F32_FLOP_PER_S * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    print(f"[channel_stats] N=819200: kernel {ms:.4f} ms "
+          f"({x.numel() * 2 / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+          f"bound {bound:.5f} ms ({by}), max |err| {err:.3g}, launches in "
+          f"the probe's run {launches}")
+    return {"name": "channel_stats", "route": "triton",
+            "source": "retinanet_torch/tools/membw_experiments.py",
+            "replaces": "tools/membw_experiments.py:45",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 1
-    from retinanet_torch.ops.nms_kernel import kernel
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.ops import match_kernel, nms_kernel
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -276,15 +544,26 @@ def main() -> int:
     print(f"[card] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    kernel.build()
-    print(f"[build] NMS kernel built in {kernel.build_seconds:.2f} s")
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    kernels = (nms_kernel.kernel, match_kernel.kernel)
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        for future in [pool.submit(k.build) for k in kernels]:
+            future.result()
+    print(f"[build] {len(kernels)} kernels built side by side in "
+          f"{time.perf_counter() - start:.2f} s")
+    for k in kernels:
+        print(f"[build] {k.source.name} built in {k.build_seconds:.2f} s")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {k.source.name}: {line.strip()}")
+    params = Config(str(FLAGSHIP)).params
 
-    worst = phase_kernel()
-    record = phase_serving(worst)
-    print(json.dumps({"kernels": [record]}))
+    worst = phase_nms_kernel()
+    match_err = phase_match_kernel(params)
+    records = [phase_serving(params, worst),
+               phase_training(params, match_err),
+               phase_channel_stats()]
+    print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

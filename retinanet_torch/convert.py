@@ -1,4 +1,4 @@
-"""Flax variables -> torch state_dict.
+"""Flax variables <-> torch state_dict, both ways and bit-exact.
 
 The JAX model's `{"params": ..., "batch_stats": ...}` tree, as nested dicts
 of numpy arrays, maps leaf by leaf onto the port's modules, whose names
@@ -9,15 +9,19 @@ follow the flax paths (`backbone/group1/block0/conv1/conv/kernel` ->
   * BN `scale` / `bias` -> `weight` / `bias`; `batch_stats` `mean` / `var`
     -> `running_mean` / `running_var`;
   * every other leaf (conv `bias`, fusion weights) keeps its name.
+`torch_to_flax` is the inverse. A tree shaped like the parameters (the SGD
+velocity) goes through the same two functions as a `params` collection.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from retinanet_torch.models.retinanet import flax_path
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "lower_level_weight": "lower_level_weight",
@@ -76,3 +80,41 @@ def load_flax_variables(model: nn.Module, variables_np: Mapping) -> None:
             raise ValueError(f"{name}: flax shape {tuple(value.shape)} != "
                              f"torch shape {tuple(target[name].shape)}")
     model.load_state_dict(state, strict=True)
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """Convert a state_dict (or any name -> tensor mapping with the model's
+    names) to `{"params": ..., "batch_stats": ...}` nested dicts of float32
+    numpy arrays. A collection without leaves is left out."""
+    out: Dict[str, dict] = {}
+    for name, value in state.items():
+        path = flax_path(name).split("/")
+        leaf = path[-1]
+        value = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "kernel":
+            if value.ndim != 4:
+                raise ValueError(f"{name}: expected an OIHW weight, got "
+                                 f"shape {value.shape}")
+            value = value.transpose(2, 3, 1, 0)
+        if leaf in _STAT_LEAVES:
+            collection = "batch_stats"
+        elif leaf in _PARAM_LEAVES:
+            collection = "params"
+        else:
+            raise KeyError(f"no flax counterpart for {name}")
+        node = out.setdefault(collection, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out
+
+
+def velocity_to_flax(optimizer, model: nn.Module) -> Optional[dict]:
+    """The SGD velocity as a tree shaped like flax `params` (zeros for a
+    parameter that has no buffer yet); None without momentum."""
+    if not any(g["momentum"] for g in optimizer.param_groups):
+        return None
+    named = {name: optimizer.velocity(p)
+             for name, p in model.named_parameters() if p.requires_grad}
+    return torch_to_flax(named).get("params", {})
+

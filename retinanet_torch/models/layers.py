@@ -11,13 +11,14 @@ Padding follows TF/flax "SAME": for a stride above 1 the end side may get one
 more row than the beginning, which `padding=` of a torch conv or pool cannot
 express, so it is padded explicitly (with -inf for max pools).
 
-Only inference (BatchNorm on its running statistics) is ported so far;
-BatchNorm raises in training mode until the training slice (ROADMAP Queue 1
-#2) lands.
+BatchNorm runs on its running statistics in eval mode and on batch
+statistics, updating the running ones, in training mode.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Callable, Dict, Tuple
 
@@ -99,30 +100,101 @@ def conv2d(x: torch.Tensor, p: ConvParams, stride: int, pad: int,
                     1, p.groups)
 
 
+# True while a checkpointed block is run again in the backward pass: the
+# running statistics were updated by the first run and must not move twice.
+_RECOMPUTING = contextvars.ContextVar("bn_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside, a training-mode BatchNorm leaves its running statistics as
+    they are (the second forward of `torch.utils.checkpoint`)."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+class _BatchStatsNorm(torch.autograd.Function):
+    """(x - mean) * rsqrt(var + eps) * weight + bias for `mean` and `var`
+    that are the batch statistics of `x` over (N, H, W), computed by the
+    caller. Forward and backward are one fused ATen kernel each, in float32
+    inside whatever the dtype of `x`; the backward is the BatchNorm gradient
+    through the statistics, so `mean` and `var` come in without a graph.
+    Only `x` is kept for the backward pass, in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, eps):
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.eps = eps
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
+            grad_out, x, weight, None, None, mean, invstd, True, ctx.eps,
+            list(ctx.needs_input_grad[:3]))
+        return dx, dweight, dbias, None, None, None
+
+
 class BatchNorm(nn.Module):
-    """flax BatchNorm in inference: float32 statistics, output in `dtype`.
+    """flax BatchNorm: float32 statistics and arithmetic, output in `dtype`.
+
+    Eval mode normalizes by the running statistics. Training mode takes the
+    batch mean and the biased variance over (N, H, W) in float32, the
+    variance as max(0, E[x^2] - E[x]^2) as flax computes it, and moves the
+    running statistics by `ra = momentum * ra + (1 - momentum) * batch`, with
+    the biased variance (torch's own update takes the unbiased one, so the
+    buffers are updated here by hand). One card sees the whole batch, so
+    `use_sync` has nothing to add.
+
+    An input that already has `dtype` is not cast: the statistics are
+    reduced and the normalization is computed in float32 from it (the casts
+    happen inside the kernels), and the result is rounded to `dtype` once,
+    as flax rounds it.
+
+    `frozen = True` keeps one BatchNorm in eval mode inside a model that is
+    in training mode (a frozen layer neither normalizes by batch moments nor
+    moves its running statistics).
 
     The parameters sit in the child `bn` so that their names follow the
     flax paths (`<name>/bn/scale`). The running statistics are plain
-    buffers (no `num_batches_tracked`). The momentum of their update comes
-    with training mode."""
+    buffers (no `num_batches_tracked`)."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.float32, zero_init: bool = False,
-                 device=None):
+                 momentum: float = 0.99, device=None):
         super().__init__()
         self.bn = _BNParams(channels, zero_init, device)
         self.epsilon = epsilon
+        self.momentum = momentum
         self.dtype = dtype
+        self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm with batch statistics arrives with the training "
-                "slice (ROADMAP Queue 1 #2); call model.eval()")
         p = self.bn
-        y = F.batch_norm(x.to(torch.float32), p.running_mean, p.running_var,
-                         p.weight, p.bias, False, 0.0, self.epsilon)
+        if x.dtype != self.dtype:
+            x = x.to(torch.float32)
+        if not self.training or self.frozen:
+            y = F.batch_norm(x, p.running_mean, p.running_var, p.weight,
+                             p.bias, False, 0.0, self.epsilon)
+            return y.to(self.dtype)
+        with torch.no_grad():
+            dims = (0, 2, 3)
+            count = x.numel() // x.shape[1]
+            mean = x.mean(dim=dims, dtype=torch.float32)
+            mean_sq = torch.linalg.vector_norm(
+                x, dim=dims, dtype=torch.float32).square() / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            if not _RECOMPUTING.get():
+                p.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1.0 - self.momentum)
+                p.running_var.mul_(self.momentum).add_(
+                    var, alpha=1.0 - self.momentum)
+        y = _BatchStatsNorm.apply(x, p.weight, p.bias, mean, var,
+                                  self.epsilon)
         return y.to(self.dtype)
 
 

@@ -9,14 +9,16 @@ and returns {'2': C2, '3': C3, '4': C4, '5': C5} in NCHW.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from retinanet_torch.models.layers import BatchNorm, ConvParams, conv2d, \
-    max_pool
+    max_pool, recomputing
 
 MODEL_CONFIG = {
     10: ("residual", (1, 1, 1, 1)),
@@ -122,13 +124,25 @@ class BottleneckBlock(nn.Module):
         return F.relu(x + shortcut)
 
 
+def _remat_contexts():
+    # (first forward, second forward in the backward pass)
+    return contextlib.nullcontext(), recomputing()
+
+
 class BlockGroup(nn.Module):
-    """First block projects and strides; the rest are identity blocks."""
+    """First block projects and strides; the rest are identity blocks.
+
+    With `remat`, a training forward keeps only each block's input and runs
+    the block again in the backward pass (`torch.utils.checkpoint`): compute
+    for activation memory, for high-resolution configs. The second run
+    leaves the BatchNorm running statistics alone. Parameter names and
+    values are the same with or without it."""
 
     def __init__(self, in_channels: int, filters: int, block_type: str,
                  blocks: int, strides: int, bn_epsilon: float,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, remat: bool = False, device=None):
         super().__init__()
+        self.remat = remat
         block_cls = (BottleneckBlock if block_type == "bottleneck"
                      else ResidualBlock)
         self.num_blocks = blocks
@@ -142,17 +156,22 @@ class BlockGroup(nn.Module):
         self.out_channels = channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=_remat_contexts)
+            else:
+                x = block(x)
         return x
 
 
 class ResNet(nn.Module):
     """ResNet backbone emitting {'2': C2, '3': C3, '4': C4, '5': C5}.
 
-    `remat` (recompute each block in the backward pass) only matters when
-    training, so it is accepted and has no effect on this inference-only
-    module."""
+    `remat` recomputes each block in the backward pass of a training step
+    (see `BlockGroup`); it changes nothing in eval mode."""
 
     def __init__(self, depth: int = 50, bn_epsilon: float = 1e-3,
                  dtype: torch.dtype = torch.float32,
@@ -160,7 +179,6 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in MODEL_CONFIG:
             raise ValueError(f"Unsupported ResNet depth: {depth}")
-        del remat
         block_type, layers = MODEL_CONFIG[depth]
         self.stem = ConvFixedPadding(in_channels, 64, 7, 2, dtype, device)
         self.stem_bn = BatchNorm(64, bn_epsilon, dtype,
@@ -170,8 +188,7 @@ class ResNet(nn.Module):
         for i, (filters, strides) in enumerate(
                 zip((64, 128, 256, 512), (1, 2, 2, 2))):
             group = BlockGroup(channels, filters, block_type, layers[i],
-                               strides, bn_epsilon, dtype,
-                               device)
+                               strides, bn_epsilon, dtype, remat, device)
             self.add_module(f"group{i + 1}", group)
             channels = group.out_channels
             self.out_channels[str(i + 2)] = channels

@@ -12,6 +12,7 @@ tensor, which cuDNN's convolutions keep.
 from __future__ import annotations
 
 import logging
+import re
 from typing import Dict, Optional
 
 import torch
@@ -21,9 +22,47 @@ from retinanet_torch.core.device import resolve_device
 from retinanet_torch.models.fpn import FPN, FPNP5
 from retinanet_torch.models.heads import (build_auxillary_head,
                                           build_detection_heads)
-from retinanet_torch.models.layers import (BalanceFeatures, get_activation,
-                                           init_parameters)
+from retinanet_torch.models.layers import (BalanceFeatures, BatchNorm,
+                                           get_activation, init_parameters)
 from retinanet_torch.models.resnet import ResNet
+
+# Regexes for layer freezing, written against flax-style parameter paths
+# such as 'backbone/group1/block0/conv1/conv/kernel'; the same keys as the
+# JAX package. `flax_path` turns a torch name into such a path.
+FREEZE_VARS_REGEX = {
+    "backbone": re.compile(r"^backbone/"),
+    "backbone-bn": re.compile(r"^backbone/.*bn"),
+    "fpn": re.compile(r"^neck/"),
+    "fpn-bn": re.compile(r"^neck/.*bn"),
+    "head": re.compile(r"^(box_head|class_head)/(?!.*prediction)"),
+    "head-bn": re.compile(r"^(box_head|class_head)/.*bn"),
+    "bn": re.compile(r".*bn"),
+    "resnet_initial": re.compile(r"^backbone/(stem|stem_bn)/"),
+}
+
+
+def flax_path(torch_name: str) -> str:
+    """'a.b.conv.weight' -> 'a/b/conv/kernel', 'a.bn.weight' -> 'a/bn/scale',
+    'a.bn.running_mean' -> 'a/bn/mean'; every other leaf keeps its name. The
+    freeze masks and the weight decay match their regexes against this."""
+    parts = torch_name.split(".")
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "scale" if len(parts) > 1 and parts[-2] == "bn" else "kernel"
+    elif leaf in ("running_mean", "running_var"):
+        leaf = leaf[len("running_"):]
+    return "/".join(parts[:-1] + [leaf])
+
+
+def freeze_regexes(freeze_keys) -> tuple:
+    regexes = []
+    for key in freeze_keys:
+        if key not in FREEZE_VARS_REGEX:
+            raise ValueError(
+                f"Unknown freeze_variables key '{key}'. "
+                f"Available: {sorted(FREEZE_VARS_REGEX)}")
+        regexes.append(FREEZE_VARS_REGEX[key])
+    return tuple(regexes)
 
 
 class RetinaNet(nn.Module):
@@ -132,6 +171,9 @@ def build_model(params, device=None, seed: int = 0) -> RetinaNet:
         balance = BalanceFeatures(min_level, max_level, min_level + 1)
 
     model = RetinaNet(backbone, neck, box_head, class_head, balance)
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.momentum = float(bn.momentum)
     if device.type != "meta":
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -15,94 +15,36 @@ lane. The design keeps each lane's candidates in one CTA's shared memory
 for the whole loop, needs one barrier a round, and stops a lane at its
 first round below the score threshold.
 
-Build: `nvcc` compiles `csrc/nms.cu` on first use into
-`retinanet_torch/_build/`, a shared library with a plain C interface
-loaded with ctypes, named by a hash of the source and flags so that an edit
-rebuilds it. Importing this module needs no `nvcc`.
+Build: `ops/cuda_build.py` compiles `csrc/nms.cu` with `nvcc` on first use
+and loads it with ctypes. Importing this module needs no `nvcc`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from retinanet_torch.ops.cuda_build import CudaLibrary, device_index
 from retinanet_torch.ops.nms import batched_nms
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_CANDIDATES = 8192  # five f32 planes: 160 KB of shared memory
 
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the NMS kernel is built from "
-                       f"{SOURCE} with the CUDA toolkit")
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.nms_lanes_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.nms_lanes_launch.restype = ctypes.c_int
+    lib.nms_error_string.argtypes = [ctypes.c_int]
+    lib.nms_error_string.restype = ctypes.c_char_p
 
 
-class NmsKernel:
-    """The built library, and the count of kernel launches."""
-
-    def __init__(self):
-        self.launches = 0
-        self.build_seconds: Optional[float] = None
-        self.build_log = ""
-        self._lib = None
-
-    def build(self) -> ctypes.CDLL:
-        if self._lib is not None:
-            return self._lib
-        source = SOURCE.read_bytes()
-        tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        path = BUILD_DIR / f"libnms_{tag}.so"
-        start = time.perf_counter()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True, timeout=600)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {SOURCE}:\n{proc.stdout}"
-                        f"{proc.stderr}")
-                self.build_log = proc.stdout + proc.stderr
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(path))
-        lib.nms_lanes_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.nms_lanes_launch.restype = ctypes.c_int
-        lib.nms_error_string.argtypes = [ctypes.c_int]
-        lib.nms_error_string.restype = ctypes.c_char_p
-        self.build_seconds = time.perf_counter() - start
-        self._lib = lib
-        return lib
-
-
-kernel = NmsKernel()
+# the built library, and the count of kernel launches
+kernel = CudaLibrary("nms", _declare)
 
 
 def _mode(soft: bool, soft_nms_sigma: float) -> int:
@@ -162,8 +104,7 @@ def nms_lanes(boxes: torch.Tensor, scores: torch.Tensor,
         float(iou_threshold), float(score_threshold),
         float(2.0 * soft_nms_sigma), _mode(soft, soft_nms_sigma),
         idx.data_ptr(), out_scores.data_ptr(), valid.data_ptr(),
-        boxes.device.index if boxes.device.index is not None
-        else torch.cuda.current_device(), stream)
+        device_index(boxes.device), stream)
     if err != 0:
         raise RuntimeError("NMS kernel launch failed: "
                            + lib.nms_error_string(err).decode())

@@ -31,16 +31,23 @@ FLAGSHIP = (Path(__file__).resolve().parent.parent / "configs" / "v3-8"
 # kernel name pattern -> family, first match wins
 _FAMILIES = (
     ("nms (hand kernel)", r"nms_lanes_kernel"),
+    ("match (hand kernel)", r"match_kernel|decode_keys_kernel"),
+    ("optimizer / clip (foreach)", r"multi_tensor"),
     ("sort / top-k", r"sort|radix|Sort|topk|bitonic"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw"),
     ("convolution", r"conv|xmma|gemm|implicit|cutlass|sm90|wgrad|dgrad|"
                     r"fprop|winograd|cudnn"),
     ("gather / index", r"gather|index|scatter"),
-    ("copy / cast / layout", r"copy|Copy|cast|permute|transpose|cat|"
+    # not "gpu_kernel_impl_nocast", which is any broadcasting elementwise op
+    ("copy / cast / layout", r"copy|Copy|(?<!no)cast|permute|transpose|"
                              r"CatArray"),
     ("elementwise", r"elementwise|vectorized|unrolled|reduce|pool|"
                     r"max_pool|where|clamp"),
 )
+
+
+# profiler ranges of the host side, which carry their kernels' device time
+_NOT_KERNELS = ("cuda", "aten::", "Optimizer.", "autograd::", "_BatchStats")
 
 
 def _family(name: str) -> str:
@@ -48,6 +55,50 @@ def _family(name: str) -> str:
         if re.search(pat, name):
             return fam
     return "other"
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def print_profile(prof, count: int, unprofiled_ms: float, span_ms: float,
+                  unit: str) -> None:
+    """Device time per `unit` (a request, a step) by kernel family, the idle
+    share against the unprofiled time of one unit, and the top kernels, from
+    a `torch.profiler` run over `count` units that took `span_ms`."""
+    by_family = defaultdict(float)
+    launches = defaultdict(int)
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us <= 0 or evt.key.startswith(_NOT_KERNELS):
+            continue
+        fam = _family(evt.key)
+        by_family[fam] += dev_us / 1e3 / count
+        launches[fam] += evt.count // count
+    busy = sum(by_family.values())
+    if busy == 0:
+        print("profiler recorded no device time")
+        return
+    per_unit = span_ms / count
+    print(f"profiler: device busy {busy:.3f} ms a {unit}; idle share "
+          f"{1 - busy / unprofiled_ms:.3f} of the unprofiled "
+          f"{unprofiled_ms:.3f} ms {unit} ({1 - busy / per_unit:.3f} of the "
+          f"{per_unit:.3f} ms profiled one)")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:28s} {ms:9.3f} ms  {ms / busy:6.1%}  "
+              f"{launches[fam]:5d} launches")
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    print("top kernels:")
+    for evt in [e for e in top if not e.key.startswith(_NOT_KERNELS)][:14]:
+        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3
+        print(f"  {ms / count:9.3f} ms  x{evt.count // count:4d}  "
+              f"{evt.key[:110]}")
 
 
 def main() -> int:
@@ -64,11 +115,7 @@ def main() -> int:
     from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops.postprocess import make_postprocess_fn
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(f"card: {card}")
+    print(f"card: {card_line()}")
     params = Config(str(FLAGSHIP)).params
     model = build_model(params, device="cuda", seed=0)
     with torch.no_grad():
@@ -113,37 +160,8 @@ def main() -> int:
             serve(images)
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - start) * 1e3
-    by_family = defaultdict(float)
-    launches = defaultdict(int)
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us <= 0 or evt.key.startswith(("cuda", "aten::")):
-            continue
-        fam = _family(evt.key)
-        by_family[fam] += dev_us / 1e3 / args.requests
-        launches[fam] += evt.count // args.requests
-    busy = sum(by_family.values())
-    if busy == 0:
-        print("profiler recorded no device time")
-        return 0
-    per_request = span_ms / args.requests
-    unprofiled = statistics.median(wall)
-    print(f"profiler: device busy {busy:.3f} ms a request; idle share "
-          f"{1 - busy / unprofiled:.3f} of the unprofiled {unprofiled:.3f} ms "
-          f"request ({1 - busy / per_request:.3f} of the {per_request:.3f} ms "
-          "profiled one)")
-    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:24s} {ms:9.3f} ms  {ms / busy:6.1%}  "
-              f"{launches[fam]:5d} launches")
-    top = sorted(prof.key_averages(),
-                 key=lambda e: -getattr(e, "self_device_time_total", 0.0))
-    print("top kernels:")
-    for evt in [e for e in top if not e.key.startswith("aten::")][:12]:
-        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3
-        count = evt.count // args.requests
-        print(f"  {ms / args.requests:9.3f} ms  x{count:4d}  {evt.key[:110]}")
+    print_profile(prof, args.requests, statistics.median(wall), span_ms,
+                  "request")
     return 0
 
 
