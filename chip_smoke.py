@@ -8,19 +8,28 @@ JAX. Phases, each fatal on failure:
   1. card: name, power limit; TF32 off for the float32 comparisons;
   2. build: every kernel of retinanet_torch/csrc/ with nvcc, one compiler
      per source, all started together;
-  3. NMS kernel against its plain PyTorch version on the card, at the
-     flagship shape and the edge cases; indices and valid counts equal,
-     scores to rtol 1e-5 / atol 1e-6;
+  3. both NMS kernels against the plain PyTorch version on the card: hard
+     mode through the sweep kernel (the flagship shape, sorted and unsorted
+     input, tied and all-equal scores, duplicated boxes, IoUs exactly at the
+     threshold, k = 300 and 1000, more slots than survivors, a trained-like
+     load), soft mode and a
+     threshold of -inf through the round kernel; indices and valid counts
+     equal, the sweep's scores exactly equal, the round kernel's to rtol
+     1e-5 / atol 1e-6 (the soft decay's exp);
   4. matching kernel against its plain version on the card, all four
      outputs bit-equal: the flagship anchors with 8 images of 100 boxes
      (0, 1, 7 and 100 valid, a mask that is no prefix, duplicated boxes and
      boxes centred between anchors so that both argmaxes meet ties, a box
-     that overlaps nothing), and a small ragged case;
+     that overlaps nothing), an image whose boxes all lie outside, one box
+     an image, and a small ragged case; the share of (tile, box) pairs that
+     the kernel's tile test keeps is printed per load; one call is one
+     kernel on the card (profiler count);
   5. serving: the flagship config (ResNet50-FPN, 640x640, mixed_bfloat16,
      80 classes, PerClassHardNMS) at full width with seeded random weights,
      answering batch-8 and batch-1 requests through `build_serving_fn`;
-     the NMS kernel must launch once per request, and its detections must
-     equal those of the plain NMS on the same fused predictions;
+     the sweep kernel must launch once per request, and its detections must
+     equal those of the plain NMS on the same fused predictions; the round
+     kernel is timed on the same tensors;
   6. training: the same config through `build_trainer`, full width and
      depth, steps at batch 8 on one repeated seeded batch; the matching
      kernel must launch once per step, every metric must be finite, the
@@ -85,6 +94,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return device_time_ms(fn, reps, warmup)
 
 
+def kernels_on_card(fn) -> list:
+    """Names of what one call of `fn` ran on the card (kernels, memsets,
+    copies), by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def nms_bound_ms(boxes, md, valid) -> tuple:
     """Least time for this call: each input read once and each output
     written once, against the f32 operations these inputs need (a lane runs
@@ -99,53 +121,117 @@ def nms_bound_ms(boxes, md, valid) -> tuple:
                                  else "operations")
 
 
-def compare_nms(args, kw):
-    """Kernel against plain on the same card tensors; returns max |err|."""
+def compare_nms(args, kw, design):
+    """`nms_lanes` against plain on the same card tensors; it must launch
+    `design`. Returns max |score err| and the valid counts."""
     from retinanet_torch.ops.nms import batched_nms
-    from retinanet_torch.ops.nms_kernel import nms_lanes
+    from retinanet_torch.ops.nms_kernel import kernel, nms_lanes
+    before = kernel.launches_by[design]
     idx, sc, valid = nms_lanes(*args, **kw)
+    check(kernel.launches_by[design] == before + 1,
+          f"nms_lanes did not launch the {design} kernel")
     w_idx, w_sc, w_valid = batched_nms(*args, **kw)
     torch.cuda.synchronize()
     check(torch.equal(valid, w_valid), "valid counts differ")
     check(torch.equal(idx, w_idx), "indices differ")
-    check(torch.allclose(sc, w_sc, rtol=1e-5, atol=1e-6), "scores differ")
+    if design == "sweep":
+        check(torch.equal(sc, w_sc), "sweep scores differ")
+    else:
+        check(torch.allclose(sc, w_sc, rtol=1e-5, atol=1e-6),
+              "scores differ")
     return (sc - w_sc).abs().max().item(), valid
 
 
-def phase_nms_kernel() -> float:
+def time_nms(args, kw) -> dict:
+    """Device ms of the sweep, of the round kernel on the same tensors, and
+    of plain, in turns; hard mode."""
     from retinanet_torch.ops.nms import batched_nms
+    from retinanet_torch.ops.nms_kernel import launch_design
+    boxes, scores, md = args
+    rest = (md, kw["iou_threshold"], kw["score_threshold"])
+    for design in ("sweep", "rounds"):
+        got = launch_design(design, boxes, scores, *rest)
+        want = batched_nms(*args, **kw)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{design} kernel differs from plain")
+    times = {"sweep": [], "rounds": []}
+    for design in ("sweep", "rounds", "rounds", "sweep"):
+        times[design].append(time_ms(
+            lambda: launch_design(design, boxes, scores, *rest), reps=50))
+    out = {d: statistics.mean(t) for d, t in times.items()}
+    out["plain"] = time_ms(lambda: batched_nms(*args, **kw), reps=5)
+    return out
+
+
+def nms_cases(rng):
+    """(name, boxes, scores, max_det, keywords, design expected)."""
+    hard = dict(iou_threshold=0.5, score_threshold=0.05)
+    soft = dict(iou_threshold=1.0, score_threshold=0.05, soft_nms_sigma=0.25,
+                soft=True)
+
+    def in_order(boxes, scores):
+        scores, order = torch.sort(scores, dim=1, descending=True,
+                                   stable=True)
+        return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)
+                             ).contiguous(), scores.contiguous())
+
+    boxes, scores = lanes(rng, 640, 256)
+    yield ("flagship hard L=640 k=256, unsorted", boxes, scores, 100, hard,
+           "sweep")
+    yield ("flagship hard, in top-k order", *in_order(boxes, scores), 100,
+           hard, "sweep")
+    yield "flagship soft sigma=0.25", boxes, scores, 100, soft, "rounds"
+    yield ("hard, threshold -inf", boxes[:64], scores[:64], 100,
+           dict(iou_threshold=0.5, score_threshold=float("-inf")), "rounds")
+    yield ("tied scores (nine levels)", boxes[:64],
+           torch.round(scores[:64] * 8) / 8, 100, hard, "sweep")
+    yield ("all scores equal", boxes[:64], torch.full_like(scores[:64], 0.5),
+           100, hard, "sweep")
+    twice = torch.cat([boxes[:64, :128], boxes[:64, :128]], 1).contiguous()
+    yield ("every box twice", twice,
+           torch.cat([scores[:64, :128], scores[:64, :128]], 1).contiguous(),
+           100, hard, "sweep")
+    yield ("more slots than survivors",
+           boxes[:64, :1].expand(64, 256, 4).contiguous(), scores[:64], 100,
+           hard, "sweep")
+    grid = torch.round(boxes[:64] * 8) / 8   # many IoUs exactly 1/2
+    yield "corners on a grid of eighths", grid, scores[:64], 100, hard, "sweep"
+    trained = in_order(boxes, scores * 0.052)
+    yield "trained-like (few clear 0.05)", *trained, 100, hard, "sweep"
+    yield "global L=8 k=256", *lanes(rng, 8, 256), 100, hard, "sweep"
+    yield "k=300 L=80", *lanes(rng, 80, 300), 100, hard, "sweep"
+    yield "k=1000 L=16", *lanes(rng, 16, 1000), 100, hard, "sweep"
+    yield "k=5000 L=2", *lanes(rng, 2, 5000), 100, hard, "rounds"
+    yield ("ragged L=3 k=77", *lanes(rng, 3, 77), 10,
+           dict(iou_threshold=0.5, score_threshold=0.2), "sweep")
+    yield ("all below threshold", *lanes(rng, 2, 64), 5,
+           dict(iou_threshold=0.5, score_threshold=1.5), "sweep")
+
+
+def phase_nms_kernel() -> float:
     from retinanet_torch.ops.nms_kernel import nms_lanes
     rng = np.random.default_rng(0)
-    cases = [
-        ("flagship hard L=640 k=256", 640, 256, 100,
-         dict(iou_threshold=0.5, score_threshold=0.05)),
-        ("flagship soft sigma=0.25", 640, 256, 100,
-         dict(iou_threshold=1.0, score_threshold=0.05, soft_nms_sigma=0.25,
-              soft=True)),
-        ("global L=8 k=256", 8, 256, 100,
-         dict(iou_threshold=0.5, score_threshold=0.05)),
-        ("ragged L=3 k=77", 3, 77, 10,
-         dict(iou_threshold=0.5, score_threshold=0.2)),
-        ("all below threshold", 2, 64, 5,
-         dict(iou_threshold=0.5, score_threshold=1.5)),
-    ]
     worst = 0.0
-    for name, n, k, md, kw in cases:
-        boxes, scores = lanes(rng, n, k)
-        err, valid = compare_nms((boxes, scores, md), kw)
+    for name, boxes, scores, md, kw, design in nms_cases(rng):
+        err, valid = compare_nms((boxes, scores, md), kw, design)
         worst = max(worst, err)
-        print(f"[kernel] {name}: equal indices and valid counts "
-              f"(valid sum {valid.sum().item()}), max |score err| {err:.3g}")
+        print(f"[kernel] {name}: {design} kernel, equal indices and valid "
+              f"counts (valid sum {valid.sum().item()}), max |score err| "
+              f"{err:.3g}")
         if name.startswith("all below"):
             check(valid.sum().item() == 0, "lanes below threshold selected")
-        if name.startswith("flagship hard"):
-            kernel_ms = time_ms(lambda: nms_lanes(boxes, scores, md, **kw),
-                                reps=50)
-            plain_ms = time_ms(lambda: batched_nms(boxes, scores, md, **kw),
-                               reps=5)
+        if name.startswith("more slots"):
+            check(valid.tolist() == [1] * 64, "one survivor a lane expected")
+        if name.startswith(("flagship hard", "trained-like")):
+            ms = time_nms((boxes, scores, md), kw)
             bound, by = nms_bound_ms(boxes, md, valid)
-            print(f"[kernel] {name}: kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+            print(f"[kernel] {name}: sweep {ms['sweep']:.4f} ms, round "
+                  f"kernel {ms['rounds']:.4f} ms, plain {ms['plain']:.4f} "
+                  f"ms, bound {bound:.5f} ms ({by})")
+    names = kernels_on_card(lambda: nms_lanes(boxes, scores, md, **kw))
+    check(len(names) == 1 and "nms_sweep_kernel" in names[0],
+          f"one nms_lanes call ran {names} on the card")
+    print(f"[kernel] one nms_lanes call is one kernel on the card: {names}")
     return worst
 
 
@@ -174,7 +260,7 @@ def phase_serving(params, worst_err: float) -> dict:
         for bs, count in BATCHES.items() for _ in range(count)]
 
     # the main path: every count at 0 just before, read just after
-    kernel.launches = 0
+    kernel.reset_counts()
     outputs, times = [], {bs: [] for bs in BATCHES}
     for bs, images in requests:
         start = time.perf_counter()
@@ -183,11 +269,13 @@ def phase_serving(params, worst_err: float) -> dict:
         times[bs].append((time.perf_counter() - start) * 1e3)
         outputs.append(det)
     launches = kernel.launches
-    check(launches == len(requests),
-          f"NMS kernel launched {launches} times for {len(requests)} "
+    check(launches == len(requests)
+          and kernel.launches_by["sweep"] == len(requests),
+          f"NMS kernels launched {launches} times, the sweep "
+          f"{kernel.launches_by['sweep']} times, for {len(requests)} "
           "requests")
     print(f"[serving] {len(requests)} requests, NMS kernel launches "
-          f"{launches}")
+          f"{launches}, by design {dict(kernel.launches_by)}")
 
     md = int(params.inference.max_detections)
     for (bs, _), det in zip(requests, outputs):
@@ -247,21 +335,21 @@ def phase_serving(params, worst_err: float) -> dict:
     kw = dict(zip(("iou_threshold", "score_threshold", "soft_nms_sigma",
                    "soft"), args[3:]))
     with torch.inference_mode():
-        err, valid = compare_nms(args[:3], kw)
-        ms = time_ms(lambda: nms_lanes(*args), reps=50)
-        plain_ms = time_ms(lambda: batched_nms(*args), reps=5)
+        err, valid = compare_nms(args[:3], kw, "sweep")
+        ms = time_nms(args[:3], kw)
     bound, by = nms_bound_ms(args[0], args[2], valid)
     print(f"[kernel] serving inputs at batch 8 (L={args[0].shape[0]}, "
           f"k={args[0].shape[1]}, md={args[2]}, rounds "
           f"{torch.clamp(valid.long() + 1, max=args[2]).sum().item()}): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound:.5f} ms ({by})")
+          f"sweep {ms['sweep']:.4f} ms, round kernel {ms['rounds']:.4f} ms, "
+          f"plain {ms['plain']:.4f} ms, bound {bound:.5f} ms ({by})")
     return {"name": "nms_lanes", "route": "cuda",
             "source": "retinanet_torch/csrc/nms.cu",
             "replaces": "retinanet_tpu/ops/pallas/nms_kernel.py:36",
             "launches": launches, "max_abs_err": max(worst_err, err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None}
+            "ms": ms["sweep"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "design": "sweep",
+            "rounds_ms": ms["rounds"]}
 
 
 def match_bound_ms(num_anchors, gt_valid) -> tuple:
@@ -276,6 +364,16 @@ def match_bound_ms(num_anchors, gt_valid) -> tuple:
     t_ops = ops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def kept_share(anchors, gt_boxes, gt_valid) -> float:
+    """The share of (tile of anchors, valid box) pairs that the matching
+    kernel's tile test keeps."""
+    from retinanet_torch.ops.match import tile_cull_mask
+    from retinanet_torch.ops.match_kernel import TILE
+    keep = tile_cull_mask(anchors, gt_boxes, TILE) & gt_valid[:, None, :]
+    pairs = keep.shape[1] * int(gt_valid.sum().item())
+    return keep.sum().item() / pairs if pairs else 0.0
 
 
 def compare_match(anchors, gt_boxes, gt_valid) -> float:
@@ -327,6 +425,11 @@ def match_cases(anchor_gen, rng):
     valid[7, :12] = True
     yield "flagship A=76725 B=8 G=100", gt, valid
     yield "flagship all 100 valid", gt, np.ones((8, g), bool)
+    outside = gt.copy()
+    outside[0, :, :2] += 9000.0                    # image 0: all outside
+    outside[1, :, :2] -= 9000.0
+    yield "images 0 and 1 with every box outside", outside, valid[::-1].copy()
+    yield "one box an image, G=1", gt[:, 17:18].copy(), np.ones((8, 1), bool)
 
 
 def phase_match_kernel(params) -> float:
@@ -345,10 +448,15 @@ def phase_match_kernel(params) -> float:
         plain_ms = time_ms(lambda: match_lanes_plain(anchors, gt, valid),
                            reps=5)
         bound, by = match_bound_ms(anchors.shape[0], valid)
-        print(f"[match] {name} ({int(valid.sum())} valid boxes): all four "
-              f"outputs bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound:.5f} ms ({by})")
-    # ragged: A no multiple of the tile of 256, G = 17, 14 valid
+        print(f"[match] {name} ({int(valid.sum())} valid boxes, "
+              f"{kept_share(anchors, gt, valid):.4f} of the (tile, box) "
+              f"pairs kept): all four outputs bit-equal; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+    names = kernels_on_card(lambda: match_lanes(anchors, gt, valid))
+    check(len(names) == 1 and "match_kernel" in names[0],
+          f"one match_lanes call ran {names} on the card")
+    print(f"[match] one match_lanes call is one kernel on the card: {names}")
+    # ragged: A no multiple of the tile or of 256, G = 17, 14 valid
     small = anchors[1000:1000 + 3 * 256 + 77].contiguous()
     gt = np.stack([rng.uniform(100, 500, (3, 17)),
                    rng.uniform(100, 500, (3, 17)),
@@ -408,7 +516,7 @@ def phase_training(params, worst_err: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: every count at 0 just before, read just after
-    kernel.launches = 0
+    kernel.reset_counts()
     history, times, splits = [], [], []
     for _ in range(TRAIN_STEPS):
         marks = []
@@ -457,7 +565,8 @@ def phase_training(params, worst_err: float) -> dict:
     plain_ms = time_ms(lambda: match_lanes_plain(*args), reps=5)
     bound, by = match_bound_ms(args[0].shape[0], args[2])
     print(f"[match] training inputs at batch {TRAIN_BATCH} "
-          f"({int(args[2].sum())} valid boxes): kernel {ms:.4f} ms, plain "
+          f"({int(args[2].sum())} valid boxes, {kept_share(*args):.4f} of "
+          f"the (tile, box) pairs kept): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
 
     # batch 16, reported and no condition

@@ -9,6 +9,7 @@ raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -38,17 +39,20 @@ def find_nvcc(source: Path) -> str:
 
 
 class CudaLibrary:
-    """One source of `csrc/`, its built library, and the count of kernel
-    launches that its wrapper keeps.
+    """One source of `csrc/` (or `source`), its built library, and the
+    counts of kernel launches that its wrapper keeps: `launches` in all,
+    `launches_by` per design where the source holds more than one.
 
     `declare(lib)` sets the argtypes and restype of every exported function
     once the library is loaded. `build()` may be called from several threads
     (one `nvcc` per source, all started together)."""
 
-    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
+                 source: Optional[Path] = None):
         self.name = name
-        self.source = CSRC_DIR / f"{name}.cu"
+        self.source = source or CSRC_DIR / f"{name}.cu"
         self.launches = 0
+        self.launches_by: collections.Counter = collections.Counter()
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._declare = declare
@@ -89,6 +93,10 @@ class CudaLibrary:
         self._declare(lib)
         self.build_seconds = time.perf_counter() - start
         return lib
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by.clear()
 
 
 def device_index(device) -> int:

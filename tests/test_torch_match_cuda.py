@@ -24,6 +24,7 @@ _CASES = [
     (128, 5, 17, 14),       # anchors no multiple of the tile of 256
     (256, 2, 1, 1),         # a single box
     (256, 2, 2000, 0.5),    # more than 48 KB of shared memory
+    (640, 3, 300, 300),     # two chunks of 256 boxes, every one valid
 ]
 
 
@@ -88,3 +89,74 @@ def test_encoder_targets_through_kernel_equal_plain():
         for level in outs[0][kind]:
             assert torch.equal(outs[0][kind][level], outs[1][kind][level])
     assert torch.equal(outs[0]["num-positives"], outs[1]["num-positives"])
+
+
+@pytest.mark.cuda
+def test_match_kernel_all_culled_image_and_scratch_left_clean():
+    """Boxes that no tile keeps: every valid box gets (0, anchor 0) and every
+    anchor (0, lowest valid index). Then the scratch must be zeros again,
+    and a second call of another shape on it must be right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the matching kernel has no CPU mode")
+    from retinanet_torch.ops import match_kernel
+    anchors, gt, valid = _inputs(640, 3, 10, 10, seed=4)
+    gt[0, :, :2] += 9000.0           # image 0: every box far outside
+    valid[0, 0] = False              # lowest valid index 1
+    gt[1, 3, :2] -= 9000.0           # image 1: one such box among the others
+    args = [torch.from_numpy(x).cuda() for x in (anchors, gt, valid)]
+    got = match_lanes(*args)
+    torch.cuda.synchronize()
+    want = match_lanes_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0][0] == 0).all() and (got[1][0] == 1).all()
+    assert got[2][0].tolist() == [-1.0] + [0.0] * 9
+    assert (got[3][0] == 0).all()
+    assert match_kernel._scratch
+    for buf in match_kernel._scratch.values():
+        assert not buf.any()
+    args = [torch.from_numpy(x).cuda() for x in _inputs(128, 5, 17, 14, 2)]
+    for g, w in zip(match_lanes(*args), match_lanes_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_match_kernel_on_two_streams_in_flight():
+    """Each stream has scratch of its own: calls queued on two streams at
+    once, several deep, all give the plain version's answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the matching kernel has no CPU mode")
+    cases = [[torch.from_numpy(x).cuda() for x in
+              _inputs(640, 8, 100, spec, seed=spec)] for spec in (100, 37)]
+    want = [match_lanes_plain(*args) for args in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(6):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[i].append(match_lanes(*cases[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for outs in got[i]:
+            for g, w in zip(outs, want[i]):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_match_is_one_kernel_launch():
+    """The profiler sees one kernel on the card per call and no memset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the matching kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    args = [torch.from_numpy(x).cuda() for x in _inputs(640, 8, 100, 7, 1)]
+    match_lanes(*args)                       # build, and size the scratch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            match_lanes(*args)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 5, [e.name for e in on_card]
+    assert all("match_kernel" in e.name for e in on_card)
