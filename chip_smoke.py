@@ -36,19 +36,40 @@ JAX. Phases, each fatal on failure:
      loss must fall, the BatchNorm statistics must move, and the targets
      through the kernel must equal those through the plain matcher. Batch
      16 is tried and reported;
-  7. the Triton channel-statistics probe against its plain version.
+  7. the Triton channel-statistics probe against its plain version;
+  8. executor: the flagship train_val run through the CLI, at full width,
+     on a synthetic COCO-schema dataset that the port writes (2 shards x 32
+     images, 240-640 px, 1-7 boxes, 80 classes, annotations JSON), with a
+     config derived from the flagship that changes only the paths, the
+     step counts and the train batch (each change printed beside the
+     flagship's value): (a) `python -m retinanet_torch` as a subprocess
+     trains 24 steps, checkpoints at 8, 16 and 24, evaluates COCO at 12 and
+     24 and exits 0; (b) `--run_evaluation` in process launches the NMS
+     sweep kernel once per val batch and the matching kernel never; (c) a
+     resume to 28 steps launches the matching kernel once per step. The
+     JPEG route is printed and its pixels are held to libjpeg's on the
+     JPEGs of tests/goldens/jpeg_decode_goldens.npz (exact, or nvJPEG's
+     stated bound). The executor's images/s, the eval legs, and the host
+     pipeline's own rate, alone and beside the train step looping on the
+     card, are printed;
+  9. overfit: the port's `tools/overfit_check.py` (ResNet18, 128x128, 16
+     images, 300 steps through the Executor) must reach AP@0.5 >= 0.3.
 The output ends with one JSON object describing each kernel (launches on
-its main-path run, error, times, bound), the card's line again, and
-{"ok": true, "device": {...}} as the last line.
+its main-path run and on the executor's paths, error, times, bound), the
+card's line again, and {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -65,6 +86,22 @@ MATCH_OPS_PER_PAIR = 25         # f32 operations per (anchor, valid box)
 BATCHES = {8: 4, 1: 3}          # batch size -> requests on the serving run
 TRAIN_BATCH = 8                 # what one core of the config's v3-8 gets
 TRAIN_STEPS = 8
+# phase 8: the flagship config with only these changed (besides the paths)
+EXECUTOR_CHANGES = (
+    (("training", "train_steps"), 24),
+    (("training", "save_every"), 8),
+    (("training", "validation_freq"), 12),
+    (("training", "validation_samples"), 32),
+    (("training", "steps_per_execution"), 4),
+    (("training", "batch_size", "train"), 8),
+)
+EXECUTOR_SHARDS, EXECUTOR_IMAGES_PER_SHARD = 2, 32
+RESUME_STEPS = 28
+CLI_TIMEOUT_S = 420             # phase 8 (a); the whole script has 1200 s
+PIPELINE_SECONDS = 3.0
+JPEG_GOLDENS = REPO / "tests" / "goldens" / "jpeg_decode_goldens.npz"
+COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
+             "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -587,12 +624,13 @@ def phase_training(params, worst_err: float) -> dict:
     except torch.cuda.OutOfMemoryError:
         print("[training] batch 16: does not fit in the card's memory")
     torch.backends.cudnn.allow_tf32 = False
+    step_images_per_s = TRAIN_BATCH / statistics.median(times[1:]) * 1e3
     return {"name": "match_lanes", "route": "cuda",
             "source": "retinanet_torch/csrc/match.cu",
             "replaces": "retinanet_tpu/ops/pallas/matching_kernel.py:41",
             "launches": launches, "max_abs_err": max(worst_err, err),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None}, step_images_per_s
 
 
 def phase_channel_stats() -> dict:
@@ -635,6 +673,292 @@ def phase_channel_stats() -> dict:
             "library_ms": None}
 
 
+def derived_config(workdir: Path, pattern: str, ann: str,
+                   train_steps: int) -> tuple:
+    """The flagship config with the dataset's paths, a model_dir under
+    `workdir` and EXECUTOR_CHANGES (train_steps overridden); returns (path,
+    [(key, flagship value, value)])."""
+    tree = json.loads(FLAGSHIP.read_text())
+    changes = [(("dataloader_params", "tfrecords", "train"), pattern),
+               (("dataloader_params", "tfrecords", "val"), pattern),
+               (("training", "annotation_file_path"), ann),
+               (("experiment", "model_dir"), str(workdir / "models"))]
+    changes += [(key, train_steps if key[-1] == "train_steps" else value)
+                for key, value in EXECUTOR_CHANGES]
+    done = []
+    for key, value in changes:
+        node = tree
+        for part in key[:-1]:
+            node = node[part]
+        done.append((".".join(key), node[key[-1]], value))
+        node[key[-1]] = value
+    path = workdir / f"config-{train_steps}.json"
+    path.write_text(json.dumps(tree, indent=2))
+    return path, done
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def check_eval_record(record: dict, step: int) -> None:
+    check(record["step"] == step, f"evaluation at step {record['step']}, "
+          f"{step} expected")
+    for key in COCO_KEYS:
+        value = record.get(f"evaluation/{key}")
+        check(value is not None and -1.0 <= value <= 1.0,
+              f"evaluation/{key} at step {step} is {value}")
+
+
+def check_jpeg_decode(route: str) -> None:
+    """The route's pixels against libjpeg's on the JPEGs of
+    tests/goldens/jpeg_decode_goldens.npz: exact on the libjpeg route,
+    within the stated bound on nvJPEG's."""
+    from retinanet_torch.data import host_codec
+    goldens = np.load(JPEG_GOLDENS)
+    n = len([k for k in goldens.files if k.startswith("jpeg")])
+    worst_max, worst_mean = 0, 0.0
+    for i in range(n):
+        pixels = goldens[f"pixels{i}"]
+        got = host_codec.decode_jpeg(goldens[f"jpeg{i}"].tobytes())
+        check(got.shape == pixels.shape, f"JPEG {i}: shape {got.shape}")
+        err = np.abs(got.astype(np.int16) - pixels.astype(np.int16))
+        print(f"[executor] JPEG {i} {pixels.shape} through {route}: max "
+              f"|err| {err.max()}, mean |err| {err.mean():.4f} levels "
+              "against libjpeg")
+        worst_max = max(worst_max, int(err.max()))
+        worst_mean = max(worst_mean, float(err.mean()))
+    if route == "libjpeg":
+        bound_max, bound_mean = 0, 0.0
+    else:
+        bound_max = host_codec.NVJPEG_MAX_ABS_ERR
+        bound_mean = host_codec.NVJPEG_MEAN_ABS_ERR
+    check(worst_max <= bound_max and worst_mean <= bound_mean,
+          f"{route} decode: max |err| {worst_max} (bound {bound_max}), mean "
+          f"{worst_mean:.4f} (bound {bound_mean})")
+
+
+def pipeline_rate(params) -> tuple:
+    """images/s of InputPipeline("train") over the batches after the first
+    until PIPELINE_SECONDS have passed, and that window's start and end
+    (perf_counter)."""
+    from retinanet_torch.data.pipeline import InputPipeline
+    it = iter(InputPipeline("train", params))
+    next(it)
+    start = end = time.perf_counter()
+    batches = 0
+    while end - start < PIPELINE_SECONDS:
+        next(it)
+        batches += 1
+        end = time.perf_counter()
+    it.close()
+    return (batches * int(params.training.batch_size.train) / (end - start),
+            start, end)
+
+
+def pipeline_beside_step(params) -> tuple:
+    """The pipeline's images/s while a thread runs the bare train step on
+    one in-memory batch in a loop, and the images/s of the steps that
+    ended inside the pipeline's window."""
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.train.trainer import build_trainer
+    bs = int(params.training.batch_size.train)
+    state, step = build_trainer(params, device="cuda", seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        bs, tuple(params.input.input_shape),
+        int(params.encoder_params.max_boxes),
+        int(params.architecture.head.num_classes), seed=0).items()}
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    stop = threading.Event()
+    ends = []
+
+    def loop():
+        nonlocal state
+        while not stop.is_set():
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+    thread = threading.Thread(target=loop, name="train-step")
+    thread.start()
+    try:
+        rate, start, end = pipeline_rate(params)
+    finally:
+        stop.set()
+        thread.join()
+    del state, batch
+    torch.cuda.empty_cache()
+    steps = sum(start < t <= end for t in ends)
+    return rate, steps, steps * bs / (end - start)
+
+
+def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
+    """The flagship train_val run from tfrecords through the CLI. Returns
+    the kernels' launches on the in-process paths."""
+    from retinanet_torch.__main__ import main as cli_main
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data import host_codec
+    from retinanet_torch.data.synthetic import write_synthetic_tfrecords
+    from retinanet_torch.ops import match_kernel, nms_kernel
+
+    route = host_codec.jpeg_route()
+    print(f"[executor] JPEG route: {route}")
+    check_jpeg_decode(route)
+    start = time.perf_counter()
+    pattern, ann = write_synthetic_tfrecords(
+        str(workdir / "data"), "train", num_shards=EXECUTOR_SHARDS,
+        samples_per_shard=EXECUTOR_IMAGES_PER_SHARD, num_classes=80, seed=0,
+        write_annotations=True)
+    n_images = EXECUTOR_SHARDS * EXECUTOR_IMAGES_PER_SHARD
+    print(f"[executor] wrote {n_images} synthetic images in "
+          f"{EXECUTOR_SHARDS} tfrecord shards in "
+          f"{time.perf_counter() - start:.2f} s")
+    steps = dict(EXECUTOR_CHANGES)[("training", "train_steps")]
+    config, changes = derived_config(workdir, pattern, ann, steps)
+    for key, old, new in changes:
+        print(f"[executor] config {key}: {old!r} -> {new!r}")
+    params = Config(str(config)).params
+    model_dir = workdir / "models" / params.experiment.name
+    val_batch = int(params.training.batch_size.val)
+    train_batch = int(params.training.batch_size.train)
+
+    # the host pipeline with no train step beside it (on the nvJPEG route
+    # the decode itself runs on the card), then beside the bare train step
+    # looping on the card, as it runs in training
+    pipe_rate = pipeline_rate(params)[0]
+    print(f"[executor] host pipeline alone: train batches of {train_batch} "
+          f"at {params.input.input_shape} with augmentation for "
+          f"{PIPELINE_SECONDS} s, {pipe_rate:.1f} images/s "
+          f"({os.cpu_count()} CPUs)")
+    beside_rate, beside_steps, step_beside_rate = pipeline_beside_step(
+        params)
+    print(f"[executor] host pipeline beside the train step: "
+          f"{beside_rate:.1f} images/s; the step beside the pipeline: "
+          f"{beside_steps} steps in the window, {step_beside_rate:.2f} "
+          f"images/s (alone in phase 6: {step_images_per_s:.2f})")
+
+    # (a) the entry point a user runs
+    start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "retinanet_torch", "--config_path",
+             str(config)], cwd=str(REPO), env=env, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        tail = e.stderr or b""
+        if isinstance(tail, bytes):
+            tail = tail.decode(errors="replace")
+        check(False, f"python -m retinanet_torch did not end within "
+              f"{CLI_TIMEOUT_S} s:\n{tail[-4000:]}")
+    seconds = time.perf_counter() - start
+    for line in proc.stderr.splitlines():
+        if "imgs/s" in line or "Evaluat" in line or "Error" in line:
+            print(f"[executor] | {line[:400]}")
+    check(proc.returncode == 0, f"python -m retinanet_torch exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    ckpts = sorted(int(p.stem) for p in (model_dir / "checkpoints").glob(
+        "*.pt"))
+    check(ckpts == [8, 16, 24], f"checkpoints at {ckpts}")
+    records = read_jsonl(model_dir / "logs" / "train_metrics.jsonl")
+    for record in records:
+        for key, value in record.items():
+            check(math.isfinite(value), f"step {record['step']}: {key} is "
+                  f"{value}")
+    evals = [r for r in records if any(k.startswith("evaluation/")
+                                       for k in r)]
+    check(len(evals) == 2, f"{len(evals)} evaluation records")
+    check_eval_record(evals[0], 12)
+    check_eval_record(evals[1], 24)
+    train_records = [r for r in records if "total-loss" in r]
+    check([r["step"] for r in train_records] == list(range(4, 25, 4)),
+          f"train records at {[r['step'] for r in train_records]}")
+    # the first outer step carries the start-up; each logged rate is that
+    # of its own outer step of 4 steps
+    rates = [r["images-per-second"] for r in train_records]
+    rate = statistics.median(rates[1:])
+    print(f"[executor] (a) python -m retinanet_torch: exit 0 in "
+          f"{seconds:.1f} s; checkpoints {ckpts}; evaluations at 12 and 24: "
+          + json.dumps({k: round(evals[-1][f"evaluation/{k}"], 5)
+                        for k in COCO_KEYS}))
+    print(f"[executor] images/s logged by the executor at batch "
+          f"{train_batch}: median {rate:.2f} over the outer steps after "
+          f"the first ({', '.join(f'{x:.2f}' for x in rates)}); the bare step "
+          f"in phase 6 on one repeated in-memory batch: "
+          f"{step_images_per_s:.2f}; the pipeline alone: {pipe_rate:.1f}")
+    print("[executor] total-loss " + " ".join(
+        f"{r['total-loss']:.4f}" for r in train_records))
+
+    # (b) evaluation alone, in process
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    scores = cli_main(["--config_path", str(config), "--run_evaluation"])
+    sweeps = nms_kernel.kernel.launches_by["sweep"]
+    eval_matches = match_kernel.kernel.launches
+    n_val = int(params.training.validation_samples) // val_batch
+    check(sweeps == n_val and nms_kernel.kernel.launches == n_val,
+          f"NMS sweep kernel launched {sweeps} times "
+          f"({nms_kernel.kernel.launches} in all) for {n_val} val batches")
+    check(eval_matches == 0, f"matching kernel launched {eval_matches} "
+          "times in an evaluation")
+    check((model_dir / "predictions.json").exists(), "no predictions.json")
+    check(all(-1.0 <= scores[k] <= 1.0 for k in COCO_KEYS), f"{scores}")
+    timing = {k[len("eval-timing/"):]: v for k, v in read_jsonl(
+        model_dir / "logs" / "train_metrics.jsonl")[-1].items()
+        if k.startswith("eval-timing/")}
+    print(f"[executor] (b) --run_evaluation: NMS sweep launches {sweeps} for"
+          f" {n_val} val batches of {val_batch}, matching launches "
+          f"{eval_matches}; predictions.json written; "
+          + json.dumps({k: round(v, 5) for k, v in scores.items()}))
+    print("[executor] eval legs, s: " + json.dumps(
+        {k: round(v, 4) for k, v in timing.items()}))
+
+    # (c) resume from step 24 to 28
+    config28, _ = derived_config(workdir, pattern, ann, RESUME_STEPS)
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    done = cli_main(["--config_path", str(config28)])
+    resume_matches = match_kernel.kernel.launches
+    check(done is True, "the resumed run did not finish")
+    check(resume_matches == RESUME_STEPS - steps,
+          f"matching kernel launched {resume_matches} times in "
+          f"{RESUME_STEPS - steps} resumed steps")
+    ckpts = sorted(int(p.stem) for p in (model_dir / "checkpoints").glob(
+        "*.pt"))
+    check(ckpts[-1] == RESUME_STEPS, f"checkpoints after the resume {ckpts}")
+    last = [r for r in read_jsonl(model_dir / "logs" / "train_metrics.jsonl")
+            if "total-loss" in r][-1]
+    check(last["step"] == RESUME_STEPS, f"last train record {last['step']}")
+    print(f"[executor] (c) resume: restored step {steps}, "
+          f"{RESUME_STEPS - steps} steps, matching launches {resume_matches},"
+          f" ended at step {last['step']}, total-loss "
+          f"{last['total-loss']:.4f}")
+    return {"nms_lanes": {"executor_eval": sweeps},
+            "match_lanes": {"executor_eval": eval_matches,
+                            "executor_resume": resume_matches}}
+
+
+def phase_overfit(workdir: Path) -> dict:
+    """The learning check through the port's Executor."""
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.tools import overfit_check
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    start = time.perf_counter()
+    scores = overfit_check.run(str(workdir), device="cuda")
+    ap50 = scores["AP-IoU=0.50"]
+    print(f"[overfit] AP@0.5 {ap50:.4f} after 300 steps (target "
+          f"{overfit_check.TARGET_AP}), AP {scores['AP-IoU=0.50:0.95']:.4f}, "
+          f"{time.perf_counter() - start:.1f} s; matching launches "
+          f"{match_kernel.kernel.launches}, NMS launches "
+          f"{nms_kernel.kernel.launches}")
+    check(ap50 >= overfit_check.TARGET_AP,
+          f"overfit AP@0.5 {ap50:.4f} < {overfit_check.TARGET_AP}")
+    return {"nms_lanes": {"overfit": nms_kernel.kernel.launches},
+            "match_lanes": {"overfit": match_kernel.kernel.launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -669,9 +993,23 @@ def main() -> int:
 
     worst = phase_nms_kernel()
     match_err = phase_match_kernel(params)
-    records = [phase_serving(params, worst),
-               phase_training(params, match_err),
-               phase_channel_stats()]
+    serve_record = phase_serving(params, worst)
+    train_record, step_images_per_s = phase_training(params, match_err)
+    records = [serve_record, train_record, phase_channel_stats()]
+    # the executor's phases run as a user's run would: cuDNN's default TF32
+    torch.backends.cudnn.allow_tf32 = True
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for sub, phase in (
+                ("executor",
+                 lambda d: phase_executor(d, step_images_per_s)),
+                ("overfit", phase_overfit)):
+            start = time.perf_counter()
+            for kernel_name, counts in phase(Path(tmp) / sub).items():
+                paths.setdefault(kernel_name, {}).update(counts)
+            print(f"[{sub}] phase took {time.perf_counter() - start:.1f} s")
+    for record in records:
+        record["launches_on_executor_paths"] = paths.get(record["name"], {})
     print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,15 @@ class KerasSGD(torch.optim.Optimizer):
                 torch._foreach_add_(params, vel)
         self.count += 1
 
+    def state_dict(self):
+        """torch's optimizer state plus the schedule counter."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
 
 class _ScheduledTorchOptimizer:
     """torch's Adam or AdamW under the port's schedule and clip: the same
@@ -136,6 +145,13 @@ class _ScheduledTorchOptimizer:
 
     def zero_grad(self, set_to_none: bool = True):
         self.inner.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        self.inner.load_state_dict(state_dict["inner"])
+        self.count = int(state_dict["count"])
 
 
 def freeze_mask_fn(freeze_keys: Sequence[str]) -> Callable[[str], bool]:

@@ -1,9 +1,12 @@
 """Assembly of the train step from a config: the one entry that the card
-check, the tests and the later Executor share."""
+check, the tests and the Executor share."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Tuple
+
+import torch
 
 from retinanet_torch.core.device import resolve_device
 from retinanet_torch.data import anchors as anchor_lib
@@ -16,14 +19,25 @@ from retinanet_torch.train import step as step_lib
 from retinanet_torch.train.train_state import TrainState, create_train_state
 
 
-def build_trainer(params, device=None, seed: int = 0
-                  ) -> Tuple[TrainState, Callable]:
+@dataclasses.dataclass
+class Trainer:
+    """What `build_trainer_parts` assembles: the train state (model in
+    training mode, optimizer), the step, and the parts the Executor's
+    evaluation reuses."""
+    state: TrainState
+    step_fn: Callable
+    anchors: anchor_lib.AnchorGenerator
+    normalizer: Callable
+    loss_fn: RetinaNetLoss
+    schedule: Callable[[int], float]
+    compute_dtype: torch.dtype
+
+
+def build_trainer_parts(params, device=None, seed: int = 0) -> Trainer:
     """model -> encoder -> normalizer -> loss -> optimizer -> state -> step,
     from the config tree `params`, on the card unless `device="cpu"`; the
-    weights are drawn from `seed`. Returns (state, step_fn) with
-    step_fn(state, batch) -> (state, metrics) as `make_train_step` gives it.
-    With `training.grad_accum_steps` K > 1 the step takes batches folded by
-    `fold_micro_batches(batch, K)`."""
+    weights are drawn from `seed`. With `training.grad_accum_steps` K > 1
+    the step takes batches folded by `fold_micro_batches(batch, K)`."""
     device = resolve_device(device)
     t = params.training
     freeze = list(t.get("freeze_variables", []))
@@ -44,13 +58,25 @@ def build_trainer(params, device=None, seed: int = 0
     state = create_train_state(
         model, optimizer, use_ema=use_ema,
         use_normalizer_ema=loss_fn.use_moving_average)
+    compute_dtype = _compute_dtype(params.floatx.precision)
     step_fn = step_lib.make_train_step(
         model, loss_fn, encoder, normalizer, optimizer, schedule,
         use_weight_decay=bool(t.use_weight_decay),
         weight_decay_alpha=float(t.weight_decay_alpha),
-        compute_dtype=_compute_dtype(params.floatx.precision),
+        compute_dtype=compute_dtype,
         ema_decay=(float(t.optimizer.get("moving_average_decay", 0.0))
                    if use_ema else None),
         grad_accum_steps=int(t.get("grad_accum_steps", 1)),
         freeze_keys=freeze)
-    return state, step_fn
+    return Trainer(state=state, step_fn=step_fn, anchors=anchors,
+                   normalizer=normalizer, loss_fn=loss_fn, schedule=schedule,
+                   compute_dtype=compute_dtype)
+
+
+def build_trainer(params, device=None, seed: int = 0
+                  ) -> Tuple[TrainState, Callable]:
+    """`build_trainer_parts` for a caller that needs only (state, step_fn),
+    with step_fn(state, batch) -> (state, metrics) as `make_train_step`
+    gives it."""
+    parts = build_trainer_parts(params, device, seed)
+    return parts.state, parts.step_fn
