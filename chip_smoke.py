@@ -53,9 +53,24 @@ JAX. Phases, each fatal on failure:
      pipeline's own rate, alone and beside the train step looping on the
      card, are printed;
   9. overfit: the port's `tools/overfit_check.py` (ResNet18, 128x128, 16
-     images, 300 steps through the Executor) must reach AP@0.5 >= 0.3.
-The output ends with one JSON object describing each kernel (launches on
-its main-path run and on the executor's paths, error, times, bound), the
+     images, 300 steps through the Executor) must reach AP@0.5 >= 0.3;
+ 10. zoo: (a) each architecture a config under configs/ uses (EfficientNet
+     b2 768, b3 896, lite2 and lite3 512; MobileDet cpu and edge_tpu 448,
+     gpu 512) at its config's width and input size, batch 8: its parameter
+     count, the median of 3 requests through `build_serving_fn` and of 4
+     steps through `build_trainer` on one repeated seeded batch, images/s,
+     peak memory; the loss must be finite and fall, the detections through
+     the NMS kernel must equal the plain NMS's, the targets through the
+     matching kernel the plain matcher's, and both kernels are held to
+     their plain versions and timed at its shapes; (b) the flagship with
+     its neck swapped to fpn_p5, multi_level_attention or
+     stacked_multi_level_attention, or the auxiliary IoU head on: one
+     request and two steps each; (c) `python -m retinanet_torch` in
+     train_val on the EfficientNet-B2 config (paths, 8 steps, batch 8, 32
+     synthetic scenes up to 768 px) must end in a COCO eval record.
+The output ends with a JSON line of the zoo's numbers, one JSON object
+describing each kernel (launches on its main-path run, on the executor's
+paths and on the zoo's, error, times, bound, and the zoo shapes' times), the
 card's line again, and {"ok": true, "device": {...}} as the last line.
 """
 
@@ -100,6 +115,49 @@ RESUME_STEPS = 28
 CLI_TIMEOUT_S = 420             # phase 8 (a); the whole script has 1200 s
 PIPELINE_SECONDS = 3.0
 JPEG_GOLDENS = REPO / "tests" / "goldens" / "jpeg_decode_goldens.npz"
+# phase 10: every architecture a config uses, at the config's width and
+# input size with only the batch changed
+ZOO = (
+    ("efficientnet-b2 768",
+     "v3-8/mscoco-retinanet-efficientnet-b2-768x768-30x-64.json"),
+    ("efficientnet-b3 896",
+     "v3-32/mscoco-retinanet-efficientnet-b3-896x896-30x-256.json"),
+    ("efficientnet-lite2 512",
+     "v3-32/mscoco-retinanet-efficientnet-lite2-512x512-30x-256.json"),
+    ("efficientnet-lite3 512",
+     "v3-32/mscoco-retinanet-efficientnet-lite3-512x512-30x-256.json"),
+    ("mobiledet-cpu 448",
+     "v3-8/mscoco-retinanet-mobiledet-cpu-448x448-30x-64.json"),
+    ("mobiledet-edge_tpu 448",
+     "v3-8/mscoco-retinanet-mobiledet-edge-tpu-448x448-30x-64.json"),
+    ("mobiledet-gpu 512",
+     "v3-8/mscoco-retinanet-mobiledet-gpu-512x512-30x-64.json"),
+)
+ZOO_BATCH = 8
+ZOO_REQUESTS = 3                # timed, after one more that is not
+ZOO_STEPS = 4                   # timed, after one more that is not
+# the flagship with one part swapped: one request and two steps each
+SWAPS = (
+    ("neck fpn_p5", {"feature_fusion": {"type": "fpn_p5"}}),
+    ("neck multi_level_attention",
+     {"feature_fusion": {"type": "multi_level_attention"}}),
+    ("neck stacked_multi_level_attention",
+     {"feature_fusion": {"type": "stacked_multi_level_attention",
+                         "use_channel_attention": True}}),
+    ("auxiliary IoU head", {"auxillary_head": {"use_auxillary_head": True}}),
+)
+# phase 10 (c): the EfficientNet-B2 config through the CLI, changed only in
+# these (besides the paths)
+ZOO_CLI_CONFIG = REPO / "configs" / ZOO[0][1]
+ZOO_CLI_CHANGES = (
+    (("training", "train_steps"), 8),
+    (("training", "save_every"), 8),
+    (("training", "validation_freq"), 8),
+    (("training", "validation_samples"), 16),
+    (("training", "steps_per_execution"), 4),
+    (("training", "batch_size", "train"), 8),
+)
+ZOO_CLI_MAX_SIDE = 768
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
@@ -272,17 +330,65 @@ def phase_nms_kernel() -> float:
     return worst
 
 
-def phase_serving(params, worst_err: float) -> dict:
+def nms_lanes_agree(params, model, batches) -> tuple:
+    """Each batch of images through the model once, its fused predictions
+    through the post-processing twice: with the NMS kernel and with the
+    plain NMS. The detections must be equal. Returns the kernel lane's
+    detections and the kernel's inputs by lane count."""
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.export.serving import build_serving_fn
-    from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops import postprocess
     from retinanet_torch.ops.nms import batched_nms
-    from retinanet_torch.ops.nms_kernel import kernel, nms_lanes
+    from retinanet_torch.ops.nms_kernel import nms_lanes
+
+    fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
+                                model=model)
+    post = postprocess.make_postprocess_fn(params, from_params(params),
+                                           "cuda")
+    captured, dets = {}, []
+
+    def recording(*args):
+        captured.setdefault(args[0].shape[0], args)
+        return nms_lanes(*args)
+
+    try:
+        for images in batches:
+            with torch.inference_mode():
+                fused = fused_fn(images)
+                postprocess.nms_lanes = recording
+                det_k = post(fused)
+                postprocess.nms_lanes = batched_nms  # the plain NMS lane
+                det_p = post(fused)
+            for key in det_k:
+                check(torch.equal(det_k[key], det_p[key]),
+                      f"batch {images.shape[0]}: kernel and plain NMS lanes "
+                      f"differ in {key}")
+            dets.append(det_k)
+    finally:
+        postprocess.nms_lanes = nms_lanes
+    return dets, captured
+
+
+def check_detections(det, bs: int, md: int) -> None:
+    check(tuple(det["boxes"].shape) == (bs, md, 4), "boxes shape")
+    check(tuple(det["scores"].shape) == (bs, md), "scores shape")
+    check(tuple(det["classes"].shape) == (bs, md), "classes shape")
+    check(tuple(det["valid_detections"].shape) == (bs,), "valid shape")
+    check(det["classes"].dtype == torch.int32, "classes dtype")
+    check(det["valid_detections"].dtype == torch.int32, "valid dtype")
+    check(det["boxes"].dtype == torch.float32, "boxes dtype")
+    check(bool(torch.isfinite(det["boxes"]).all()
+               and torch.isfinite(det["scores"]).all()), "non-finite")
+
+
+def phase_serving(params, worst_err: float) -> dict:
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops.nms_kernel import kernel
+    from retinanet_torch.profile_serving import zero_class_prior
 
     model = build_model(params, device="cuda", seed=0)
-    with torch.no_grad():
-        model.class_head.prediction.conv.bias.zero_()
+    zero_class_prior(model)
     print("[serving] flagship config, seeded random weights; class-head "
           "prediction bias set to 0 instead of the -log(99) prior, so that "
           "scores sit near 0.5 and clear the 0.05 threshold (with the prior "
@@ -316,15 +422,7 @@ def phase_serving(params, worst_err: float) -> dict:
 
     md = int(params.inference.max_detections)
     for (bs, _), det in zip(requests, outputs):
-        check(tuple(det["boxes"].shape) == (bs, md, 4), "boxes shape")
-        check(tuple(det["scores"].shape) == (bs, md), "scores shape")
-        check(tuple(det["classes"].shape) == (bs, md), "classes shape")
-        check(tuple(det["valid_detections"].shape) == (bs,), "valid shape")
-        check(det["classes"].dtype == torch.int32, "classes dtype")
-        check(det["valid_detections"].dtype == torch.int32, "valid dtype")
-        check(det["boxes"].dtype == torch.float32, "boxes dtype")
-        check(bool(torch.isfinite(det["boxes"]).all()
-                   and torch.isfinite(det["scores"]).all()), "non-finite")
+        check_detections(det, bs, md)
     for bs in BATCHES:
         steady = times[bs][1:]
         print(f"[serving] batch {bs}: median {statistics.median(steady):.3f}"
@@ -335,37 +433,15 @@ def phase_serving(params, worst_err: float) -> dict:
           f"{outputs[BATCHES[8]]['valid_detections'].tolist()}")
 
     # the same fused predictions through the kernel lane and the plain lane
-    fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
-                                model=model)
-    post = postprocess.make_postprocess_fn(params, from_params(params),
-                                           "cuda")
-    captured = {}
-
-    def recording(*args):
-        captured.setdefault(args[0].shape[0], args)
-        return nms_lanes(*args)
-
-    try:
-        for i, (bs, images) in enumerate(
-                [requests[0], requests[BATCHES[8]]]):
-            with torch.inference_mode():
-                fused = fused_fn(images)
-                postprocess.nms_lanes = recording
-                det_k = post(fused)
-                postprocess.nms_lanes = batched_nms  # the plain NMS lane
-                det_p = post(fused)
-            for key in det_k:
-                check(torch.equal(det_k[key], det_p[key]),
-                      f"batch {bs}: kernel and plain NMS lanes differ in "
-                      f"{key}")
-            same = all(torch.equal(det_k[key], outputs[0 if i == 0 else
-                                                      BATCHES[8]][key])
-                       for key in det_k)
-            print(f"[serving] batch {bs}: detections through the kernel "
-                  "equal those through the plain NMS; equal to the serving "
-                  f"run's output: {same}")
-    finally:
-        postprocess.nms_lanes = nms_lanes
+    dets, captured = nms_lanes_agree(
+        params, model, [requests[0][1], requests[BATCHES[8]][1]])
+    for i, det_k in enumerate(dets):
+        same = all(torch.equal(det_k[key], outputs[0 if i == 0 else
+                                                  BATCHES[8]][key])
+                   for key in det_k)
+        print(f"[serving] batch {det_k['valid_detections'].shape[0]}: "
+              "detections through the kernel equal those through the plain "
+              f"NMS; equal to the serving run's output: {same}")
 
     # the kernel at the inputs the serving path gave it at batch 8
     args = captured[8 * int(params.architecture.head.num_classes)]
@@ -508,9 +584,33 @@ def phase_match_kernel(params) -> float:
     return worst
 
 
-def phase_training(params, worst_err: float) -> dict:
+def targets_agree(params, batch) -> dict:
+    """The batch's targets through the matching kernel and through the
+    plain matcher must be equal; returns the kernel's."""
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.data.label_encoder import make_batched_encoder
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import match_lanes
+    anchors = from_params(params)
+    use_iou = bool(params.architecture.auxillary_head.use_auxillary_head)
+    by_kernel, by_plain = (
+        make_batched_encoder(anchors, params.encoder_params, device="cuda",
+                             matcher=matcher, use_iou_targets=use_iou)(
+            batch["boxes"], batch["classes"], batch["valid"])
+        for matcher in (match_lanes, match_lanes_plain))
+    kinds = ("class-targets", "box-targets") + (("iou-targets",)
+                                                if use_iou else ())
+    for kind in kinds:
+        for level in by_kernel[kind]:
+            check(torch.equal(by_kernel[kind][level], by_plain[kind][level]),
+                  f"{kind} P{level}: kernel and plain lanes differ")
+    check(torch.equal(by_kernel["num-positives"], by_plain["num-positives"]),
+          "num-positives: kernel and plain lanes differ")
+    return by_kernel
+
+
+def phase_training(params, worst_err: float) -> dict:
+    from retinanet_torch.data.anchors import from_params
     from retinanet_torch.data.synthetic import synthetic_train_batch
     from retinanet_torch.ops.match import match_lanes_plain
     from retinanet_torch.ops.match_kernel import kernel, match_lanes
@@ -533,18 +633,7 @@ def phase_training(params, worst_err: float) -> dict:
           "batch shape")
 
     # step 0's targets through the kernel and through the plain matcher
-    anchors = from_params(params)
-    by_kernel, by_plain = (
-        make_batched_encoder(anchors, params.encoder_params, device="cuda",
-                             matcher=matcher)(
-            batch["boxes"], batch["classes"], batch["valid"])
-        for matcher in (match_lanes, match_lanes_plain))
-    for kind in ("class-targets", "box-targets"):
-        for level in by_kernel[kind]:
-            check(torch.equal(by_kernel[kind][level], by_plain[kind][level]),
-                  f"{kind} P{level}: kernel and plain lanes differ")
-    check(torch.equal(by_kernel["num-positives"], by_plain["num-positives"]),
-          "num-positives: kernel and plain lanes differ")
+    by_kernel = targets_agree(params, batch)
     print("[training] step-0 targets through the matching kernel equal "
           "those through the plain matcher; positives per image "
           f"{by_kernel['num-positives'].tolist()}")
@@ -595,8 +684,8 @@ def phase_training(params, worst_err: float) -> dict:
                       for name in splits[0]))
 
     # the kernel at the inputs the train step gave it
-    args = (torch.from_numpy(anchors.boxes).cuda(), batch["boxes"],
-            batch["valid"])
+    args = (torch.from_numpy(from_params(params).boxes).cuda(),
+            batch["boxes"], batch["valid"])
     err = compare_match(*args)
     ms = time_ms(lambda: match_lanes(*args), reps=50)
     plain_ms = time_ms(lambda: match_lanes_plain(*args), reps=5)
@@ -674,17 +763,18 @@ def phase_channel_stats() -> dict:
 
 
 def derived_config(workdir: Path, pattern: str, ann: str,
-                   train_steps: int) -> tuple:
-    """The flagship config with the dataset's paths, a model_dir under
-    `workdir` and EXECUTOR_CHANGES (train_steps overridden); returns (path,
-    [(key, flagship value, value)])."""
-    tree = json.loads(FLAGSHIP.read_text())
+                   train_steps: int, base: Path = FLAGSHIP,
+                   step_changes=EXECUTOR_CHANGES) -> tuple:
+    """The config at `base` (the flagship) with the dataset's paths, a
+    model_dir under `workdir` and `step_changes` (train_steps overridden);
+    returns (path, [(key, the base's value, value)])."""
+    tree = json.loads(base.read_text())
     changes = [(("dataloader_params", "tfrecords", "train"), pattern),
                (("dataloader_params", "tfrecords", "val"), pattern),
                (("training", "annotation_file_path"), ann),
                (("experiment", "model_dir"), str(workdir / "models"))]
     changes += [(key, train_steps if key[-1] == "train_steps" else value)
-                for key, value in EXECUTOR_CHANGES]
+                for key, value in step_changes]
     done = []
     for key, value in changes:
         node = tree
@@ -959,6 +1049,260 @@ def phase_overfit(workdir: Path) -> dict:
             "match_lanes": {"overfit": match_kernel.kernel.launches}}
 
 
+def zoo_architecture(label: str, path: Path) -> dict:
+    """One architecture at its config's width and input size, batch
+    ZOO_BATCH: requests through `build_serving_fn` and steps through
+    `build_trainer`, each kernel's launches counted from 0 around them;
+    NMS and matching held to their plain versions and timed at its
+    shapes."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import match_lanes
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.train.trainer import build_trainer
+
+    params = Config(str(path)).params
+    h, w = (int(v) for v in params.input.input_shape)
+    num_classes = int(params.architecture.head.num_classes)
+    md = int(params.inference.max_detections)
+    out = {"name": label, "config": str(path.relative_to(REPO)),
+           "input": [h, w], "batch": ZOO_BATCH}
+
+    # serving
+    model = build_model(params, device="cuda", seed=0)
+    zero_class_prior(model)
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    serve = build_serving_fn(params, device="cuda", model=model)
+    rng = np.random.default_rng(0)
+    requests = [torch.from_numpy(rng.integers(
+        0, 256, (ZOO_BATCH, h, w, 3)).astype(np.uint8))
+        for _ in range(ZOO_REQUESTS + 1)]
+    nms_kernel.kernel.reset_counts()
+    times = []
+    for images in requests:
+        start = time.perf_counter()
+        det = serve(images)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        check_detections(det, ZOO_BATCH, md)
+    nms_launches = nms_kernel.kernel.launches_by["sweep"]
+    check(nms_launches == len(requests) == nms_kernel.kernel.launches,
+          f"{label}: NMS sweep launched {nms_launches} times for "
+          f"{len(requests)} requests")
+    out["request_ms"] = statistics.median(times[1:])
+    first_request_ms = times[0]
+    _, captured = nms_lanes_agree(params, model, requests[:1])
+    args = captured[ZOO_BATCH * num_classes]
+    kw = dict(zip(("iou_threshold", "score_threshold", "soft_nms_sigma",
+                   "soft"), args[3:]))
+    with torch.inference_mode():
+        err, valid = compare_nms(args[:3], kw, "sweep")
+        ms = time_nms(args[:3], kw)
+    bound, by = nms_bound_ms(args[0], args[2], valid)
+    out["nms"] = {"lanes": int(args[0].shape[0]), "k": int(args[0].shape[1]),
+                  "launches": nms_launches, "max_abs_err": err,
+                  "ms": ms["sweep"], "plain_ms": ms["plain"],
+                  "bound_ms": bound, "bound_by": by}
+    del model, serve
+    torch.cuda.empty_cache()
+
+    # training
+    state, step = build_trainer(params, device="cuda", seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        ZOO_BATCH, (h, w), int(params.encoder_params.max_boxes), num_classes,
+        seed=0).items()}
+    targets_agree(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    match_kernel.kernel.reset_counts()
+    losses, times = [], []
+    for _ in range(ZOO_STEPS + 1):
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        for key, value in metrics.items():
+            check(math.isfinite(float(value)), f"{label}: {key} is {value}")
+        losses.append(float(metrics["total-loss"]))
+    match_launches = match_kernel.kernel.launches
+    check(match_launches == ZOO_STEPS + 1,
+          f"{label}: matching launched {match_launches} times in "
+          f"{ZOO_STEPS + 1} steps")
+    check(losses[-1] < losses[0], f"{label}: total-loss {losses} on a "
+          "repeated batch")
+    out["step_ms"] = statistics.median(times[1:])
+    out["images_per_s"] = ZOO_BATCH / out["step_ms"] * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["total_loss"] = losses
+    anchors = torch.from_numpy(from_params(params).boxes).cuda()
+    err = compare_match(anchors, batch["boxes"], batch["valid"])
+    ms = time_ms(lambda: match_lanes(anchors, batch["boxes"],
+                                     batch["valid"]), reps=50)
+    plain_ms = time_ms(lambda: match_lanes_plain(
+        anchors, batch["boxes"], batch["valid"]), reps=5)
+    bound, by = match_bound_ms(anchors.shape[0], batch["valid"])
+    out["match"] = {"anchors": int(anchors.shape[0]),
+                    "valid_boxes": int(batch["valid"].sum()),
+                    "launches": match_launches, "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    print(f"[zoo] {label} ({out['config']}), {out['parameters']} "
+          f"parameters, batch {ZOO_BATCH}: request {out['request_ms']:.3f} "
+          f"ms (median of {ZOO_REQUESTS} after a first of "
+          f"{first_request_ms:.1f}); step {out['step_ms']:.3f} ms (median "
+          f"of {ZOO_STEPS} after a first of {times[0]:.1f}), "
+          f"{out['images_per_s']:.2f} images/s, peak {out['peak_gb']:.2f} "
+          "GB; total-loss " + " ".join(f"{x:.4f}" for x in losses))
+    n, m = out["nms"], out["match"]
+    print(f"[zoo] {label}: NMS sweep L={n['lanes']} k={n['k']} "
+          f"{n['ms']:.4f} ms (plain {n['plain_ms']:.3f}, bound "
+          f"{n['bound_ms']:.5f} {n['bound_by']}), detections equal to the "
+          f"plain NMS's; matching A={m['anchors']} ({m['valid_boxes']} "
+          f"valid boxes) {m['ms']:.4f} ms (plain {m['plain_ms']:.3f}, bound "
+          f"{m['bound_ms']:.5f} {m['bound_by']}), targets and outputs "
+          "bit-equal to the plain matcher's")
+    return out
+
+
+def zoo_swap(label: str, arch_changes: dict) -> dict:
+    """The flagship with one part of its architecture swapped: one request
+    and two train steps at batch ZOO_BATCH, launches counted from 0."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.train.trainer import build_trainer
+
+    tree = json.loads(FLAGSHIP.read_text())
+    for key, value in arch_changes.items():
+        tree["architecture"][key] = {**tree["architecture"].get(key, {}),
+                                     **value}
+    params = from_dict(tree)
+    h, w = (int(v) for v in params.input.input_shape)
+    model = build_model(params, device="cuda", seed=0)
+    zero_class_prior(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (ZOO_BATCH, h, w, 3)).astype(np.uint8))
+    nms_kernel.kernel.reset_counts()
+    start = time.perf_counter()
+    det = build_serving_fn(params, device="cuda", model=model)(images)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - start) * 1e3
+    check_detections(det, ZOO_BATCH, int(params.inference.max_detections))
+    nms_launches = nms_kernel.kernel.launches
+    check(nms_launches == 1, f"{label}: NMS launched {nms_launches} times")
+    del model
+    state, step = build_trainer(params, device="cuda", seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        ZOO_BATCH, (h, w), int(params.encoder_params.max_boxes),
+        int(params.architecture.head.num_classes), seed=0).items()}
+    match_kernel.kernel.reset_counts()
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        for key, value in metrics.items():
+            check(math.isfinite(float(value)), f"{label}: {key} is {value}")
+        losses.append(float(metrics["total-loss"]))
+    match_launches = match_kernel.kernel.launches
+    check(match_launches == 2, f"{label}: matching launched "
+          f"{match_launches} times in 2 steps")
+    iou = float(metrics["iou-prediction-loss"])
+    if "auxillary_head" in arch_changes:
+        check(iou > 0.0, f"{label}: iou-prediction-loss {iou}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    print(f"[zoo] flagship with {label}: {n_params} parameters; one request "
+          f"at batch {ZOO_BATCH} ({request_ms:.1f} ms, the first), NMS "
+          f"launches {nms_launches}; two steps, matching launches "
+          f"{match_launches}, total-loss {losses[0]:.4f} {losses[1]:.4f}, "
+          f"iou-prediction-loss {iou:.4f}")
+    return {"nms_lanes": nms_launches, "match_lanes": match_launches}
+
+
+def zoo_cli(workdir: Path) -> None:
+    """`python -m retinanet_torch` in train_val on the EfficientNet-B2
+    config: synthetic scenes up to ZOO_CLI_MAX_SIDE px, ZOO_CLI_CHANGES; it
+    must end in a COCO eval record."""
+    from retinanet_torch.data.synthetic import write_synthetic_tfrecords
+    pattern, ann = write_synthetic_tfrecords(
+        str(workdir / "data"), "train", num_shards=2, samples_per_shard=16,
+        num_classes=80, seed=0, write_annotations=True,
+        max_side=ZOO_CLI_MAX_SIDE)
+    steps = dict(ZOO_CLI_CHANGES)[("training", "train_steps")]
+    config, changes = derived_config(workdir, pattern, ann, steps,
+                                     base=ZOO_CLI_CONFIG,
+                                     step_changes=ZOO_CLI_CHANGES)
+    for key, old, new in changes:
+        print(f"[zoo] CLI config {key}: {old!r} -> {new!r}")
+    name = json.loads(config.read_text())["experiment"]["name"]
+    model_dir = workdir / "models" / name
+    start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "retinanet_torch", "--config_path",
+             str(config)], cwd=str(REPO), env=env, capture_output=True,
+            text=True, timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"the EfficientNet-B2 CLI run did not end within "
+              f"{CLI_TIMEOUT_S} s")
+    seconds = time.perf_counter() - start
+    check(proc.returncode == 0, f"python -m retinanet_torch exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    records = read_jsonl(model_dir / "logs" / "train_metrics.jsonl")
+    for record in records:
+        for key, value in record.items():
+            check(math.isfinite(value), f"step {record['step']}: {key} is "
+                  f"{value}")
+    evals = [r for r in records if any(k.startswith("evaluation/")
+                                       for k in r)]
+    check(len(evals) == 1, f"{len(evals)} evaluation records")
+    check_eval_record(evals[0], steps)
+    ckpts = sorted(int(p.stem) for p in (model_dir / "checkpoints").glob(
+        "*.pt"))
+    check(ckpts == [steps], f"checkpoints at {ckpts}")
+    rates = [r["images-per-second"] for r in records
+             if "images-per-second" in r]
+    print(f"[zoo] (c) python -m retinanet_torch, EfficientNet-B2 768 "
+          f"train_val: exit 0 in {seconds:.1f} s; checkpoint {ckpts}; "
+          f"images/s logged {', '.join(f'{x:.2f}' for x in rates)}; "
+          f"evaluation at {steps}: "
+          + json.dumps({k: round(evals[0][f"evaluation/{k}"], 5)
+                        for k in COCO_KEYS}))
+
+
+def phase_zoo(workdir: Path) -> tuple:
+    """(a) every config architecture, (b) the flagship's swaps, (c) the
+    CLI on EfficientNet-B2. Returns the per-architecture records and each
+    kernel's launches on the zoo paths."""
+    archs = []
+    launches = {"nms_lanes": {}, "match_lanes": {}}
+    for label, rel in ZOO:
+        start = time.perf_counter()
+        rec = zoo_architecture(label, REPO / "configs" / rel)
+        archs.append(rec)
+        launches["nms_lanes"][f"zoo {label}"] = rec["nms"]["launches"]
+        launches["match_lanes"][f"zoo {label}"] = rec["match"]["launches"]
+        print(f"[zoo] {label} took {time.perf_counter() - start:.1f} s")
+    for label, changes in SWAPS:
+        for name, count in zoo_swap(label, changes).items():
+            launches[name][f"flagship with {label}"] = count
+    start = time.perf_counter()
+    zoo_cli(workdir)
+    print(f"[zoo] (c) took {time.perf_counter() - start:.1f} s")
+    return archs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1008,8 +1352,21 @@ def main() -> int:
             for kernel_name, counts in phase(Path(tmp) / sub).items():
                 paths.setdefault(kernel_name, {}).update(counts)
             print(f"[{sub}] phase took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        archs, zoo_launches = phase_zoo(Path(tmp) / "zoo")
+        print(f"[zoo] phase took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
+    key = {"nms_lanes": "nms", "match_lanes": "match"}
+    for record in records:
+        if record["name"] in key:
+            record["launches_on_zoo_paths"] = zoo_launches[record["name"]]
+            record["zoo_shapes"] = [
+                {"config": a["config"], **a[key[record["name"]]]}
+                for a in archs]
+    print(json.dumps({"zoo": [{k: a[k] for k in (
+        "name", "config", "input", "batch", "parameters", "request_ms",
+        "step_ms", "images_per_s", "peak_gb")} for a in archs]}))
     print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

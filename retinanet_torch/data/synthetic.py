@@ -77,10 +77,12 @@ def write_synthetic_tfrecords(directory: str, prefix: str = "train",
                               num_shards: int = 2,
                               samples_per_shard: int = 8,
                               num_classes: int = 80, seed: int = 0,
-                              write_annotations: bool = False):
-    """Writes COCO-schema tfrecords of 240-640 px scenes with 1 to 7 boxes
-    each; returns the glob pattern (and the COCO annotations JSON path when
-    `write_annotations`)."""
+                              write_annotations: bool = False,
+                              max_side: int = 640):
+    """Writes COCO-schema tfrecords of scenes with sides from 240 px to
+    below `max_side` and 1 to 7 boxes each; returns the glob pattern (and
+    the COCO annotations JSON path when `write_annotations`). The default
+    writes the JAX package's files byte for byte."""
     rng = np.random.default_rng(seed)
     os.makedirs(directory, exist_ok=True)
     image_id = 0
@@ -91,8 +93,8 @@ def write_synthetic_tfrecords(directory: str, prefix: str = "train",
             directory, f"{prefix}-{shard:04d}-of-{num_shards:04d}.tfrecord")
         with tfrecord.RecordWriter(path) as w:
             for _ in range(samples_per_shard):
-                h = int(rng.integers(240, 640))
-                wdt = int(rng.integers(240, 640))
+                h = int(rng.integers(240, max_side))
+                wdt = int(rng.integers(240, max_side))
                 n = int(rng.integers(1, 8))
                 x1 = rng.uniform(0, 0.7, n)
                 y1 = rng.uniform(0, 0.7, n)

@@ -6,7 +6,8 @@
   scaling.
 * The prediction conv runs in float32 on a float32 input, whatever the
   compute dtype.
-* Class head bias prior -log((1 - 0.01) / 0.01); box head bias zero.
+* Class head bias prior -log((1 - 0.01) / 0.01); box head bias zero; the
+  auxiliary IoU head, one output an anchor, prior 0.5.
 * Outputs are NHWC, (B, H, W, A*K): the (h, w, a) order that the anchors
   and `ops/postprocess.fuse_predictions` assume.
 """
@@ -91,7 +92,17 @@ def build_detection_heads(head_params, in_channels: int, min_level: int,
     return box_head, class_head
 
 
-def build_auxillary_head(*args, **kwargs):
-    raise NotImplementedError(
-        "The auxiliary IoU head is not ported yet: ROADMAP Queue 1 #5 (rest "
-        "of the model zoo)")
+def build_auxillary_head(aux_params, in_channels: int, num_anchors: int,
+                         min_level: int, max_level: int,
+                         separable_conv: bool, bn_epsilon: float,
+                         activation: Callable, dtype: torch.dtype,
+                         device=None) -> DetectionHead:
+    """The IoU-prediction head: one output an anchor, bias prior 0.5 (a
+    bias of 0)."""
+    return DetectionHead(
+        in_channels, num_convs=int(aux_params.num_convs),
+        filters=int(aux_params.filters), output_filters=num_anchors,
+        min_level=min_level, max_level=max_level,
+        prediction_bias_prior=0.5, separable_conv=separable_conv,
+        bn_epsilon=bn_epsilon, activation=activation, dtype=dtype,
+        device=device)

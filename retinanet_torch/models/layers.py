@@ -47,6 +47,12 @@ def get_activation(activation_type: str) -> Callable[[torch.Tensor],
         activation_type]
 
 
+def swish6(x: torch.Tensor) -> torch.Tensor:
+    """x * relu6(x + 3) / 6 (MobileDet-CPU), each op rounded in x's dtype
+    as the JAX package rounds it."""
+    return x * F.relu6(x + 3.0) * (1.0 / 6.0)
+
+
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """(begin, end) padding of TF/flax "SAME" along one axis."""
     out = -(-size // stride)
@@ -59,12 +65,15 @@ class ConvParams(nn.Module):
     from the flax HWIO `kernel`, and an optional `bias`.
 
     `init` names the flax kernel initializer: "variance_scaling" (fan-in,
-    truncated normal) or "normal" (stddev 0.01)."""
+    truncated normal), "normal" (stddev `init_std`), "fan_out" (EfficientNet:
+    normal with stddev sqrt(2 / (kh * kw * O))) or "truncated_normal" (cut
+    at two standard deviations of the normal of stddev `init_std`, as
+    flax's `truncated_normal(init_std)`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  groups: int = 1, use_bias: bool = True,
                  init: str = "variance_scaling", bias_value: float = 0.0,
-                 device=None):
+                 init_std: float = 0.01, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, kernel_size, kernel_size,
@@ -73,15 +82,21 @@ class ConvParams(nn.Module):
                      if use_bias else None)
         self.groups = groups
         self.init = init
+        self.init_std = float(init_std)
         self.bias_value = float(bias_value)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.init == "normal":
-            self.weight.normal_(0.0, 0.01, generator=generator)
-        elif self.init == "variance_scaling":
-            fan_in = self.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
+            self.weight.normal_(0.0, self.init_std, generator=generator)
+        elif self.init == "fan_out":
+            o, _, kh, kw = self.weight.shape
+            self.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * o)),
+                                generator=generator)
+        elif self.init in ("variance_scaling", "truncated_normal"):
+            std = (math.sqrt(1.0 / self.weight[0].numel())
+                   / _TRUNC_STD_CORRECTION
+                   if self.init == "variance_scaling" else self.init_std)
             nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std,
                                   2.0 * std, generator=generator)
         else:
@@ -90,14 +105,28 @@ class ConvParams(nn.Module):
             self.bias.fill_(self.bias_value)
 
 
-def conv2d(x: torch.Tensor, p: ConvParams, stride: int, pad: int,
+def conv2d(x: torch.Tensor, p: ConvParams, stride: int, pad,
            dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.Conv` in `dtype` (input, kernel and bias cast first) with
-    `pad` zeros on every side: k // 2 is "SAME" for an odd kernel at stride
-    1, 0 is "VALID"."""
+    `pad` zeros on both sides of each spatial axis (an int, or one int an
+    axis): k // 2 is "SAME" for an odd kernel at stride 1, 0 is "VALID"."""
     bias = None if p.bias is None else p.bias.to(dtype)
     return F.conv2d(x.to(dtype), p.weight.to(dtype), bias, stride, pad,
                     1, p.groups)
+
+
+def conv2d_same(x: torch.Tensor, p: ConvParams, stride: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Conv` with padding "SAME" at any stride. Where the end of an
+    axis gets one more row than its beginning (a stride above 1 on a size
+    the stride divides, for an odd kernel), the input is padded first."""
+    kh, kw = p.weight.shape[2], p.weight.shape[3]
+    ph = same_pads(x.shape[2], kh, stride)
+    pw = same_pads(x.shape[3], kw, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return conv2d(x, p, stride, (ph[0], pw[0]), dtype)
+    x = F.pad(x.to(dtype), (pw[0], pw[1], ph[0], ph[1]))
+    return conv2d(x, p, stride, 0, dtype)
 
 
 # True while a checkpointed block is run again in the backward pass: the
@@ -220,34 +249,37 @@ class _BNParams(nn.Module):
 
 class Conv2D(nn.Module):
     """Plain conv (child `conv`) or depthwise + pointwise separable conv
-    (children `depthwise`, `pointwise`), with bias, stride 1, "SAME"."""
+    (children `depthwise`, `pointwise`; the stride is the depthwise
+    half's), "SAME" padding, with a bias unless `use_bias` is False."""
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int = 3,
+                 strides: int = 1, use_bias: bool = True,
                  separable: bool = False,
                  kernel_init: str = "variance_scaling",
                  bias_value: float = 0.0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.pad = kernel_size // 2
+        self.strides = strides
         self.separable = separable
         self.dtype = dtype
         if not separable:
             self.conv = ConvParams(in_channels, filters, kernel_size,
-                                   init=kernel_init, bias_value=bias_value,
-                                   device=device)
+                                   use_bias=use_bias, init=kernel_init,
+                                   bias_value=bias_value, device=device)
         else:
             # flax builds both halves with variance scaling whatever
-            # kernel_init says; only the pointwise half has a bias
+            # kernel_init says; only the pointwise half may have a bias
             self.depthwise = ConvParams(in_channels, in_channels,
                                         kernel_size, groups=in_channels,
                                         use_bias=False, device=device)
             self.pointwise = ConvParams(in_channels, filters, 1,
+                                        use_bias=use_bias,
                                         bias_value=bias_value, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.separable:
-            return conv2d(x, self.conv, 1, self.pad, self.dtype)
-        x = conv2d(x, self.depthwise, 1, self.pad, self.dtype)
+            return conv2d_same(x, self.conv, self.strides, self.dtype)
+        x = conv2d_same(x, self.depthwise, self.strides, self.dtype)
         return conv2d(x, self.pointwise, 1, 0, self.dtype)
 
 

@@ -1,10 +1,12 @@
 """RetinaNet assembly and `build_model` from config (counterpart of
 `retinanet_tpu/models/retinanet.py`).
 
-backbone -> neck -> (optional BalanceFeatures) -> box/class heads. The model
-takes NHWC images, as the JAX model does, and returns
+backbone -> neck -> (optional BalanceFeatures) -> box/class heads (+ the
+optional auxiliary IoU head). The model takes NHWC images, as the JAX model
+does, and returns
   {'class-predictions': {lvl: (B,H,W,A*K)},
-   'box-predictions':   {lvl: (B,H,W,A*4)}}.
+   'box-predictions':   {lvl: (B,H,W,A*4)},
+   ['iou-predictions':  {lvl: (B,H,W,A)}]}.
 Inside, tensors are NCHW; the NHWC input viewed as NCHW is a channels-last
 tensor, which cuDNN's convolutions keep.
 """
@@ -19,11 +21,15 @@ import torch
 from torch import nn
 
 from retinanet_torch.core.device import resolve_device
+from retinanet_torch.models.efficientnet import EfficientNet
 from retinanet_torch.models.fpn import FPN, FPNP5
 from retinanet_torch.models.heads import (build_auxillary_head,
                                           build_detection_heads)
 from retinanet_torch.models.layers import (BalanceFeatures, BatchNorm,
                                            get_activation, init_parameters)
+from retinanet_torch.models.mlaf import (MultiLevelAttentionFusion,
+                                         StackedMultiLevelAttentionFusion)
+from retinanet_torch.models.mobiledet import MobileDet
 from retinanet_torch.models.resnet import ResNet
 
 # Regexes for layer freezing, written against flax-style parameter paths
@@ -68,12 +74,14 @@ def freeze_regexes(freeze_keys) -> tuple:
 class RetinaNet(nn.Module):
     def __init__(self, backbone: nn.Module, neck: nn.Module,
                  box_head: nn.Module, class_head: nn.Module,
+                 auxillary_head: Optional[nn.Module] = None,
                  balance_features: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.box_head = box_head
         self.class_head = class_head
+        self.auxillary_head = auxillary_head
         self.balance_features = balance_features
 
     def forward(self, images: torch.Tensor
@@ -82,10 +90,13 @@ class RetinaNet(nn.Module):
         features = self.neck(features)
         if self.balance_features is not None:
             features = self.balance_features(features)
-        return {
+        outputs = {
             "box-predictions": self.box_head(features),
             "class-predictions": self.class_head(features),
         }
+        if self.auxillary_head is not None:
+            outputs["iou-predictions"] = self.auxillary_head(features)
+        return outputs
 
 
 def _compute_dtype(precision: str) -> torch.dtype:
@@ -104,16 +115,28 @@ def _compute_dtype(precision: str) -> torch.dtype:
 
 
 def build_backbone(arch, bn, dtype, device=None) -> nn.Module:
+    """Dispatch on architecture.backbone.type. Every backbone has
+    `out_channels`, its channels per endpoint, for the neck."""
     kind = arch.backbone.type
+    remat = bool(arch.backbone.get("remat", False))
     if kind == "resnet":
         return ResNet(depth=int(arch.backbone.depth), bn_epsilon=bn.epsilon,
-                      dtype=dtype,
-                      remat=bool(arch.backbone.get("remat", False)),
-                      device=device)
-    if kind.startswith(("efficientnet", "mobiledet")):
-        raise NotImplementedError(
-            f"backbone {kind!r} is not ported yet: ROADMAP Queue 1 #5 (rest "
-            "of the model zoo)")
+                      dtype=dtype, remat=remat, device=device)
+    if remat:
+        raise ValueError(
+            "backbone.remat is currently supported for resnet backbones "
+            f"only (got type={kind!r}); refusing to silently ignore a "
+            "memory policy")
+    if kind.startswith("efficientnet"):
+        return EfficientNet.from_name(
+            kind, bn_epsilon=bn.epsilon, dtype=dtype,
+            override_params=dict(arch.backbone.get("override_params", {})),
+            device=device)
+    if kind.startswith("mobiledet"):
+        return MobileDet(variant=kind,
+                         multiplier=float(arch.backbone.get("multiplier",
+                                                            1.0)),
+                         bn_epsilon=bn.epsilon, dtype=dtype, device=device)
     raise ValueError(f"Unsupported backbone type: {kind}")
 
 
@@ -126,18 +149,29 @@ def build_neck(arch, in_channels, bn, activation, dtype,
         min_level=int(ff.min_level),
         max_level=int(ff.max_level),
         backbone_max_level=int(ff.backbone_max_level),
-        fusion_mode=ff.get("fusion_mode", "sum"),
         separable_conv=bool(arch.conv_2d.use_seperable_conv),
-        bn_epsilon=bn.epsilon, activation=activation, dtype=dtype,
-        device=device)
+        bn_epsilon=bn.epsilon, dtype=dtype, device=device)
+    # conv_2d.use_bias_before_bn reaches FPN-P5 and both MLAF necks, as in
+    # the JAX package; the default FPN never reads it
+    bias_before_bn = bool(arch.conv_2d.get("use_bias_before_bn", False))
     if kind == "fpn":
-        return FPN(in_channels, **common)
+        return FPN(in_channels, fusion_mode=ff.get("fusion_mode", "sum"),
+                   activation=activation, **common)
     if kind == "fpn_p5":
-        return FPNP5(in_channels, **common)
-    if kind in ("multi_level_attention", "stacked_multi_level_attention"):
-        raise NotImplementedError(
-            f"neck {kind!r} is not ported yet: ROADMAP Queue 1 #5 (rest of "
-            "the model zoo)")
+        return FPNP5(in_channels, fusion_mode=ff.get("fusion_mode", "sum"),
+                     use_bias_before_bn=bias_before_bn,
+                     activation=activation, **common)
+    # the MLAF necks use relu whatever architecture.activation says
+    attention = bool(ff.get("use_channel_attention", False))
+    if kind == "multi_level_attention":
+        return MultiLevelAttentionFusion(
+            in_channels, use_channel_attention=attention,
+            use_bias_before_bn=bias_before_bn, **common)
+    if kind == "stacked_multi_level_attention":
+        return StackedMultiLevelAttentionFusion(
+            in_channels, num_repeats=int(ff.get("num_repeats", 2)),
+            use_channel_attention=attention,
+            use_bias_before_bn=bias_before_bn, **common)
     raise ValueError(f"Unsupported neck type: {kind}")
 
 
@@ -164,13 +198,21 @@ def build_model(params, device=None, seed: int = 0) -> RetinaNet:
         separable_conv=bool(arch.conv_2d.use_seperable_conv),
         bn_epsilon=bn.epsilon, activation=activation, dtype=dtype,
         device=build_on)
+    aux_head = None
     if arch.auxillary_head.use_auxillary_head:
-        build_auxillary_head()
+        aux_head = build_auxillary_head(
+            arch.auxillary_head, in_channels=int(ff.filters),
+            num_anchors=int(arch.head.num_anchors),
+            min_level=min_level, max_level=max_level,
+            separable_conv=bool(arch.conv_2d.use_seperable_conv),
+            bn_epsilon=bn.epsilon, activation=activation, dtype=dtype,
+            device=build_on)
     balance = None
     if ff.use_balanced_features:
         balance = BalanceFeatures(min_level, max_level, min_level + 1)
 
-    model = RetinaNet(backbone, neck, box_head, class_head, balance)
+    model = RetinaNet(backbone, neck, box_head, class_head, aux_head,
+                      balance)
     for module in model.modules():
         if isinstance(module, BatchNorm):
             module.momentum = float(bn.momentum)

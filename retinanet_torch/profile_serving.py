@@ -1,9 +1,11 @@
 """Where a serving request's time goes on the card.
 
-    python -m retinanet_torch.profile_serving [--batch 8] [--requests 3]
+    python -m retinanet_torch.profile_serving [--config PATH] [--batch 8]
+        [--requests 3]
 
-Builds the flagship config as `chip_smoke.py` does (seeded random weights,
-class-head bias 0 so that NMS has work), warms up, then prints:
+Builds the config (the flagship unless `--config` names another) as
+`chip_smoke.py` does (seeded random weights, class-head bias 0 so that NMS
+has work), warms up, then prints:
   * the request time on the host clock, and the device time of its two
     halves from CUDA events: model (normalize, backbone, neck, heads, fuse)
     and post-processing (top-k, decode, NMS, finalize);
@@ -30,11 +32,14 @@ FLAGSHIP = (Path(__file__).resolve().parent.parent / "configs" / "v3-8"
 
 # kernel name pattern -> family, first match wins
 _FAMILIES = (
-    ("nms (hand kernel)", r"nms_lanes_kernel"),
+    ("nms (hand kernel)", r"nms_lanes_kernel|nms_sweep_kernel"),
     ("match (hand kernel)", r"match_kernel|decode_keys_kernel"),
     ("optimizer / clip (foreach)", r"multi_tensor"),
     ("sort / top-k", r"sort|radix|Sort|topk|bitonic"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw"),
+    # cuDNN names its depthwise kernels (one channel a group) *2d_c1_k1_*;
+    # ATen's own are conv_depthwise2d_*
+    ("depthwise convolution", r"depthwise|_c1_k1_"),
     ("convolution", r"conv|xmma|gemm|implicit|cutlass|sm90|wgrad|dgrad|"
                     r"fprop|winograd|cudnn"),
     ("gather / index", r"gather|index|scatter"),
@@ -55,6 +60,19 @@ def _family(name: str) -> str:
         if re.search(pat, name):
             return fam
     return "other"
+
+
+def add_config_argument(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--config", type=Path, default=FLAGSHIP,
+                    help="config JSON to build (default: the flagship)")
+
+
+def zero_class_prior(model) -> None:
+    """The class head's prediction bias to 0, so that random weights give
+    scores near 0.5 and every NMS lane has work."""
+    pred = model.class_head.prediction
+    with torch.no_grad():
+        (pred.pointwise if pred.separable else pred.conv).bias.zero_()
 
 
 def card_line() -> str:
@@ -103,6 +121,7 @@ def print_profile(prof, count: int, unprofiled_ms: float, span_ms: float,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_config_argument(ap)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--requests", type=int, default=3)
     args = ap.parse_args()
@@ -116,10 +135,10 @@ def main() -> int:
     from retinanet_torch.ops.postprocess import make_postprocess_fn
 
     print(f"card: {card_line()}")
-    params = Config(str(FLAGSHIP)).params
+    print(f"config: {args.config}")
+    params = Config(str(args.config)).params
     model = build_model(params, device="cuda", seed=0)
-    with torch.no_grad():
-        model.class_head.prediction.conv.bias.zero_()
+    zero_class_prior(model)
     serve = build_serving_fn(params, device="cuda", model=model)
     fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
                                 model=model)

@@ -1,8 +1,10 @@
 """Where a train step's time goes on the card.
 
-    python -m retinanet_torch.profile_training [--batch 8] [--steps 4]
+    python -m retinanet_torch.profile_training [--config PATH] [--batch 8]
+        [--steps 4]
 
-Builds the flagship trainer as `chip_smoke.py` does (`build_trainer`, seeded
+Builds the trainer of the config (the flagship unless `--config` names
+another) as `chip_smoke.py` does (`build_trainer`, seeded
 random weights, one seeded synthetic batch), warms up, then prints:
   * the step time on the host clock and the device time of its phases from
     CUDA events: encode, forward, backward, optimizer;
@@ -20,11 +22,13 @@ import time
 
 import torch
 
-from retinanet_torch.profile_serving import FLAGSHIP, card_line, print_profile
+from retinanet_torch.profile_serving import (add_config_argument, card_line,
+                                             print_profile)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_config_argument(ap)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args()
@@ -36,8 +40,9 @@ def main() -> int:
     from retinanet_torch.train.trainer import build_trainer
 
     print(f"card: {card_line()}")
+    print(f"config: {args.config}")
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    params = Config(str(FLAGSHIP)).params
+    params = Config(str(args.config)).params
     state, step = build_trainer(params, device="cuda", seed=0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
         args.batch, tuple(params.input.input_shape),

@@ -207,14 +207,38 @@ def test_converter_rejects_leftover_leaves():
         flax_to_torch({"params": {"x": {"weird": np.zeros(3)}}})
 
 
-def test_unported_options_raise():
-    for arch in ({"backbone": {"type": "efficientnet-b0"}},
-                 {"feature_fusion": {"type": "fpn_p5"}},
-                 {"auxillary_head": {"use_auxillary_head": True}}):
-        tree = _tree()
-        for key, value in arch.items():
-            tree["architecture"][key] = {**tree["architecture"].get(key, {}),
-                                         **value}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_retinanet.build_model(torch_cfg.from_dict(tree),
+def _jax_counts(tree):
+    """(parameters, BN statistics) of the JAX model of `tree`, by
+    `jax.eval_shape` (nothing is computed)."""
+    model = jax_retinanet.build_model(jax_cfg.from_dict(tree))
+    v = jax.eval_shape(lambda k: model.init(k, jnp.zeros((1, 128, 128, 3)),
+                                            train=False),
+                       jax.random.PRNGKey(0))
+    return (sum(p.size for p in jax.tree_util.tree_leaves(v["params"])),
+            sum(p.size for p in jax.tree_util.tree_leaves(
+                v["batch_stats"])))
+
+
+def _torch_counts(tree):
+    model = torch_retinanet.build_model(torch_cfg.from_dict(tree),
                                         device="meta")
+    return (sum(p.numel() for p in model.parameters()),
+            sum(b.numel() for b in model.buffers()))
+
+
+@pytest.mark.parametrize("arch", [
+    {"backbone": {"type": "efficientnet-b0"}},
+    {"feature_fusion": {"type": "fpn_p5"}},
+    {"auxillary_head": {"use_auxillary_head": True}},
+], ids=["efficientnet", "fpn_p5", "auxillary_head"])
+def test_zoo_options_build(arch):
+    """The options that raised before the zoo was ported now build, and
+    their counts equal JAX's."""
+    tree = _tree()
+    for key, value in arch.items():
+        tree["architecture"][key] = {**tree["architecture"].get(key, {}),
+                                     **value}
+    model = torch_retinanet.build_model(torch_cfg.from_dict(tree),
+                                        device="meta")
+    assert (model.auxillary_head is not None) == ("auxillary_head" in arch)
+    assert _torch_counts(tree) == _jax_counts(tree)
