@@ -67,7 +67,29 @@ JAX. Phases, each fatal on failure:
      stacked_multi_level_attention, or the auxiliary IoU head on: one
      request and two steps each; (c) `python -m retinanet_torch` in
      train_val on the EfficientNet-B2 config (paths, 8 steps, batch 8, 32
-     synthetic scenes up to 768 px) must end in a COCO eval record.
+     synthetic scenes up to 768 px) must end in a COCO eval record;
+ 11. data parallelism and the configs' own batches: (a) two ranks on the
+     one card over gloo (`parallel/distributed.py`; NCCL refuses two ranks
+     on one device), the flagship at full width, global batch 16, 8 a
+     rank, 2 steps, once in float32 with TF32 off (the CPU test's
+     arithmetic) and once in its own mixed bfloat16: in each, the losses
+     and the parameters bit-equal across the ranks, and held to one
+     process at batch 16 (float32: losses rtol 1e-5, every tensor within
+     1e-5 of its largest magnitude plus 1e-9; bfloat16: 2^-8 in place of
+     1e-5; beyond the first step's losses, plus 10x the one process's own
+     move under two reorderings of its batch), the matching kernel
+     launched in each step of each rank, each rank's peak printed; then
+     the NMS kernel in each rank's slice of an 8-image inference gathered
+     to the chief, and the gradients' all-reduce timed; (b) `python -m retinanet_torch --is_multi_host` in
+     process as rank 0 of a world of one on NCCL, with torchrun's
+     environment: train_val, 4 steps and one COCO evaluation; (c) the
+     flagship at its own batch of 64, K = 1: step ms, images/s, peak;
+     (d) `v3-32/…-1280x1280-3x-256` at its own batch of 256 in
+     HIGH_RES_ACCUM micro-batches (the smallest K that fits,
+     `tools/accum_sweep.py`): 2 steps; then a batch-8 request whose
+     detections through the NMS kernel equal the plain NMS's, and the
+     matching kernel bit-equal to its plain version at its 306,900
+     anchors. Each prints its seconds.
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times), the
@@ -158,6 +180,40 @@ ZOO_CLI_CHANGES = (
     (("training", "batch_size", "train"), 8),
 )
 ZOO_CLI_MAX_SIDE = 768
+# phase 11: data parallelism over processes and the configs' own batches
+DP_WORLD = 2
+DP_BATCH = 16                   # global, DP_BATCH / DP_WORLD a rank
+DP_STEPS = 2
+DP_RTOL = 1e-5                  # tests/test_torch_distributed.py's bounds
+DP_ATOL = 1e-9                  # rounding noise of a bias before a BN
+# A float32 step at full width moves by more than those bounds when the
+# same batch comes in another order (its gradient sums cancel, and the
+# BatchNorm backward amplifies what is left). Beyond the first step's
+# losses, which hold the CPU test's bound, the two ranks are held to it plus
+# DP_ORDER_FACTOR times the largest move of one process over two reorderings
+# of its batch, measured in the same run.
+DP_ORDERS = ("halves swapped", "reversed")
+DP_ORDER_FACTOR = 10.0
+# float32 first (the CPU test's arithmetic), then the configs' own mixed
+# bfloat16, where synced BatchNorm takes bfloat16 activations; there each
+# loss and tensor is held to one bfloat16 rounding of its magnitude in place
+# of DP_RTOL, by the same rule
+DP_PRECISIONS = {"float32": DP_RTOL, "mixed_bfloat16": 2.0 ** -8}
+DP_EVAL_BATCH = 8
+MULTI_HOST_CHANGES = (
+    (("training", "train_steps"), 4),
+    (("training", "save_every"), 4),
+    (("training", "validation_freq"), -1),
+    (("training", "validation_samples"), 16),
+    (("training", "steps_per_execution"), 1),
+    (("training", "batch_size", "train"), 8),
+)
+FLAGSHIP_ACCUM = 1              # the flagship's batch of 64 fits whole
+HIGH_RES = (REPO / "configs" / "v3-32"
+            / "mscoco-retinanet-resnet50-1280x1280-3x-256.json")
+HIGH_RES_ACCUM = 16             # tools/accum_sweep.py's smallest K
+HIGH_RES_ANCHORS = 306900
+OWN_BATCH_STEPS = 2             # timed, after one that is not
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
@@ -189,17 +245,35 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return device_time_ms(fn, reps, warmup)
 
 
-def kernels_on_card(fn) -> list:
+# kernel name -> traces taken again by `kernels_on_card`; the kernels line
+# reports it, so that a trace that keeps coming back empty shows across runs
+PROFILER_RETRIES = {}
+
+
+def kernels_on_card(kernel: str, fn) -> list:
     """Names of what one call of `fn` ran on the card (kernels, memsets,
-    copies), by the profiler."""
+    copies), by the profiler. A trace with no device event at all is the
+    profiler's miss (once in 56 traces of the same calls on the card), not
+    the call's: it is taken again, three times at most, and each retry is
+    counted under `kernel` in PROFILER_RETRIES."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    tries = 3
+    PROFILER_RETRIES.setdefault(kernel, 0)
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        if attempt + 1 < tries:
+            PROFILER_RETRIES[kernel] += 1
+        print(f"[profiler] trace {attempt + 1} of {tries} recorded no "
+              "device event")
+    return names
 
 
 def nms_bound_ms(boxes, md, valid) -> tuple:
@@ -323,7 +397,8 @@ def phase_nms_kernel() -> float:
             print(f"[kernel] {name}: sweep {ms['sweep']:.4f} ms, round "
                   f"kernel {ms['rounds']:.4f} ms, plain {ms['plain']:.4f} "
                   f"ms, bound {bound:.5f} ms ({by})")
-    names = kernels_on_card(lambda: nms_lanes(boxes, scores, md, **kw))
+    names = kernels_on_card("nms_lanes",
+                            lambda: nms_lanes(boxes, scores, md, **kw))
     check(len(names) == 1 and "nms_sweep_kernel" in names[0],
           f"one nms_lanes call ran {names} on the card")
     print(f"[kernel] one nms_lanes call is one kernel on the card: {names}")
@@ -565,7 +640,8 @@ def phase_match_kernel(params) -> float:
               f"{kept_share(anchors, gt, valid):.4f} of the (tile, box) "
               f"pairs kept): all four outputs bit-equal; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})")
-    names = kernels_on_card(lambda: match_lanes(anchors, gt, valid))
+    names = kernels_on_card("match_lanes",
+                            lambda: match_lanes(anchors, gt, valid))
     check(len(names) == 1 and "match_kernel" in names[0],
           f"one match_lanes call ran {names} on the card")
     print(f"[match] one match_lanes call is one kernel on the card: {names}")
@@ -1303,6 +1379,410 @@ def phase_zoo(workdir: Path) -> tuple:
     return archs, launches
 
 
+def dp_tree(precision: str) -> dict:
+    """The flagship with floatx `precision`, its only change (none for its
+    own mixed_bfloat16)."""
+    tree = json.loads(FLAGSHIP.read_text())
+    tree["floatx"]["precision"] = precision
+    return tree
+
+
+def dp_batches(order: str = "") -> list:
+    """The seeded global batches, in their order or in one of DP_ORDERS
+    (the same steps in exact arithmetic)."""
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    rows = np.arange(DP_BATCH)
+    if order == DP_ORDERS[0]:
+        rows = np.roll(rows, DP_BATCH // 2)
+    elif order == DP_ORDERS[1]:
+        rows = rows[::-1]
+    return [{k: v[rows] for k, v in synthetic_train_batch(
+        DP_BATCH, (640, 640), 100, 80, seed=i).items()}
+        for i in range(DP_STEPS)]
+
+
+def dp_steps(params, batches, device) -> tuple:
+    """DP_STEPS steps from the seeded weights: (losses per step, the
+    state_dict on the host, the trainer's state)."""
+    from retinanet_torch.train.trainer import build_trainer
+    state, step = build_trainer(params, device=device, seed=0)
+    history = []
+    for batch in batches:
+        state, metrics = step(state, {k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()})
+        history.append({k: float(v) for k, v in metrics.items()})
+    return history, {k: v.cpu() for k, v in
+                     state.model.state_dict().items()}, state
+
+
+def dp_rank(out_dir: str) -> None:
+    """One rank of phase 11 (a), in a process of its own on card 0: the
+    steps in each of DP_PRECISIONS, then (float32) the gradients'
+    all-reduce timed and a sharded inference gathered to the chief."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.preprocessing import make_device_normalizer
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops.postprocess import make_inference_fn
+    from retinanet_torch.parallel import distributed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = distributed.process_index(), distributed.process_count()
+    batches = [{k: distributed.process_slice(v, rank, world)
+                for k, v in b.items()} for b in dp_batches()]
+    runs = {}
+    # float32 last: its trained state serves the timing and the inference
+    for precision in reversed(DP_PRECISIONS):
+        match_kernel.kernel.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        history, weights, state = dp_steps(
+            from_dict(dp_tree(precision)), batches, torch.device("cuda", 0))
+        runs[precision] = {
+            "history": history, "weights": weights,
+            "match_launches": match_kernel.kernel.launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if precision != "float32":
+            del state
+            torch.cuda.empty_cache()
+    params = from_dict(dp_tree("float32"))
+    nms_kernel.kernel.reset_counts()
+    trainable = [p for p in state.model.parameters() if p.requires_grad]
+    reduce_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        distributed.all_reduce_gradients(trainable)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - start) * 1e3)
+    state.model.eval()
+    infer = make_inference_fn(state.model, params, from_params(params),
+                              make_device_normalizer(params),
+                              compute_dtype=torch.float32, device="cuda:0")
+    images = np.random.default_rng(5).integers(
+        0, 256, (DP_EVAL_BATCH, 640, 640, 3)).astype(np.uint8)
+    det = infer(torch.from_numpy(distributed.process_slice(images, rank,
+                                                           world)))
+    parts = distributed.gather_to_chief(
+        {k: v.cpu().numpy() for k, v in det.items()})
+    torch.save({"runs": runs,
+                "nms_launches": nms_kernel.kernel.launches,
+                "gathered_images": (None if parts is None else sum(
+                    len(p["valid_detections"]) for p in parts)),
+                "grad_bytes": sum(4 * p.numel() for p in trainable),
+                "reduce_ms": statistics.median(reduce_ms[1:])},
+               f"{out_dir}/rank{rank}.pt")
+
+
+def phase_data_parallel(workdir: Path) -> dict:
+    """(a): two ranks against one process at the same global batch, in each
+    of DP_PRECISIONS."""
+    from retinanet_torch.tools.multiprocess_smoke import run_group
+    workdir.mkdir(parents=True)
+    start = time.perf_counter()
+    run_group(dp_rank, DP_WORLD, workdir, args=(str(workdir),),
+              device="cuda:0", backend="gloo", timeout=600)
+    print(f"[dp] {DP_WORLD} ranks on card 0 over gloo: "
+          f"{time.perf_counter() - start:.1f} s")
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    for r, res in enumerate(ranks):
+        check(res["nms_launches"] == 1,
+              f"rank {r}: NMS kernel launched {res['nms_launches']} times")
+    check(ranks[0]["gathered_images"] == DP_EVAL_BATCH,
+          f"the chief gathered {ranks[0]['gathered_images']} images")
+    for precision, rtol in DP_PRECISIONS.items():
+        dp_hold_to_one_process(precision, rtol,
+                               [res["runs"][precision] for res in ranks])
+    print(f"[dp] each rank: NMS launches {ranks[0]['nms_launches']}, "
+          f"{ranks[1]['nms_launches']}; the chief gathered "
+          f"{ranks[0]['gathered_images']} images")
+    print(f"[dp] gradient all-reduce: {ranks[0]['grad_bytes']} bytes "
+          f"(float32), {ranks[0]['reduce_ms']:.3f} / "
+          f"{ranks[1]['reduce_ms']:.3f} ms (host clock, median of 3, rank 0 "
+          "/ 1; gloo through the host)")
+    return {"nms_lanes": {f"data parallel rank {r}": res["nms_launches"]
+                          for r, res in enumerate(ranks)},
+            "match_lanes": {
+                f"data parallel rank {r} {precision}":
+                    res["runs"][precision]["match_launches"]
+                for r, res in enumerate(ranks)
+                for precision in DP_PRECISIONS}}
+
+
+def dp_hold_to_one_process(precision: str, rtol: float, runs: list) -> None:
+    """The ranks' runs in `precision`: bit-equal to each other, each kernel
+    launched, and held to one process at the same global batch."""
+    from retinanet_torch.core.config import from_dict
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    refs = []
+    for order in ("",) + DP_ORDERS:
+        history, weights, state = dp_steps(
+            from_dict(dp_tree(precision)), dp_batches(order),
+            torch.device("cuda"))
+        refs.append((history, weights))
+        del state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = tf32
+    (ref_history, ref_weights), others = refs[0], refs[1:]
+    for r, run in enumerate(runs):
+        check(run["history"] == runs[0]["history"],
+              f"{precision}: rank {r}'s losses differ from rank 0's")
+        check(all(torch.equal(run["weights"][k], runs[0]["weights"][k])
+                  for k in ref_weights),
+              f"{precision}: rank {r}'s parameters differ")
+        check(run["match_launches"] == DP_STEPS,
+              f"{precision}: rank {r}: matching kernel launched "
+              f"{run['match_launches']} times in {DP_STEPS} steps")
+    # each difference from one process against `rtol`, and (after the
+    # first step's losses) against it plus DP_ORDER_FACTOR times the one
+    # process's own move under a reordering
+    within, total, ratios = 0, 0, []
+    worst = (0.0, "")
+
+    def hold(name, err, bound, move, first_losses):
+        nonlocal within, total, worst
+        within += err <= bound
+        total += 1
+        check(err <= bound + (0.0 if first_losses
+                              else DP_ORDER_FACTOR * move),
+              f"{precision} {name}: {err} from one process, bound {bound}, "
+              f"the one process's move under a reordering {move}")
+        if move > 0:
+            ratios.append(err / move)
+        worst = max(worst, (err / (bound + move), name))
+
+    for i, (got, want) in enumerate(zip(runs[0]["history"], ref_history)):
+        for key, value in want.items():
+            check(math.isfinite(got[key]), f"{key} is {got[key]}")
+            move = max(abs(h[i][key] - value) for h, _ in others)
+            hold(f"step {i} {key}", abs(got[key] - value),
+                 rtol * abs(value) + 1e-7, move, i == 0)
+    for name, want in ref_weights.items():
+        move = max(float((w[name] - want).abs().max()) for _, w in others)
+        hold(name, float((runs[0]["weights"][name] - want).abs().max()),
+             rtol * float(want.abs().max()) + DP_ATOL, move, False)
+    print(f"[dp] flagship {precision}, global batch {DP_BATCH} "
+          f"({DP_BATCH // DP_WORLD} a rank), {DP_STEPS} steps: losses and "
+          f"parameters bit-equal across the ranks; against one process at "
+          f"batch {DP_BATCH}: {within} of {total} losses and tensors within "
+          f"{rtol:.3g} of their magnitude alone, all within it plus "
+          f"{DP_ORDER_FACTOR:g} x the one process's largest move under two "
+          f"reorderings of its batch; difference / move: median "
+          f"{statistics.median(ratios):.3g}, largest {max(ratios):.3g}; "
+          f"largest difference {worst[0]:.3g} x (bound + move), "
+          f"{worst[1]}; total-loss "
+          + " ".join(f"{h['total-loss']:.6f}" for h in runs[0]["history"])
+          + " (one process: " + " ".join(
+              f"{h['total-loss']:.6f}" for h in ref_history) + "; reordered: "
+          + "; ".join(" ".join(f"{h['total-loss']:.6f}" for h in hist)
+                      for hist, _ in others) + ")")
+    print(f"[dp] {precision}: matching launches "
+          + ", ".join(str(run["match_launches"]) for run in runs)
+          + "; peak allocated a rank "
+          + ", ".join(f"{run['peak_gb']:.2f}" for run in runs) + " GB")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multi_host_cli(workdir: Path) -> dict:
+    """(b): the CLI with --is_multi_host as rank 0 of a world of one on
+    NCCL, in process, with torchrun's environment."""
+    from retinanet_torch.__main__ import main as cli_main
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data.synthetic import write_synthetic_tfrecords
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.parallel import distributed
+    pattern, ann = write_synthetic_tfrecords(
+        str(workdir / "data"), "train", num_shards=2, samples_per_shard=8,
+        num_classes=80, seed=0, write_annotations=True)
+    steps = dict(MULTI_HOST_CHANGES)[("training", "train_steps")]
+    config, changes = derived_config(workdir, pattern, ann, steps,
+                                     step_changes=MULTI_HOST_CHANGES)
+    for key, old, new in changes:
+        print(f"[multi-host] config {key}: {old!r} -> {new!r}")
+    params = Config(str(config)).params
+    model_dir = workdir / "models" / params.experiment.name
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    try:
+        done = cli_main(["--config_path", str(config), "--is_multi_host"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(done is True, "the --is_multi_host run did not finish")
+    check(not distributed.is_initialized(), "the process group outlived "
+          "the CLI")
+    n_val = int(params.training.validation_samples) // int(
+        params.training.batch_size.val)
+    check(match_kernel.kernel.launches == steps,
+          f"matching kernel launched {match_kernel.kernel.launches} times "
+          f"in {steps} steps")
+    check(nms_kernel.kernel.launches == n_val,
+          f"NMS kernel launched {nms_kernel.kernel.launches} times for "
+          f"{n_val} val batches")
+    ckpts = sorted(int(p.stem) for p in (model_dir / "checkpoints").glob(
+        "*.pt"))
+    check(ckpts == [steps], f"checkpoints at {ckpts}")
+    records = read_jsonl(model_dir / "logs" / "train_metrics.jsonl")
+    evals = [r for r in records if any(k.startswith("evaluation/")
+                                       for k in r)]
+    check(len(evals) == 1, f"{len(evals)} evaluation records")
+    check_eval_record(evals[0], steps)
+    print(f"[multi-host] python -m retinanet_torch --is_multi_host, NCCL, "
+          f"world 1: {steps} steps, matching launches "
+          f"{match_kernel.kernel.launches}, NMS launches "
+          f"{nms_kernel.kernel.launches}, checkpoint {ckpts}; evaluation: "
+          + json.dumps({k: round(evals[0][f"evaluation/{k}"], 5)
+                        for k in COCO_KEYS}))
+    return {"nms_lanes": {"multi-host CLI": nms_kernel.kernel.launches},
+            "match_lanes": {"multi-host CLI": match_kernel.kernel.launches}}
+
+
+def own_batch(label: str, path: Path, accum: int) -> tuple:
+    """The config at its own train batch in `accum` micro-batches: one
+    step and then OWN_BATCH_STEPS timed ones; the matching kernel must
+    launch in every micro-batch. Returns (record, its launches)."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.ops import match_kernel
+    from retinanet_torch.profile_training import measure_step
+    params = Config(str(path)).params
+    batch = int(params.training.batch_size.train)
+    match_kernel.kernel.reset_counts()
+    out = measure_step(params, batch, accum, steps=OWN_BATCH_STEPS,
+                       warmup=1)
+    launches = match_kernel.kernel.launches
+    check(launches == (OWN_BATCH_STEPS + 1) * accum,
+          f"{label}: matching launched {launches} times in "
+          f"{OWN_BATCH_STEPS + 1} steps of {accum} micro-batches")
+    for key, value in out["metrics"].items():
+        check(math.isfinite(value), f"{label}: {key} is {value}")
+    record = {"config": str(path.relative_to(REPO)), "batch": batch,
+              "grad_accum_steps": accum, "micro_batch": batch // accum,
+              "step_ms": out["step_ms"], "images_per_s": out["images_per_s"],
+              "peak_gb": out["peak_gb"],
+              "total_loss": out["metrics"]["total-loss"]}
+    del out
+    torch.cuda.empty_cache()
+    print(f"[own batch] {label}: batch {batch} in {accum} micro-batches of "
+          f"{batch // accum}: step {record['step_ms']:.1f} ms (host clock, "
+          f"median of {OWN_BATCH_STEPS} after one), "
+          f"{record['images_per_s']:.2f} images/s, peak "
+          f"{record['peak_gb']:.2f} GB, matching launches {launches}, "
+          f"total-loss {record['total_loss']:.4f}")
+    return record, launches
+
+
+def phase_high_res_kernels() -> dict:
+    """(d), after the steps: a batch-8 request and the kernels held to
+    their plain versions at 1280x1280."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import nms_kernel
+    from retinanet_torch.ops.match import match_lanes_plain
+    from retinanet_torch.ops.match_kernel import match_lanes
+    from retinanet_torch.profile_serving import zero_class_prior
+    params = Config(str(HIGH_RES)).params
+    h, w = (int(v) for v in params.input.input_shape)
+    model = build_model(params, device="cuda", seed=0)
+    zero_class_prior(model)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, h, w, 3)).astype(np.uint8))
+    nms_kernel.kernel.reset_counts()
+    det = build_serving_fn(params, device="cuda", model=model)(images)
+    torch.cuda.synchronize()
+    nms_launches = nms_kernel.kernel.launches_by["sweep"]
+    check(nms_launches == 1 == nms_kernel.kernel.launches,
+          f"1280x1280: NMS launched {nms_kernel.kernel.launches} times for "
+          "one request")
+    check_detections(det, 8, int(params.inference.max_detections))
+    _, captured = nms_lanes_agree(params, model, [images])
+    args = captured[8 * int(params.architecture.head.num_classes)]
+    kw = dict(zip(("iou_threshold", "score_threshold", "soft_nms_sigma",
+                   "soft"), args[3:]))
+    with torch.inference_mode():
+        nms_err, valid = compare_nms(args[:3], kw, "sweep")
+        nms_ms = time_nms(args[:3], kw)
+    nms_bound, nms_by = nms_bound_ms(args[0], args[2], valid)
+    del model
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        8, (h, w), int(params.encoder_params.max_boxes), 80,
+        seed=0).items()}
+    targets_agree(params, batch)
+    anchors = torch.from_numpy(from_params(params).boxes).cuda()
+    check(anchors.shape[0] == HIGH_RES_ANCHORS,
+          f"{anchors.shape[0]} anchors at 1280x1280")
+    match_err = compare_match(anchors, batch["boxes"], batch["valid"])
+    match_ms = time_ms(lambda: match_lanes(anchors, batch["boxes"],
+                                           batch["valid"]), reps=50)
+    match_plain = time_ms(lambda: match_lanes_plain(
+        anchors, batch["boxes"], batch["valid"]), reps=5)
+    match_bound, match_by = match_bound_ms(anchors.shape[0], batch["valid"])
+    print(f"[own batch] 1280x1280 batch-8 request: detections through the "
+          f"NMS kernel equal the plain NMS's; sweep L={args[0].shape[0]} "
+          f"k={args[0].shape[1]} {nms_ms['sweep']:.4f} ms (plain "
+          f"{nms_ms['plain']:.3f}, bound {nms_bound:.5f} {nms_by}); "
+          f"matching A={anchors.shape[0]} ({int(batch['valid'].sum())} "
+          f"valid boxes, {kept_share(anchors, batch['boxes'], batch['valid']):.4f}"
+          f" of the (tile, box) pairs kept) {match_ms:.4f} ms (plain "
+          f"{match_plain:.3f}, bound {match_bound:.5f} {match_by}), all four "
+          "outputs and the targets bit-equal to the plain matcher's")
+    return {"nms_lanes": {"lanes": int(args[0].shape[0]),
+                          "k": int(args[0].shape[1]),
+                          "launches": nms_launches, "max_abs_err": nms_err,
+                          "ms": nms_ms["sweep"], "plain_ms": nms_ms["plain"],
+                          "bound_ms": nms_bound, "bound_by": nms_by},
+            "match_lanes": {"anchors": int(anchors.shape[0]),
+                            "valid_boxes": int(batch["valid"].sum()),
+                            "max_abs_err": match_err, "ms": match_ms,
+                            "plain_ms": match_plain, "bound_ms": match_bound,
+                            "bound_by": match_by}}
+
+
+def phase_parallel_and_own_batches(workdir: Path) -> tuple:
+    """Phase 11. Returns the kernels' launches on its paths, the own-batch
+    records, and the kernels at the 1280x1280 shapes."""
+    launches = {"nms_lanes": {}, "match_lanes": {}}
+    for sub, phase in (("(a)", lambda: phase_data_parallel(workdir / "dp")),
+                       ("(b)", lambda: phase_multi_host_cli(
+                           workdir / "multi_host"))):
+        start = time.perf_counter()
+        for name, counts in phase().items():
+            launches[name].update(counts)
+        print(f"[phase 11] {sub} took {time.perf_counter() - start:.1f} s")
+    records = []
+    for sub, label, path, accum in (
+            ("(c)", "flagship", FLAGSHIP, FLAGSHIP_ACCUM),
+            ("(d)", "resnet50 1280x1280", HIGH_RES, HIGH_RES_ACCUM)):
+        start = time.perf_counter()
+        record, count = own_batch(label, path, accum)
+        records.append(record)
+        launches["match_lanes"][f"{label} at batch {record['batch']}"] = count
+        print(f"[phase 11] {sub} took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    high_res = phase_high_res_kernels()
+    launches["nms_lanes"]["1280x1280 request"] = high_res["nms_lanes"][
+        "launches"]
+    print(f"[phase 11] (d) kernels took {time.perf_counter() - start:.1f} s")
+    return launches, records, high_res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1355,8 +1835,13 @@ def main() -> int:
         start = time.perf_counter()
         archs, zoo_launches = phase_zoo(Path(tmp) / "zoo")
         print(f"[zoo] phase took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        p11_launches, own_batches, high_res = phase_parallel_and_own_batches(
+            Path(tmp) / "phase11")
+        print(f"[phase 11] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
+        record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)
     key = {"nms_lanes": "nms", "match_lanes": "match"}
     for record in records:
         if record["name"] in key:
@@ -1364,9 +1849,13 @@ def main() -> int:
             record["zoo_shapes"] = [
                 {"config": a["config"], **a[key[record["name"]]]}
                 for a in archs]
+            record["launches_on_phase11_paths"] = p11_launches[record["name"]]
+            record["high_res_shape"] = {"config": str(HIGH_RES.relative_to(
+                REPO)), **high_res[record["name"]]}
     print(json.dumps({"zoo": [{k: a[k] for k in (
         "name", "config", "input", "batch", "parameters", "request_ms",
         "step_ms", "images_per_s", "peak_gb")} for a in archs]}))
+    print(json.dumps({"own_batches": own_batches}))
     print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,19 @@ Runs on the CUDA card unless `--device cpu` asks for the CPU. Boolean flags
 take `--flag`, `--noflag` and `--flag=true|false`. `--xla` is accepted and
 ignored (PyTorch runs eagerly). `main(argv)` can be called in process with
 the arguments after the program name.
+
+`--is_multi_host` runs one process of a data-parallel group, launched by
+torchrun (which sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+MASTER_PORT): NCCL on the cards, one a process, or gloo with `--device
+cpu`:
+
+    torchrun --nproc_per_node 2 -m retinanet_torch --config_path CONFIG \
+        --device cpu --is_multi_host
+
+Each process reads its share of the train files and decodes its slice of
+every val batch; the global batch sizes stay the config's. Spatial
+partitioning (`training.spatial_partition` > 1) raises: ROADMAP Queue 1
+#16.
 """
 
 from __future__ import annotations
@@ -57,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
               "Continuously evaluate new checkpoints")
     _add_bool(parser, "xla", True, "Accepted and ignored")
     _add_bool(parser, "is_multi_host", False,
-              "Shard input files across hosts (not ported: raises)")
+              "Join a torch.distributed group from torchrun's environment "
+              "and shard the input over its processes")
     _add_bool(parser, "debug", False, "Verbose logging")
     parser.add_argument("--global_seed", type=int, default=1337,
                         help="Global RNG seed")
@@ -94,13 +108,8 @@ def main(argv: Optional[List[str]] = None):
     """Parse `argv`, build the Executor and run it; returns what the run
     returns (True when training finished, the scores of an evaluation)."""
     args = build_parser().parse_args(argv)
-    if args.is_multi_host:
-        raise NotImplementedError(
-            "--is_multi_host: the port runs one process on one device; "
-            "multi-host training is ROADMAP Queue 1 #4 (torch.distributed)")
     from retinanet_torch.core.config import Config
-    from retinanet_torch.data.pipeline import InputPipeline
-    from retinanet_torch.train.executor import Executor
+    from retinanet_torch.parallel import distributed
 
     _setup_logging(args.debug, args.log_dir)
     random.seed(args.global_seed)
@@ -114,11 +123,37 @@ def main(argv: Optional[List[str]] = None):
     if args.run_continuous_evaluation:
         run_mode = "continuous_eval"
 
+    if not args.is_multi_host:
+        return _run(args, params, run_mode)
+    distributed.initialize_distributed(device=args.device)
+    try:
+        return _run(args, params, run_mode)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, params, run_mode: str):
+    from retinanet_torch.data.pipeline import InputPipeline
+    from retinanet_torch.parallel import distributed
+    from retinanet_torch.train.executor import Executor
+
+    index, count = distributed.process_index(), distributed.process_count()
+
     def train_input_fn():
-        return InputPipeline("train", params, seed=args.global_seed)
+        return InputPipeline(
+            "train", params, is_multi_host=args.is_multi_host,
+            process_index=index, process_count=count, seed=args.global_seed)
 
     def val_input_fn():
-        return InputPipeline("val", params, seed=args.global_seed)
+        # every process walks the whole val record stream in the same order
+        # and decodes its contiguous slice of each global batch; the chief
+        # scores the gathered detections (Executor.evaluate)
+        return InputPipeline(
+            "val", params,
+            batch_size=distributed.local_batch_size(
+                int(params.training.batch_size.val)),
+            seed=args.global_seed, val_shard_index=index,
+            val_shard_count=count)
 
     executor = Executor(
         params,

@@ -6,11 +6,16 @@ import functools
 
 import torch
 
+from retinanet_torch.parallel import distributed
+
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card. There is no silent CPU path: without a
-    card the caller has to ask for the CPU by name."""
+    """`None` means the CUDA card: under a process group this process's
+    card, `cuda:LOCAL_RANK`. There is no silent CPU path: without a card the
+    caller has to ask for the CPU by name."""
     if device is None:
+        if distributed.is_initialized():
+            return distributed.default_device()
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "No CUDA device is available; pass device='cpu' to run on "

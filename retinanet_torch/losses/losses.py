@@ -5,8 +5,9 @@ pyramids, in float32 whatever the compute dtype. The gradients come from
 plain autograd: the JAX package's hand-derived gradient of the class loss
 saved memory on the TPU and has no kernel behind it.
 
-The normalizer is `sum(num_positives) + 1` over the batch on the card. The
-moving-average variant threads its state through the caller.
+The normalizer is `sum(num_positives) + 1` over the batch on the card, and
+over every process's batch under data parallelism. The moving-average
+variant threads its state through the caller.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from retinanet_torch.parallel import distributed
 
 
 def sigmoid_focal_loss(logits: torch.Tensor, targets_one_hot: torch.Tensor,
@@ -120,7 +123,11 @@ class RetinaNetLoss:
     def __call__(self, targets: Dict, predictions: Dict,
                  normalizer_ema: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
-        batch_normalizer = targets["num-positives"].sum() + 1.0
+        # the positives of the global batch: under data parallelism each
+        # process's share of the loss is divided by the same normalizer
+        positives = targets["num-positives"].sum()
+        distributed.all_reduce_sum_(positives)
+        batch_normalizer = positives + 1.0
 
         new_ema = None
         if self.use_moving_average:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from retinanet_torch.core.device import device_constant
+from retinanet_torch.parallel import distributed
 
 _SUPPORTED_ACTIVATIONS = ("relu", "relu6", "swish")
 
@@ -151,21 +152,70 @@ class _BatchStatsNorm(torch.autograd.Function):
     caller. Forward and backward are one fused ATen kernel each, in float32
     inside whatever the dtype of `x`; the backward is the BatchNorm gradient
     through the statistics, so `mean` and `var` come in without a graph.
-    Only `x` is kept for the backward pass, in its own dtype."""
+    Only `x` is kept for the backward pass, in its own dtype.
+
+    With `count`, the statistics are those of the global batch of every
+    process, `count` values a channel. The backward then sums dy and
+    dy * x_hat over the processes before the input gradient, as
+    `nn.SyncBatchNorm` does; the weight and bias gradients stay this
+    process's sums, which the train step sums with every other gradient.
+    That path is plain tensor ops in float32 (ATen's
+    `batch_norm_backward_reduce` has no CPU kernel)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, var, eps):
-        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+    def forward(ctx, x, weight, bias, mean, var, eps, count=None):
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps), count)
         ctx.eps = eps
         return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
 
     @staticmethod
     def backward(ctx, grad_out):
-        x, weight, mean, invstd = ctx.saved_tensors
-        dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
-            grad_out, x, weight, None, None, mean, invstd, True, ctx.eps,
-            list(ctx.needs_input_grad[:3]))
-        return dx, dweight, dbias, None, None, None
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if count is None:
+            dx, dweight, dbias = torch.ops.aten.native_batch_norm_backward(
+                grad_out, x, weight, None, None, mean, invstd, True, ctx.eps,
+                list(needs))
+        else:
+            dx, dweight, dbias = _synced_batch_norm_backward(
+                grad_out, x, weight, mean, invstd, count, needs)
+        return dx, dweight, dbias, None, None, None, None
+
+
+def _global_moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, ...]:
+    """The mean and the biased variance max(0, E[x^2] - E[x]^2) over the
+    batches of every process, and their count a channel: one all-reduce of
+    (sum x, sum x^2, count), in float32."""
+    c = x.shape[1]
+    stats = torch.cat([
+        x.sum(dim=dims, dtype=torch.float32),
+        torch.linalg.vector_norm(x, dim=dims, dtype=torch.float32).square(),
+        torch.full((1,), x.numel() // c, dtype=torch.float32,
+                   device=x.device)])
+    distributed.all_reduce_sum_(stats)
+    count = stats[2 * c]
+    mean = stats[:c] / count
+    var = torch.clamp(stats[c:2 * c] / count - mean * mean, min=0.0)
+    return mean, var, count
+
+
+def _synced_batch_norm_backward(grad_out, x, weight, mean, invstd, count,
+                                needs):
+    shape = (1, -1, 1, 1)
+    dims = (0, 2, 3)
+    dy = grad_out.to(torch.float32)
+    x_hat = (x.to(torch.float32) - mean.view(shape)) * invstd.view(shape)
+    sum_dy = dy.sum(dim=dims)
+    sum_dy_x_hat = (dy * x_hat).sum(dim=dims)
+    dx = None
+    if needs[0]:
+        c = sum_dy.shape[0]
+        sums = distributed.all_reduce_sum_(torch.cat([sum_dy, sum_dy_x_hat]))
+        dx = ((dy - (sums[:c] / count).view(shape)
+               - x_hat * (sums[c:] / count).view(shape))
+              * (invstd * weight).view(shape)).to(grad_out.dtype)
+    return (dx, sum_dy_x_hat if needs[1] else None,
+            sum_dy if needs[2] else None)
 
 
 class BatchNorm(nn.Module):
@@ -176,8 +226,11 @@ class BatchNorm(nn.Module):
     variance as max(0, E[x^2] - E[x]^2) as flax computes it, and moves the
     running statistics by `ra = momentum * ra + (1 - momentum) * batch`, with
     the biased variance (torch's own update takes the unbiased one, so the
-    buffers are updated here by hand). One card sees the whole batch, so
-    `use_sync` has nothing to add.
+    buffers are updated here by hand). In one process the whole batch is
+    on its device, so `use_sync` has nothing to add; under a process group
+    of several (`parallel/distributed.py`, which `build_model` allows only
+    with `use_sync`) the statistics and their gradients are summed over the
+    processes, so every process normalizes by the global batch's moments.
 
     An input that already has `dtype` is not cast: the statistics are
     reduced and the normalization is computed in float32 from it (the casts
@@ -212,18 +265,22 @@ class BatchNorm(nn.Module):
             return y.to(self.dtype)
         with torch.no_grad():
             dims = (0, 2, 3)
-            count = x.numel() // x.shape[1]
-            mean = x.mean(dim=dims, dtype=torch.float32)
-            mean_sq = torch.linalg.vector_norm(
-                x, dim=dims, dtype=torch.float32).square() / count
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            global_count = None
+            if distributed.process_count() > 1:
+                mean, var, global_count = _global_moments(x, dims)
+            else:
+                count = x.numel() // x.shape[1]
+                mean = x.mean(dim=dims, dtype=torch.float32)
+                mean_sq = torch.linalg.vector_norm(
+                    x, dim=dims, dtype=torch.float32).square() / count
+                var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if not _RECOMPUTING.get():
                 p.running_mean.mul_(self.momentum).add_(
                     mean, alpha=1.0 - self.momentum)
                 p.running_var.mul_(self.momentum).add_(
                     var, alpha=1.0 - self.momentum)
         y = _BatchStatsNorm.apply(x, p.weight, p.bias, mean, var,
-                                  self.epsilon)
+                                  self.epsilon, global_count)
         return y.to(self.dtype)
 
 

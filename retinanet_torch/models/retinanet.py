@@ -31,6 +31,7 @@ from retinanet_torch.models.mlaf import (MultiLevelAttentionFusion,
                                          StackedMultiLevelAttentionFusion)
 from retinanet_torch.models.mobiledet import MobileDet
 from retinanet_torch.models.resnet import ResNet
+from retinanet_torch.parallel import distributed
 
 # Regexes for layer freezing, written against flax-style parameter paths
 # such as 'backbone/group1/block0/conv1/conv/kernel'; the same keys as the
@@ -186,6 +187,12 @@ def build_model(params, device=None, seed: int = 0) -> RetinaNet:
     dtype = _compute_dtype(params.floatx.precision)
     activation = get_activation(arch.activation.type)
     bn = arch.batch_norm
+    if not bn.get("use_sync", True) and distributed.process_count() > 1:
+        # the JAX package refuses it on a mesh of several devices too
+        raise ValueError(
+            "batch_norm.use_sync=false is unsupported under data "
+            "parallelism: BatchNorm's moments are those of the global "
+            "batch; run one process or set use_sync=true")
     ff = arch.feature_fusion
     min_level, max_level = int(ff.min_level), int(ff.max_level)
 

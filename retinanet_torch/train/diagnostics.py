@@ -54,11 +54,13 @@ def format_eta(seconds: float) -> str:
 
 class DiscordLogger:
     """Webhook notifier, enabled when the DISCORD_WEB_HOOK environment
-    variable (or `webhook_url`) is set."""
+    variable (or `webhook_url`) is set and `enabled` is left True (the
+    chief)."""
 
     def __init__(self, webhook_url: Optional[str] = None,
-                 username: str = "retinanet_torch"):
-        self.webhook_url = webhook_url or os.environ.get("DISCORD_WEB_HOOK")
+                 username: str = "retinanet_torch", enabled: bool = True):
+        self.webhook_url = (webhook_url or os.environ.get("DISCORD_WEB_HOOK")
+                            if enabled else None)
         self.username = username
 
     @property
@@ -114,14 +116,22 @@ class InflectionDetector:
 
 class MetricsLogger:
     """Scalar metrics sink: one JSON line a call, `{"step": ..., **scalars}`,
-    in `log_dir/<name>_metrics.jsonl`, line-buffered."""
+    in `log_dir/<name>_metrics.jsonl`, line-buffered. Disabled (the
+    processes other than the chief), it opens nothing and drops every
+    line."""
 
-    def __init__(self, log_dir: str, name: str = "train"):
-        os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, f"{name}_metrics.jsonl"),
-                           "a", buffering=1)
+    def __init__(self, log_dir: str, name: str = "train",
+                 enabled: bool = True):
+        self._jsonl = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir,
+                                            f"{name}_metrics.jsonl"),
+                               "a", buffering=1)
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
+        if self._jsonl is None:
+            return
         clean = {k: float(v) for k, v in scalars.items()}
         self._jsonl.write(json.dumps({"step": int(step), **clean}) + "\n")
 

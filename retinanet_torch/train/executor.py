@@ -24,6 +24,16 @@
   * Metrics: JSONL, throughput meter and ETA log lines, optional Discord
     webhook; a `torch.profiler` window from PROFILE_START_STEP to
     PROFILE_END_STEP (outer steps) under `model_dir/profile`.
+  * Under a process group (`parallel/distributed.py`) each process trains
+    on its share of the global batch (`local_batch_size`) and infers its
+    slice of each val batch. The chief alone writes the config, the
+    metrics and the checkpoints, and scores COCO on the detections that
+    every process gathers to it; every process reads a checkpoint. Every
+    decision that changes the control flow is taken from values that are
+    the same on every process: the global losses, the step count, the
+    SIGTERM flag agreed over the group (`agree_preemption`) and the chief's
+    checkpoint listing. Otherwise one process would reach a collective
+    that the others never call.
 
 PyTorch runs eagerly: there is no ahead-of-time compile, so the JAX
 package's background precompile of the eval function has no counterpart.
@@ -39,6 +49,7 @@ import signal
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from retinanet_torch.core.device import resolve_device
@@ -47,6 +58,7 @@ from retinanet_torch.data.prefetch import DevicePrefetcher
 from retinanet_torch.eval.coco_evaluator import COCOEvaluator
 from retinanet_torch.models.retinanet import flax_path
 from retinanet_torch.ops.postprocess import make_inference_fn
+from retinanet_torch.parallel import distributed
 from retinanet_torch.train import step as step_lib
 from retinanet_torch.train.diagnostics import (
     AverageMeter, DiscordLogger, InflectionDetector, MetricsLogger,
@@ -56,6 +68,26 @@ from retinanet_torch.train.trainer import build_trainer_parts
 _RUN_MODES = ("train", "val", "train_val", "continuous_eval")
 MAX_CHECKPOINTS = 10
 log = logging.getLogger(__name__)
+
+
+def agree_preemption(local_flag: bool) -> bool:
+    """The SIGTERM flag ORed over the processes. A signal reaches each host
+    on its own; every process must checkpoint the same step, or one would
+    leave for the save while the others wait in the next step's
+    all-reduce. The processes call this at the same steps."""
+    return distributed.any_process(local_flag)
+
+
+def _concat_results(parts: List[Dict]) -> Dict:
+    """Every process's slice of one val batch, in process order: the global
+    batch."""
+    if len(parts) == 1:
+        return parts[0]
+    return {key: ({k: np.concatenate([p[key][k] for p in parts])
+                   for k in parts[0][key]}
+                  if isinstance(parts[0][key], dict)
+                  else np.concatenate([p[key] for p in parts]))
+            for key in parts[0]}
 
 
 def _host_copy(value):
@@ -97,10 +129,13 @@ class Executor:
                 params.experiment.name))
         os.makedirs(self.model_dir, exist_ok=True)
         self.resume_from = resume_from
+        self._chief = distributed.is_chief()
         # the config next to the checkpoints: a run describes itself
-        with open(os.path.join(self.model_dir,
-                               f"{params.experiment.name}.json"), "w") as f:
-            json.dump(params.to_dict(), f, indent=4)
+        if self._chief:
+            with open(os.path.join(self.model_dir,
+                                   f"{params.experiment.name}.json"),
+                      "w") as f:
+                json.dump(params.to_dict(), f, indent=4)
 
         t = params.training
         self.train_steps = int(t.train_steps)
@@ -115,11 +150,12 @@ class Executor:
         self.last_eval_timing: Optional[Dict[str, float]] = None
 
         resolve_strategy(t, self.device)
-        if self.grad_accum > 1 and int(self.batch_size["train"]) \
-                % self.grad_accum:
+        self.local_train_batch = distributed.local_batch_size(
+            int(self.batch_size["train"]))
+        if self.local_train_batch % self.grad_accum:
             raise ValueError(
-                f"train batch {self.batch_size['train']} not divisible by "
-                f"grad_accum_steps={self.grad_accum}")
+                f"per-process train batch {self.local_train_batch} not "
+                f"divisible by grad_accum_steps={self.grad_accum}")
         if self.steps_per_execution > 1:
             for knob, value in (("save_every", self.save_every),
                                 ("validation_freq", self.val_freq)):
@@ -149,8 +185,8 @@ class Executor:
 
         # -- observability ----------------------------------------------------
         self.metrics = MetricsLogger(os.path.join(self.model_dir, "logs"),
-                                     "train")
-        self.discord = DiscordLogger()
+                                     "train", enabled=self._chief)
+        self.discord = DiscordLogger(enabled=self._chief)
         rec = t.recovery
         self._use_inflection = bool(rec.use_inflection_detector)
         self._inflection = InflectionDetector(
@@ -235,11 +271,16 @@ class Executor:
         for future in pending:
             future.result()
 
-    def latest_checkpoint_step(self) -> Optional[int]:
-        # a background save may still be writing: settle first, so that
-        # "latest" never names a step that is not on disk
+    def _checkpoint_steps(self) -> List[int]:
+        """The chief's listing, on every process. A background save may
+        still be writing: settle first, so that no step is named that is
+        not on disk. Every choice of a checkpoint comes from here, so that
+        no process acts on its own (possibly stale) view of the disk."""
         self.wait_for_saves()
-        steps = self.all_checkpoint_steps()
+        return distributed.broadcast_from_chief(self.all_checkpoint_steps())
+
+    def latest_checkpoint_step(self) -> Optional[int]:
+        steps = self._checkpoint_steps()
         return steps[-1] if steps else None
 
     def _snapshot(self) -> Dict:
@@ -262,7 +303,11 @@ class Executor:
 
     def _save_checkpoint(self, step: int, blocking: bool = True) -> None:
         """Periodic in-loop saves pass `blocking=False`: the copy to the
-        host is taken now, the disk write runs on the writer thread."""
+        host is taken now, the disk write runs on the writer thread. Every
+        process calls it at the same step; the chief writes (the state is
+        the same on every process)."""
+        if not self._chief:
+            return
         snapshot = self._snapshot()
         self._pending_saves.append(
             self._saver.submit(self._write, step, snapshot))
@@ -308,6 +353,8 @@ class Executor:
             log.info("Profiler trace written to %s", path)
 
     def _maybe_profile(self, step: int) -> None:
+        if not self._chief:  # one trace file, the chief's process
+            return
         spe = self.steps_per_execution
         if step == spe * self._profile_start_step and self._profiler is None:
             from torch.profiler import ProfilerActivity, profile
@@ -391,14 +438,23 @@ class Executor:
             # one outer step: spe steps, one batch each; only the last
             # step's metrics are read
             for _ in range(spe):
-                state, metrics = self._train_step(state, next(batches))
+                state, metrics = self._step_or_name_remedy(state,
+                                                           next(batches))
             self._maybe_profile(current)
             prev = current
             current += spe
 
             should_log = (current % log_every == 0
                           or current >= self.train_steps)
-            if self._preempt_requested:
+            # several processes agree at the log cadence (the same steps on
+            # every process), so that a step is not held up by a host
+            # collective
+            if distributed.process_count() > 1:
+                preempt = (agree_preemption(self._preempt_requested)
+                           if should_log else False)
+            else:
+                preempt = self._preempt_requested
+            if preempt:
                 self._stop_profiler()
                 current = int(state.step)
                 self._save_checkpoint(current)
@@ -450,6 +506,17 @@ class Executor:
             self.evaluate()
         return True
 
+    def _step_or_name_remedy(self, state, batch):
+        """The train step; out of memory, it raises an error that names the
+        config, the micro-batch, the peak and `grad_accum_steps`."""
+        try:
+            return self._train_step(state, batch)
+        except torch.OutOfMemoryError as error:
+            raise step_lib.out_of_memory(
+                error, self.params.experiment.name,
+                self.local_train_batch // self.grad_accum, self.grad_accum,
+                self.device) from error
+
     def train(self) -> bool:
         """Training with inflection-recovery retries: on an anomaly, rewind
         to the checkpoint one save interval before the latest."""
@@ -457,13 +524,13 @@ class Executor:
             raise ValueError("train_input_fn is required for training")
         done = self._run_training_loop()
         while not done and self._current_trial <= self._max_trials:
-            latest = self.latest_checkpoint_step()
-            if latest is not None:
+            steps = self._checkpoint_steps()
+            if steps:
+                latest = steps[-1]
                 rewind = self.save_every * ((latest // self.save_every) - 1)
                 if rewind <= 0:
                     break
-                target = max((s for s in self.all_checkpoint_steps()
-                              if s <= rewind), default=None)
+                target = max((s for s in steps if s <= rewind), default=None)
                 if target is None:
                     break
                 self._restore_checkpoint(step=target)
@@ -508,11 +575,17 @@ class Executor:
         batch N's detections come to the host after batch N+1 is launched.
         `last_eval_timing` holds the legs in seconds: host_decode and h2d
         (the prefetcher's thread, overlapping the rest), staged_wait,
-        dispatch, gather, accumulate, cocoeval, total."""
+        dispatch, gather, accumulate, cocoeval, total.
+
+        Under a process group each process's `val_input_fn` yields its
+        slice of every global val batch (`val_shard_*`); the detections and
+        the images' metadata are gathered to the chief in process order, so
+        that every image is counted once, and the chief scores them. The
+        other processes return {}."""
         if self.val_input_fn is None:
             raise ValueError("val_input_fn is required for evaluation")
         infer = self._build_inference()
-        evaluator = COCOEvaluator(
+        evaluator = None if not self._chief else COCOEvaluator(
             input_shape=self.params.input.input_shape,
             annotation_file_path=self.params.training.annotation_file_path,
             prediction_file_path=os.path.join(self.model_dir,
@@ -539,13 +612,17 @@ class Executor:
 
         def gather_and_accumulate(detections, meta) -> None:
             t0 = time.perf_counter()
-            detections = {k: v.cpu().numpy() for k, v in detections.items()}
+            results = {
+                "image_id": meta["image_id"],
+                "detections": {k: v.cpu().numpy()
+                               for k, v in detections.items()},
+                "resize_scale": meta["resize_scale"]}
+            parts = distributed.gather_to_chief(results)
             timing["gather_s"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            evaluator.accumulate_results({
-                "image_id": meta["image_id"], "detections": detections,
-                "resize_scale": meta["resize_scale"]})
-            timing["accumulate_s"] += time.perf_counter() - t0
+            if evaluator is not None:
+                t0 = time.perf_counter()
+                evaluator.accumulate_results(_concat_results(parts))
+                timing["accumulate_s"] += time.perf_counter() - t0
 
         staged = DevicePrefetcher(make_eval_batch, self._prefetch_depth(),
                                   device=self.device, keys=("image",))
@@ -579,6 +656,9 @@ class Executor:
         timing["h2d_s"] = staged.stage_seconds
         timing["total_s"] = time.perf_counter() - t_eval0
         timing["n_batches"] = n_batches
+        if evaluator is None:
+            self.last_eval_timing = dict(timing)
+            return {}
         t0 = time.perf_counter()
         scores = evaluator.evaluate()
         timing["cocoeval_s"] = time.perf_counter() - t0
@@ -595,7 +675,10 @@ class Executor:
         return scores
 
     def _write_weights_info(self, step: int) -> None:
-        """Per-weight L2 norms, computed on the device and fetched once."""
+        """Per-weight L2 norms, computed on the device and fetched once, by
+        the chief (the weights are the same on every process)."""
+        if not self._chief:
+            return
         names, params = zip(*self.model.named_parameters())
         with torch.no_grad():
             norms = torch.stack(

@@ -10,6 +10,16 @@ reads a metric.
 
 Weight decay is `alpha * sum(||kernel||^2 / 2)` over every parameter whose
 flax-style path ends in `kernel`, minus the frozen ones, added to the loss.
+
+Under data parallelism (`parallel/distributed.py`, a process group of P
+processes when the step is built) each process takes its share of the
+global batch, and the step differentiates what the JAX package's sharded
+step differentiates: (the sum over the global batch of focal + Huber) / the
+global normalizer + L2. Each process's loss is its images' sums over the
+global normalizer, the gradients are summed over the processes once a step,
+after the last micro-batch's backward and before the clip, and the L2
+penalty is differentiated on the chief only, so that it counts once. The
+logged losses are the global ones, the same on every process.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from torch import nn
 from retinanet_torch.losses.losses import RetinaNetLoss
 from retinanet_torch.models.layers import BatchNorm
 from retinanet_torch.models.retinanet import flax_path, freeze_regexes
+from retinanet_torch.parallel import distributed
 from retinanet_torch.train.train_state import TrainState
 
 BATCH_KEYS = ("image", "boxes", "classes", "valid")
@@ -56,6 +67,43 @@ def fold_micro_batches(batch: Dict, k: int) -> Dict:
     `grad_accum_steps = K` takes."""
     return {key: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
             for key, v in batch.items()}
+
+
+# the losses that are sums over the images, summed over the processes
+_SUMMED_LOSSES = ("box-loss", "class-loss", "weighted-loss",
+                  "iou-prediction-loss")
+
+
+def global_losses(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One process's share of the losses -> the global batch's, in one
+    all-reduce: the per-image sums add up over the processes, the
+    normalizer and the L2 penalty are the same on every process."""
+    keys = [k for k in _SUMMED_LOSSES if k in losses]
+    summed = distributed.all_reduce_sum_(torch.stack([losses[k]
+                                                      for k in keys]))
+    out = dict(losses)
+    out.update(zip(keys, summed.unbind()))
+    out["total-loss"] = out["weighted-loss"]
+    if "l2-regularization" in out:
+        out["total-loss"] = out["total-loss"] + out["l2-regularization"]
+    return out
+
+
+def out_of_memory(error: Exception, config_name: str, micro_batch: int,
+                  grad_accum_steps: int,
+                  device: torch.device) -> torch.OutOfMemoryError:
+    """The error to raise in place of an out-of-memory error in a train
+    step: it names the config, the micro-batch and the peak, and the remedy.
+    Nothing retries at a smaller batch."""
+    peak = (f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB"
+            if device.type == "cuda" else "not measured")
+    return torch.OutOfMemoryError(
+        f"{config_name}: out of memory in a train step at a micro-batch of "
+        f"{micro_batch} images a process (training.grad_accum_steps="
+        f"{grad_accum_steps}), peak {peak} allocated. Raise "
+        "training.grad_accum_steps, so that the micro-batch (the "
+        "per-process batch / grad_accum_steps) fits on the card. "
+        f"({error})")
 
 
 def set_frozen_batch_norms(model: nn.Module, regexes) -> int:
@@ -102,12 +150,16 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
     gradients add up in `.grad`, and one optimizer update applies their
     mean, so the schedule, the EMA and `step` advance once. BatchNorm
     moments and the loss normalizer are per micro-batch, and the running
-    statistics and the normalizer's moving average advance K times."""
+    statistics and the normalizer's moving average advance K times; under
+    data parallelism micro-batch i is the union of every process's
+    micro-batch i, as JAX folds each host's batch before sharding it."""
     regexes = freeze_regexes(freeze_keys)
     set_frozen_batch_norms(model, regexes)
     kernels = decay_kernels(model, regexes) if use_weight_decay else []
     trainable = [p for p in model.parameters() if p.requires_grad]
     device = next(model.parameters()).device
+    world = distributed.process_count()
+    chief = distributed.is_chief()
 
     def losses_and_backward(state: TrainState, batch: Dict,
                             marks: Optional[list]) -> Dict:
@@ -119,10 +171,14 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
         total = losses["weighted-loss"]
         if use_weight_decay:
             # constant across micro-batches, so the mean of the accumulated
-            # gradients is exact: sum(g + wd) / K == mean(g) + wd
-            l2 = weight_decay_loss(kernels, weight_decay_alpha)
+            # gradients is exact: sum(g + wd) / K == mean(g) + wd; the
+            # gradients are summed over the processes, so only the chief's
+            # penalty takes one
+            with torch.set_grad_enabled(chief):
+                l2 = weight_decay_loss(kernels, weight_decay_alpha)
             losses["l2-regularization"] = l2
-            total = total + l2
+            if chief:
+                total = total + l2
         losses["total-loss"] = total
         _mark(marks, "forward")
         total.backward()
@@ -168,6 +224,12 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
             # divides by the micro size: (sum / K) / (B / K) == sum / B
             losses = {k: v * inv_k for k, v in losses.items()}
             batch_size = batch["image"].shape[1]
+        if world > 1:
+            # one reduction a step (accumulation's no_sync), before the
+            # clip inside optimizer.step() sees the gradient
+            distributed.all_reduce_gradients(trainable)
+            losses = global_losses(losses)
+            batch_size *= world
 
         optimizer.step()
 

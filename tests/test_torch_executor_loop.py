@@ -299,9 +299,9 @@ def test_continuous_evaluation_scores_the_latest_checkpoint(tmp_path, data):
 @pytest.mark.parametrize("change,error,match", [
     ({"run_mode": "export"}, NotImplementedError, "Queue 1 #6"),
     ({"run_mode": "serve"}, ValueError, "run_mode"),
-    ({"strategy": "multi_gpu"}, NotImplementedError, "Queue 1 #4"),
+    ({"strategy": "multi_gpu"}, RuntimeError, "no process group"),
     ({"strategy": "fpga"}, ValueError, "strategy"),
-    ({"spatial_partition": 2}, NotImplementedError, "Queue 1 #4"),
+    ({"spatial_partition": 2}, NotImplementedError, "Queue 1 #16"),
     ({"grad_accum_steps": 3}, ValueError, "grad_accum"),
 ], ids=["export", "unknown", "multi_gpu", "bad_strategy",
         "spatial", "grad_accum"])
@@ -346,9 +346,17 @@ def test_cli_train_val_in_process(tmp_path, data):
     assert set(scores) >= {"AP-IoU=0.50", "AP-IoU=0.50:0.95"}
 
 
-def test_cli_multi_host_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        cli.main(["--config_path", str(tmp_path / "none.json"),
+def test_cli_multi_host_raises(tmp_path, data, monkeypatch):
+    # outside torchrun there is no group to join: it raises, and nothing
+    # falls back to one process
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    pattern, ann = data
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps(tiny_tree(tmp_path / "models", pattern,
+                                           ann)))
+    with pytest.raises(RuntimeError, match="no process group"):
+        cli.main(["--config_path", str(config), "--device", "cpu",
                   "--is_multi_host"])
 
 
