@@ -89,7 +89,25 @@ JAX. Phases, each fatal on failure:
      `tools/accum_sweep.py`): 2 steps; then a batch-8 request whose
      detections through the NMS kernel equal the plain NMS's, and the
      matching kernel bit-equal to its plain version at its 306,900
-     anchors. Each prints its seconds.
+     anchors. Each prints its seconds;
+ 12. export and int8 serving: (a) `python -m retinanet_torch.export` in
+     process on the flagship (a checkpoint of its seeded weights with the
+     class prior at 0) with --int8 --int8_activations, calibrated on 4
+     synthetic batches (no val records): all seven files of the artifact;
+     (b) the artifact loaded back: the frozen graph (`run_exported`)
+     equal to the rebuilt serving function at the frozen batch, the NMS
+     kernel inside the graph index-exact against `batched_nms`; (c) the
+     int8-activation lane (frozen graph equal to the rebuilt function),
+     then 4 requests each at batch 1 and 8 as the main path, the int8
+     kernel's count at 0 before them; every int8 conv call of one batch-8
+     request bit-equal to `ops/int8_conv.py` and timed beside its bounds,
+     cuDNN bf16 at its shape and `torch._int_mm` for a 1x1 conv; float,
+     weight-only and int8 request ms; detection_agreement_ap of int8
+     against float; (d) `evaluate_artifact` through the frozen int8 graph
+     on the JPEGs of tests/goldens/jpeg_decode_goldens.npz; (e)
+     EfficientNet-lite2 512 (depthwise convs) calibrated on synthetic
+     scenes, every int8 conv call of a batch-8 request bit-equal to the
+     plain version.
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times), the
@@ -214,6 +232,24 @@ HIGH_RES = (REPO / "configs" / "v3-32"
 HIGH_RES_ACCUM = 16             # tools/accum_sweep.py's smallest K
 HIGH_RES_ANCHORS = 306900
 OWN_BATCH_STEPS = 2             # timed, after one that is not
+# phase 12: export and int8 serving
+EXPORT_CALIBRATION_BATCHES = 4  # synthetic batches of 2 (no val records)
+ARTIFACT_FILES = ("config.json", "params.msgpack", "serving_default.pt2",
+                  "params_int8.msgpack", "activation_scales.json",
+                  "int8_activation_report.json", "serving_int8.pt2")
+INT8_BATCHES = (1, 8)
+INT8_REQUESTS = 3               # timed, after one that is not
+INT8_OPS_PER_S = 1979e12        # H100 SXM, dense int8 tensor cores
+# the kernel's times at these convs of a batch-8 flagship request
+INT8_SHAPES = (
+    ("stem 7x7/2, C=3", "backbone/stem/conv"),
+    ("3x3 bottleneck", "backbone/group3/block1/conv2/conv"),
+    ("1x1/2 projection", "backbone/group2/block0/proj/conv"),
+    ("head 3x3 at P3", "class_head/conv0/conv"),
+)
+INT8_DEPTHWISE = ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
+                  / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256"
+                    ".json")
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
@@ -1783,13 +1819,437 @@ def phase_parallel_and_own_batches(workdir: Path) -> tuple:
     return launches, records, high_res
 
 
+# -- phase 12: export artifacts and int8 serving ------------------------------
+
+def read_rows(size: int, k: int, stride: int, pad_before: int,
+              out: int) -> int:
+    """How many of an axis's `size` input rows some window of the conv
+    reads (a 1x1 conv at stride 2 reads one in two)."""
+    return len({o * stride + t - pad_before for o in range(out)
+                for t in range(k)} & set(range(size)))
+
+
+def int8_call_bound(x, packed, bias, y, kh: int, kw: int, stride: int,
+                    pads, groups: int) -> tuple:
+    """(seconds at the int8 tensor-core rate, seconds at the memory rate) of
+    one int8 conv: 2 operations a multiply-add; the input pixels some
+    window reads, the packed weights, the scale (and bias) and the output,
+    each moved once."""
+    n, oh, ow, o = y.shape
+    terms = kh * kw * (x.shape[3] if groups == 1 else 1)
+    ops = 2.0 * n * oh * ow * o * terms
+    rows = read_rows(x.shape[1], kh, stride, pads[0], oh)
+    cols = read_rows(x.shape[2], kw, stride, pads[2], ow)
+    nbytes = (n * rows * cols * x.shape[3] * x.element_size()
+              + packed.numel() * packed.element_size()
+              + (1 if bias is None else 2) * 4 * o
+              + y.numel() * y.element_size())
+    return ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+
+
+def capture_int8_calls(serve, images) -> tuple:
+    """One request through `serve` with every `int8_conv2d` call of the
+    int8 lane recorded: (detections, [(args, output)])."""
+    from retinanet_torch.export import quantize
+    calls = []
+    real = quantize.int8_conv2d
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    quantize.int8_conv2d = recording
+    try:
+        det = serve(images)
+        torch.cuda.synchronize()
+    finally:
+        quantize.int8_conv2d = real
+    return det, calls
+
+
+def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
+    """Every recorded call bit for bit against `int8_conv2d_plain` on the
+    same tensors; with `timed`, each call's kernel, plain and cuDNN bf16
+    device ms (and `torch._int_mm` for a 1x1 conv) and its bounds. Returns
+    (rows, the largest |kernel - plain| over the calls)."""
+    import torch.nn.functional as F
+    from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,
+                                               quantize_activation,
+                                               unpack_weights)
+    from retinanet_torch.ops.int8_conv_kernel import launch
+    rows, max_err = [], 0.0
+    for args, out in calls:
+        x, packed, scale, bias, s_a, stride, pads, groups, kh, kw, dt = args
+        with torch.inference_mode():
+            want = int8_conv2d_plain(*args)
+        err = (out.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        path = paths_of.get(packed.data_ptr(), "?")
+        check(torch.equal(out, want),
+              f"{label}: int8 conv {path} differs from its plain version "
+              f"by {err}")
+        row = {"path": path, "x": list(x.shape), "out": list(out.shape),
+               "k": kh, "stride": stride, "groups": groups}
+        if timed:
+            t_ops, t_bytes = int8_call_bound(x, packed, bias, out, kh, kw,
+                                             stride, pads, groups)
+            row.update(ops_s=t_ops, bytes_s=t_bytes)
+            with torch.inference_mode():
+                row["ms"] = time_ms(lambda: launch(*args), reps=5)
+                row["plain_ms"] = time_ms(
+                    lambda: int8_conv2d_plain(*args), reps=1, warmup=0)
+                c = x.shape[3]
+                qw = unpack_weights(packed, scale.shape[0],
+                                    c if groups == 1 else 1, kh, kw, groups)
+                xb = F.pad(x.permute(0, 3, 1, 2).to(torch.bfloat16),
+                           (pads[2], pads[3], pads[0], pads[1]))
+                wb = qw.to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+                row["cudnn_bf16_ms"] = time_ms(
+                    lambda: F.conv2d(xb, wb, None, stride, 0, 1, groups),
+                    reps=5)
+                row["int_mm_ms"] = None
+                if kh == kw == 1 and groups == 1:
+                    qx = quantize_activation(
+                        x[:, ::stride, ::stride], s_a).reshape(-1, c)
+                    qt = qw.reshape(qw.shape[0], c).t()  # (C, O), col-major
+                    try:
+                        row["int_mm_ms"] = time_ms(
+                            lambda: torch._int_mm(qx, qt), reps=5)
+                    except RuntimeError as e:
+                        print(f"[int8] torch._int_mm refused {path}: {e}")
+        rows.append(row)
+    return rows, max_err
+
+
+def int8_weights_paths(int8_model) -> dict:
+    """data_ptr of each packed weight tensor -> its conv's path."""
+    from retinanet_torch.export.quantize import conv_paths
+    paths = conv_paths(int8_model.model)
+    return {getattr(int8_model, plan[2]).data_ptr(): paths[conv]
+            for conv, plan in int8_model.plans.items()}
+
+
+def export_config(workdir: Path) -> tuple:
+    """The flagship with a model_dir under `workdir`, and a checkpoint at
+    step 1 of its seeded weights with the class prior set to 0, so that
+    random weights give detections (as in phase 5)."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.train.executor import Executor
+    tree = json.loads(FLAGSHIP.read_text())
+    tree["experiment"]["model_dir"] = str(workdir / "models")
+    path = workdir / "flagship.json"
+    path.write_text(json.dumps(tree, indent=2))
+    params = Config(str(path)).params
+    ex = Executor(params, run_mode="export", device="cuda")
+    zero_class_prior(ex.model)
+    ex._save_checkpoint(1)
+    ex.close()
+    return path, params
+
+
+def served_ms(serve, images, requests: int) -> tuple:
+    """Host ms of `requests` requests after one that is not timed
+    (median), and the last detections."""
+    times = []
+    for _ in range(requests + 1):
+        start = time.perf_counter()
+        det = serve(images)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times[1:]), det
+
+
+def as_numpy(det: dict) -> dict:
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in det.items()}
+
+
+def check_frozen_nms(module, images) -> int:
+    """run_exported with the NMS kernel's inputs recorded: one launch, and
+    its indices, scores and counts those of `batched_nms` on them."""
+    from retinanet_torch.ops import nms_kernel
+    from retinanet_torch.ops.nms import batched_nms
+    captured = []
+    real = nms_kernel.launch_design
+
+    def recording(design, boxes, scores, *rest):
+        out = real(design, boxes, scores, *rest)
+        captured.append((boxes.clone(), scores.clone(), rest, out))
+        return out
+
+    nms_kernel.launch_design = recording
+    nms_kernel.kernel.reset_counts()
+    try:
+        det = module.run_exported(images)
+    finally:
+        nms_kernel.launch_design = real
+    check(len(captured) == 1 == nms_kernel.kernel.launches,
+          f"the frozen graph launched NMS {nms_kernel.kernel.launches} "
+          "times for one request")
+    boxes, scores, rest, got = captured[0]
+    want = batched_nms(boxes, scores, *rest)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "NMS inside the frozen graph differs from batched_nms")
+    return det
+
+
+def phase_export_int8(workdir: Path) -> tuple:
+    """Phase 12. Returns the int8 kernel's record and the NMS launches on
+    the export paths."""
+    from retinanet_torch.export.__main__ import main as export_main
+    from retinanet_torch.export import msgpack_codec
+    from retinanet_torch.export.quantize import (detection_agreement_ap,
+                                                 make_quantized_serving_fn)
+    from retinanet_torch.export.serving import load_artifact
+    from retinanet_torch.ops import int8_conv_kernel, nms_kernel
+    workdir.mkdir(parents=True, exist_ok=True)
+    int8 = int8_conv_kernel.kernel
+
+    # (a) the CLI, in process, on a checkpoint of seeded weights
+    start = time.perf_counter()
+    cfg_path, params = export_config(workdir)
+    h, w = (int(v) for v in params.input.input_shape)
+    art = workdir / "artifact"
+    int8.reset_counts()
+    nms_kernel.kernel.reset_counts()
+    export_main(["--config_path", str(cfg_path), "--export_dir", str(art),
+                 "--checkpoint_step", "1", "--int8", "--int8_activations",
+                 "--calibration_batches", str(EXPORT_CALIBRATION_BATCHES)])
+    export_paths = {"int8_conv2d": {"export CLI": int8.launches},
+                    "nms_lanes": {"export CLI": nms_kernel.kernel.launches}}
+    files = sorted(os.listdir(art))
+    for name in ARTIFACT_FILES:
+        check(name in files, f"the export CLI did not write {name}: {files}")
+    scales_doc = json.loads((art / "activation_scales.json").read_text())
+    check(scales_doc["calibration"]["source"] == "synthetic"
+          and scales_doc["calibration"]["used_batches"]
+          == EXPORT_CALIBRATION_BATCHES,
+          f"calibration provenance {scales_doc['calibration']}")
+    report = json.loads((art / "int8_activation_report.json").read_text())
+    sizes = {n: (art / n).stat().st_size for n in files}
+    print(f"[export] CLI wrote {files} in "
+          f"{time.perf_counter() - start:.1f} s; {len(scales_doc['scales'])}"
+          f" scales ({scales_doc['mode']}, "
+          f"{scales_doc['calibration']['source']}); report {report}; "
+          f"bytes {sizes}; int8 launches {int8.launches}")
+
+    # (b) the float lane: the frozen graph against the rebuilt function,
+    # NMS inside the graph index-exact
+    rng = np.random.default_rng(0)
+    batches = {bs: rng.integers(0, 256, (bs, h, w, 3)).astype(np.float32)
+               for bs in INT8_BATCHES}
+    frozen_bs = int(params.inference.batch_size)
+    module = load_artifact(str(art), use_exported=True, device="cuda")
+    one = batches[frozen_bs]
+    eager = module.run_inference(one)
+    frozen = check_frozen_nms(module, one)
+    check(all(np.array_equal(eager[k], frozen[k]) for k in eager),
+          "run_exported differs from run_inference (float lane)")
+    check(int(eager["valid_detections"].sum()) > 0, "no detection")
+    print(f"[export] float lane: run_exported equals run_inference at the "
+          f"frozen batch {frozen_bs} ({eager['valid_detections'].tolist()} "
+          "detections); NMS inside the graph index-exact")
+
+    # (c) the int8 lane: frozen graph, then the main path at batch 1 and 8
+    q_module = load_artifact(str(art), use_exported=True,
+                             use_int8_activations=True, device="cuda")
+    q_eager = q_module.run_inference(one)
+    q_frozen = q_module.run_exported(one)
+    check(all(np.array_equal(q_eager[k], q_frozen[k]) for k in q_eager),
+          "run_exported differs from run_inference (int8 lane)")
+    requests = {bs: torch.from_numpy(batches[bs]) for bs in INT8_BATCHES}
+    # the main path: the int8 kernel's count at 0 just before, read after
+    int8.reset_counts()
+    q_ms, q_det = {}, {}
+    for bs in INT8_BATCHES:
+        q_ms[bs], q_det[bs] = served_ms(q_module.serve, requests[bs],
+                                        INT8_REQUESTS)
+    launches = int8.launches
+    served = len(INT8_BATCHES) * (INT8_REQUESTS + 1)
+    int8_model = q_module.module.model
+    paths_of = int8_weights_paths(int8_model)
+    _, calls = capture_int8_calls(q_module.serve, requests[8])
+    check(len(calls) > 0 and launches == served * len(calls),
+          f"int8 kernel launched {launches} times for {served} requests of "
+          f"{len(calls)} int8 convs")
+    print(f"[int8] {int8_model.num_int8_convs} int8 convs, {len(calls)} "
+          f"calls a request; {launches} launches in {served} requests")
+
+    # float and weight-only lanes at the same batches
+    f_ms, f_det, w_ms = {}, {}, {}
+    qparams = msgpack_codec.read_file(str(art / "params_int8.msgpack"))
+    stats = msgpack_codec.read_file(str(art / "params.msgpack"))
+    weight_only = make_quantized_serving_fn(
+        params, qparams, stats["batch_stats"], device="cuda")
+    for bs in INT8_BATCHES:
+        f_ms[bs], f_det[bs] = served_ms(module.serve, requests[bs],
+                                        INT8_REQUESTS)
+        w_ms[bs], _ = served_ms(weight_only, requests[bs], INT8_REQUESTS)
+    agreement = detection_agreement_ap(
+        as_numpy(f_det[8]), as_numpy(q_det[8]), (h, w),
+        float(params.inference.score_threshold))
+    for bs in INT8_BATCHES:
+        print(f"[int8] batch {bs} request ms (host clock, median of "
+              f"{INT8_REQUESTS}): float {f_ms[bs]:.3f}, weight-only "
+              f"{w_ms[bs]:.3f}, int8 activations {q_ms[bs]:.3f}")
+    print(f"[int8] detection_agreement_ap (int8 against float, batch 8): "
+          f"{agreement:.4f}")
+
+    # every int8 conv of one batch-8 request against the plain version,
+    # timed beside its bounds and the library calls
+    rows, max_err = hold_int8_calls(calls, paths_of, "flagship", timed=True)
+    shapes = []
+    for label, path in INT8_SHAPES:
+        row = next(r for r in rows if r["path"] == path)
+        bound = max(row["ops_s"], row["bytes_s"]) * 1e3
+        shapes.append({"shape": label, **row, "bound_ms": bound,
+                       "bound_by": ("operations" if row["ops_s"]
+                                    >= row["bytes_s"] else "bytes")})
+        print(f"[int8] {label} {path} x {row['x']} -> {row['out']}: kernel "
+              f"{row['ms']:.4f} ms, bound {bound:.5f} ms, plain "
+              f"{row['plain_ms']:.3f}, cuDNN bf16 {row['cudnn_bf16_ms']:.4f}"
+              + ("" if row["int_mm_ms"] is None else
+                 f", torch._int_mm {row['int_mm_ms']:.4f}"))
+    t_ops = sum(r["ops_s"] for r in rows)
+    t_bytes = sum(r["bytes_s"] for r in rows)
+    record = {
+        "name": "int8_conv2d", "route": "cuda",
+        "source": "retinanet_torch/csrc/int8_conv.cu",
+        "replaces": "retinanet_tpu/export/quantize.py:100",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": sum(r["cudnn_bf16_ms"] for r in rows),
+        "library": "cuDNN bf16 F.conv2d at every call's shape",
+        "work": f"every int8 conv of one batch-8 flagship request "
+                f"({len(rows)} calls)",
+        "shapes": shapes,
+        "request_ms": {"float": f_ms, "weight_only": w_ms, "int8": q_ms},
+        "detection_agreement_ap": agreement,
+    }
+    print(f"[int8] {len(rows)} calls of a batch-8 request bit-equal to the "
+          f"plain version; kernel {record['ms']:.3f} ms in all, bound "
+          f"{record['bound_ms']:.4f} ms ({record['bound_by']}), cuDNN bf16 "
+          f"{record['library_ms']:.3f}, plain {record['plain_ms']:.1f}")
+
+    # (d) evaluate_artifact on the goldens' JPEGs through the int8 graph
+    record["launches_on_export_paths"] = dict(export_paths["int8_conv2d"])
+    int8.reset_counts()
+    nms_kernel.kernel.reset_counts()
+    scores = evaluate_goldens(art, workdir / "eval")
+    record["launches_on_export_paths"]["evaluate_artifact"] = int8.launches
+    export_paths["nms_lanes"]["evaluate_artifact"] = \
+        nms_kernel.kernel.launches
+
+    # (e) a depthwise model through the int8 lane
+    del module, q_module
+    torch.cuda.empty_cache()
+    record["depthwise_model"] = int8_depthwise_model()
+    record["max_abs_err"] = max(max_err,
+                                record["depthwise_model"]["max_abs_err"])
+    record["coco_on_goldens"] = scores
+    return record, export_paths["nms_lanes"]
+
+
+def evaluate_goldens(art: Path, workdir: Path) -> dict:
+    from retinanet_torch.export.evaluate_artifact import evaluate
+    images_dir = workdir / "images"
+    images_dir.mkdir(parents=True, exist_ok=True)
+    goldens = np.load(JPEG_GOLDENS)
+    images, anns = [], []
+    for i in range(len([k for k in goldens.files if k.startswith("jpeg")])):
+        (images_dir / f"{i}.jpg").write_bytes(goldens[f"jpeg{i}"].tobytes())
+        h, w = goldens[f"pixels{i}"].shape[:2]
+        images.append({"id": i + 1, "file_name": f"{i}.jpg", "height": h,
+                       "width": w})
+        anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1 + i,
+                     "bbox": [w / 4, h / 4, w / 2, h / 2],
+                     "area": w * h / 4, "iscrowd": 0})
+    ann = workdir / "annotations.json"
+    ann.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": j, "name": f"class{j:02d}"}
+                       for j in range(1, 81)]}))
+    start = time.perf_counter()
+    scores = evaluate(str(art), str(images_dir), str(ann), use_exported=True,
+                      use_int8_activations=True, device="cuda")
+    for key in COCO_KEYS:
+        check(-1.0 <= scores[key] <= 1.0, f"evaluate_artifact {key} is "
+              f"{scores[key]}")
+    check((art / "predictions.json").exists(), "no predictions.json")
+    print(f"[export] evaluate_artifact (frozen int8 graph) on "
+          f"{len(images)} golden JPEGs in "
+          f"{time.perf_counter() - start:.1f} s: {scores}")
+    return scores
+
+
+def int8_depthwise_model() -> dict:
+    """A depthwise model on int8 activations: calibrated on synthetic
+    scenes, one batch-8 request with every int8 conv (dense and depthwise)
+    held to the plain version."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data.preprocessing import make_device_normalizer
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.export.calibration import calibrate_activations
+    from retinanet_torch.export.quantize import detection_agreement_ap
+    from retinanet_torch.export.serving import (build_serving_fn,
+                                                build_serving_module)
+    from retinanet_torch.models.retinanet import _compute_dtype, build_model
+    from retinanet_torch.ops import int8_conv_kernel
+    from retinanet_torch.profile_serving import zero_class_prior
+    label, path = INT8_DEPTHWISE
+    params = Config(str(path)).params
+    h, w = (int(v) for v in params.input.input_shape)
+    model = build_model(params, device="cuda", seed=0)
+    zero_class_prior(model)
+    normalizer = make_device_normalizer(params)
+    dtype = _compute_dtype(params.floatx.precision)
+    batches = [synthetic_train_batch(2, (h, w), 20, 80, seed=i)["image"]
+               for i in range(2)]
+    scales = calibrate_activations(
+        model, batches, mode="minmax",
+        preprocess=lambda im: normalizer(im).to(dtype))
+    module = build_serving_module(params, device="cuda", model=model,
+                                  int8_scales=scales)
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (8, h, w, 3)).astype(np.uint8))
+
+    @torch.inference_mode()
+    def serve(x):
+        return module(x.cuda())
+
+    kernel = int8_conv_kernel.kernel
+    kernel.reset_counts()
+    q_det, calls = capture_int8_calls(serve, images)
+    by = dict(kernel.launches_by)
+    check(by.get("depthwise", 0) > 0 and by.get("dense", 0) > 0,
+          f"{label}: int8 launches by design {by}")
+    _, max_err = hold_int8_calls(calls, int8_weights_paths(module.model),
+                                 label, timed=False)
+    f_det = build_serving_fn(params, device="cuda", model=model)(images)
+    agreement = detection_agreement_ap(
+        as_numpy(f_det), as_numpy(q_det), (h, w),
+        float(params.inference.score_threshold))
+    print(f"[int8] {label}: {len(calls)} int8 conv calls in a batch-8 "
+          f"request ({by}), all bit-equal to the plain version; "
+          f"detection_agreement_ap {agreement:.4f}")
+    return {"config": str(path.relative_to(REPO)), "calls": len(calls),
+            "launches_by": by, "detection_agreement_ap": agreement,
+            "max_abs_err": max_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 1
     from retinanet_torch.core.config import Config
-    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops import int8_conv_kernel, match_kernel, nms_kernel
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1801,7 +2261,8 @@ def main() -> int:
     print(f"[card] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    kernels = (nms_kernel.kernel, match_kernel.kernel)
+    kernels = (nms_kernel.kernel, match_kernel.kernel,
+               int8_conv_kernel.kernel)
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.build) for k in kernels]:
@@ -1839,6 +2300,10 @@ def main() -> int:
         p11_launches, own_batches, high_res = phase_parallel_and_own_batches(
             Path(tmp) / "phase11")
         print(f"[phase 11] took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        int8_record, export_nms = phase_export_int8(Path(tmp) / "export")
+        records.append(int8_record)
+        print(f"[phase 12] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)
@@ -1852,6 +2317,7 @@ def main() -> int:
             record["launches_on_phase11_paths"] = p11_launches[record["name"]]
             record["high_res_shape"] = {"config": str(HIGH_RES.relative_to(
                 REPO)), **high_res[record["name"]]}
+    records[0]["launches_on_export_paths"] = export_nms
     print(json.dumps({"zoo": [{k: a[k] for k in (
         "name", "config", "input", "batch", "parameters", "request_ms",
         "step_ms", "images_per_s", "peak_gb")} for a in archs]}))

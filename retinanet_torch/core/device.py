@@ -24,11 +24,22 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-@functools.lru_cache(maxsize=64)
 def device_constant(values: tuple, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """A small constant vector on `device`, copied there once. A tensor
     built from a Python list on every call would be a synchronous
     host-to-device copy, which stalls the host until the card is idle.
-    Callers must not write to it."""
+    Callers must not write to it.
+
+    While `torch.export` traces, the tensor is built afresh and not cached:
+    made under the tracer it is a fake tensor, which an eager call must
+    never get back from the cache."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _cached_constant(values, dtype, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_constant(values: tuple, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)

@@ -106,14 +106,46 @@ class ConvParams(nn.Module):
             self.bias.fill_(self.bias_value)
 
 
+# The conv hook: while one is set (`conv_hook`), every conv of the port
+# (both functions below) calls it with the input as flax's `nn.Conv` sees
+# it, before any cast or "SAME" padding:
+#     hook(x, p, stride, pads, dtype, float_conv) -> tensor
+# with `pads` (top, bottom, left, right) and `float_conv(x)` the float path
+# of this module, unchanged. The calibration observer
+# (`export/calibration.py`) records x and returns float_conv(x); the int8
+# lanes (`export/quantize.py`) return float_conv of the fake-quantized x or
+# the real int8 conv. Unset, nothing differs.
+_CONV_HOOK = contextvars.ContextVar("conv_hook", default=None)
+
+
+@contextlib.contextmanager
+def conv_hook(hook: Callable):
+    """Route every conv through `hook` inside the block (see above)."""
+    token = _CONV_HOOK.set(hook)
+    try:
+        yield
+    finally:
+        _CONV_HOOK.reset(token)
+
+
+def _conv_float(x: torch.Tensor, p: ConvParams, stride: int, pad,
+                dtype: torch.dtype) -> torch.Tensor:
+    bias = None if p.bias is None else p.bias.to(dtype)
+    return F.conv2d(x.to(dtype), p.weight.to(dtype), bias, stride, pad,
+                    1, p.groups)
+
+
 def conv2d(x: torch.Tensor, p: ConvParams, stride: int, pad,
            dtype: torch.dtype) -> torch.Tensor:
     """flax `nn.Conv` in `dtype` (input, kernel and bias cast first) with
     `pad` zeros on both sides of each spatial axis (an int, or one int an
     axis): k // 2 is "SAME" for an odd kernel at stride 1, 0 is "VALID"."""
-    bias = None if p.bias is None else p.bias.to(dtype)
-    return F.conv2d(x.to(dtype), p.weight.to(dtype), bias, stride, pad,
-                    1, p.groups)
+    hook = _CONV_HOOK.get()
+    if hook is None:
+        return _conv_float(x, p, stride, pad, dtype)
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
+    return hook(x, p, stride, (ph, ph, pw, pw), dtype,
+                lambda x: _conv_float(x, p, stride, pad, dtype))
 
 
 def conv2d_same(x: torch.Tensor, p: ConvParams, stride: int,
@@ -124,10 +156,19 @@ def conv2d_same(x: torch.Tensor, p: ConvParams, stride: int,
     kh, kw = p.weight.shape[2], p.weight.shape[3]
     ph = same_pads(x.shape[2], kh, stride)
     pw = same_pads(x.shape[3], kw, stride)
+    hook = _CONV_HOOK.get()
+    if hook is None:
+        return _conv_same_float(x, p, stride, ph, pw, dtype)
+    return hook(x, p, stride, ph + pw, dtype,
+                lambda x: _conv_same_float(x, p, stride, ph, pw, dtype))
+
+
+def _conv_same_float(x: torch.Tensor, p: ConvParams, stride: int, ph, pw,
+                     dtype: torch.dtype) -> torch.Tensor:
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return conv2d(x, p, stride, (ph[0], pw[0]), dtype)
+        return _conv_float(x, p, stride, (ph[0], pw[0]), dtype)
     x = F.pad(x.to(dtype), (pw[0], pw[1], ph[0], ph[1]))
-    return conv2d(x, p, stride, 0, dtype)
+    return _conv_float(x, p, stride, 0, dtype)
 
 
 # True while a checkpointed block is run again in the backward pass: the

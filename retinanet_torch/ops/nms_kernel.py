@@ -32,6 +32,14 @@ one design.
 
 Build: `ops/cuda_build.py` compiles `csrc/nms.cu` with `nvcc` on first use
 and loads it with ctypes. Importing this module needs no `nvcc`.
+
+`nms_lanes` reaches its implementations through the custom op
+`torch.ops.retinanet_torch.nms_lanes`, which dispatches by the tensors'
+device: the kernel for CUDA, `batched_nms` for the CPU. A ctypes call on
+`data_ptr()` cannot be traced; the op, with its fake implementation for the
+output shapes, is what lets `torch.export` capture a serving graph with NMS
+in it. Importing this module (or `retinanet_torch.ops`) registers the op,
+which loading such a graph needs.
 """
 
 from __future__ import annotations
@@ -165,14 +173,38 @@ def nms_lanes(boxes: torch.Tensor, scores: torch.Tensor,
     if k < 1 or max_detections < 1:
         raise ValueError(f"need k >= 1 and max_detections >= 1, got k={k}, "
                          f"max_detections={max_detections}")
-    if boxes.device.type == "cpu":
-        return batched_nms(boxes, scores, max_detections, iou_threshold,
-                           score_threshold, soft_nms_sigma, soft)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS kernel for device {boxes.device}")
-    if k > MAX_CANDIDATES:
+    if boxes.device.type == "cuda" and k > MAX_CANDIDATES:
         raise ValueError(f"k={k} exceeds the kernel's {MAX_CANDIDATES}")
+    return torch.ops.retinanet_torch.nms_lanes(
+        boxes, scores, int(max_detections), float(iou_threshold),
+        float(score_threshold), float(soft_nms_sigma), bool(soft))
 
-    return launch_design(nms_design(soft, k, score_threshold), boxes, scores,
-                         max_detections, iou_threshold, score_threshold,
-                         soft_nms_sigma, soft)
+
+@torch.library.custom_op("retinanet_torch::nms_lanes", mutates_args=(),
+                         device_types="cpu")
+def _nms_lanes_op(boxes: torch.Tensor, scores: torch.Tensor,
+                  max_detections: int, iou_threshold: float,
+                  score_threshold: float, soft_nms_sigma: float,
+                  soft: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return batched_nms(boxes, scores, max_detections, iou_threshold,
+                       score_threshold, soft_nms_sigma, soft)
+
+
+@_nms_lanes_op.register_kernel("cuda")
+def _nms_lanes_cuda(boxes, scores, max_detections, iou_threshold,
+                    score_threshold, soft_nms_sigma, soft):
+    return launch_design(
+        nms_design(soft, scores.shape[1], score_threshold), boxes, scores,
+        max_detections, iou_threshold, score_threshold, soft_nms_sigma, soft)
+
+
+@_nms_lanes_op.register_fake
+def _nms_lanes_fake(boxes, scores, max_detections, iou_threshold,
+                    score_threshold, soft_nms_sigma, soft):
+    lanes = boxes.shape[0]
+    return (boxes.new_empty((lanes, max_detections), dtype=torch.int32),
+            boxes.new_empty((lanes, max_detections)),
+            boxes.new_empty((lanes,), dtype=torch.int32))

@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from retinanet_torch.core.device import device_constant, resolve_device
 from retinanet_torch.data.anchors import AnchorGenerator
@@ -303,33 +304,66 @@ def make_postprocess_fn(params, anchors: AnchorGenerator,
     return postprocess
 
 
+class InferenceModule(nn.Module):
+    """The serving function as a module: raw NHWC images, already on the
+    device, -> final detections, with the export-mode skips
+    (`skip_decoding` returns the fused maps, `skip_nms` the decoded
+    pre-NMS top-k). No device copy and no inference mode inside, so that
+    `torch.export` can trace it (`export/serving.py`); `model` is its
+    child, and its weights the graph's parameters."""
+
+    def __init__(self, model, params, anchors: AnchorGenerator, normalizer,
+                 compute_dtype=torch.bfloat16, skip_decoding: bool = False,
+                 skip_nms: bool = False, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.model = model
+        self.params = params
+        self.normalizer = normalizer
+        self.compute_dtype = compute_dtype
+        self.skip_decoding = skip_decoding
+        self.skip_nms = skip_nms
+        ff = params.architecture.feature_fusion
+        self.levels = (int(ff.min_level), int(ff.max_level))
+        self.postprocess = make_postprocess_fn(params, anchors, device)
+        self.register_buffer("anchor_boxes",
+                             torch.from_numpy(anchors.boxes).to(device),
+                             persistent=False)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        params = self.params
+        images = self.normalizer(images).to(self.compute_dtype)
+        fused = fuse_predictions(self.model(images), *self.levels)
+        if self.skip_decoding:
+            return fused
+        if self.skip_nms:
+            decoded = decode_detections(
+                fused, self.anchor_boxes, params.input.input_shape,
+                tuple(params.encoder_params.box_variance),
+                bool(params.encoder_params.scale_box_targets))
+            return filter_top_k(decoded, int(params.inference.pre_nms_top_k),
+                                bool(params.inference.filter_per_class))
+        return self.postprocess(fused)
+
+
 def make_inference_fn(model, params, anchors: AnchorGenerator,
                       normalizer, compute_dtype=torch.bfloat16,
                       skip_decoding: bool = False, skip_nms: bool = False,
                       device=None) -> Callable:
-    """End-to-end serving function: raw NHWC images -> final detections,
-    with the export-mode skips (`skip_decoding` returns the fused maps,
-    `skip_nms` the decoded pre-NMS top-k)."""
+    """End-to-end serving function: raw NHWC images (on any device) ->
+    final detections, in inference mode (`InferenceModule`)."""
     device = resolve_device(device)
-    inf = params.inference
-    ff = params.architecture.feature_fusion
-    min_level, max_level = int(ff.min_level), int(ff.max_level)
-    postprocess = make_postprocess_fn(params, anchors, device)
-    anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
+    return inference_fn(InferenceModule(
+        model, params, anchors, normalizer, compute_dtype, skip_decoding,
+        skip_nms, device), device)
+
+
+def inference_fn(module: nn.Module, device: torch.device) -> Callable:
+    """`module` as a function of images on any device: moved to `device`,
+    run in inference mode."""
 
     @torch.inference_mode()
     def infer(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        images = normalizer(images.to(device)).to(compute_dtype)
-        fused = fuse_predictions(model(images), min_level, max_level)
-        if skip_decoding:
-            return fused
-        if skip_nms:
-            decoded = decode_detections(
-                fused, anchor_boxes, params.input.input_shape,
-                tuple(params.encoder_params.box_variance),
-                bool(params.encoder_params.scale_box_targets))
-            return filter_top_k(decoded, int(inf.pre_nms_top_k),
-                                bool(inf.filter_per_class))
-        return postprocess(fused)
+        return module(images.to(device))
 
     return infer

@@ -65,7 +65,9 @@ from retinanet_torch.train.diagnostics import (
     format_eta)
 from retinanet_torch.train.trainer import build_trainer_parts
 
-_RUN_MODES = ("train", "val", "train_val", "continuous_eval")
+# "export" builds and restores the state for `python -m
+# retinanet_torch.export`; `run()` has nothing to run in it
+_RUN_MODES = ("train", "val", "train_val", "continuous_eval", "export")
 MAX_CHECKPOINTS = 10
 log = logging.getLogger(__name__)
 
@@ -111,10 +113,6 @@ class Executor:
                  val_input_fn: Optional[Callable[[], Iterator]] = None,
                  enable_weights_info: bool = False,
                  device=None):
-        if run_mode == "export":
-            raise NotImplementedError(
-                "run_mode='export' is not ported: ROADMAP Queue 1 #6 (export "
-                "and serving artifacts)")
         if run_mode not in _RUN_MODES:
             raise ValueError(f"run_mode must be one of {_RUN_MODES}")
         self.params = params
@@ -342,7 +340,9 @@ class Executor:
             return self.train()
         if self.run_mode == "val":
             return self.evaluate()
-        return self.continuous_evaluate()
+        if self.run_mode == "continuous_eval":
+            return self.continuous_evaluate()
+        raise ValueError(f"run() not supported for mode {self.run_mode}")
 
     def _stop_profiler(self) -> None:
         if self._profiler is not None:

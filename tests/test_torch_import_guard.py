@@ -36,6 +36,14 @@ def test_no_jax_and_no_missing_library_is_imported():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "retinanet_torch.train.executor" in result["imported"]
     assert "retinanet_torch.__main__" in result["imported"]
+    # the export and int8 serving layer, and the port's examples
+    for name in ("export.msgpack_codec", "export.serving",
+                 "export.calibration", "export.quantize", "export.__main__",
+                 "export.evaluate_artifact", "utils.image_utils",
+                 "ops.int8_conv", "ops.int8_conv_kernel",
+                 "examples.inference_demo",
+                 "examples.multi_device_inference"):
+        assert f"retinanet_torch.{name}" in result["imported"], name
     assert len(result["imported"]) >= 40
     leaked = sorted(set(FORBIDDEN) & set(result["modules"]))
     assert not leaked, leaked

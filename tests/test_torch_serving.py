@@ -139,9 +139,17 @@ def test_serving_module_contract(served):
 
 
 def test_unported_serving_lanes_raise(served):
-    tparams, model, _, _ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serving_fn(tparams, device="cpu", model=model,
-                         int8_scales={"x": 1.0})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The int8 and frozen-graph lanes are ported (tests/test_torch_export.py,
+    test_torch_int8.py); what still raises is a frozen graph that was never
+    loaded, and scales that name no conv leave every conv on its float
+    path."""
+    tparams, model, images, _ = served
+    float_out = build_serving_fn(tparams, device="cpu", model=model)(
+        torch.from_numpy(images))
+    int8_out = build_serving_fn(tparams, device="cpu", model=model,
+                                int8_scales={"x": 1.0})(
+        torch.from_numpy(images))
+    for key in float_out:
+        assert torch.equal(float_out[key], int8_out[key])
+    with pytest.raises(ValueError, match="without its serving graph"):
         ServingModule(tparams, model, device="cpu").run_exported(None)
