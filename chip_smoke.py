@@ -99,15 +99,20 @@ JAX. Phases, each fatal on failure:
      kernel inside the graph index-exact against `batched_nms`; (c) the
      int8-activation lane (frozen graph equal to the rebuilt function),
      then 4 requests each at batch 1 and 8 as the main path, the int8
-     kernel's count at 0 before them; every int8 conv call of one batch-8
-     request bit-equal to `ops/int8_conv.py` and timed beside its bounds,
-     cuDNN bf16 at its shape and `torch._int_mm` for a 1x1 conv; float,
-     weight-only and int8 request ms; detection_agreement_ap of int8
+     kernel's counts at 0 before them: every dense call but the stem
+     launched on the "wgmma" design, the stem on "mma_sync"
+     (`ops/int8_conv_kernel.py:int8_design`); every int8 conv call of one
+     batch-8 request bit-equal to `ops/int8_conv.py` and timed beside its
+     bounds, cuDNN bf16 at its shape and `torch._int_mm` for a 1x1 conv,
+     printed a shape a line with its design; float, weight-only and int8
+     request ms; the device busy ms of a request and the int8 conv's
+     kernels in it by name (profiler); the host us that encoding a wgmma
+     call's three tensor maps takes; detection_agreement_ap of int8
      against float; (d) `evaluate_artifact` through the frozen int8 graph
      on the JPEGs of tests/goldens/jpeg_decode_goldens.npz; (e)
-     EfficientNet-lite2 512 (depthwise convs) calibrated on synthetic
-     scenes, every int8 conv call of a batch-8 request bit-equal to the
-     plain version.
+     EfficientNet-lite2 512 (all three designs, depthwise beside cuDNN's
+     bf16 depthwise) calibrated on synthetic scenes, every int8 conv call
+     of a batch-8 request bit-equal to the plain version and timed.
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times), the
@@ -247,6 +252,9 @@ INT8_SHAPES = (
     ("1x1/2 projection", "backbone/group2/block0/proj/conv"),
     ("head 3x3 at P3", "class_head/conv0/conv"),
 )
+# the int8 conv's CUDA kernels, by name in a profiler trace
+INT8_KERNEL_NAMES = ("int8_conv_", "quantize_words_kernel",
+                     "quantize_bytes_kernel")
 INT8_DEPTHWISE = ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
                   / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256"
                     ".json")
@@ -1829,19 +1837,20 @@ def read_rows(size: int, k: int, stride: int, pad_before: int,
                 for t in range(k)} & set(range(size)))
 
 
-def int8_call_bound(x, packed, bias, y, kh: int, kw: int, stride: int,
+def int8_call_bound(x, bias, y, kh: int, kw: int, stride: int,
                     pads, groups: int) -> tuple:
     """(seconds at the int8 tensor-core rate, seconds at the memory rate) of
     one int8 conv: 2 operations a multiply-add; the input pixels some
-    window reads, the packed weights, the scale (and bias) and the output,
-    each moved once."""
+    window reads, the int8 weights (o x terms of them, not the padding of
+    the packed layout), the scale (and bias) and the output, each moved
+    once."""
     n, oh, ow, o = y.shape
     terms = kh * kw * (x.shape[3] if groups == 1 else 1)
     ops = 2.0 * n * oh * ow * o * terms
     rows = read_rows(x.shape[1], kh, stride, pads[0], oh)
     cols = read_rows(x.shape[2], kw, stride, pads[2], ow)
     nbytes = (n * rows * cols * x.shape[3] * x.element_size()
-              + packed.numel() * packed.element_size()
+              + o * terms
               + (1 if bias is None else 2) * 4 * o
               + y.numel() * y.element_size())
     return ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -1877,7 +1886,7 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
     from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,
                                                quantize_activation,
                                                unpack_weights)
-    from retinanet_torch.ops.int8_conv_kernel import launch
+    from retinanet_torch.ops.int8_conv_kernel import int8_design, launch
     rows, max_err = [], 0.0
     for args, out in calls:
         x, packed, scale, bias, s_a, stride, pads, groups, kh, kw, dt = args
@@ -1890,10 +1899,12 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
               f"{label}: int8 conv {path} differs from its plain version "
               f"by {err}")
         row = {"path": path, "x": list(x.shape), "out": list(out.shape),
-               "k": kh, "stride": stride, "groups": groups}
+               "k": kh, "stride": stride, "groups": groups,
+               "design": int8_design(x.shape[3], out.shape[3], kh, kw,
+                                     stride, groups)}
         if timed:
-            t_ops, t_bytes = int8_call_bound(x, packed, bias, out, kh, kw,
-                                             stride, pads, groups)
+            t_ops, t_bytes = int8_call_bound(x, bias, out, kh, kw, stride,
+                                             pads, groups)
             row.update(ops_s=t_ops, bytes_s=t_bytes)
             with torch.inference_mode():
                 row["ms"] = time_ms(lambda: launch(*args), reps=5)
@@ -1921,6 +1932,73 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
                         print(f"[int8] torch._int_mm refused {path}: {e}")
         rows.append(row)
     return rows, max_err
+
+
+def print_int8_shapes(label: str, rows: list) -> list:
+    """One line a distinct conv shape of `rows` (timed): its design, calls,
+    and a call's kernel, bound, plain, cuDNN bf16 and `torch._int_mm`
+    device ms (means over its calls). Returns the lines as records."""
+    shapes = {}
+    for r in rows:
+        key = (r["design"], tuple(r["x"]), tuple(r["out"]), r["k"],
+               r["stride"], r["groups"])
+        shapes.setdefault(key, []).append(r)
+    table = []
+    for (design, x, out, k, stride, groups), group in sorted(
+            shapes.items(), key=lambda kv: -sum(r["ms"] for r in kv[1])):
+        def mean(name):
+            vals = [r[name] for r in group if r[name] is not None]
+            return sum(vals) / len(vals) if vals else None
+        bound = max(mean("ops_s"), mean("bytes_s")) * 1e3
+        rec = {"design": design, "x": list(x), "out": list(out), "k": k,
+               "stride": stride, "groups": groups, "calls": len(group),
+               "ms": mean("ms"), "bound_ms": bound,
+               "plain_ms": mean("plain_ms"),
+               "cudnn_bf16_ms": mean("cudnn_bf16_ms"),
+               "int_mm_ms": mean("int_mm_ms")}
+        table.append(rec)
+        print(f"[int8] {label} {design:9s} {k}x{k}/{stride}"
+              f"{' dw' if groups > 1 else ''} x {list(x)} -> {list(out)} "
+              f"x{len(group)}: kernel {rec['ms']:.4f} ms, bound "
+              f"{bound:.5f}, plain {rec['plain_ms']:.3f}, cuDNN bf16 "
+              f"{rec['cudnn_bf16_ms']:.4f}"
+              + ("" if rec["int_mm_ms"] is None else
+                 f", torch._int_mm {rec['int_mm_ms']:.4f}"))
+    for design in sorted({r["design"] for r in rows}):
+        mine = [r for r in rows if r["design"] == design]
+        print(f"[int8] {label} {design}: {len(mine)} calls, kernel "
+              f"{sum(r['ms'] for r in mine):.3f} ms, cuDNN bf16 "
+              f"{sum(r['cudnn_bf16_ms'] for r in mine):.3f} ms, bound "
+              f"{sum(max(r['ops_s'], r['bytes_s']) for r in mine) * 1e3:.4f}"
+              " ms")
+    return table
+
+
+def request_device_ms(serve, images, count: int = 3) -> tuple:
+    """(device busy ms, ms of the int8 conv's kernels, those ms by kernel
+    name) of one request, from a profiler trace over `count` requests
+    after one that is not."""
+    from torch.profiler import ProfilerActivity, profile
+    from retinanet_torch.profile_serving import _NOT_KERNELS
+    serve(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(count):
+            serve(images)
+        torch.cuda.synchronize()
+    busy, by_name = 0.0, {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        if dev_us <= 0 or evt.key.startswith(_NOT_KERNELS):
+            continue
+        busy += dev_us
+        if any(n in evt.key for n in INT8_KERNEL_NAMES):
+            # the kernel's name and template arguments, without the
+            # namespace and the parameter list
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            by_name[name] = by_name.get(name, 0.0) + dev_us / 1e3 / count
+    return busy / 1e3 / count, sum(by_name.values()), by_name
 
 
 def int8_weights_paths(int8_model) -> dict:
@@ -2005,6 +2083,7 @@ def phase_export_int8(workdir: Path) -> tuple:
                                                  make_quantized_serving_fn)
     from retinanet_torch.export.serving import load_artifact
     from retinanet_torch.ops import int8_conv_kernel, nms_kernel
+    from retinanet_torch.ops.int8_conv_kernel import encode_us, int8_design
     workdir.mkdir(parents=True, exist_ok=True)
     int8 = int8_conv_kernel.kernel
 
@@ -2068,6 +2147,7 @@ def phase_export_int8(workdir: Path) -> tuple:
         q_ms[bs], q_det[bs] = served_ms(q_module.serve, requests[bs],
                                         INT8_REQUESTS)
     launches = int8.launches
+    launches_by = dict(int8.launches_by)
     served = len(INT8_BATCHES) * (INT8_REQUESTS + 1)
     int8_model = q_module.module.model
     paths_of = int8_weights_paths(int8_model)
@@ -2075,8 +2155,26 @@ def phase_export_int8(workdir: Path) -> tuple:
     check(len(calls) > 0 and launches == served * len(calls),
           f"int8 kernel launched {launches} times for {served} requests of "
           f"{len(calls)} int8 convs")
+    # every dense call but the stem on the wgmma design, the stem on
+    # mma.sync, and the counts of the main path say so
+    stem = INT8_SHAPES[0][1]
+    designs = {}
+    for args, _ in calls:
+        x, packed, scale, _, _, stride, _, groups, kh, kw, _ = args
+        path = paths_of.get(packed.data_ptr(), "?")
+        design = int8_design(x.shape[3], scale.shape[0], kh, kw, stride,
+                             groups)
+        want = ("mma_sync" if path == stem else
+                "wgmma" if groups == 1 else "depthwise")
+        check(design == want, f"int8 conv {path} takes {design}")
+        designs[design] = designs.get(design, 0) + 1
+    check(designs == {"wgmma": len(calls) - 1, "mma_sync": 1}
+          and launches_by == {d: served * n for d, n in designs.items()},
+          f"int8 launches by design {launches_by} for {served} requests "
+          f"of {designs}")
     print(f"[int8] {int8_model.num_int8_convs} int8 convs, {len(calls)} "
-          f"calls a request; {launches} launches in {served} requests")
+          f"calls a request; {launches} launches in {served} requests, by "
+          f"design {launches_by}")
 
     # float and weight-only lanes at the same batches
     f_ms, f_det, w_ms = {}, {}, {}
@@ -2101,6 +2199,23 @@ def phase_export_int8(workdir: Path) -> tuple:
     # every int8 conv of one batch-8 request against the plain version,
     # timed beside its bounds and the library calls
     rows, max_err = hold_int8_calls(calls, paths_of, "flagship", timed=True)
+    table = print_int8_shapes("flagship", rows)
+    busy = {}
+    for lane, serve in (("int8", q_module.serve), ("float", module.serve)):
+        for bs in INT8_BATCHES:
+            busy[f"{lane} batch {bs}"] = request_device_ms(serve,
+                                                           requests[bs])
+    for key, (ms, int8_ms, by_name) in busy.items():
+        print(f"[int8] {key} request, profiler: device busy {ms:.3f} ms, "
+              f"of which the int8 conv's kernels {int8_ms:.3f} ms: "
+              + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])))
+    head_args = next(a for a, _ in calls
+                     if paths_of.get(a[1].data_ptr()) == INT8_SHAPES[3][1])
+    x, packed, scale, _, _, stride, pads, _, kh, kw, dt = head_args
+    encode = encode_us(x, packed, scale.shape[0], stride, pads, kh, kw, dt)
+    print(f"[int8] encoding the three tensor maps of a wgmma call: "
+          f"{encode:.3f} host us (mean of 1000, the head 3x3 at P3)")
     shapes = []
     for label, path in INT8_SHAPES:
         row = next(r for r in rows if r["path"] == path)
@@ -2128,8 +2243,14 @@ def phase_export_int8(workdir: Path) -> tuple:
         "library": "cuDNN bf16 F.conv2d at every call's shape",
         "work": f"every int8 conv of one batch-8 flagship request "
                 f"({len(rows)} calls)",
+        "launches_by": launches_by,
         "shapes": shapes,
+        "shape_table": table,
         "request_ms": {"float": f_ms, "weight_only": w_ms, "int8": q_ms},
+        "request_device_ms": {k: {"busy": v[0], "int8_conv": v[1],
+                                  "int8_by_kernel": v[2]}
+                              for k, v in busy.items()},
+        "encode_us": encode,
         "detection_agreement_ap": agreement,
     }
     print(f"[int8] {len(rows)} calls of a batch-8 request bit-equal to the "
@@ -2227,10 +2348,11 @@ def int8_depthwise_model() -> dict:
     kernel.reset_counts()
     q_det, calls = capture_int8_calls(serve, images)
     by = dict(kernel.launches_by)
-    check(by.get("depthwise", 0) > 0 and by.get("dense", 0) > 0,
+    check(set(by) == {"wgmma", "mma_sync", "depthwise"},
           f"{label}: int8 launches by design {by}")
-    _, max_err = hold_int8_calls(calls, int8_weights_paths(module.model),
-                                 label, timed=False)
+    rows, max_err = hold_int8_calls(calls, int8_weights_paths(module.model),
+                                    label, timed=True)
+    table = print_int8_shapes(label, rows)
     f_det = build_serving_fn(params, device="cuda", model=model)(images)
     agreement = detection_agreement_ap(
         as_numpy(f_det), as_numpy(q_det), (h, w),
@@ -2240,7 +2362,9 @@ def int8_depthwise_model() -> dict:
           f"detection_agreement_ap {agreement:.4f}")
     return {"config": str(path.relative_to(REPO)), "calls": len(calls),
             "launches_by": by, "detection_agreement_ap": agreement,
-            "max_abs_err": max_err}
+            "max_abs_err": max_err, "ms": sum(r["ms"] for r in rows),
+            "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in rows),
+            "shape_table": table}
 
 
 def main() -> int:

@@ -16,10 +16,10 @@ Counterpart of the real-int8 branch of
 
 Activations are NHWC here, as the kernel takes them. Dense weights (groups
 1) are packed once for the kernel as (O, K_pad) int32 words: for each output
-channel its kh * kw * ceil(C / 4) words in (tap, channel) order, four input
-channels a word, the channels past C zero, then zero words up to a multiple
-of K_WORDS_ALIGN; depthwise weights (groups = C = O) as (kh * kw, C) int8.
-`unpack_weights` inverts either.
+channel its kh * kw taps in (row, column) order, each tap `tap_channels(C)`
+int8 channels (four a word, the channels past C zero), then zero words up
+to a multiple of K_WORDS_ALIGN; depthwise weights (groups = C = O) as
+(kh * kw, C) int8. `unpack_weights` inverts either.
 """
 
 from __future__ import annotations
@@ -31,12 +31,26 @@ import torch.nn.functional as F
 
 QMAX = 127
 INT32_MAX = 2 ** 31 - 1
-K_WORDS_ALIGN = 16  # `kBK` of csrc/int8_conv.cu: K words a stage
+# K words a stage of the kernel's wgmma design (`kChunk` of
+# csrc/int8_conv.cu: 128 int8 channels); a packed row is padded to it
+K_WORDS_ALIGN = 32
+# above this many input channels a dense conv takes the wgmma design, whose
+# taps are whole k32 steps of its tensor-core product
+WGMMA_MIN_CHANNELS = 17
+
+
+def tap_channels(in_channels: int) -> int:
+    """int8 channels a tap holds in the packed weights and in the kernel's
+    quantized input: a multiple of 32 (one wgmma k-step, and TMA's 16-byte
+    rows) from WGMMA_MIN_CHANNELS on, of 4 (one int32 word of the mma.sync
+    design) below."""
+    step = 32 if in_channels >= WGMMA_MIN_CHANNELS else 4
+    return -(-in_channels // step) * step
 
 
 def dense_k_words(in_channels: int, kh: int, kw: int) -> Tuple[int, int]:
     """(K words, K words padded) of a dense conv's packed weights."""
-    words = kh * kw * (-(-in_channels // 4))
+    words = kh * kw * tap_channels(in_channels) // 4
     return words, -(-words // K_WORDS_ALIGN) * K_WORDS_ALIGN
 
 
@@ -69,7 +83,7 @@ def pack_weights(qw: torch.Tensor, groups: int) -> torch.Tensor:
     if groups == 1:
         words, padded = dense_k_words(cpg, kh, kw)
         w = qw.permute(0, 2, 3, 1)                        # (O, kh, kw, C)
-        w = F.pad(w, (0, 4 * (words // (kh * kw)) - cpg))  # C -> 4 * cw
+        w = F.pad(w, (0, tap_channels(cpg) - cpg))
         w = w.reshape(o, 4 * words).contiguous().view(torch.int32)
         return F.pad(w, (0, padded - words)).contiguous()
     if cpg == 1 and groups == o:

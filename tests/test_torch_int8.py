@@ -5,8 +5,8 @@
     `lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
     bit for bit at every shape the kernel takes: stride 1 and 2, "SAME"
     with asymmetric pads, 1x1, 3x3, the 7x7 stem with C = 3, depthwise 3x3
-    and 5x5, C = 6, and the largest magnitude of the flagship (4,608 terms
-    of 127 * -127).
+    and 5x5, C = 6, 24 and 40, and the largest magnitude of the flagship
+    (4,608 terms of 127 * -127).
   * The activation quantization and the epilogue equal the JAX
     interceptor's expressions under `jit`, bit for bit, in float32 and
     bfloat16.
@@ -67,6 +67,9 @@ _CONV_CASES = [
     ("1x1_s2", 2, (8, 8), 16, 24, 1, 2, 1, (0, 0, 0, 0)),
     ("7x7_s2_c3_stem", 2, (22, 22), 3, 8, 7, 2, 1, (0, 0, 0, 0)),
     ("c6", 1, (7, 9), 6, 5, 3, 1, 1, "SAME"),
+    # EfficientNet-lite's C = 24 and 40: taps padded to 32 and 64 channels
+    ("c24_1x1", 2, (6, 7), 24, 16, 1, 1, 1, (0, 0, 0, 0)),
+    ("c40_3x3_s2_same", 1, (9, 10), 40, 12, 3, 2, 1, "SAME"),
     ("dw3x3_s1", 2, (9, 9), 8, 8, 3, 1, 8, "SAME"),
     ("dw3x3_s2", 2, (10, 10), 12, 12, 3, 2, 12, "SAME"),
     ("dw5x5_s2", 2, (12, 13), 6, 6, 5, 2, 6, "SAME"),
