@@ -110,13 +110,20 @@ JAX. Phases, each fatal on failure:
      call's three tensor maps takes; detection_agreement_ap of int8
      against float; (d) `evaluate_artifact` through the frozen int8 graph
      on the JPEGs of tests/goldens/jpeg_decode_goldens.npz; (e)
-     EfficientNet-lite2 512 (all three designs, depthwise beside cuDNN's
-     bf16 depthwise) calibrated on synthetic scenes, every int8 conv call
-     of a batch-8 request bit-equal to the plain version and timed.
+     EfficientNet-lite2 512 and (f) MobileDet-cpu 448, each calibrated on
+     synthetic scenes, one batch-8 request with its launches by design
+     checked ({mma_sync: 2, wgmma: 69, depthwise: 50} and {7, 93, 43}),
+     every int8 conv call bit-equal to the plain version and timed
+     (depthwise beside cuDNN's bf16 depthwise; each design's total beside
+     its bound), the share of depthwise inputs left to the division, the
+     request's device busy, and the "depthwise_generic" design bit-equal at
+     the first depthwise call through an input off 16-byte alignment.
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
-paths and on the zoo's, error, times, bound, and the zoo shapes' times), the
-card's line again, and {"ok": true, "device": {...}} as the last line.
+paths and on the zoo's, error, times, bound, and the zoo shapes' times; the
+int8 conv's per design and model: launches, kernel, bound and cuDNN bf16
+ms), the card's line again, and {"ok": true, "device": {...}} as the last
+line.
 """
 
 from __future__ import annotations
@@ -255,9 +262,16 @@ INT8_SHAPES = (
 # the int8 conv's CUDA kernels, by name in a profiler trace
 INT8_KERNEL_NAMES = ("int8_conv_", "quantize_words_kernel",
                      "quantize_bytes_kernel")
-INT8_DEPTHWISE = ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
-                  / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256"
-                    ".json")
+# phase 12 (e), (f): models with depthwise convs, one batch-8 int8 request
+# each, and the int8 conv launches it makes by design
+INT8_ZOO = (
+    ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
+     / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256.json",
+     {"mma_sync": 2, "wgmma": 69, "depthwise": 50}),
+    ("mobiledet-cpu 448", REPO / "configs" / "v3-8"
+     / "mscoco-retinanet-mobiledet-cpu-448x448-30x-64.json",
+     {"mma_sync": 7, "wgmma": 93, "depthwise": 43}),
+)
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
@@ -1901,7 +1915,8 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
         row = {"path": path, "x": list(x.shape), "out": list(out.shape),
                "k": kh, "stride": stride, "groups": groups,
                "design": int8_design(x.shape[3], out.shape[3], kh, kw,
-                                     stride, groups)}
+                                     stride, groups,
+                                     x.data_ptr() % 16 == 0)}
         if timed:
             t_ops, t_bytes = int8_call_bound(x, bias, out, kh, kw, stride,
                                              pads, groups)
@@ -1964,14 +1979,28 @@ def print_int8_shapes(label: str, rows: list) -> list:
               f"{rec['cudnn_bf16_ms']:.4f}"
               + ("" if rec["int_mm_ms"] is None else
                  f", torch._int_mm {rec['int_mm_ms']:.4f}"))
+    for rec in design_totals(label, rows, {}):
+        print(f"[int8] {label} {rec['design']}: {rec['calls']} calls, "
+              f"kernel {rec['ms']:.4f} ms, cuDNN bf16 "
+              f"{rec['cudnn_bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+              f"ms")
+    return table
+
+
+def design_totals(label: str, rows: list, launches_by: dict) -> list:
+    """Per design of the int8 conv, over one request's timed `rows`: its
+    calls, the launches its main-path run counted, and the sums of kernel,
+    bound and cuDNN bf16 ms."""
+    out = []
     for design in sorted({r["design"] for r in rows}):
         mine = [r for r in rows if r["design"] == design]
-        print(f"[int8] {label} {design}: {len(mine)} calls, kernel "
-              f"{sum(r['ms'] for r in mine):.3f} ms, cuDNN bf16 "
-              f"{sum(r['cudnn_bf16_ms'] for r in mine):.3f} ms, bound "
-              f"{sum(max(r['ops_s'], r['bytes_s']) for r in mine) * 1e3:.4f}"
-              " ms")
-    return table
+        out.append({"model": label, "design": design, "calls": len(mine),
+                    "launches": launches_by.get(design),
+                    "ms": sum(r["ms"] for r in mine),
+                    "bound_ms": sum(max(r["ops_s"], r["bytes_s"])
+                                    for r in mine) * 1e3,
+                    "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in mine)})
+    return out
 
 
 def request_device_ms(serve, images, count: int = 3) -> tuple:
@@ -2244,6 +2273,7 @@ def phase_export_int8(workdir: Path) -> tuple:
         "work": f"every int8 conv of one batch-8 flagship request "
                 f"({len(rows)} calls)",
         "launches_by": launches_by,
+        "designs": design_totals("flagship", rows, launches_by),
         "shapes": shapes,
         "shape_table": table,
         "request_ms": {"float": f_ms, "weight_only": w_ms, "int8": q_ms},
@@ -2267,12 +2297,18 @@ def phase_export_int8(workdir: Path) -> tuple:
     export_paths["nms_lanes"]["evaluate_artifact"] = \
         nms_kernel.kernel.launches
 
-    # (e) a depthwise model through the int8 lane
+    # (e), (f) models with depthwise convs through the int8 lane
     del module, q_module
     torch.cuda.empty_cache()
-    record["depthwise_model"] = int8_depthwise_model()
-    record["max_abs_err"] = max(max_err,
-                                record["depthwise_model"]["max_abs_err"])
+    record["depthwise_models"] = []
+    for label, path, want in INT8_ZOO:
+        start = time.perf_counter()
+        zoo = int8_zoo_request(label, path, want)
+        record["depthwise_models"].append(zoo)
+        record["designs"] += zoo.pop("designs")
+        record["max_abs_err"] = max(record["max_abs_err"],
+                                    zoo["max_abs_err"])
+        print(f"[int8] {label} took {time.perf_counter() - start:.1f} s")
     record["coco_on_goldens"] = scores
     return record, export_paths["nms_lanes"]
 
@@ -2309,10 +2345,14 @@ def evaluate_goldens(art: Path, workdir: Path) -> dict:
     return scores
 
 
-def int8_depthwise_model() -> dict:
-    """A depthwise model on int8 activations: calibrated on synthetic
-    scenes, one batch-8 request with every int8 conv (dense and depthwise)
-    held to the plain version."""
+def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
+    """A model with depthwise convs on int8 activations: calibrated on
+    synthetic scenes, one batch-8 request as its main path (the kernel's
+    counts at 0 before it), launches by design equal to `want`, every int8
+    conv (dense and depthwise) held to the plain version and timed; then
+    the "depthwise_generic" design held to the plain version at the
+    request's first depthwise call, through an input one element off
+    16-byte alignment."""
     from retinanet_torch.core.config import Config
     from retinanet_torch.data.preprocessing import make_device_normalizer
     from retinanet_torch.data.synthetic import synthetic_train_batch
@@ -2322,8 +2362,8 @@ def int8_depthwise_model() -> dict:
                                                 build_serving_module)
     from retinanet_torch.models.retinanet import _compute_dtype, build_model
     from retinanet_torch.ops import int8_conv_kernel
+    from retinanet_torch.ops.int8_conv import int8_conv2d_plain
     from retinanet_torch.profile_serving import zero_class_prior
-    label, path = INT8_DEPTHWISE
     params = Config(str(path)).params
     h, w = (int(v) for v in params.input.input_shape)
     model = build_model(params, device="cuda", seed=0)
@@ -2348,11 +2388,22 @@ def int8_depthwise_model() -> dict:
     kernel.reset_counts()
     q_det, calls = capture_int8_calls(serve, images)
     by = dict(kernel.launches_by)
-    check(set(by) == {"wgmma", "mma_sync", "depthwise"},
-          f"{label}: int8 launches by design {by}")
+    check(by == want and len(calls) == sum(want.values()),
+          f"{label}: int8 launches by design {by} for {len(calls)} calls, "
+          f"expected {want}")
     rows, max_err = hold_int8_calls(calls, int8_weights_paths(module.model),
                                     label, timed=True)
     table = print_int8_shapes(label, rows)
+    doubt = sorted(doubt_share(a[0], a[4]) for a, _ in calls if a[7] > 1)
+    print(f"[int8] {label}: share of a depthwise call's inputs that the "
+          f"division decides (within 3e-5 of a tie): min {doubt[0]:.2e}, "
+          f"median {doubt[len(doubt) // 2]:.2e}, max {doubt[-1]:.2e} over "
+          f"{len(doubt)} calls")
+    busy, int8_ms, by_name = request_device_ms(serve, images)
+    print(f"[int8] {label} batch 8 int8 request, profiler: device busy "
+          f"{busy:.3f} ms, of which the int8 conv's kernels {int8_ms:.3f} "
+          "ms: " + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
+              by_name.items(), key=lambda kv: -kv[1])))
     f_det = build_serving_fn(params, device="cuda", model=model)(images)
     agreement = detection_agreement_ap(
         as_numpy(f_det), as_numpy(q_det), (h, w),
@@ -2360,11 +2411,46 @@ def int8_depthwise_model() -> dict:
     print(f"[int8] {label}: {len(calls)} int8 conv calls in a batch-8 "
           f"request ({by}), all bit-equal to the plain version; "
           f"detection_agreement_ap {agreement:.4f}")
+    # the generic design, reached by the input's alignment alone
+    args = next(a for a, _ in calls if a[7] > 1)
+    x = args[0]
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    before = kernel.launches_by["depthwise_generic"]
+    with torch.inference_mode():
+        got = int8_conv_kernel.launch(odd, *args[1:])
+        want_out = int8_conv2d_plain(odd, *args[1:])
+    torch.cuda.synchronize()
+    check(kernel.launches_by["depthwise_generic"] == before + 1
+          and torch.equal(got, want_out),
+          f"{label}: depthwise_generic differs from the plain version")
+    generic_ms = time_ms(lambda: int8_conv_kernel.launch(odd, *args[1:]),
+                         reps=5)
+    print(f"[int8] {label}: depthwise_generic at {list(x.shape)} k"
+          f"{args[8]}/{args[5]} (input {x.element_size()} bytes off 16) "
+          f"bit-equal, {generic_ms:.4f} ms")
     return {"config": str(path.relative_to(REPO)), "calls": len(calls),
             "launches_by": by, "detection_agreement_ap": agreement,
             "max_abs_err": max_err, "ms": sum(r["ms"] for r in rows),
             "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in rows),
-            "shape_table": table}
+            "designs": design_totals(label, rows, by),
+            "doubt_share": {"min": doubt[0], "median": doubt[len(doubt) // 2],
+                            "max": doubt[-1]},
+            "request_device_ms": {"busy": busy, "int8_conv": int8_ms,
+                                  "int8_by_kernel": by_name},
+            "generic_ms": generic_ms, "shape_table": table}
+
+
+def doubt_share(x, s_a: float) -> float:
+    """Share of x's elements whose int8 value the depthwise design leaves
+    to the division: t = x * (1 / s_a) in float32, as the kernel forms it,
+    under 128 and within 3e-5 of a half-integer (`quantize_sure`)."""
+    inv = (torch.ones((), dtype=torch.float32)
+           / torch.full((), s_a, dtype=torch.float32)).to(x.device)
+    t = x.float() * inv
+    return ((t.abs() < 128) & ((t - torch.round(t)).abs() >= 0.49997)
+            ).float().mean().item()
 
 
 def main() -> int:

@@ -41,7 +41,7 @@
 // own adds a write and a read of the int8 input to those bytes (~0.5 ms a
 // batch-8 request); fusing it into the previous layer is later work.
 //
-// Three designs, picked by the wrapper from the shape alone
+// Four designs, picked by the wrapper from the shape alone
 // (ops/int8_conv_kernel.py:int8_design):
 //   * "wgmma", every dense conv with C > 16: (1) a quantizing pass writes
 //     the int8 input as (N, QH, QW, c_tap) bytes, each element quantized
@@ -73,8 +73,36 @@
 //     bank conflicts. Its taps are 4 bytes: the wgmma design would copy 49
 //     taps of 32-byte rows a stem tile, and runs the stem 3.3x slower
 //     (tools/int8_conv_experiments.py); this one beats cuDNN bf16 there;
-//   * "depthwise": one thread an output element, channels fastest, a loop
-//     over the kh * kw taps, int32 multiply-adds.
+//   * "depthwise" (groups = C = O), square windows of 1, 3 or 5 at stride 1
+//     or 2 with C % 8 == 0 and a 16-byte aligned input: a stencil, bound by
+//     bytes (no sum crosses channels, so no tensor core helps). A work item
+//     is a tile of output pixels of one image x a chunk of channels. A CTA
+//     (persistent, 256 threads, a fixed chunk while the grid is a multiple
+//     of the chunks) walks its items: one thread brings each item's input
+//     box (the tile plus its halo) by a tiled 4-D TMA copy over the NHWC
+//     input into a ring of raw boxes guarded by mbarriers, the box's
+//     origin set by the conv's pads, so that TMA's out-of-bounds zero fill
+//     is the zero padding (0 quantizes to 0); all threads quantize the box
+//     once into int8 planes in shared memory, one plane a channel, four
+//     pixels of a row a word (the product by 1 / s_a rounded by adding
+//     1.5 * 2^23, no conversion instruction; the division only for the
+//     elements within 3e-5 of a tie, 1e-4 to 2e-3 of a lane's bfloat16
+//     inputs, each byte patched after the words are stored, so that the
+//     rest of the warp runs on); a thread then keeps one channel's weights in
+//     registers as dp4a words (built once a CTA) and takes 4 x 4 output
+//     blocks, four taps of a window row in one __dp4a (the weight words
+//     shifted to each output's place in the row, so that no input word is
+//     shifted); the epilogue writes a staging tile that one thread stores
+//     by TMA (which clips the tile at the plane's and the channels' edges).
+//     The next item's copy runs under this item's products and stores. A
+//     programmatic dependent launch: barriers and weights overlap the
+//     previous kernel's tail;
+//   * "depthwise_generic", every other depthwise conv (any window and
+//     stride, C not a multiple of 8, an unaligned input): the same tile
+//     and int8 planes, the box loaded and quantized by the threads' own
+//     loads, the window taken in blocks of at most 16 x 16 taps (each
+//     block's box quantized once, the sums kept in shared memory across
+//     blocks), int32 multiply-adds, plain stores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,6 +114,9 @@
 #include <chrono>
 #include <cmath>
 #include <cstring>
+#include <map>
+#include <mutex>
+#include <utility>
 
 // One conv as the wrapper describes it (ops/int8_conv_kernel.py:_Args);
 // outside the unnamed namespace, since the exported functions take it.
@@ -105,6 +136,15 @@ struct Int8ConvArgs {
   int q_stride, lower_w, lower_h, upper_w, upper_h;
   int tile_n;            // wgmma: BN
   int chunk;             // wgmma: int8 channels a stage, 32, 64 or 128
+  // depthwise (ops/int8_conv_kernel.py:depthwise_plan): a work item is
+  // tile_h x tile_w output pixels x dw_chunk channels; its input box is
+  // box_h x box_w pixels (a window block of taps_h x taps_w taps); the
+  // quantized box is dw_chunk planes of box_h rows of row_pitch bytes,
+  // plane_pitch bytes apart; shared memory: `stages` raw boxes from 0,
+  // the planes at q_off, the staging tile (or the sums) at out_off, the
+  // barriers at bar_off, smem bytes in all
+  int tile_h, tile_w, dw_chunk, box_h, box_w, taps_h, taps_w;
+  int row_pitch, plane_pitch, stages, q_off, out_off, bar_off, smem;
 };
 
 namespace {
@@ -114,7 +154,8 @@ constexpr int kBN = 128;       // mma_sync: output channels a CTA
 constexpr int kBK = 16;        // mma_sync: 32-bit words of K a stage
 constexpr int kPad = 4;        // mma_sync: words of padding a smem row
 constexpr int kThreads = 256;  // mma_sync: 8 warps, 2 x 4, each 64 x 32
-constexpr int kDwThreads = 256;
+constexpr int kDwThreads = 256;  // depthwise: threads a CTA
+constexpr int kDwBlock = 4;     // depthwise: a thread's block, 4 x 4 outputs
 constexpr int kQuantThreads = 256;
 
 constexpr int kTileM = 128;        // wgmma: output pixels a tile
@@ -145,7 +186,12 @@ struct WgTile {
   static_assert(kStages >= 3, "the ring holds at least three stages");
 };
 
-enum Design { kDepthwise = 0, kMmaSync = 1, kWgmma = 2 };
+enum Design {
+  kDepthwise = 0,
+  kMmaSync = 1,
+  kWgmma = 2,
+  kDepthwiseGeneric = 3
+};
 
 // What the wgmma kernel reads of Int8ConvArgs.
 struct WgShape {
@@ -983,45 +1029,426 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the stores
 }
 
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kDwThreads)
-    int8_conv_depthwise_kernel(const TIn* __restrict__ x,
-                               const int8_t* __restrict__ w,
-                               const float* __restrict__ scale,
-                               const float* __restrict__ bias,
-                               TOut* __restrict__ y, Scale sc,
-                               Int8ConvArgs s) {
-  const long long total =
-      static_cast<long long>(s.n) * s.oh * s.ow * s.c;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int ch = static_cast<int>(idx % s.c);
-    const long long m = idx / s.c;
-    const int ow = static_cast<int>(m % s.ow);
-    const long long t = m / s.ow;
-    const int oh = static_cast<int>(t % s.oh);
-    const int img = static_cast<int>(t / s.oh);
-    const TIn* x_img = x + static_cast<long long>(img) * s.h * s.w * s.c;
-    const int ih0 = oh * s.stride - s.pad_t;
-    const int iw0 = ow * s.stride - s.pad_l;
-    int acc = 0;
-    for (int r = 0; r < s.kh; ++r) {
-      const int ih = ih0 + r;
-      if (ih < 0 || ih >= s.h) continue;
-      for (int q = 0; q < s.kw; ++q) {
-        const int iw = iw0 + q;
-        if (iw < 0 || iw >= s.w) continue;
-        const int xq = quantize(
-            to_float(x_img[(static_cast<long long>(ih) * s.w + iw) * s.c +
-                           ch]),
-            sc);
-        acc += xq * static_cast<int>(w[(r * s.kw + q) * s.c + ch]);
+// -- the depthwise designs ---------------------------------------------------
+
+// What the depthwise kernels read of Int8ConvArgs.
+struct DwShape {
+  int n, h, w, c, oh, ow;
+  int kh, kw, stride, pad_t, pad_l;
+  int tile_h, tile_w, chunk, box_h, box_w, taps_h, taps_w;
+  int row_pitch, plane_pitch, stages, q_off, out_off, bar_off;
+  int tiles_y, tiles_x, chunks, items;
+};
+
+// One work item: image n, output tile (ty, tx), channel chunk ci.
+struct DwItem {
+  int n, ty, tx, ci;
+};
+
+__device__ __forceinline__ DwItem dw_item(const DwShape& s, int item) {
+  DwItem d;
+  d.ci = item % s.chunks;
+  int rest = item / s.chunks;
+  d.tx = rest % s.tiles_x;
+  rest /= s.tiles_x;
+  d.ty = rest % s.tiles_y;
+  d.n = rest / s.tiles_y;
+  return d;
+}
+
+// quantize(v, sc) into the low byte of `byte`, without a conversion
+// instruction or a branch; false where only the division can decide. t is
+// clamped before the rounding (the same integer: rint is monotonic and the
+// bounds are integers), and tc + 1.5 * 2^23 rounds tc to an integer half
+// to even in the low bits of the sum: 0x4B400000 + rint(tc), whose low
+// byte is the int8. t = v * inv lies within 3 * 2^-24 |v / s_a| of the
+// rounded quotient: below 128, within 2.29e-5. So no doubt arises where
+// |t| >= 128 (both clip) or where t is more than 3e-5 from a
+// half-integer; elsewhere, and on NaN, it does.
+__device__ __forceinline__ bool quantize_sure(float v, Scale sc,
+                                              unsigned& byte) {
+  const float t = __fmul_rn(v, sc.inv);
+  const float tc = fminf(fmaxf(t, -127.0f), 127.0f);
+  const float m = __fadd_rn(tc, 12582912.0f);
+  const float r = __fsub_rn(m, 12582912.0f);
+  byte = __float_as_uint(m);
+  return fabsf(t) >= 128.0f || fabsf(__fsub_rn(t, r)) < 0.49997f;
+}
+
+// The 16-byte group of TIn values `raw16` as floats
+__device__ __forceinline__ void unpack16(const uint4& raw16, float* f,
+                                         const float*) {
+  f[0] = __uint_as_float(raw16.x);
+  f[1] = __uint_as_float(raw16.y);
+  f[2] = __uint_as_float(raw16.z);
+  f[3] = __uint_as_float(raw16.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw16, float* f,
+                                         const __nv_bfloat16*) {
+  const unsigned part[4] = {raw16.x, raw16.y, raw16.z, raw16.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    // a bfloat16 is the high half of its float
+    f[2 * e] = __uint_as_float(part[e] << 16);
+    f[2 * e + 1] = __uint_as_float(part[e] & 0xFFFF0000u);
+  }
+}
+
+// the low bytes of four words, in order, as one word
+__device__ __forceinline__ unsigned pack_low_bytes(unsigned b0, unsigned b1,
+                                                   unsigned b2, unsigned b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                     0x5410);
+}
+
+// float(acc) for |acc| < 2^22, exact, without a conversion instruction
+__device__ __forceinline__ float exact_float(int acc) {
+  return __fsub_rn(__int_as_float(0x4B400000 + acc), 12582912.0f);
+}
+
+// TMA: the box of a tiled 4-D map at (c, x, y, n) into `dst`; completes
+// `bar`'s transactions. Coordinates outside the tensor read zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c, int x,
+                                            int y, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c),
+      "r"(x), "r"(y), "r"(n)
+      : "memory");
+}
+
+// TMA: a box of shared memory to the tiled 4-D map at (c, x, y, n); the
+// elements past the map's edges are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c, int x,
+                                             int y, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_address(src)), "r"(c), "r"(x), "r"(y), "r"(n)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The input box of `item` (the tile's window origins, minus the pads, with
+// the halo) into `dst` by TMA; `bar` expects its bytes.
+template <typename TIn>
+__device__ __forceinline__ void dw_load_box(const CUtensorMap* x_map,
+                                            uint8_t* dst, uint64_t* bar,
+                                            const DwShape& s, int item) {
+  const DwItem d = dw_item(s, item);
+  mbar_expect_tx(bar, static_cast<unsigned>(s.box_h * s.box_w * s.chunk *
+                                            static_cast<int>(sizeof(TIn))));
+  tma_load_4d(dst, x_map, bar, d.ci * s.chunk,
+              d.tx * s.tile_w * s.stride - s.pad_l,
+              d.ty * s.tile_h * s.stride - s.pad_t, d.n);
+}
+
+// Does word k of a block's input row (bytes 4k .. 4k + 3 from the block's
+// first column) hold a tap of output i (bytes S i .. S i + K - 1)?
+template <int K, int S>
+__host__ __device__ constexpr bool dw_overlaps(int i, int k) {
+  return 4 * k <= S * i + K - 1 && 4 * k + 3 >= S * i;
+}
+
+// One raw box (box_h x box_w pixels x chunk channels of TIn, as TMA wrote
+// it) -> the int8 planes q[c][y][x], each element quantized once. A unit is
+// four pixels of a row x one 16-byte group of channels: four 16-byte
+// loads, then one word a channel (four pixels) into its plane.
+template <typename TIn>
+__device__ __forceinline__ void dw_quantize_box(const TIn* raw, uint8_t* q,
+                                                const DwShape& s, Scale sc) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(TIn));
+  // unit u: channel group u % groups (a power of two) of pixel group
+  // p = u / groups, row p / x4s (by a multiply-high: p < 2^14, x4s <= 64)
+  const int group_bits = __ffs(s.chunk / kV) - 1;
+  const int x4s = (s.box_w + 3) / 4;
+  const unsigned x4s_magic = 0xFFFFFFFFu / static_cast<unsigned>(x4s) + 1;
+  const int units = (s.box_h * x4s) << group_bits;
+  for (int u = threadIdx.x; u < units; u += kDwThreads) {
+    const int g = u & ((1 << group_bits) - 1);
+    const int p = u >> group_bits;
+    const int yy = static_cast<int>(__umulhi(static_cast<unsigned>(p),
+                                             x4s_magic));
+    const int x0 = 4 * (p - yy * x4s);
+    const TIn* src = raw + (yy * s.box_w + x0) * s.chunk + g * kV;
+    unsigned b[4][kV];
+    unsigned doubt = 0;  // bit j kV + e: element e of pixel j is in doubt
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float f[kV];
+      if (x0 + j < s.box_w) {
+        unpack16(*reinterpret_cast<const uint4*>(src + j * s.chunk), f,
+                 src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kV; ++e) f[e] = 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        if (!quantize_sure(f[e], sc, b[j][e])) doubt |= 1u << (j * kV + e);
       }
     }
-    float v = __fmul_rn(__int2float_rn(acc), scale[ch]);
-    if (bias != nullptr) v = __fadd_rn(v, bias[ch]);
-    store(y + idx, v);
+    uint8_t* dst = q + g * kV * s.plane_pitch + yy * s.row_pitch + x0;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      *reinterpret_cast<unsigned*>(dst + e * s.plane_pitch) =
+          pack_low_bytes(b[0][e], b[1][e], b[2][e], b[3][e]);
+    }
+    // rare (within 3e-5 of a tie, or NaN): the division decides those
+    // elements alone, each byte written again
+    while (doubt != 0) {
+      const int i = __ffs(doubt) - 1;
+      doubt &= doubt - 1;
+      const int j = i / kV;
+      const int e = i - j * kV;
+      dst[e * s.plane_pitch + j] = static_cast<uint8_t>(
+          quantize(to_float(src[j * s.chunk + e]), sc));
+    }
+  }
+}
+
+// The "depthwise" design: a K x K window at stride S. A thread takes
+// channel `cl` of the CTA's chunk (for the whole run of the CTA) and the
+// 4 x 4 output blocks b = worker, worker + workers, ... of each tile. For
+// output (j, i) of a block, window row r reads bytes S i .. S i + K - 1 of
+// the block's input row 4 S by + S j + r, from byte 4 S bx: the words k
+// that hold them, each dotted (__dp4a) with a weight word wt[r][i][k]
+// that has w[r][q] at byte 4 k + b where q = 4 k + b - S i, zeros
+// elsewhere. Sums of at most 25 products of |127| stay exact.
+template <typename TIn, typename TOut, int K, int S>
+__global__ void __launch_bounds__(kDwThreads, 3)
+    int8_conv_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap y_map,
+                        const int8_t* __restrict__ w,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias, Scale sc, DwShape s) {
+  constexpr int kRows = (kDwBlock - 1) * S + K;   // input rows of a block
+  constexpr int kWords = (3 * S + K + 3) / 4;     // words of each
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((128 - (smem_address(smem_raw) & 127)) & 127);
+  const int raw_stride = s.q_off / s.stages;
+  uint8_t* q = smem + s.q_off;
+  TOut* out = reinterpret_cast<TOut*>(smem + s.out_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + s.bar_off);
+  const int tid = threadIdx.x;
+  const int workers = kDwThreads / s.chunk;
+  const int worker = tid / s.chunk;
+  const int cl = tid - worker * s.chunk;
+
+  if (tid == 0) {
+    for (int i = 0; i < s.stages; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // x is the previous kernel's output: wait for that grid (this one may
+    // start early) to finish and flush
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int i = 0; i < s.stages; ++i) {
+      const int item = blockIdx.x + i * gridDim.x;
+      if (item < s.items) {
+        dw_load_box<TIn>(&x_map, smem + i * raw_stride, &full[i], s, item);
+      }
+    }
+  }
+
+  int wt[K][kDwBlock][kWords];
+  float sc_c = 0.0f, bi_c = 0.0f;
+  int chunk_now = -1;
+  const int bcols = s.tile_w / kDwBlock;
+  const int blocks = s.tile_h / kDwBlock * bcols;
+  int it = 0;
+  for (int item = blockIdx.x; item < s.items; item += gridDim.x, ++it) {
+    const DwItem d = dw_item(s, item);
+    if (d.ci != chunk_now) {
+      // this channel's weights as dp4a words, its scale and bias: once a
+      // CTA while its chunk stays
+      chunk_now = d.ci;
+      const int ch = d.ci * s.chunk + cl;
+      int wb[K][K];
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+          wb[r][c] = ch < s.c ? static_cast<int>(w[(r * K + c) * s.c + ch]) : 0;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+#pragma unroll
+        for (int i = 0; i < kDwBlock; ++i) {
+#pragma unroll
+          for (int k = 0; k < kWords; ++k) {
+            if (!dw_overlaps<K, S>(i, k)) continue;
+            unsigned word = 0;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int c = 4 * k + b - S * i;
+              if (c >= 0 && c < K) word |= (wb[r][c] & 0xFFu) << (8 * b);
+            }
+            wt[r][i][k] = static_cast<int>(word);
+          }
+        }
+      }
+      sc_c = ch < s.c ? scale[ch] : 0.0f;
+      bi_c = ch < s.c && bias != nullptr ? bias[ch] : 0.0f;
+    }
+    const int st = it % s.stages;
+    mbar_wait(&full[st], (it / s.stages) & 1);
+    dw_quantize_box(reinterpret_cast<const TIn*>(smem + st * raw_stride), q,
+                    s, sc);
+    // the previous item's store has read the staging tile
+    if (tid == 0) bulk_wait_read<0>();
+    __syncthreads();  // q is whole, the raw box free, the staging tile free
+    if (tid == 0 && item + s.stages * gridDim.x < s.items) {
+      dw_load_box<TIn>(&x_map, smem + st * raw_stride, &full[st], s,
+                       item + s.stages * gridDim.x);
+    }
+
+    const uint8_t* qc = q + cl * s.plane_pitch;
+    for (int b = worker; b < blocks; b += workers) {
+      const int by = b / bcols;
+      const int bx = b - by * bcols;
+      const uint8_t* q0 =
+          qc + kDwBlock * by * S * s.row_pitch + kDwBlock * bx * S;
+      int acc[kDwBlock][kDwBlock];
+#pragma unroll
+      for (int j = 0; j < kDwBlock; ++j) {
+#pragma unroll
+        for (int i = 0; i < kDwBlock; ++i) acc[j][i] = 0;
+      }
+#pragma unroll
+      for (int yy = 0; yy < kRows; ++yy) {
+        const int* row = reinterpret_cast<const int*>(q0 + yy * s.row_pitch);
+        int wd[kWords];
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) wd[k] = row[k];
+#pragma unroll
+        for (int j = 0; j < kDwBlock; ++j) {
+          const int r = yy - j * S;
+          if (r < 0 || r >= K) continue;
+#pragma unroll
+          for (int i = 0; i < kDwBlock; ++i) {
+#pragma unroll
+            for (int k = 0; k < kWords; ++k) {
+              if (dw_overlaps<K, S>(i, k)) {
+                acc[j][i] = __dp4a(wd[k], wt[r][i][k], acc[j][i]);
+              }
+            }
+          }
+        }
+      }
+      // epilogue: requantize into the staging tile (tile_h, tile_w, chunk)
+#pragma unroll
+      for (int j = 0; j < kDwBlock; ++j) {
+#pragma unroll
+        for (int i = 0; i < kDwBlock; ++i) {
+          float v = __fmul_rn(exact_float(acc[j][i]), sc_c);
+          if (bias != nullptr) v = __fadd_rn(v, bi_c);
+          store(out + ((kDwBlock * by + j) * s.tile_w + kDwBlock * bx + i) *
+                          s.chunk + cl,
+                v);
+        }
+      }
+    }
+    // the async proxy (TMA) reads what the threads wrote
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the staging tile is whole; q may be overwritten
+    if (tid == 0) {
+      tma_store_4d(&y_map, out, d.ci * s.chunk, d.tx * s.tile_w,
+                   d.ty * s.tile_h, d.n);
+    }
+  }
+  if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the stores
+}
+
+// The "depthwise_generic" design: any window and stride, any C, any
+// alignment. The same items and int8 planes; the threads load and quantize
+// each window block's box themselves (zeros outside the input and past C),
+// a thread sums its channel at the outputs p = worker, worker + workers,
+// ... of the tile with int32 multiply-adds, and keeps the sums in shared
+// memory (at out_off) across window blocks.
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kDwThreads)
+    int8_conv_dw_generic_kernel(const TIn* __restrict__ x,
+                                const int8_t* __restrict__ w,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ bias,
+                                TOut* __restrict__ y, Scale sc, DwShape s) {
+  extern __shared__ uint8_t smem_raw[];
+  int8_t* q = reinterpret_cast<int8_t*>(smem_raw + s.q_off);
+  int* sums = reinterpret_cast<int*>(smem_raw + s.out_off);
+  const int tid = threadIdx.x;
+  const int workers = kDwThreads / s.chunk;
+  const int worker = tid / s.chunk;
+  const int cl = tid - worker * s.chunk;
+  const int outs = s.tile_h * s.tile_w;
+  const int box = s.box_h * s.box_w * s.chunk;
+  for (int item = blockIdx.x; item < s.items; item += gridDim.x) {
+    const DwItem d = dw_item(s, item);
+    const int c0 = d.ci * s.chunk;
+    const int ch = c0 + cl;
+    const int iy0 = d.ty * s.tile_h * s.stride - s.pad_t;
+    const int ix0 = d.tx * s.tile_w * s.stride - s.pad_l;
+    const TIn* x_img = x + static_cast<size_t>(d.n) * s.h * s.w * s.c;
+    for (int p = worker; p < outs; p += workers) sums[p * s.chunk + cl] = 0;
+    for (int r0 = 0; r0 < s.kh; r0 += s.taps_h) {
+      for (int wc0 = 0; wc0 < s.kw; wc0 += s.taps_w) {
+        __syncthreads();  // q is free
+        for (int u = tid; u < box; u += kDwThreads) {
+          const int c = u % s.chunk;
+          const int pix = u / s.chunk;
+          const int yy = pix / s.box_w;
+          const int xx = pix - yy * s.box_w;
+          const int iy = iy0 + r0 + yy;
+          const int ix = ix0 + wc0 + xx;
+          int v = 0;
+          if (iy >= 0 && iy < s.h && ix >= 0 && ix < s.w && c0 + c < s.c) {
+            v = quantize(to_float(x_img[(static_cast<size_t>(iy) * s.w + ix) *
+                                            s.c + c0 + c]),
+                         sc);
+          }
+          q[c * s.plane_pitch + yy * s.row_pitch + xx] =
+              static_cast<int8_t>(v);
+        }
+        __syncthreads();  // q is whole
+        const int rows = min(s.taps_h, s.kh - r0);
+        const int cols = min(s.taps_w, s.kw - wc0);
+        for (int p = worker; p < outs; p += workers) {
+          const int oy = p / s.tile_w;
+          const int ox = p - oy * s.tile_w;
+          const int8_t* qp = q + cl * s.plane_pitch +
+                             oy * s.stride * s.row_pitch + ox * s.stride;
+          int sum = 0;
+          if (ch < s.c) {
+            for (int r = 0; r < rows; ++r) {
+              for (int c = 0; c < cols; ++c) {
+                sum += static_cast<int>(qp[r * s.row_pitch + c]) *
+                       static_cast<int>(
+                           w[((r0 + r) * s.kw + wc0 + c) * s.c + ch]);
+              }
+            }
+          }
+          sums[p * s.chunk + cl] += sum;
+        }
+      }
+    }
+    if (ch >= s.c) continue;
+    const float sc_c = scale[ch];
+    const float bi_c = bias != nullptr ? bias[ch] : 0.0f;
+    for (int p = worker; p < outs; p += workers) {
+      const int oy = d.ty * s.tile_h + p / s.tile_w;
+      const int ox = d.tx * s.tile_w + p % s.tile_w;
+      if (oy >= s.oh || ox >= s.ow) continue;
+      float v = __fmul_rn(__int2float_rn(sums[p * s.chunk + cl]), sc_c);
+      if (bias != nullptr) v = __fadd_rn(v, bi_c);
+      store(y + ((static_cast<size_t>(d.n) * s.oh + oy) * s.ow + ox) * s.c +
+                ch,
+            v);
+    }
   }
 }
 
@@ -1293,6 +1720,168 @@ int launch_mma_sync(const Int8ConvArgs& a, const TIn* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+DwShape dw_shape(const Int8ConvArgs& a) {
+  DwShape s{a.n,        a.h,           a.w,          a.c,
+            a.oh,       a.ow,          a.kh,         a.kw,
+            a.stride,   a.pad_t,       a.pad_l,      a.tile_h,
+            a.tile_w,   a.dw_chunk,    a.box_h,      a.box_w,
+            a.taps_h,   a.taps_w,      a.row_pitch,  a.plane_pitch,
+            a.stages,   a.q_off,       a.out_off,    a.bar_off,
+            0,          0,             0,            0};
+  s.tiles_y = (a.oh + a.tile_h - 1) / a.tile_h;
+  s.tiles_x = (a.ow + a.tile_w - 1) / a.tile_w;
+  s.chunks = (a.c + a.dw_chunk - 1) / a.dw_chunk;
+  const long long items =
+      static_cast<long long>(a.n) * s.tiles_y * s.tiles_x * s.chunks;
+  s.items = items < (1LL << 31) ? static_cast<int>(items) : -1;
+  return s;
+}
+
+// The tiled 4-D map of an NHWC tensor (dims C, W, H, N; bfloat16 or float32)
+// in boxes of (chunk, box_w, box_h, 1), unswizzled; coordinates outside
+// it read zeros.
+int encode_nhwc_map(const void* t, bool bf16, int n, int h, int w, int c,
+                    int chunk, int box_w, int box_h, bool promote,
+                    CUtensorMap* map) {
+  static const auto tiled = reinterpret_cast<EncodeTiled>(
+      driver_symbol("cuTensorMapEncodeTiled"));
+  if (tiled == nullptr) return kNoDriverEntry;
+  const cuuint64_t elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
+                                 dims[0] * dims[1] * dims[2] * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk),
+                             static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = tiled(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(t), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      promote ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+              : CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r != CUDA_SUCCESS ? kEncodeError + static_cast<int>(r) : 0;
+}
+
+// One kernel's launch facts, kept across calls (asked at every call they
+// would add host time to each launch): the shared-memory attribute, set
+// once a device, and the resident CTAs at each size, asked once.
+struct LaunchFacts {
+  std::mutex lock;
+  bool smem_set[kMaxDevices] = {};
+  std::map<std::pair<int, int>, int> resident;  // (device, smem) -> CTAs
+};
+
+// CTAs of `kernel` that `device` holds at once with `smem` bytes a CTA
+// (the occupancy calculator's CTAs an SM x the SMs), or a negated error.
+template <typename Kernel>
+int resident_ctas(Kernel kernel, LaunchFacts& facts, int device, int smem) {
+  if (device < 0 || device >= kMaxDevices) {
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  }
+  std::lock_guard<std::mutex> guard(facts.lock);
+  if (!facts.smem_set[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    facts.smem_set[device] = true;
+  }
+  const auto key = std::make_pair(device, smem);
+  const auto found = facts.resident.find(key);
+  if (found != facts.resident.end()) return found->second;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kDwThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  facts.resident[key] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// A persistent grid: every item if the device holds them all at once,
+// else the CTAs it holds, cut to a multiple of the chunks, so that each
+// CTA keeps one chunk (and its weights) for all its items.
+int dw_grid(const DwShape& s, int resident) {
+  if (s.items <= resident) return s.items;
+  return resident >= s.chunks ? resident - resident % s.chunks : resident;
+}
+
+template <typename TIn, typename TOut, int K, int S>
+int launch_dw_window(const CUtensorMap& xm, const CUtensorMap& ym,
+                     const int8_t* w, const float* scale, const float* bias,
+                     Scale sc, const DwShape& s, int smem, int device,
+                     cudaStream_t stream) {
+  auto kernel = int8_conv_dw_kernel<TIn, TOut, K, S>;
+  static LaunchFacts facts;
+  const int resident = resident_ctas(kernel, facts, device, smem);
+  if (resident < 0) return -resident;
+  // a programmatic dependent launch: the prologue (barriers, weights)
+  // overlaps the previous kernel's tail
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(dw_grid(s, resident)));
+  config.blockDim = dim3(kDwThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&config, kernel, xm, ym, w, scale,
+                                           bias, sc, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TIn, typename TOut>
+int launch_depthwise(const Int8ConvArgs& a, const TIn* x, const void* w,
+                     const float* scale, const float* bias, TOut* y,
+                     Scale sc, int device, cudaStream_t stream) {
+  const DwShape s = dw_shape(a);
+  if (s.items < 0 || a.smem > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  if (a.design == kDepthwiseGeneric) {
+    auto kernel = int8_conv_dw_generic_kernel<TIn, TOut>;
+    static LaunchFacts facts;
+    const int resident = resident_ctas(kernel, facts, device, a.smem);
+    if (resident < 0) return -resident;
+    kernel<<<static_cast<unsigned>(dw_grid(s, resident)), kDwThreads, a.smem,
+             stream>>>(x, wq, scale, bias, y, sc, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  CUtensorMap xm, ym;
+  int enc = encode_nhwc_map(x, sizeof(TIn) == 2, a.n, a.h, a.w, a.c,
+                            a.dw_chunk, a.box_w, a.box_h, true, &xm);
+  if (enc != 0) return enc;
+  enc = encode_nhwc_map(y, sizeof(TOut) == 2, a.n, a.oh, a.ow, a.c,
+                        a.dw_chunk, a.tile_w, a.tile_h, false, &ym);
+  if (enc != 0) return enc;
+  switch (a.kh * 10 + a.stride) {
+#define DW_CASE(K, S)                                                     \
+  case K * 10 + S:                                                        \
+    return launch_dw_window<TIn, TOut, K, S>(xm, ym, wq, scale, bias, sc, \
+                                             s, a.smem, device, stream);
+    DW_CASE(1, 1)
+    DW_CASE(1, 2)
+    DW_CASE(3, 1)
+    DW_CASE(3, 2)
+    DW_CASE(5, 1)
+    DW_CASE(5, 2)
+#undef DW_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TIn, typename TOut>
 int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
                  const float* scale, const float* bias, void* y, void* q,
@@ -1306,16 +1895,10 @@ int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
     case kMmaSync:
       return launch_mma_sync<TIn, TOut>(a, xt, w, scale, bias, yt, q, sc,
                                         stream);
-    case kDepthwise: {
-      const long long total =
-          static_cast<long long>(a.n) * a.oh * a.ow * a.c;
-      long long blocks = (total + kDwThreads - 1) / kDwThreads;
-      if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond that
-      int8_conv_depthwise_kernel<TIn, TOut>
-          <<<static_cast<unsigned>(blocks), kDwThreads, 0, stream>>>(
-              xt, static_cast<const int8_t*>(w), scale, bias, yt, sc, a);
-      return static_cast<int>(cudaGetLastError());
-    }
+    case kDepthwise:
+    case kDepthwiseGeneric:
+      return launch_depthwise<TIn, TOut>(a, xt, w, scale, bias, yt, sc,
+                                         device, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1332,7 +1915,8 @@ extern "C" {
 // pick bfloat16 over float32. `bias` may be null. `w` is packed as the
 // header says. `q` is scratch for the quantized input of a dense conv,
 // 16-byte aligned: n * qh * qw * c_tap bytes for the wgmma design, n * h *
-// w * ceil(c / 4) int32 words for mma_sync (unused when depthwise).
+// w * ceil(c / 4) int32 words for mma_sync (unused by the depthwise
+// designs).
 int int8_conv_launch(const Int8ConvArgs* a, const void* x, int x_bf16,
                      const void* w, const float* scale, const float* bias,
                      void* y, int y_bf16, void* q, float s_a, int device,

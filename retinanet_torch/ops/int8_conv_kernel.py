@@ -14,18 +14,25 @@ implementation for the output shape, so that `torch.export` can capture
 the int8 serving graph. Importing this module (or `retinanet_torch.ops`)
 registers the op, which loading such a graph needs.
 
-`int8_design` picks one of three designs from the shape alone (the source's
-note says what each does): "wgmma" (dense, C > 16: TMA and wgmma),
-"mma_sync" (dense, C <= 16: the stem) and "depthwise". No design stands in
-for another: a launch that fails raises. `kernel.launches` counts the
-convolutions launched (a dense one is two CUDA kernels on one stream, the
-quantizing pass and the GEMM; a depthwise one is one); `kernel.launches_by`
-splits them by design.
+`int8_design` picks one of four designs from the shape alone (and, for a
+depthwise conv, the input's 16-byte alignment, which TMA needs; the
+source's note says what each does): "wgmma" (dense, C > 16: TMA and
+wgmma), "mma_sync" (dense, C <= 16: the stem), "depthwise" (windows 1, 3
+and 5 at stride 1 or 2, C % 8 == 0: tiles by TMA, quantized once into
+shared memory, dp4a) and "depthwise_generic" (every other depthwise conv:
+the same tiles, loaded by the threads). No design stands in for another:
+a launch that fails raises. `kernel.launches` counts the convolutions
+launched (a dense one is two CUDA kernels on one stream, the quantizing
+pass and the GEMM; a depthwise one is one); `kernel.launches_by` splits
+them by design.
 
 The wgmma design reads its input through an im2col-mode TMA tensor map.
 `im2col_plan` gives the numbers the wrapper passes for it (the quantized
 input's shape, the box's corners, the traversal stride); the CPU tests walk
 a numpy model of the copies from those numbers and hold it to `F.unfold`.
+`depthwise_plan` gives the depthwise designs' tile, box and shared-memory
+layout; the CPU tests check it at every depthwise conv of the configs and
+walk a numpy model of its tiles to the plain int32 conv.
 
 Build: `ops/cuda_build.py` compiles `csrc/int8_conv.cu` with `nvcc` on
 first use and loads it with ctypes. Importing this module needs no `nvcc`.
@@ -46,25 +53,48 @@ from retinanet_torch.ops.int8_conv import (WGMMA_MIN_CHANNELS,
                                            int8_conv2d_plain, tap_channels)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-_DESIGN_CODE = {"depthwise": 0, "mma_sync": 1, "wgmma": 2}  # `Design` in C
+_DESIGN_CODE = {"depthwise": 0, "mma_sync": 1, "wgmma": 2,
+                "depthwise_generic": 3}  # `Design` in C
 TILE_M = 128             # `kTileM`: output pixels a tile of the wgmma design
 TILE_NS = (64, 128, 256)  # its output channels a tile
 CHUNKS = (32, 64, 128)   # its int8 channels a stage: the swizzle widths
 SMS = 132                # H100 SXM
+SMEM_LIMIT = 232_448     # `kSmemLimit`: a block's shared memory
+SM_SMEM = 233_472        # an SM's; each resident block also holds 1 KB
+
+# The depthwise designs (csrc/int8_conv.cu, "depthwise")
+DW_WINDOWS = (1, 3, 5)   # square windows with a kernel of their own
+DW_STRIDES = (1, 2)
+DW_THREADS = 256         # `kDwThreads`
+DW_BLOCK = 4             # `kDwBlock`: a thread's outputs are 4 x 4 blocks
+DW_CHUNK = 32            # channels a work item (fewer where C is smaller)
+DW_STAGES = 2            # raw boxes in the ring, at most
+# output tiles (rows, columns), in the order tried: the first whose
+# shared memory fits DW_SMEM_BUDGET (three CTAs an SM: the quantization is
+# bound by latency, and a third CTA hides more of it than a second raw box
+# does) at the most stages
+DW_TILES = ((8, 32), (8, 16), (4, 32), (4, 16), (4, 8), (4, 4))
+DW_SMEM_BUDGET = SM_SMEM // 3 - 1024
+DW_TAP_BLOCK = 16        # "depthwise_generic": taps of a window block a side
 
 
 def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
-                groups: int) -> str:
-    """The design that runs a conv, from its shape alone. Depthwise convs
-    keep their loop. A dense conv with C > 16 takes wgmma: its taps are
-    `tap_channels(C)`, a multiple of 32, so every stage is whole k32 steps
-    (C = 24 and 40 of EfficientNet-lite pad to 32 and 64). C <= 16 keeps
-    the mma.sync GEMM, whose taps are 4 bytes: on wgmma the 7x7/2 stem
-    (C = 3) would copy 49 taps of 32-byte rows a tile, and measured 3.3x
-    slower there (`tools/int8_conv_experiments.py`, PERF.md)."""
-    del o, kh, kw, stride  # the same design at every window and width
+                groups: int, aligned: bool = True) -> str:
+    """The design that runs a conv, from its shape alone (and, depthwise,
+    whether the input is 16-byte aligned). A depthwise conv with a square
+    window of 1, 3 or 5 at stride 1 or 2 and C a multiple of 8 (so that
+    TMA takes the input's and the output's rows) takes "depthwise", any
+    other "depthwise_generic". A dense conv with C > 16 takes wgmma: its
+    taps are `tap_channels(C)`, a multiple of 32, so every stage is whole
+    k32 steps (C = 24 and 40 of EfficientNet-lite pad to 32 and 64). C <=
+    16 keeps the mma.sync GEMM, whose taps are 4 bytes: on wgmma the 7x7/2
+    stem (C = 3) would copy 49 taps of 32-byte rows a tile, and measured
+    3.3x slower there (`tools/int8_conv_experiments.py`, PERF.md)."""
+    del o  # the same design at every width
     if groups != 1:
-        return "depthwise"
+        tiled = (kh == kw and kh in DW_WINDOWS and stride in DW_STRIDES
+                 and c % 8 == 0 and aligned)
+        return "depthwise" if tiled else "depthwise_generic"
     return "wgmma" if c >= WGMMA_MIN_CHANNELS else "mma_sync"
 
 
@@ -129,6 +159,106 @@ def im2col_plan(h: int, w: int, c: int, kh: int, kw: int, stride: int,
                       oh, ow)
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+@dataclass(frozen=True)
+class DepthwisePlan:
+    """How a depthwise design walks a conv (the fields of the same names
+    in `Int8ConvArgs`). A work item is tile_h x tile_w output pixels of one
+    image x `chunk` channels; its input box, box_h x box_w pixels from
+    (oy0 * stride - pad_t, ox0 * stride - pad_l), is the tile plus its halo
+    for a window block of taps_h x taps_w taps (the whole window but in
+    "depthwise_generic"). The box is quantized into `chunk` int8 planes of
+    box_h rows of row_pitch bytes, plane_pitch bytes apart (plane_pitch / 4
+    odd, so that 32 channels read one word each on 32 banks). Shared
+    memory: `stages` raw boxes from 0, the planes at q_off, the staging
+    tile ("depthwise") or the int32 sums ("depthwise_generic") at
+    out_off, the stages' barriers at bar_off, `smem` bytes with 128 of
+    alignment slack. (The kernel sizes its persistent grid from the CTAs
+    the card holds.)"""
+    tile_h: int
+    tile_w: int
+    chunk: int
+    box_h: int
+    box_w: int
+    taps_h: int
+    taps_w: int
+    row_pitch: int
+    plane_pitch: int
+    stages: int
+    q_off: int
+    out_off: int
+    bar_off: int
+    smem: int
+
+
+def _plane_pitch(box_h: int, row_pitch: int) -> int:
+    pitch = box_h * row_pitch
+    return pitch + 4 if (pitch // 4) % 2 == 0 else pitch
+
+
+def depthwise_plan(design: str, c: int, oh: int, ow: int, kh: int, kw: int,
+                   stride: int, in_bytes: int,
+                   out_bytes: int) -> DepthwisePlan:
+    """The plan of a depthwise conv (., ., ., C) -> (., oh, ow, C) with a
+    kh x kw window at `stride`, in_bytes / out_bytes the element sizes.
+
+    "depthwise": tiles of whole 4 x 4 blocks from DW_TILES (cut to the
+    plane), the first whose box sides stay within TMA's 256 and whose
+    shared memory, at DW_STAGES raw boxes or fewer, fits DW_SMEM_BUDGET. A
+    block's input row is read as `words` 4-byte words from its first
+    column, so a row holds (tile_w - 4) * stride + 4 * words bytes.
+    "depthwise_generic": any tile, the window in blocks of at most
+    DW_TAP_BLOCK taps a side, no raw boxes (the threads load the box)."""
+    s = stride
+    chunk = DW_CHUNK if c >= DW_CHUNK else max(8, 1 << (c - 1).bit_length())
+    for th, tw in DW_TILES + ((2, 2), (1, 1)):
+        if design == "depthwise":
+            if th % DW_BLOCK or tw % DW_BLOCK:
+                continue
+            th = min(th, _align(oh, DW_BLOCK))
+            tw = min(tw, _align(ow, DW_BLOCK))
+            taps_h, taps_w = kh, kw
+        else:
+            th, tw = min(th, oh), min(tw, ow)
+            taps_h, taps_w = min(kh, DW_TAP_BLOCK), min(kw, DW_TAP_BLOCK)
+        box_h, box_w = (th - 1) * s + taps_h, (tw - 1) * s + taps_w
+        if design == "depthwise":
+            if max(box_h, box_w) > 256:
+                continue
+            words = _ceil(3 * s + kw, 4)
+            row_pitch = (tw - DW_BLOCK) * s + 4 * words
+            raw = _align(box_h * box_w * chunk * in_bytes, 128)
+            out = th * tw * chunk * out_bytes
+            stage_counts = range(DW_STAGES, 0, -1)
+        else:
+            row_pitch = _align(box_w, 4)
+            raw = 0
+            out = th * tw * chunk * 4
+            stage_counts = (0,)
+        plane_pitch = _plane_pitch(box_h, row_pitch)
+        for stages in stage_counts:
+            q_off = stages * raw
+            out_off = q_off + _align(chunk * plane_pitch, 128)
+            bar_off = out_off + _align(out, 128)
+            smem = bar_off + 8 * stages + 128
+            if smem <= DW_SMEM_BUDGET:
+                break
+        else:
+            continue
+        return DepthwisePlan(th, tw, chunk, box_h, box_w, taps_h, taps_w,
+                             row_pitch, plane_pitch, stages, q_off, out_off,
+                             bar_off, smem)
+    raise ValueError(f"no {design} tile fits shared memory for a {kh}x{kw} "
+                     f"window at stride {stride}")
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.int8_conv_launch.argtypes = (
         [ctypes.POINTER(_Args), ctypes.c_void_p, ctypes.c_int,
@@ -150,7 +280,10 @@ class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "n", "h", "w", "c", "oh", "ow", "o", "kh", "kw", "stride", "pad_t",
         "pad_l", "design", "k_pad", "qh", "qw", "c_tap", "sub", "q_stride",
-        "lower_w", "lower_h", "upper_w", "upper_h", "tile_n", "chunk")]
+        "lower_w", "lower_h", "upper_w", "upper_h", "tile_n", "chunk",
+        "tile_h", "tile_w", "dw_chunk", "box_h", "box_w", "taps_h",
+        "taps_w", "row_pitch", "plane_pitch", "stages", "q_off", "out_off",
+        "bar_off", "smem")]
 
 
 # the built library, and the counts of kernel launches
@@ -167,12 +300,14 @@ def output_shape(x_shape, out_channels: int, stride: int,
 
 def conv_args(x_shape, packed_shape, out_channels: int, stride: int,
               pads: Tuple[int, int, int, int], groups: int, kh: int,
-              kw: int) -> Tuple[str, _Args, int]:
+              kw: int, in_bytes: int = 2, out_bytes: int = 2,
+              aligned: bool = True) -> Tuple[str, _Args, int]:
     """(design, the kernel's Int8ConvArgs, bytes of the quantized-input
-    scratch)."""
+    scratch). in_bytes / out_bytes: the input's and the output's element
+    sizes; aligned: the input's address is a multiple of 16."""
     n, h, w, c = x_shape
     _, oh, ow, o = output_shape(x_shape, out_channels, stride, pads, kh, kw)
-    design = int8_design(c, o, kh, kw, stride, groups)
+    design = int8_design(c, o, kh, kw, stride, groups, aligned)
     args = _Args(n=n, h=h, w=w, c=c, oh=oh, ow=ow, o=o, kh=kh, kw=kw,
                  stride=stride, pad_t=pads[0], pad_l=pads[2],
                  design=_DESIGN_CODE[design],
@@ -190,6 +325,17 @@ def conv_args(x_shape, packed_shape, out_channels: int, stride: int,
         scratch = n * plan.qh * plan.qw * plan.c_tap
     elif design == "mma_sync":
         scratch = n * h * w * 4 * (-(-c // 4))
+    else:
+        plan = depthwise_plan(design, c, oh, ow, kh, kw, stride, in_bytes,
+                              out_bytes)
+        args.tile_h, args.tile_w, args.dw_chunk = (plan.tile_h, plan.tile_w,
+                                                   plan.chunk)
+        args.box_h, args.box_w = plan.box_h, plan.box_w
+        args.taps_h, args.taps_w = plan.taps_h, plan.taps_w
+        args.row_pitch, args.plane_pitch = plan.row_pitch, plan.plane_pitch
+        args.stages, args.q_off = plan.stages, plan.q_off
+        args.out_off, args.bar_off = plan.out_off, plan.bar_off
+        args.smem = plan.smem
     return design, args, scratch
 
 
@@ -204,8 +350,9 @@ def launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if y.numel() == 0:
         return y
     lib = kernel.build()
-    design, args, scratch = conv_args(x.shape, packed.shape, scale.shape[0],
-                                      stride, pads, groups, kh, kw)
+    design, args, scratch = conv_args(
+        x.shape, packed.shape, scale.shape[0], stride, pads, groups, kh, kw,
+        x.element_size(), y.element_size(), x.data_ptr() % 16 == 0)
     # the quantized input of a dense conv (int32 words keep it 16-byte
     # aligned)
     q = torch.empty(-(-scratch // 4), dtype=torch.int32, device=x.device)

@@ -4,9 +4,9 @@
     (`ops/int8_conv.py:int8_conv_acc`, float64 sums, exact) equal
     `lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
     bit for bit at every shape the kernel takes: stride 1 and 2, "SAME"
-    with asymmetric pads, 1x1, 3x3, the 7x7 stem with C = 3, depthwise 3x3
-    and 5x5, C = 6, 24 and 40, and the largest magnitude of the flagship
-    (4,608 terms of 127 * -127).
+    with asymmetric pads, 1x1, 3x3, the 7x7 stem with C = 3, depthwise 1x1,
+    3x3 and 5x5 (C = 7 among them), C = 6, 24 and 40, and the largest
+    magnitude of the flagship (4,608 terms of 127 * -127).
   * The activation quantization and the epilogue equal the JAX
     interceptor's expressions under `jit`, bit for bit, in float32 and
     bfloat16.
@@ -73,6 +73,11 @@ _CONV_CASES = [
     ("dw3x3_s1", 2, (9, 9), 8, 8, 3, 1, 8, "SAME"),
     ("dw3x3_s2", 2, (10, 10), 12, 12, 3, 2, 12, "SAME"),
     ("dw5x5_s2", 2, (12, 13), 6, 6, 5, 2, 6, "SAME"),
+    # the depthwise designs' shapes: 5x5/2 with asymmetric "SAME" pads on
+    # both axes, a 1x1 depthwise conv, C = 7 ("depthwise_generic")
+    ("dw5x5_s2_same_asym_c16", 2, (11, 14), 16, 16, 5, 2, 16, "SAME"),
+    ("dw1x1", 2, (6, 7), 24, 24, 1, 1, 24, (0, 0, 0, 0)),
+    ("dw5x5_s1_c7", 1, (9, 8), 7, 7, 5, 1, 7, "SAME"),
 ]
 
 

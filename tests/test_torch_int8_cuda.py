@@ -4,7 +4,7 @@ Imports nothing of JAX, so that it runs on a machine with a card and no
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py`.
 The output is bit-equal: the accumulators are exact integers and the
 epilogue rounds in the same two places. The cases meet every branch of the
-three designs (`int8_design`); `test_cases_meet_every_branch` checks that
+four designs (`int8_design`); `test_cases_meet_every_branch` checks that
 on the CPU too."""
 
 import numpy as np
@@ -41,10 +41,28 @@ _CASES = [
     ("5x5_s2_asym_c24", 2, 21, 24, 40, 5, 2, 1, (1, 3, 2, 2)),
     ("1x1_s2_odd", 2, 15, 64, 128, 1, 2, 1, (0, 0, 0, 0)),
     ("c136_chunks", 1, 12, 136, 64, 3, 1, 1, None),
+    # depthwise: every window and stride of its own kernel, planes from 4
+    # x 4 to lite2's largest (256 x 256, more items than CTAs, so that the
+    # ring wraps), edge tiles, C = 40 and 72 (past a chunk, not a multiple
+    # of it), 16 (a narrow chunk), and more chunks than resident CTAs (a
+    # CTA changes chunk between items)
     ("dw3x3_s1", 2, 32, 96, 96, 3, 1, 96, None),
     ("dw3x3_s2", 2, 33, 144, 144, 3, 2, 144, None),
     ("dw5x5_s2", 2, 32, 240, 240, 5, 2, 240, None),
+    ("dw5x5_s1_c40", 2, 23, 40, 40, 5, 1, 40, None),
+    ("dw5x5_s2_c72", 1, 29, 72, 72, 5, 2, 72, None),
+    ("dw1x1_s1", 2, 16, 352, 352, 1, 1, 352, (0, 0, 0, 0)),
+    ("dw1x1_s2_c16", 1, 15, 16, 16, 1, 2, 16, (0, 0, 0, 0)),
+    ("dw3x3_4x4", 8, 4, 160, 160, 3, 1, 160, None),
+    ("dw3x3_s1_256", 2, 256, 32, 32, 3, 1, 32, None),
+    ("dw3x3_s2_256", 1, 256, 96, 96, 3, 2, 96, None),
+    ("dw3x3_chunks", 1, 4, 34816, 34816, 3, 1, 34816, None),
+    # depthwise_generic: C = 7, a 7x7 window, stride 3, and a window past
+    # one block of taps
     ("dw5x5_s1_c7", 1, 15, 7, 7, 5, 1, 7, None),
+    ("dw7x7_g", 1, 20, 16, 16, 7, 1, 16, None),
+    ("dw3x3_s3_g", 2, 17, 8, 8, 3, 3, 8, (1, 1, 1, 1)),
+    ("dw19x19_s2_g", 1, 30, 12, 12, 19, 2, 12, None),
 ]
 _DTYPES = [("f32", torch.float32), ("bf16", torch.bfloat16)]
 
@@ -77,7 +95,23 @@ def _case_args(case):
 def test_cases_meet_every_branch():
     args = {case[0]: _case_args(case) for case in _CASES}
     designs = {d for d, _ in args.values()}
-    assert designs == {"wgmma", "mma_sync", "depthwise"}
+    assert designs == {"wgmma", "mma_sync", "depthwise", "depthwise_generic"}
+    dw = [a for d, a in args.values() if d == "depthwise"]
+    assert {(a.kh, a.stride) for a in dw} == {(k, s) for k in (1, 3, 5)
+                                              for s in (1, 2)}
+    assert any(a.c % a.dw_chunk and a.c > a.dw_chunk for a in dw)
+    assert any(a.dw_chunk < 32 for a in dw)
+    assert any(a.oh % a.tile_h and a.ow % a.tile_w for a in dw)
+    assert min(a.oh for a in dw) == 4 and max(a.h for a in dw) == 256
+    # more items than any card holds CTAs (8 an SM of 132), and more chunks
+    items = [a.n * -(-a.oh // a.tile_h) * -(-a.ow // a.tile_w)
+             * -(-a.c // a.dw_chunk) for a in dw]
+    assert max(items) > 8 * 132
+    assert max(-(-a.c // a.dw_chunk) for a in dw) > 8 * 132
+    assert {a.stages for a in dw} >= {2}
+    gen = [a for d, a in args.values() if d == "depthwise_generic"]
+    assert any(a.c % 8 for a in gen) and any(a.stride > 2 for a in gen)
+    assert any(a.taps_h < a.kh for a in gen)
     wg = {name: a for name, (d, a) in args.items() if d == "wgmma"}
     assert {a.tile_n for a in wg.values()} == {64, 128, 256}
     assert any(a.o % a.tile_n for a in wg.values())
@@ -138,6 +172,28 @@ def test_int8_conv_unaligned_input_takes_the_scalar_loads():
 
 
 @pytest.mark.cuda
+def test_int8_depthwise_unaligned_input_takes_the_generic_design():
+    """TMA needs a 16-byte aligned input: a depthwise conv on one that is
+    not takes "depthwise_generic", chosen before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
+                    "mode")
+    case = ("dw3x3_s1", 2, 12, 32, 32, 3, 1, 32, None)
+    x, packed, scale, bias, pads = _case_inputs(case, torch.bfloat16, seed=4)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = flat[1:].view(x.shape)              # 2 bytes off 16
+    x_odd.copy_(x.cuda())
+    args = (packed.cuda(), scale.cuda(), bias.cuda(), 0.02, 1, pads, 32, 3,
+            3, torch.bfloat16)
+    before = dict(kernel.launches_by)
+    got = int8_conv2d(x_odd, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches_by["depthwise_generic"] == \
+        before.get("depthwise_generic", 0) + 1
+    assert torch.equal(got, int8_conv2d_plain(x_odd, *args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,k", [(24, 3), (64, 1)], ids=["c24k3", "c64k1"])
 def test_int8_conv_refuses_the_earlier_layout(c, k):
     """Weights packed as before (ceil(C / 4) words a tap, rows padded to 16
@@ -164,8 +220,10 @@ def test_int8_conv_refuses_the_earlier_layout(c, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("design,c,groups", [("wgmma", 64, 1),
                                              ("mma_sync", 8, 1),
-                                             ("depthwise", 8, 8)],
-                         ids=["wgmma", "mma_sync", "depthwise"])
+                                             ("depthwise", 8, 8),
+                                             ("depthwise_generic", 7, 7)],
+                         ids=["wgmma", "mma_sync", "depthwise",
+                              "depthwise_generic"])
 @pytest.mark.parametrize("s_a", [0.0137, 3e-39], ids=["s_a", "s_a_subnormal"])
 def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, s_a):
     """Inputs on and one float32 step beside every half-integer multiple of
@@ -190,6 +248,36 @@ def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, s_a):
     args = (pack_weights(qw, groups).cuda(),
             torch.full((o,), 1e-3, device="cuda"), None, s_a, 1,
             (0, 0, 0, 0), groups, 1, 1, torch.float32)
+    before = kernel.launches_by[design]
+    got = int8_conv2d(x, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches_by[design] == before + 1
+    assert torch.equal(got, int8_conv2d_plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design,c", [("depthwise", 16),
+                                      ("depthwise_generic", 7)],
+                         ids=["depthwise", "depthwise_generic"])
+@pytest.mark.parametrize("s_a", [0.0625, 0.0137], ids=["exact_ties", "s_a"])
+def test_int8_depthwise_quantizes_bf16_ties_like_the_division(design, c,
+                                                              s_a):
+    """bfloat16 inputs on the ties: at s_a = 1/16 every (k + 1/2) s_a is a
+    bfloat16, and t = x / s_a is exactly a half-integer, so nearly every
+    element of the box is in doubt; the depthwise designs equal the plain
+    version's division bit for bit, with a 3x3 window reading each element
+    nine times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
+                    "mode")
+    rng = np.random.default_rng(6)
+    half = (rng.integers(-140, 140, (2, 13, 11, c)) + 0.5) * s_a
+    x = torch.from_numpy(half.astype(np.float32)).to(torch.bfloat16).cuda()
+    qw = torch.from_numpy(rng.integers(-127, 128, (c, 1, 3, 3))
+                          .astype(np.int8))
+    args = (pack_weights(qw, c).cuda(), torch.full((c,), 1e-3,
+                                                   device="cuda"),
+            None, s_a, 1, (1, 1, 1, 1), c, 3, 3, torch.bfloat16)
     before = kernel.launches_by[design]
     got = int8_conv2d(x, *args)
     torch.cuda.synchronize()

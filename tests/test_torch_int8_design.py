@@ -1,10 +1,12 @@
 """What the int8 conv kernel's designs rest on, checked where no card is.
 
   * `int8_design` is a function of the shape: every int8 conv of the
-    flagship (ResNet50-FPN) and of EfficientNet-lite2 gets the design the
-    rule gives (the stem mma_sync, every other dense conv of the flagship
-    wgmma, depthwise its loop), and the numbers passed for the wgmma design
-    fit the tensor maps' limits.
+    flagship (ResNet50-FPN), of EfficientNet-lite2 and -lite3, B2 768 and
+    B3 896, and of MobileDet cpu, edge_tpu and gpu gets the design the rule
+    gives (the stem and C <= 16 mma_sync, every other dense conv wgmma,
+    every depthwise conv "depthwise"); the numbers passed for the wgmma
+    design fit the tensor maps' limits, and the depthwise plan fits shared
+    memory and TMA's boxes at every depthwise call.
   * The packed weights' padded layout round-trips, and a tensor packed in
     the earlier layout (ceil(C / 4) words a tap, rows padded to 16 words)
     is refused by the shape check.
@@ -14,6 +16,12 @@
     tiles that cross rows and images and a ragged last tile.
   * The strided 1x1 quantizing pass's plain model equals
     `quantize_activation` of the subsampled input.
+  * A numpy model of the depthwise designs' walk (items, the box's origin
+    and halo, TMA's zero fill as the padding, the int8 planes, the dp4a
+    weight words of "depthwise", the window blocks of "depthwise_generic",
+    the store clipped at the edges), from the numbers the wrapper passes,
+    equals the plain int32 accumulators, and the fast quantization's
+    float32 arithmetic equals `quantize_activation`.
 No JAX is compiled; the models are walked on `device="meta"`.
 """
 
@@ -33,20 +41,42 @@ from retinanet_torch.export.quantize import conv_paths  # noqa: E402
 from retinanet_torch.models.layers import conv_hook, same_pads  # noqa: E402
 from retinanet_torch.models.retinanet import build_model  # noqa: E402
 from retinanet_torch.ops.int8_conv import (  # noqa: E402
-    K_WORDS_ALIGN, dense_k_words, pack_weights, quantize_activation,
-    tap_channels, unpack_weights)
+    K_WORDS_ALIGN, conv_out_size, dense_k_words, int8_conv_acc,
+    pack_weights, quantize_activation, tap_channels, unpack_weights)
 from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
-    CHUNKS, TILE_M, TILE_NS, Im2colPlan, conv_args, int8_conv2d,
-    int8_design, wgmma_chunk, wgmma_tile_n)
+    CHUNKS, DW_BLOCK, DW_SMEM_BUDGET, DW_THREADS, SMEM_LIMIT, TILE_M,
+    TILE_NS, Im2colPlan, conv_args, int8_conv2d, int8_design, wgmma_chunk,
+    wgmma_tile_n)
 
 _REPO = Path(__file__).resolve().parent.parent
 _CONFIGS = {
     "flagship": "configs/v3-8/mscoco-retinanet-resnet50-640x640-30x-64.json",
     "lite2": ("configs/v3-32/mscoco-retinanet-efficientnet-lite2-512x512-"
               "30x-256.json"),
+    "lite3": ("configs/v3-32/mscoco-retinanet-efficientnet-lite3-512x512-"
+              "30x-256.json"),
+    "b2": "configs/v3-8/mscoco-retinanet-efficientnet-b2-768x768-30x-64.json",
+    "b3": ("configs/v3-32/mscoco-retinanet-efficientnet-b3-896x896-30x-"
+           "256.json"),
+    "mobiledet_cpu": ("configs/v3-8/mscoco-retinanet-mobiledet-cpu-448x448-"
+                      "30x-64.json"),
+    "mobiledet_edge_tpu": ("configs/v3-8/mscoco-retinanet-mobiledet-edge-"
+                           "tpu-448x448-30x-64.json"),
+    "mobiledet_gpu": ("configs/v3-8/mscoco-retinanet-mobiledet-gpu-512x512-"
+                      "30x-64.json"),
 }
-# int8 conv calls of one request (the prediction convs stay float)
-_CALLS = {"flagship": 102, "lite2": 121}
+# int8 conv calls of one request by design (the prediction convs stay
+# float)
+_DESIGNS = {
+    "flagship": {"mma_sync": 1, "wgmma": 101},
+    "lite2": {"mma_sync": 2, "wgmma": 69, "depthwise": 50},
+    "lite3": {"mma_sync": 1, "wgmma": 96, "depthwise": 73},
+    "b2": {"mma_sync": 13, "wgmma": 117, "depthwise": 62},
+    "b3": {"mma_sync": 10, "wgmma": 142, "depthwise": 75},
+    "mobiledet_cpu": {"mma_sync": 7, "wgmma": 93, "depthwise": 43},
+    "mobiledet_edge_tpu": {"mma_sync": 8, "wgmma": 70, "depthwise": 43},
+    "mobiledet_gpu": {"mma_sync": 10, "wgmma": 68, "depthwise": 30},
+}
 
 
 def _int8_calls(name):
@@ -71,17 +101,74 @@ def _int8_calls(name):
     return calls
 
 
+def _want_design(c, kh, kw, stride, groups):
+    """The rule, said again: depthwise convs with a square window of 1, 3
+    or 5 at stride 1 or 2 and C % 8 == 0 are tiled by TMA."""
+    if groups != 1:
+        tiled = (kh == kw and kh in (1, 3, 5) and stride in (1, 2)
+                 and c % 8 == 0)
+        return "depthwise" if tiled else "depthwise_generic"
+    return "mma_sync" if c <= 16 else "wgmma"
+
+
+def _check_depthwise_args(args, c, in_bytes, out_bytes,
+                          budget=DW_SMEM_BUDGET):
+    """The plan's limits: shared memory, TMA's boxes and strides, the
+    block rows' reads inside a row, the planes' banks."""
+    assert args.smem <= budget <= SMEM_LIMIT
+    assert DW_THREADS % args.dw_chunk == 0
+    assert args.box_h == (args.tile_h - 1) * args.stride + args.taps_h
+    assert args.box_w == (args.tile_w - 1) * args.stride + args.taps_w
+    assert args.row_pitch % 4 == 0 and args.row_pitch >= args.box_w
+    assert args.plane_pitch >= args.box_h * args.row_pitch
+    assert (args.plane_pitch // 4) % 2 == 1 and args.plane_pitch % 4 == 0
+    q_bytes = args.dw_chunk * args.plane_pitch
+    assert args.q_off + q_bytes <= args.out_off
+    assert args.q_off % 128 == 0 and args.out_off % 128 == 0
+    if args.design == 0:  # "depthwise"
+        assert args.taps_h == args.kh and args.taps_w == args.kw
+        assert args.tile_h % DW_BLOCK == 0 and args.tile_w % DW_BLOCK == 0
+        assert max(args.box_h, args.box_w, args.dw_chunk, args.tile_w,
+                   args.tile_h) <= 256
+        # TMA: global strides and the boxes' rows in multiples of 16 bytes
+        assert (c * in_bytes) % 16 == 0 and (c * out_bytes) % 16 == 0
+        assert (args.dw_chunk * in_bytes) % 16 == 0
+        assert (args.dw_chunk * out_bytes) % 16 == 0
+        assert args.stages >= 1
+        raw = args.box_h * args.box_w * args.dw_chunk * in_bytes
+        assert args.q_off == args.stages * (-(-raw // 128) * 128)
+        staging = args.tile_h * args.tile_w * args.dw_chunk * out_bytes
+        assert args.out_off + staging <= args.bar_off
+        assert args.bar_off % 8 == 0
+        assert args.bar_off + 8 * args.stages + 128 <= args.smem
+        # a block's input row: words from column 4 bx S
+        words = -(-(3 * args.stride + args.kw) // 4)
+        assert ((args.tile_w - DW_BLOCK) * args.stride + 4 * words
+                <= args.row_pitch)
+    else:
+        assert args.stages == 0 and args.q_off == 0
+        sums = args.tile_h * args.tile_w * args.dw_chunk * 4
+        assert args.out_off + sums + 128 <= args.smem
+
+
 @pytest.mark.parametrize("name", sorted(_CONFIGS))
 def test_design_of_every_int8_conv(name):
     calls = _int8_calls(name)
-    assert len(calls) == _CALLS[name]
+    assert len(calls) == sum(_DESIGNS[name].values())
     designs = {}
     for c, o, kh, kw, stride, groups, pads, (n, h, w) in calls:
         design = int8_design(c, o, kh, kw, stride, groups)
-        want = ("depthwise" if groups != 1 else
-                "mma_sync" if c <= 16 else "wgmma")
-        assert design == want, (c, o, kh, stride, groups)
+        assert design == _want_design(c, kh, kw, stride, groups), \
+            (c, o, kh, stride, groups)
         designs[design] = designs.get(design, 0) + 1
+        if design == "depthwise":
+            for in_bytes, out_bytes in ((2, 2), (4, 4), (2, 4), (4, 2)):
+                _, args, scratch = conv_args(
+                    (n, h, w, c), (kh * kw, c), o, stride, pads, groups, kh,
+                    kw, in_bytes, out_bytes)
+                assert scratch == 0
+                _check_depthwise_args(args, c, in_bytes, out_bytes)
+            continue
         if design != "wgmma":
             continue
         packed_shape = (o, dense_k_words(c, kh, kw)[1])
@@ -96,11 +183,7 @@ def test_design_of_every_int8_conv(name):
             assert -128 <= v <= 127
         assert 1 <= args.q_stride <= 8
         assert args.sub == (stride if kh == kw == 1 and stride > 1 else 1)
-    if name == "flagship":
-        # the stem alone keeps mma.sync
-        assert designs == {"mma_sync": 1, "wgmma": 101}
-    else:
-        assert designs == {"mma_sync": 2, "wgmma": 69, "depthwise": 50}
+    assert designs == _DESIGNS[name]
 
 
 def test_design_rule():
@@ -116,6 +199,20 @@ def test_design_rule():
     assert int8_design(96, 96, 3, 3, 2, 96) == "depthwise"
     assert [tap_channels(c) for c in (3, 6, 16, 64, 88, 208)] == \
         [4, 8, 16, 64, 96, 224]
+    # depthwise: TMA takes windows of 1, 3 and 5 at stride 1 or 2 with C a
+    # multiple of 8 on an aligned input; the generic design all the rest
+    for k in (1, 3, 5):
+        for stride in (1, 2):
+            assert int8_design(16, 16, k, k, stride, 16) == "depthwise"
+    assert int8_design(7, 7, 5, 5, 1, 7) == "depthwise_generic"
+    assert int8_design(12, 12, 3, 3, 1, 12) == "depthwise_generic"
+    assert int8_design(16, 16, 7, 7, 1, 16) == "depthwise_generic"
+    assert int8_design(16, 16, 3, 5, 1, 16) == "depthwise_generic"
+    assert int8_design(16, 16, 3, 3, 3, 16) == "depthwise_generic"
+    assert int8_design(16, 16, 3, 3, 1, 16, aligned=False) == \
+        "depthwise_generic"
+    # the alignment is a depthwise matter only
+    assert int8_design(64, 64, 3, 3, 1, 1, aligned=False) == "wgmma"
 
 
 def test_chunk_follows_c_tap():
@@ -318,10 +415,281 @@ def test_strided_1x1_quantizing_pass():
 
 def test_experiment_edits_apply():
     """Every one-edit variant of `tools/int8_conv_experiments.py` still
-    applies to `csrc/int8_conv.cu`, each edit exactly once."""
-    from retinanet_torch.ops.int8_conv_kernel import kernel
-    from retinanet_torch.tools.int8_conv_experiments import VARIANTS
+    applies to `csrc/int8_conv.cu`, each edit exactly once; every plan
+    variant names constants of the wrapper and gives a plan that fits."""
+    from retinanet_torch.ops import int8_conv_kernel
+    from retinanet_torch.tools.int8_conv_experiments import (
+        DW_PLANS, DW_SHAPES, DW_VARIANTS, VARIANTS, plan_constants)
     from retinanet_torch.tools.kernel_variants import variant_source
-    for name, edits in VARIANTS.items():
+    kernel = int8_conv_kernel.kernel
+    for name, edits in {**VARIANTS, **DW_VARIANTS}.items():
         source = variant_source(kernel, name, edits)
         assert source != kernel.source.read_text()
+    for name, changes in DW_PLANS.items():
+        for constant in changes:
+            assert hasattr(int8_conv_kernel, constant), (name, constant)
+        plans = set()
+        for label, (n, h, w, c), k, stride in DW_SHAPES:
+            pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+            with plan_constants(changes):
+                _, args, _ = conv_args((n, h, w, c), (k * k, c), c, stride,
+                                       pads, c, k, k)
+                budget = int8_conv_kernel.DW_SMEM_BUDGET
+            _check_depthwise_args(args, c, 2, 2, budget)
+            plans.add((args.tile_h, args.tile_w, args.dw_chunk,
+                       args.stages))
+        _, args, _ = conv_args((8, 64, 64, 160), (9, 160), 160, 1,
+                               (1, 1, 1, 1), 160, 3, 3)
+        # the base plan is back after the block
+        assert (args.dw_chunk, args.stages) == (32, 2)
+
+
+# -- the depthwise designs ----------------------------------------------------
+
+def _dw_items(args, n, oh, ow, c):
+    """The work items in the kernel's order: (image, tile row, tile col,
+    chunk), chunk fastest."""
+    tiles_y = -(-oh // args.tile_h)
+    tiles_x = -(-ow // args.tile_w)
+    chunks = -(-c // args.dw_chunk)
+    for item in range(n * tiles_y * tiles_x * chunks):
+        ci, rest = item % chunks, item // chunks
+        tx, rest = rest % tiles_x, rest // tiles_x
+        yield rest // tiles_y, rest % tiles_y, tx, ci
+
+
+def _dw_planes(qx, args, img, y0, x0, c0, rng):
+    """The int8 planes (chunk, box_h, row_pitch) that one box becomes: the
+    box from (y0, x0) of image `img`, channels from c0, zero outside the
+    input (TMA's fill) and past C; the bytes of a row past the quantized
+    words are left as they were (here: noise)."""
+    _, h, w, c = qx.shape
+    chunk = args.dw_chunk
+    planes = rng.integers(-128, 128, (chunk, args.box_h, args.row_pitch))
+    planes[:, :, :-(-args.box_w // 4) * 4] = 0
+    ys = np.arange(args.box_h) + y0
+    xs = np.arange(args.box_w) + x0
+    iy = np.flatnonzero((ys >= 0) & (ys < h))
+    ix = np.flatnonzero((xs >= 0) & (xs < w))
+    cs = min(chunk, c - c0)
+    box = np.zeros((args.box_h, args.box_w, chunk), np.int64)
+    box[iy[:, None], ix, :cs] = qx[img, ys[iy][:, None], xs[ix], c0:c0 + cs]
+    planes[:, :, :args.box_w] = box.transpose(2, 0, 1)
+    return planes
+
+
+def _dw_weight_words(wk, k, s):
+    """The "depthwise" kernel's dp4a weight words as bytes: (chunk, K, 4,
+    words, 4), w[r][q] at byte b of word kk for output i of a block, where
+    q = 4 kk + b - s i; wk (K, K, chunk)."""
+    words = -(-(3 * s + k) // 4)
+    out = np.zeros((wk.shape[2], k, DW_BLOCK, words, 4), np.int64)
+    for i in range(DW_BLOCK):
+        for kk in range(words):
+            for b in range(4):
+                q = 4 * kk + b - s * i
+                if 0 <= q < k:
+                    out[:, :, i, kk, b] = wk[:, q, :].T
+    return out
+
+
+def _store(acc, tile, img, oy0, ox0, c0):
+    """The tile's store, clipped at the plane's and the channels' edges
+    (TMA's, or the generic kernel's bounds); counts each output written."""
+    _, oh, ow, c = acc.shape
+    rows, cols = min(tile.shape[0], oh - oy0), min(tile.shape[1], ow - ox0)
+    cs = min(tile.shape[2], c - c0)
+    acc[img, oy0:oy0 + rows, ox0:ox0 + cols, c0:c0 + cs] += \
+        tile[:rows, :cols, :cs]
+    return rows * cols * cs
+
+
+def depthwise_walk(qx, wq, args, pads):
+    """int32 accumulators of the "depthwise" kernel, walked as it walks:
+    qx (N, H, W, C) int8, wq (K K, C) int8, `args` the wrapper's."""
+    n, _, _, c = qx.shape
+    k, s = args.kh, args.stride
+    rng = np.random.default_rng(0)
+    acc = np.zeros((n, args.oh, args.ow, c), np.int64)
+    written = 0
+    rows = (DW_BLOCK - 1) * s + k
+    words = -(-(3 * s + k) // 4)
+    chunk = args.dw_chunk
+    for img, ty, tx, ci in _dw_items(args, n, args.oh, args.ow, c):
+        c0 = ci * chunk
+        planes = _dw_planes(qx, args, img, ty * args.tile_h * s - pads[0],
+                            tx * args.tile_w * s - pads[2], c0, rng)
+        wk = np.zeros((k, k, chunk), np.int64)
+        wk[:, :, :min(chunk, c - c0)] = \
+            wq.reshape(k, k, c)[:, :, c0:c0 + chunk]
+        wt = _dw_weight_words(wk, k, s)
+        tile = np.zeros((args.tile_h, args.tile_w, chunk), np.int64)
+        for by in range(args.tile_h // DW_BLOCK):
+            for bx in range(args.tile_w // DW_BLOCK):
+                col = DW_BLOCK * bx * s
+                assert col + 4 * words <= args.row_pitch
+                block = planes[:, DW_BLOCK * by * s:DW_BLOCK * by * s + rows,
+                               col:col + 4 * words]
+                assert block.shape[1] == rows
+                block = block.reshape(chunk, rows, words, 4)
+                for j in range(DW_BLOCK):
+                    for i in range(DW_BLOCK):
+                        tile[DW_BLOCK * by + j, DW_BLOCK * bx + i] = sum(
+                            (block[:, j * s + r] * wt[:, r, i]).sum((1, 2))
+                            for r in range(k))
+        written += _store(acc, tile, img, ty * args.tile_h,
+                          tx * args.tile_w, c0)
+    assert written == acc.size          # every output once
+    return acc
+
+
+def generic_walk(qx, wq, args, pads):
+    """int32 accumulators of the "depthwise_generic" kernel: each window
+    block's box quantized once into the planes, the tile's sums carried
+    across window blocks."""
+    n, _, _, c = qx.shape
+    kh, kw, s = args.kh, args.kw, args.stride
+    rng = np.random.default_rng(1)
+    acc = np.zeros((n, args.oh, args.ow, c), np.int64)
+    written = 0
+    chunk = args.dw_chunk
+    wfull = wq.reshape(kh, kw, c)
+    for img, ty, tx, ci in _dw_items(args, n, args.oh, args.ow, c):
+        c0 = ci * chunk
+        cs = min(chunk, c - c0)
+        sums = np.zeros((args.tile_h, args.tile_w, chunk), np.int64)
+        for r0 in range(0, kh, args.taps_h):
+            for q0 in range(0, kw, args.taps_w):
+                planes = _dw_planes(
+                    qx, args, img, ty * args.tile_h * s - pads[0] + r0,
+                    tx * args.tile_w * s - pads[2] + q0, c0, rng)
+                rows, cols = min(args.taps_h, kh - r0), min(args.taps_w,
+                                                            kw - q0)
+                wblock = np.zeros((chunk, rows, cols), np.int64)
+                wblock[:cs] = wfull[r0:r0 + rows, q0:q0 + cols,
+                                    c0:c0 + cs].transpose(2, 0, 1)
+                for oy in range(args.tile_h):
+                    for ox in range(args.tile_w):
+                        assert ox * s + cols <= args.box_w
+                        patch = planes[:, oy * s:oy * s + rows,
+                                       ox * s:ox * s + cols]
+                        sums[oy, ox] += (patch * wblock).sum((1, 2))
+        written += _store(acc, sums, img, ty * args.tile_h,
+                          tx * args.tile_w, c0)
+    assert written == acc.size
+    return acc
+
+
+# (name, N, H, W, C, kh, kw, stride, pads or "SAME"): edge tiles in both
+# axes, C past the chunk and not a multiple of it, planes from 4 x 4 up
+_DW_WALKS = [
+    ("3x3_s1_c40", 2, 13, 11, 40, 3, 3, 1, "SAME"),
+    ("3x3_s2_same_asym", 1, 36, 70, 40, 3, 3, 2, "SAME"),
+    ("5x5_s2_same_asym", 2, 21, 14, 72, 5, 5, 2, "SAME"),
+    ("5x5_s1_c8", 1, 19, 34, 8, 5, 5, 1, "SAME"),
+    ("1x1_s1", 2, 9, 17, 48, 1, 1, 1, (0, 0, 0, 0)),
+    ("1x1_s2", 1, 15, 16, 24, 1, 1, 2, (0, 0, 0, 0)),
+    ("3x3_s1_4x4", 3, 4, 4, 160, 3, 3, 1, "SAME"),
+    # depthwise_generic: C = 7, an odd window, kh != kw, stride 3, and a
+    # window past one block of taps
+    ("g5x5_s1_c7", 2, 15, 13, 7, 5, 5, 1, "SAME"),
+    ("g7x7_s1", 1, 12, 20, 40, 7, 7, 1, "SAME"),
+    ("g3x5_s1", 1, 9, 10, 16, 3, 5, 1, (1, 1, 2, 2)),
+    ("g3x3_s3", 2, 14, 17, 8, 3, 3, 3, (1, 1, 1, 1)),
+    ("g19x17_s2_blocks", 1, 23, 21, 12, 19, 17, 2, (9, 9, 8, 8)),
+]
+
+
+@pytest.mark.parametrize("case", _DW_WALKS, ids=[t[0] for t in _DW_WALKS])
+@pytest.mark.parametrize("in_bytes,out_bytes", [(2, 2), (4, 4)],
+                         ids=["bf16", "f32"])
+def test_depthwise_walk_equals_conv(case, in_bytes, out_bytes):
+    name, n, h, w, c, kh, kw, stride, pads = case
+    if pads == "SAME":
+        pads = same_pads(h, kh, stride) + same_pads(w, kw, stride)
+    rng = np.random.default_rng(len(name))
+    qx = rng.integers(-127, 128, (n, h, w, c)).astype(np.int8)
+    qw = rng.integers(-127, 128, (c, 1, kh, kw)).astype(np.int8)
+    packed = pack_weights(torch.from_numpy(qw), c)      # (kh kw, C)
+    design, args, _ = conv_args((n, h, w, c), packed.shape, c, stride, pads,
+                                c, kh, kw, in_bytes, out_bytes)
+    assert design == ("depthwise_generic" if name.startswith("g")
+                      else "depthwise")
+    _check_depthwise_args(args, c, in_bytes, out_bytes)
+    assert args.oh == conv_out_size(h, kh, stride, pads[0], pads[1])
+    walk = depthwise_walk if design == "depthwise" else generic_walk
+    got = walk(qx, packed.numpy(), args, pads)
+    want = int8_conv_acc(torch.from_numpy(qx), torch.from_numpy(qw), stride,
+                         pads, c)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_depthwise_walks_meet_every_branch():
+    """The walks above reach: edge tiles in both axes, a ragged chunk, a
+    chunk narrower than 32, the plan's tiles and ring depths, and a window
+    in more than one block of taps."""
+    seen = set()
+    for name, n, h, w, c, kh, kw, stride, pads in _DW_WALKS:
+        if pads == "SAME":
+            pads = same_pads(h, kh, stride) + same_pads(w, kw, stride)
+        for nbytes in (2, 4):
+            _, a, _ = conv_args((n, h, w, c), (kh * kw, c), c, stride, pads,
+                                c, kh, kw, nbytes, nbytes)
+            seen |= {("edge_y", a.oh % a.tile_h != 0),
+                     ("edge_x", a.ow % a.tile_w != 0),
+                     ("ragged_chunk", c % a.dw_chunk != 0),
+                     ("narrow_chunk", a.dw_chunk < 32),
+                     ("tap_blocks", a.taps_h < kh or a.taps_w < kw),
+                     ("tile", a.design, a.tile_h, a.tile_w),
+                     ("stages", a.stages)}
+    for branch in ("edge_y", "edge_x", "ragged_chunk", "narrow_chunk",
+                   "tap_blocks"):
+        assert (branch, True) in seen, branch
+    assert {("tile", 0, 8, 32), ("tile", 0, 8, 16), ("tile", 0, 4, 4)} <= seen
+    assert {("stages", 0), ("stages", 1), ("stages", 2)} <= seen
+
+
+def quantize_byte_model(v: np.ndarray, s_a: float) -> np.ndarray:
+    """`quantize_byte` of csrc/int8_conv.cu in float32 numpy: the product
+    by the reciprocal, the clamp, the rounding by 1.5 * 2^23, the low byte,
+    taken where |t| >= 128 or t is more than 3e-5 from a half-integer;
+    elsewhere, and on NaN, the division (`quantize`)."""
+    s = np.float32(s_a)
+    with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+        inv = np.float32(1) / s
+        if not (np.isfinite(inv) and abs(inv) >= np.finfo(np.float32).tiny
+                and abs(s) >= np.finfo(np.float32).tiny):
+            inv = np.float32(np.nan)
+        t = v * inv
+        tc = np.minimum(np.maximum(t, np.float32(-127)), np.float32(127))
+        m = tc + np.float32(12582912)
+        r = m - np.float32(12582912)
+        fast = (np.abs(t) >= 128) | (np.abs(t - r) < np.float32(0.49997))
+        slow = np.clip(np.rint(v / s), -127, 127)
+    low = (m.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    return np.where(fast, low, np.nan_to_num(slow).astype(np.int8))
+
+
+@pytest.mark.parametrize("s_a", [0.0137, 0.5, 3e-39],
+                         ids=["s_a", "s_a_half", "s_a_subnormal"])
+def test_fast_quantization_equals_the_division(s_a):
+    """On, one float32 step beside, and up to 3e-5 (the band) and 4.6e-5
+    (twice the product's error bound) away from every half-integer
+    multiple of s_a up to the clip and past it, and random values."""
+    half = np.arange(-140, 141) + 0.5
+    base = (half * np.float32(s_a)).astype(np.float32)
+    rng = np.random.default_rng(3)
+    near = np.concatenate([(half + d) * s_a for d in
+                           (-4.6e-5, -3e-5, -2.3e-5, 2.3e-5, 3e-5, 4.6e-5)])
+    edge = np.float32([127.5, 128.0, -127.5, -128.0]) * np.float32(s_a)
+    v = np.concatenate([base, np.nextafter(base, np.float32(np.inf)),
+                        np.nextafter(base, np.float32(-np.inf)),
+                        near.astype(np.float32),
+                        edge, np.nextafter(edge, np.float32(0)),
+                        (rng.normal(0, 60, 20000) * s_a).astype(np.float32),
+                        np.float32([0.0, -0.0, 1e30, -1e30, np.inf,
+                                    -np.inf])])
+    v = v.astype(np.float32)
+    got = quantize_byte_model(v, s_a)
+    want = quantize_activation(torch.from_numpy(v), s_a).numpy()
+    np.testing.assert_array_equal(got, want)
