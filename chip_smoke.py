@@ -112,12 +112,22 @@ JAX. Phases, each fatal on failure:
      on the JPEGs of tests/goldens/jpeg_decode_goldens.npz; (e)
      EfficientNet-lite2 512 and (f) MobileDet-cpu 448, each calibrated on
      synthetic scenes, one batch-8 request with its launches by design
-     checked ({mma_sync: 2, wgmma: 69, depthwise: 50} and {7, 93, 43}),
-     every int8 conv call bit-equal to the plain version and timed
-     (depthwise beside cuDNN's bf16 depthwise; each design's total beside
-     its bound), the share of depthwise inputs left to the division, the
-     request's device busy, and the "depthwise_generic" design bit-equal at
-     the first depthwise call through an input off 16-byte alignment.
+     checked ({mma_sync: 1, narrow: 1, wgmma: 69, depthwise: 50} and {1,
+     6, 93, 43}), every int8 conv call bit-equal to the plain version and
+     timed (depthwise beside cuDNN's bf16 depthwise, a narrow call beside
+     the mma_sync design at its shape; each design's total beside its
+     bound), the share of depthwise inputs left to the division, the
+     request's device busy and, in its trace, the narrow kernel at most
+     once a narrow call and the quantizing passes at most once a wgmma or
+     mma_sync call (launches by kernel name), and the "depthwise_generic"
+     design
+     bit-equal at the first depthwise call through an input off 16-byte
+     alignment; (g) every distinct narrow shape (dense, 4 <= C <= 16) of
+     MobileDet-edge_tpu, MobileDet-gpu, EfficientNet-B2 and B3 at batch 8,
+     from their configs on `device="meta"`, on seeded inputs and weights:
+     bit-equal to the plain version, timed beside the mma_sync design at
+     the same shape (`tools/int8_conv_experiments.py:routed`), cuDNN bf16
+     and the bound.
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times; the
@@ -260,17 +270,30 @@ INT8_SHAPES = (
     ("head 3x3 at P3", "class_head/conv0/conv"),
 )
 # the int8 conv's CUDA kernels, by name in a profiler trace
-INT8_KERNEL_NAMES = ("int8_conv_", "quantize_words_kernel",
-                     "quantize_bytes_kernel")
+INT8_KERNEL_NAMES = ("int8_conv_", "int8_conv_narrow_kernel",
+                     "quantize_words_kernel", "quantize_bytes_kernel")
 # phase 12 (e), (f): models with depthwise convs, one batch-8 int8 request
 # each, and the int8 conv launches it makes by design
 INT8_ZOO = (
     ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
      / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256.json",
-     {"mma_sync": 2, "wgmma": 69, "depthwise": 50}),
+     {"mma_sync": 1, "narrow": 1, "wgmma": 69, "depthwise": 50}),
     ("mobiledet-cpu 448", REPO / "configs" / "v3-8"
      / "mscoco-retinanet-mobiledet-cpu-448x448-30x-64.json",
-     {"mma_sync": 7, "wgmma": 93, "depthwise": 43}),
+     {"mma_sync": 1, "narrow": 6, "wgmma": 93, "depthwise": 43}),
+)
+# phase 12 (e), (f): requests in the trace that counts the int8 kernels
+INT8_PROFILED_REQUESTS = 3
+# phase 12 (g): configs whose distinct narrow shapes are held and timed
+NARROW_CONFIGS = (
+    ("mobiledet-edge_tpu 448", REPO / "configs" / "v3-8"
+     / "mscoco-retinanet-mobiledet-edge-tpu-448x448-30x-64.json"),
+    ("mobiledet-gpu 512", REPO / "configs" / "v3-8"
+     / "mscoco-retinanet-mobiledet-gpu-512x512-30x-64.json"),
+    ("efficientnet-b2 768", REPO / "configs" / "v3-8"
+     / "mscoco-retinanet-efficientnet-b2-768x768-30x-64.json"),
+    ("efficientnet-b3 896", REPO / "configs" / "v3-32"
+     / "mscoco-retinanet-efficientnet-b3-896x896-30x-256.json"),
 )
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
@@ -1894,13 +1917,16 @@ def capture_int8_calls(serve, images) -> tuple:
 def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
     """Every recorded call bit for bit against `int8_conv2d_plain` on the
     same tensors; with `timed`, each call's kernel, plain and cuDNN bf16
-    device ms (and `torch._int_mm` for a 1x1 conv) and its bounds. Returns
-    (rows, the largest |kernel - plain| over the calls)."""
+    device ms (and `torch._int_mm` for a 1x1 conv; a narrow call also on
+    the mma_sync design it replaced) and its bounds. Returns (rows, the
+    largest |kernel - plain| over the calls)."""
     import torch.nn.functional as F
     from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,
                                                quantize_activation,
                                                unpack_weights)
     from retinanet_torch.ops.int8_conv_kernel import int8_design, launch
+    from retinanet_torch.tools.int8_conv_experiments import (NARROW_ROUTES,
+                                                             routed)
     rows, max_err = [], 0.0
     for args, out in calls:
         x, packed, scale, bias, s_a, stride, pads, groups, kh, kw, dt = args
@@ -1923,6 +1949,11 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
             row.update(ops_s=t_ops, bytes_s=t_bytes)
             with torch.inference_mode():
                 row["ms"] = time_ms(lambda: launch(*args), reps=5)
+                row["mma_sync_ms"] = None
+                if row["design"] == "narrow":
+                    with routed(NARROW_ROUTES["mma_sync"]):
+                        row["mma_sync_ms"] = time_ms(lambda: launch(*args),
+                                                     reps=5)
                 row["plain_ms"] = time_ms(
                     lambda: int8_conv2d_plain(*args), reps=1, warmup=0)
                 c = x.shape[3]
@@ -1970,7 +2001,8 @@ def print_int8_shapes(label: str, rows: list) -> list:
                "ms": mean("ms"), "bound_ms": bound,
                "plain_ms": mean("plain_ms"),
                "cudnn_bf16_ms": mean("cudnn_bf16_ms"),
-               "int_mm_ms": mean("int_mm_ms")}
+               "int_mm_ms": mean("int_mm_ms"),
+               "mma_sync_ms": mean("mma_sync_ms")}
         table.append(rec)
         print(f"[int8] {label} {design:9s} {k}x{k}/{stride}"
               f"{' dw' if groups > 1 else ''} x {list(x)} -> {list(out)} "
@@ -1978,12 +2010,15 @@ def print_int8_shapes(label: str, rows: list) -> list:
               f"{bound:.5f}, plain {rec['plain_ms']:.3f}, cuDNN bf16 "
               f"{rec['cudnn_bf16_ms']:.4f}"
               + ("" if rec["int_mm_ms"] is None else
-                 f", torch._int_mm {rec['int_mm_ms']:.4f}"))
+                 f", torch._int_mm {rec['int_mm_ms']:.4f}")
+              + ("" if rec["mma_sync_ms"] is None else
+                 f", on mma_sync {rec['mma_sync_ms']:.4f}"))
     for rec in design_totals(label, rows, {}):
         print(f"[int8] {label} {rec['design']}: {rec['calls']} calls, "
               f"kernel {rec['ms']:.4f} ms, cuDNN bf16 "
               f"{rec['cudnn_bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
-              f"ms")
+              f"ms" + ("" if rec["mma_sync_ms"] is None else
+                       f", on mma_sync {rec['mma_sync_ms']:.4f} ms"))
     return table
 
 
@@ -1999,14 +2034,17 @@ def design_totals(label: str, rows: list, launches_by: dict) -> list:
                     "ms": sum(r["ms"] for r in mine),
                     "bound_ms": sum(max(r["ops_s"], r["bytes_s"])
                                     for r in mine) * 1e3,
-                    "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in mine)})
+                    "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in mine),
+                    "mma_sync_ms": (sum(r["mma_sync_ms"] for r in mine)
+                                    if design == "narrow" else None)})
     return out
 
 
 def request_device_ms(serve, images, count: int = 3) -> tuple:
     """(device busy ms, ms of the int8 conv's kernels, those ms by kernel
-    name) of one request, from a profiler trace over `count` requests
-    after one that is not."""
+    name, their launches by kernel name) of one request, from a profiler
+    trace over `count` requests after one that is not (launches: over the
+    `count` requests)."""
     from torch.profiler import ProfilerActivity, profile
     from retinanet_torch.profile_serving import _NOT_KERNELS
     serve(images)
@@ -2015,7 +2053,7 @@ def request_device_ms(serve, images, count: int = 3) -> tuple:
         for _ in range(count):
             serve(images)
         torch.cuda.synchronize()
-    busy, by_name = 0.0, {}
+    busy, by_name, launches = 0.0, {}, {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0.0)
         if dev_us <= 0 or evt.key.startswith(_NOT_KERNELS):
@@ -2027,7 +2065,8 @@ def request_device_ms(serve, images, count: int = 3) -> tuple:
             name = evt.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].removeprefix("void ")
             by_name[name] = by_name.get(name, 0.0) + dev_us / 1e3 / count
-    return busy / 1e3 / count, sum(by_name.values()), by_name
+            launches[name] = launches.get(name, 0) + evt.count
+    return busy / 1e3 / count, sum(by_name.values()), by_name, launches
 
 
 def int8_weights_paths(int8_model) -> dict:
@@ -2234,7 +2273,7 @@ def phase_export_int8(workdir: Path) -> tuple:
         for bs in INT8_BATCHES:
             busy[f"{lane} batch {bs}"] = request_device_ms(serve,
                                                            requests[bs])
-    for key, (ms, int8_ms, by_name) in busy.items():
+    for key, (ms, int8_ms, by_name, _) in busy.items():
         print(f"[int8] {key} request, profiler: device busy {ms:.3f} ms, "
               f"of which the int8 conv's kernels {int8_ms:.3f} ms: "
               + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
@@ -2278,7 +2317,8 @@ def phase_export_int8(workdir: Path) -> tuple:
         "shape_table": table,
         "request_ms": {"float": f_ms, "weight_only": w_ms, "int8": q_ms},
         "request_device_ms": {k: {"busy": v[0], "int8_conv": v[1],
-                                  "int8_by_kernel": v[2]}
+                                  "int8_by_kernel": v[2],
+                                  "int8_launches_by_kernel": v[3]}
                               for k, v in busy.items()},
         "encode_us": encode,
         "detection_agreement_ap": agreement,
@@ -2309,6 +2349,12 @@ def phase_export_int8(workdir: Path) -> tuple:
         record["max_abs_err"] = max(record["max_abs_err"],
                                     zoo["max_abs_err"])
         print(f"[int8] {label} took {time.perf_counter() - start:.1f} s")
+    # (g) the narrow shapes of the other configs
+    start = time.perf_counter()
+    narrow_rows, narrow_err = phase_narrow_shapes()
+    record["max_abs_err"] = max(record["max_abs_err"], narrow_err)
+    record["narrow_shapes"] = narrow_rows
+    print(f"[int8] (g) took {time.perf_counter() - start:.1f} s")
     record["coco_on_goldens"] = scores
     return record, export_paths["nms_lanes"]
 
@@ -2399,11 +2445,33 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
           f"division decides (within 3e-5 of a tie): min {doubt[0]:.2e}, "
           f"median {doubt[len(doubt) // 2]:.2e}, max {doubt[-1]:.2e} over "
           f"{len(doubt)} calls")
-    busy, int8_ms, by_name = request_device_ms(serve, images)
+    busy, int8_ms, by_name, ran = request_device_ms(
+        serve, images, INT8_PROFILED_REQUESTS)
     print(f"[int8] {label} batch 8 int8 request, profiler: device busy "
           f"{busy:.3f} ms, of which the int8 conv's kernels {int8_ms:.3f} "
           "ms: " + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
               by_name.items(), key=lambda kv: -kv[1])))
+    # a narrow call is one kernel: no quantizing pass. In the trace of
+    # INT8_PROFILED_REQUESTS requests the narrow kernel runs, at most once
+    # a narrow call, and the quantizing passes (quantize_bytes_kernel of
+    # wgmma, quantize_words_kernel of mma_sync) at most once a call of
+    # their design: a pass of the narrow calls would pass those bounds.
+    # The trace may lose a launch (seen in the whole script's runs, never
+    # in phase 12 alone), so the counts bound from above.
+    def ran_of(name):
+        return sum(n for k, n in ran.items() if name in k)
+    most = {"int8_conv_narrow_kernel": by.get("narrow", 0),
+            "quantize_words_kernel": by.get("mma_sync", 0),
+            "quantize_bytes_kernel": by.get("wgmma", 0)}
+    most = {k: n * INT8_PROFILED_REQUESTS for k, n in most.items()}
+    got_ran = {k: ran_of(k) for k in most}
+    check(0 < got_ran["int8_conv_narrow_kernel"]
+          and all(got_ran[k] <= n for k, n in most.items()),
+          f"{label}: launches by kernel in {INT8_PROFILED_REQUESTS} "
+          f"requests {got_ran}, at most {most}")
+    print(f"[int8] {label}: launches by kernel in {INT8_PROFILED_REQUESTS} "
+          f"requests (profiler) {got_ran}, at most {most}: each narrow call "
+          "one kernel, no quantizing pass")
     f_det = build_serving_fn(params, device="cuda", model=model)(images)
     agreement = detection_agreement_ap(
         as_numpy(f_det), as_numpy(q_det), (h, w),
@@ -2427,9 +2495,15 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
           f"{label}: depthwise_generic differs from the plain version")
     generic_ms = time_ms(lambda: int8_conv_kernel.launch(odd, *args[1:]),
                          reps=5)
+    generic = next(r for r in rows if r["x"] == list(x.shape)
+                   and r["k"] == args[8] and r["stride"] == args[5]
+                   and r["groups"] > 1)
+    generic_bound = max(generic["ops_s"], generic["bytes_s"]) * 1e3
     print(f"[int8] {label}: depthwise_generic at {list(x.shape)} k"
           f"{args[8]}/{args[5]} (input {x.element_size()} bytes off 16) "
-          f"bit-equal, {generic_ms:.4f} ms")
+          f"bit-equal, {generic_ms:.4f} ms; bound {generic_bound:.5f} ms "
+          f"(bytes), cuDNN bf16 depthwise {generic['cudnn_bf16_ms']:.4f} "
+          "ms at the shape")
     return {"config": str(path.relative_to(REPO)), "calls": len(calls),
             "launches_by": by, "detection_agreement_ap": agreement,
             "max_abs_err": max_err, "ms": sum(r["ms"] for r in rows),
@@ -2438,8 +2512,88 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
             "doubt_share": {"min": doubt[0], "median": doubt[len(doubt) // 2],
                             "max": doubt[-1]},
             "request_device_ms": {"busy": busy, "int8_conv": int8_ms,
-                                  "int8_by_kernel": by_name},
-            "generic_ms": generic_ms, "shape_table": table}
+                                  "int8_by_kernel": by_name,
+                                  "int8_launches_by_kernel": ran},
+            "generic_ms": generic_ms, "generic_bound_ms": generic_bound,
+            "generic_cudnn_bf16_ms": generic["cudnn_bf16_ms"],
+            "shape_table": table}
+
+
+def narrow_shapes(path: Path) -> dict:
+    """The distinct narrow convs (dense, 4 <= C <= 16) of a config's int8
+    lane at batch ZOO_BATCH, from a forward on `device="meta"` (the
+    prediction convs stay float): ((N, H, W, C), O, k, stride, pads) ->
+    calls a request."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.export.quantize import conv_paths
+    from retinanet_torch.models.layers import conv_hook
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops.int8_conv_kernel import int8_design
+    params = Config(str(path)).params
+    model = build_model(params, device="meta").eval()
+    paths = conv_paths(model)
+    found = {}
+
+    def hook(x, p, stride, pads, dtype, float_conv):
+        o, cpg, kh, kw = p.weight.shape
+        c = cpg * p.groups
+        if kh == kw and "prediction" not in paths[p] and int8_design(
+                c, o, kh, kw, stride, p.groups) == "narrow":
+            key = ((ZOO_BATCH, x.shape[2], x.shape[3], c), o, kh, stride,
+                   tuple(pads))
+            found[key] = found.get(key, 0) + 1
+        return float_conv(x)
+
+    h, w = (int(v) for v in params.input.input_shape)
+    with torch.no_grad(), conv_hook(hook):
+        model(torch.empty(ZOO_BATCH, h, w, 3, device="meta"))
+    return found
+
+
+def phase_narrow_shapes() -> tuple:
+    """Phase 12 (g): every distinct narrow shape of NARROW_CONFIGS at batch
+    8, bfloat16 in and out, on seeded inputs, weights, scales and bias:
+    bit-equal to the plain version, then timed beside the mma_sync design
+    at the same shape, cuDNN bf16 and the bound (`hold_int8_calls`).
+    Returns (the shapes' table, the largest |kernel - plain|)."""
+    from retinanet_torch.ops import int8_conv_kernel
+    from retinanet_torch.ops.int8_conv import pack_weights
+    shapes = {}
+    for label, path in NARROW_CONFIGS:
+        for key, count in narrow_shapes(path).items():
+            shapes.setdefault(key, []).append(f"{label} x{count}")
+    calls, paths_of = [], {}
+    rng = np.random.default_rng(12)
+    for (xs, o, k, stride, pads), users in sorted(shapes.items()):
+        x = torch.from_numpy(rng.normal(0, 1.5, xs).astype(
+            np.float32)).to(torch.bfloat16).cuda()
+        qw = torch.from_numpy(rng.integers(-127, 128, (o, xs[3], k, k))
+                              .astype(np.int8))
+        packed = pack_weights(qw, 1).cuda()
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, o).astype(
+            np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(0, 1, o).astype(np.float32)).cuda()
+        s_a = float(x.float().abs().max()) / 127.0 * 0.8
+        args = (x, packed, scale, bias, s_a, stride, pads, 1, k, k,
+                torch.bfloat16)
+        with torch.inference_mode():
+            calls.append((args, int8_conv_kernel.launch(*args)))
+        paths_of[packed.data_ptr()] = "; ".join(users)
+    torch.cuda.synchronize()
+    rows, max_err = hold_int8_calls(calls, paths_of, "narrow shapes",
+                                    timed=True)
+    check(all(r["design"] == "narrow" for r in rows),
+          f"narrow shapes on {sorted({r['design'] for r in rows})}")
+    table = print_int8_shapes("narrow shapes", rows)
+    for rec, row in zip(sorted(table, key=lambda r: (r["x"], r["out"],
+                                                     r["k"])),
+                        sorted(rows, key=lambda r: (r["x"], r["out"],
+                                                    r["k"]))):
+        rec["models"] = row["path"]
+    print(f"[int8] (g) {len(rows)} distinct narrow shapes of "
+          f"{', '.join(label for label, _ in NARROW_CONFIGS)}, each "
+          "bit-equal to the plain version")
+    return table, max_err
 
 
 def doubt_share(x, s_a: float) -> float:

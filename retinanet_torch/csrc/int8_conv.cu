@@ -41,7 +41,7 @@
 // own adds a write and a read of the int8 input to those bytes (~0.5 ms a
 // batch-8 request); fusing it into the previous layer is later work.
 //
-// Four designs, picked by the wrapper from the shape alone
+// Five designs, picked by the wrapper from the shape alone
 // (ops/int8_conv_kernel.py:int8_design):
 //   * "wgmma", every dense conv with C > 16: (1) a quantizing pass writes
 //     the int8 input as (N, QH, QW, c_tap) bytes, each element quantized
@@ -65,14 +65,46 @@
 //     tile's products; the ring runs on across tiles. The GEMM is a
 //     programmatic dependent launch: its prologue overlaps the pass's
 //     tail;
-//   * "mma_sync", dense convs with C <= 16 (the stem, C = 3): the input is
+//   * "mma_sync", dense convs with C < 4 (the stems, C = 3): the input is
 //     quantized into (N, H, W, ceil(C / 4)) int32 words, then an implicit
 //     GEMM with mma.sync m16n8k32: one CTA of 8 warps a 128 x 128 tile,
 //     stages of 16 words (64 int8 terms) copied with cp.async two deep
 //     (the gather zero-fills the padding), K-major rows padded against
 //     bank conflicts. Its taps are 4 bytes: the wgmma design would copy 49
 //     taps of 32-byte rows a stem tile, and runs the stem 3.3x slower
-//     (tools/int8_conv_experiments.py); this one beats cuDNN bf16 there;
+//     (tools/int8_conv_experiments.py); this one beats cuDNN bf16 there
+//     (and "narrow" measured faster still; ROADMAP queues that routing);
+//   * "narrow", dense convs with 4 <= C <= 16 (MobileDet's and
+//     EfficientNet's 1x1 expansions and projections, their squeeze-excite
+//     convs, MobileDet's 3x3 and 5x5 convs on 8 or 16 channels): the same
+//     XLA path (quantize.py:100, the conv at :147). Bound by bytes: a few
+//     terms a sum (at most 25 taps x 16 channels), so the operations are
+//     1-2% of the bytes' time at 1,979 int8 TOPS; the largest, lite2's 1x1
+//     256^2 x 16 -> 96 at batch 8, moves 117 MB (0.035 ms at 3.35 TB/s),
+//     most of it the output. The mma_sync GEMM ran these at 2.4-2.9x
+//     cuDNN bf16, for five reasons, each answered here: (1) two launches
+//     and the int8 input written and read back: one launch, no scratch, the
+//     input box quantized once into shared memory; (2) 128-channel B tiles
+//     for O of 8-128: units of 32 channels, n-tiles of 8 up to O only; (3)
+//     stages of 16 K words where a 1x1 conv has 2-4: K is the taps, two 16-
+//     byte taps a k32 step, a 1x1 conv one step; (4) 4-byte cp.async
+//     copies: the box comes by one TMA copy (16-byte rows; threads' loads
+//     only where TMA cannot take the input, and on 1-pixel maps, where
+//     encoding a tensor map costs more host time than the copy); (5) no
+//     Hopper machinery: persistent CTAs sized by the occupancy calculator,
+//     a ring of raw boxes on mbarriers, TMA stores from a swizzled staging
+//     tile (two in turn), a programmatic dependent launch. A work item is a
+//     tile of output pixels of one image, or, for a 1x1 conv at stride 1
+//     without pads, a run of pixels across rows and images. The products
+//     are mma.sync m16n8k32 s8 with A by ldmatrix from the quantized
+//     pixels, each lane addressing its own output pixel's tap (the im2col
+//     gather lives in the addresses): the tensor cores are far from the
+//     bound here, and wgmma's 64-row tiles and shared-memory descriptors
+//     would buy nothing on convs bound by bytes. A quantized pixel is 16
+//     bytes (zeros past C) and the weights are widened to match as they are
+//     loaded, so that an ldmatrix row is one tap at every C; the pixels of
+//     a row are stored by column phase of the stride, so that consecutive
+//     outputs read consecutive 16-byte rows on 32 banks at stride 2 too;
 //   * "depthwise" (groups = C = O), square windows of 1, 3 or 5 at stride 1
 //     or 2 with C % 8 == 0 and a 16-byte aligned input: a stencil, bound by
 //     bytes (no sum crosses channels, so no tensor core helps). A work item
@@ -145,6 +177,20 @@ struct Int8ConvArgs {
   // barriers at bar_off, smem bytes in all
   int tile_h, tile_w, dw_chunk, box_h, box_w, taps_h, taps_w;
   int row_pitch, plane_pitch, stages, q_off, out_off, bar_off, smem;
+  // narrow (ops/int8_conv_kernel.py:narrow_plan), with the fields above: a
+  // work item is tile_h x tile_w output pixels of one image (flat: a 1x1
+  // conv at stride 1 without pads, whose n * h * w pixels are one row);
+  // its box_h x box_w input pixels are quantized into 16-byte pixels, rows
+  // of row_pitch bytes at q_off; the weights, widened to 16 bytes a tap,
+  // o_pad rows of w_pitch bytes at w_off (k_steps k32 steps a row); scale
+  // and bias at sb_off; the taps' byte offsets at tap_off; out_bufs
+  // staging tiles at out_off, rows of o_box channels (one TMA store box);
+  // the input by TMA into `stages` raw boxes (tma_in), the output by TMA
+  // stores (tma_out), else by the threads
+  int flat, w_off, w_pitch, sb_off, tap_off, k_steps, o_pad, o_box;
+  int out_bufs, tma_in, tma_out;
+  // (narrow also reads tile_n: output channels a warp's unit, 32, 64 or
+  // 128)
 };
 
 namespace {
@@ -156,6 +202,8 @@ constexpr int kPad = 4;        // mma_sync: words of padding a smem row
 constexpr int kThreads = 256;  // mma_sync: 8 warps, 2 x 4, each 64 x 32
 constexpr int kDwThreads = 256;  // depthwise: threads a CTA
 constexpr int kDwBlock = 4;     // depthwise: a thread's block, 4 x 4 outputs
+constexpr int kNarrowThreads = 256;  // narrow: threads a CTA, 8 warps
+constexpr int kUnitM = 2;  // narrow: m16 fragments of a warp's unit
 constexpr int kQuantThreads = 256;
 
 constexpr int kTileM = 128;        // wgmma: output pixels a tile
@@ -190,7 +238,8 @@ enum Design {
   kDepthwise = 0,
   kMmaSync = 1,
   kWgmma = 2,
-  kDepthwiseGeneric = 3
+  kDepthwiseGeneric = 3,
+  kNarrow = 4
 };
 
 // What the wgmma kernel reads of Int8ConvArgs.
@@ -395,11 +444,9 @@ __device__ __forceinline__ void copy_wait() {
 // Implicit GEMM over the quantized words `q`: A (pixels x K words) is
 // gathered from the input windows, B (channels x K words) is the packed
 // weights. Stages of kBK words are copied into shared memory with cp.async
-// two deep, so that the next stage's copies run under this stage's MMAs.
-// VEC8: ceil(C / 4) % 8 == 0, so the 8 words a thread copies for a stage
-// lie in one tap and are 32-byte aligned (two 16-byte copies); otherwise
-// one 4-byte copy a word.
-template <typename TOut, bool VEC8>
+// two deep, so that the next stage's copies run under this stage's MMAs,
+// A one 4-byte copy a word (a tap is ceil(C / 4) <= 4 words).
+template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
     int8_conv_gemm_kernel(const int* __restrict__ q,
                           const int* __restrict__ w,
@@ -448,40 +495,26 @@ __global__ void __launch_bounds__(kThreads)
   auto copy_stage = [&](int buf, int k0) {
     int* a_dst = &a_tile[buf][row][half];
     const int k = k0 + half;
-    if constexpr (VEC8) {
-      const int tap = k / cw;
-      const int ih = ih0 + tap / s.kw;
-      const int iw = iw0 + tap % s.kw;
-      const bool read = m_ok && k < k_words && ih >= 0 && ih < s.h &&
-                        iw >= 0 && iw < s.w;
-      const int* src =
-          read ? q_img + (static_cast<long long>(ih) * s.w + iw) * cw +
-                     (k - tap * cw)
-               : q;
-      copy16(a_dst, src, read);
-      copy16(a_dst + 4, src + (read ? 4 : 0), read);
-    } else {
-      int cwi = k % cw;
-      int tap = k / cw;
-      int tr = tap / s.kw;
-      int tc = tap - tr * s.kw;
+    int cwi = k % cw;
+    int tap = k / cw;
+    int tr = tap / s.kw;
+    int tc = tap - tr * s.kw;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int ih = ih0 + tr;
-        const int iw = iw0 + tc;
-        const bool read = m_ok && k + j < k_words && ih >= 0 && ih < s.h &&
-                          iw >= 0 && iw < s.w;
-        copy4(a_dst + j,
-              read ? q_img + (static_cast<long long>(ih) * s.w + iw) * cw +
-                         cwi
-                   : q,
-              read);
-        if (++cwi == cw) {
-          cwi = 0;
-          if (++tc == s.kw) {
-            tc = 0;
-            ++tr;
-          }
+    for (int j = 0; j < 8; ++j) {
+      const int ih = ih0 + tr;
+      const int iw = iw0 + tc;
+      const bool read = m_ok && k + j < k_words && ih >= 0 && ih < s.h &&
+                        iw >= 0 && iw < s.w;
+      copy4(a_dst + j,
+            read ? q_img + (static_cast<long long>(ih) * s.w + iw) * cw +
+                       cwi
+                 : q,
+            read);
+      if (++cwi == cw) {
+        cwi = 0;
+        if (++tc == s.kw) {
+          tc = 0;
+          ++tr;
         }
       }
     }
@@ -1452,6 +1485,482 @@ __global__ void __launch_bounds__(kDwThreads)
   }
 }
 
+// -- the narrow design --------------------------------------------------------
+
+// What the narrow kernel reads of Int8ConvArgs: the conv over the input as
+// the kernel views it, (vn, vh, vw, c) -> (vn, voh, vow, o); a flat conv is
+// one row of n * h * w pixels.
+struct NarrowShape {
+  int vn, vh, vw, c;
+  int voh, vow, o;
+  int kh, kw, stride, pad_t, pad_l;
+  int tile_h, tile_w, box_h, box_w, row_pitch;
+  int k_steps, w_pitch, o_pad, o_box, out_bufs, stages, tma_out;
+  int q_off, w_off, sb_off, tap_off, out_off, bar_off;
+  int tiles_y, tiles_x, items;
+};
+
+// One work item: image n (0 in a flat conv), output tile (ty, tx).
+struct NarrowItem {
+  int n, ty, tx;
+};
+
+__device__ __forceinline__ NarrowItem narrow_item(const NarrowShape& s,
+                                                  int item) {
+  NarrowItem d;
+  d.tx = item % s.tiles_x;
+  const int rest = item / s.tiles_x;
+  d.ty = rest % s.tiles_y;
+  d.n = rest / s.tiles_y;
+  return d;
+}
+
+// Bytes of one staging tile: tile_h x tile_w pixels x ceil(o_pad / o_box)
+// rows of o_box channels under TMA (the channels past O have a place, never
+// stored), rows of o channels for the threads' store; a multiple of 1024
+// (the 128-byte swizzle's period).
+__host__ __device__ inline int narrow_staging_bytes(const NarrowShape& s,
+                                                    int out_bytes) {
+  const int chunks = s.tma_out ? (s.o_pad + s.o_box - 1) / s.o_box : 1;
+  const int bytes = s.tile_h * s.tile_w * chunks * s.o_box * out_bytes;
+  return (bytes + 1023) / 1024 * 1024;
+}
+
+// four 8x8 matrices of 16-bit pairs to shared memory: lanes 8q..8q+7 give
+// the row addresses of matrix q; register q holds row lane / 4, elements
+// 2 (lane % 4) and 2 (lane % 4) + 1 of matrix q (the inverse of ldmatrix)
+__device__ __forceinline__ void stmatrix_x4(void* p, unsigned r0,
+                                            unsigned r1, unsigned r2,
+                                            unsigned r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_address(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// two floats rounded to a bfloat16 pair, the first in the low half
+__device__ __forceinline__ unsigned bf16_pair(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Where box pixel (yy, xx) starts in the quantized box: a row holds the
+// pixels of column phase 0 of the stride, then phase 1, ... (pw pixels a
+// phase, 16 bytes each), so that the 8 consecutive outputs an ldmatrix
+// phase reads, `stride` pixels apart in the input, are 8 consecutive
+// 16-byte rows on 32 banks at any stride.
+__device__ __forceinline__ int narrow_pixel(const NarrowShape& s, int pw,
+                                            int yy, int xx) {
+  const int place = s.stride == 1   ? xx
+                    : s.stride == 2 ? (xx & 1) * pw + (xx >> 1)
+                                    : (xx % s.stride) * pw + xx / s.stride;
+  return yy * s.row_pitch + place * 16;
+}
+
+// u / d for u < 2^16 and 0 < d <= 256, by a multiply-high with
+// magic = 2^32 / d rounded up (the error stays under 1 / d)
+__device__ __forceinline__ int narrow_div(int u, unsigned magic) {
+  return static_cast<int>(__umulhi(static_cast<unsigned>(u), magic));
+}
+
+// One raw box (box_h x box_w pixels x c channels of TIn, as TMA wrote it:
+// c * sizeof(TIn) a multiple of 16) -> 16-byte quantized pixels, the bytes
+// past c zero; a thread a pixel, each element quantized once (the division
+// only for the elements in doubt, each byte written again).
+template <typename TIn>
+__device__ __forceinline__ void narrow_quantize_raw(const TIn* raw,
+                                                    uint8_t* q,
+                                                    const NarrowShape& s,
+                                                    Scale sc, int pw) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(TIn));
+  const int vecs = s.c / kV;
+  const int pixels = s.box_h * s.box_w;
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(s.box_w) + 1;
+  for (int u = threadIdx.x; u < pixels; u += kNarrowThreads) {
+    const int yy = narrow_div(u, magic);
+    const int xx = u - yy * s.box_w;
+    const TIn* src = raw + u * s.c;
+    float f[16];
+#pragma unroll
+    for (int v = 0; v < 16 / kV; ++v) {
+      if (v < vecs) {
+        unpack16(reinterpret_cast<const uint4*>(src)[v], f + v * kV, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kV; ++e) f[v * kV + e] = 0.0f;
+      }
+    }
+    unsigned b[16];
+    unsigned doubt = 0;  // bit e: element e is in doubt
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      b[e] = 0;  // (elements past 8 of a pixel of c <= 8: zero, unread)
+      if ((e < 8 || s.c > 8) && !quantize_sure(f[e], sc, b[e])) {
+        doubt |= 1u << e;
+      }
+    }
+    uint8_t* dst = q + narrow_pixel(s, pw, yy, xx);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(
+        pack_low_bytes(b[0], b[1], b[2], b[3]),
+        pack_low_bytes(b[4], b[5], b[6], b[7]),
+        pack_low_bytes(b[8], b[9], b[10], b[11]),
+        pack_low_bytes(b[12], b[13], b[14], b[15]));
+    for (; doubt != 0; doubt &= doubt - 1) {
+      const int e = __ffs(doubt) - 1;
+      dst[e] = static_cast<uint8_t>(quantize(to_float(src[e]), sc));
+    }
+  }
+}
+
+// The same box loaded by the threads from x (any alignment, any c): zeros
+// outside the input, which is the zero padding.
+template <typename TIn>
+__device__ __forceinline__ void narrow_quantize_global(
+    const TIn* __restrict__ x, uint8_t* q, const NarrowShape& s, Scale sc,
+    int pw, int n, int iy0, int ix0) {
+  const int pixels = s.box_h * s.box_w;
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(s.box_w) + 1;
+  for (int u = threadIdx.x; u < pixels; u += kNarrowThreads) {
+    const int yy = narrow_div(u, magic);
+    const int xx = u - yy * s.box_w;
+    const int iy = iy0 + yy;
+    const int ix = ix0 + xx;
+    const bool inside = iy >= 0 && iy < s.vh && ix >= 0 && ix < s.vw;
+    const TIn* src =
+        x + ((static_cast<size_t>(n) * s.vh + (inside ? iy : 0)) * s.vw +
+             (inside ? ix : 0)) *
+                s.c;
+    int b[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      b[e] = inside && e < s.c ? quantize(to_float(src[e]), sc) : 0;
+    }
+    *reinterpret_cast<uint4*>(q + narrow_pixel(s, pw, yy, xx)) =
+        make_uint4(static_cast<unsigned>(pack4(b[0], b[1], b[2], b[3])),
+                   static_cast<unsigned>(pack4(b[4], b[5], b[6], b[7])),
+                   static_cast<unsigned>(pack4(b[8], b[9], b[10], b[11])),
+                   static_cast<unsigned>(pack4(b[12], b[13], b[14], b[15])));
+  }
+}
+
+// The input box of `item` (the tile's window origins, minus the pads, with
+// the halo) into `dst` by TMA; `bar` expects its bytes.
+template <typename TIn>
+__device__ __forceinline__ void narrow_load_box(const CUtensorMap* x_map,
+                                                uint8_t* dst, uint64_t* bar,
+                                                const NarrowShape& s,
+                                                int item) {
+  const NarrowItem d = narrow_item(s, item);
+  mbar_expect_tx(bar, static_cast<unsigned>(s.box_h * s.box_w * s.c *
+                                            static_cast<int>(sizeof(TIn))));
+  tma_load_4d(dst, x_map, bar, 0, d.tx * s.tile_w * s.stride - s.pad_l,
+              d.ty * s.tile_h * s.stride - s.pad_t, d.n);
+}
+
+// The "narrow" design: a dense conv with 4 <= C <= 16, one launch. A CTA
+// (persistent, 256 threads) widens the packed weights into shared memory
+// once (16 bytes a tap, zeros past c_tap: two taps a k32 step), then walks
+// its items: the input box by TMA into a ring of raw boxes (or loaded by
+// the threads), quantized once into 16-byte pixels; each warp takes units
+// of 16 output pixels x 32 channels, `mma.sync` m16n8k32 s8 over k_steps
+// steps, its A fragments by `ldmatrix` straight from the quantized pixels
+// (each lane addresses its own output pixel's tap: the im2col gather is in
+// the addresses), B by `ldmatrix` from the weights; the epilogue
+// requantizes into a staging tile (rows of o_box channels, swizzled as
+// the TMA store's map says) that one thread stores by TMA, or the threads
+// store it clipped at the edges.
+template <typename TIn, typename TOut, bool kTmaIn, int kTileN>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+    int8_conv_narrow_kernel(const __grid_constant__ CUtensorMap x_map,
+                            const __grid_constant__ CUtensorMap y_map,
+                            const TIn* __restrict__ x,
+                            const int* __restrict__ w, int k_pad,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            TOut* __restrict__ y, Scale sc, NarrowShape s) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle of the staging tile repeats every 1024 bytes
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_address(smem_raw) & 1023)) & 1023);
+  const int raw_stride = s.stages > 0 ? s.q_off / s.stages : 0;
+  uint8_t* q = smem + s.q_off;
+  uint8_t* wsm = smem + s.w_off;
+  float4* sb = reinterpret_cast<float4*>(smem + s.sb_off);
+  int* toff = reinterpret_cast<int*>(smem + s.tap_off);
+  uint8_t* out = smem + s.out_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + s.bar_off);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int taps = s.kh * s.kw;
+  const int cw = (s.c + 3) >> 2;  // int32 words of a packed tap
+  const int pw = s.row_pitch / (16 * s.stride);
+
+  if (kTmaIn && tid == 0) {
+    for (int i = 0; i < s.stages; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // x is the previous kernel's output: wait for that grid (this one may
+    // start early) to finish, then put the first boxes in flight while
+    // the threads bring the weights
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int i = 0; i < s.stages; ++i) {
+      const int item = blockIdx.x + i * gridDim.x;
+      if (item < s.items) {
+        narrow_load_box<TIn>(&x_map, smem + i * raw_stride, &full[i], s,
+                             item);
+      }
+    }
+  }
+  // the weights widened (row o: tap t at bytes 16 t .. 16 t + 15, its
+  // c_tap channels then zeros; zero rows past O), a tap a thread (its cw
+  // words loaded together); scale and bias as (scale[o], scale[o + 1],
+  // bias[o], bias[o + 1]) a channel pair; each tap's byte offset in the
+  // quantized box (a tap past the window reads the first: its weights are
+  // zero). Nothing here is the previous kernel's output, so it overlaps
+  // that kernel's tail.
+  const int slots = 2 * s.k_steps;
+  for (int i = tid; i < s.o_pad * slots; i += kNarrowThreads) {
+    const int o = i / slots;
+    const int tap = i - o * slots;
+    int v[4] = {0, 0, 0, 0};
+    if (o < s.o && tap < taps) {
+      const int* src = w + static_cast<long long>(o) * k_pad + tap * cw;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < cw) v[j] = src[j];
+      }
+    }
+    *reinterpret_cast<int4*>(wsm + o * s.w_pitch + 16 * tap) =
+        make_int4(v[0], v[1], v[2], v[3]);
+  }
+  for (int i = tid; i < s.o_pad / 2; i += kNarrowThreads) {
+    const int o = 2 * i;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (o < s.o) v.x = scale[o];
+    if (o + 1 < s.o) v.y = scale[o + 1];
+    if (bias != nullptr && o < s.o) v.z = bias[o];
+    if (bias != nullptr && o + 1 < s.o) v.w = bias[o + 1];
+    sb[i] = v;
+  }
+  for (int i = tid; i < 2 * s.k_steps; i += kNarrowThreads) {
+    int off = 0;
+    if (i < taps) {
+      const int r = i / s.kw;
+      const int c = i - r * s.kw;
+      off = r * s.row_pitch + ((c % s.stride) * pw + c / s.stride) * 16;
+    }
+    toff[i] = off;
+  }
+  // x is the previous kernel's output, and y may be memory that it still
+  // reads: every thread waits for that grid before it reads x or writes y
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();
+
+  const int tm = s.tile_h * s.tile_w;
+  const int mfrags = tm / 16;
+  const int mgroups = (mfrags + kUnitM - 1) / kUnitM;
+  const int units = mgroups * ((s.o_pad + kTileN - 1) / kTileN);
+  const int chunks = (s.o + s.o_box - 1) / s.o_box;  // TMA stores an item
+  const int rb = s.o_box * static_cast<int>(sizeof(TOut));  // a staging row
+  const int staging = narrow_staging_bytes(s, static_cast<int>(sizeof(TOut)));
+  const int g = lane >> 2;  // the fragments' row group
+  const int t = lane & 3;   // the thread in the group
+  // the TMA store's swizzle (rows of 32, 64 or 128 bytes: 16-byte unit u of
+  // byte a is u ^ ((a >> 7) & mask)). A lane's rows are g + 8 h of a
+  // 16-row fragment, so that its term is the same at every row it writes:
+  // (g rb >> 7) & mask. The threads' store reads rows plain.
+  const int mask = s.tma_out ? rb / 16 - 1 : 0;
+  const int xor16 = (((g * rb) >> 7) & mask) << 4;
+  // a channel's staging box and place: o_box is a power of two under TMA
+  const int box_shift = __ffs(s.o_box) - 1;
+  // every |acc| < 2^22 (|q| <= 127, |w| <= 128): float(acc) by
+  // `exact_float`, an integer and a float add, not the conversion unit (an
+  // eighth of the add's rate); 5x5 windows over 16 channels reach 6.5e6
+  // and convert
+  const bool exact_add = taps * s.c * 127 * 128 < (1 << 22);
+  // bfloat16 rows of whole 16-byte units of 8 channels: the epilogue stores
+  // 4 matrices of 8 pixels x 8 channels an instruction (stmatrix), lane l
+  // addressing row l % 8 of matrix l / 8, whose swizzle term is its own
+  constexpr bool kMatrices = sizeof(TOut) == 2;
+  const bool matrices = kMatrices && s.tma_out;
+  const int r8 = lane & 7;
+  const int xor_r8 = (((r8 * rb) >> 7) & mask) << 4;
+  int it = 0;
+  for (int item = blockIdx.x; item < s.items; item += gridDim.x, ++it) {
+    const NarrowItem d = narrow_item(s, item);
+    if constexpr (kTmaIn) {
+      const int st = it % s.stages;
+      mbar_wait(&full[st], (it / s.stages) & 1);
+      narrow_quantize_raw(reinterpret_cast<const TIn*>(smem + st * raw_stride),
+                          q, s, sc, pw);
+    } else {
+      narrow_quantize_global(x, q, s, sc, pw, d.n,
+                             d.ty * s.tile_h * s.stride - s.pad_t,
+                             d.tx * s.tile_w * s.stride - s.pad_l);
+    }
+    uint8_t* stage = out + (s.out_bufs > 1 ? (it & 1) : 0) * staging;
+    // the store that last read this staging tile is done
+    if (tid == 0 && s.tma_out) {
+      if (s.out_bufs > 1) {
+        bulk_wait_read<1>();
+      } else {
+        bulk_wait_read<0>();
+      }
+    }
+    __syncthreads();  // q is whole, the raw box free, the staging tile free
+    if (kTmaIn && tid == 0 && item + s.stages * gridDim.x < s.items) {
+      const int st = it % s.stages;
+      narrow_load_box<TIn>(&x_map, smem + st * raw_stride, &full[st], s,
+                           item + s.stages * gridDim.x);
+    }
+
+    // float(acc) * scale (+ bias) of channels o, o + 1 from their float4
+    auto requant = [&](int a0, int a1, const float4& sbj, float& v0,
+                       float& v1) {
+      v0 = __fmul_rn(exact_add ? exact_float(a0) : __int2float_rn(a0),
+                     sbj.x);
+      v1 = __fmul_rn(exact_add ? exact_float(a1) : __int2float_rn(a1),
+                     sbj.y);
+      if (bias != nullptr) {
+        v0 = __fadd_rn(v0, sbj.z);
+        v1 = __fadd_rn(v1, sbj.w);
+      }
+    };
+    // the epilogue of fragment mf (channels from n0): (row g, channels 2t,
+    // 2t + 1) and row g + 8 of each tile, requantized into the staging tile
+    auto epilogue = [&](int mf, int n0, const int (&ac)[kTileN / 8][4]) {
+      if (matrices) {
+        // tiles 2 jp and 2 jp + 1, rows g and g + 8: four matrices
+#pragma unroll
+        for (int jp = 0; jp < kTileN / 16; ++jp) {
+          if (n0 + jp * 16 >= s.o_pad) break;  // the same in every lane
+          unsigned r[4];
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) {
+            const int j = 2 * jp + q4 / 2;
+            float v0, v1;
+            requant(ac[j][2 * (q4 % 2)], ac[j][2 * (q4 % 2) + 1],
+                    sb[(n0 + j * 8 + 2 * t) >> 1], v0, v1);
+            r[q4] = bf16_pair(v0, v1);
+          }
+          // this lane's row: matrix (tile 2 jp + q / 2, half q % 2), q =
+          // lane / 8
+          const int o = n0 + jp * 16 + (lane >> 4) * 8;
+          const int chunk = o >> box_shift;
+          uint8_t* row = stage + chunk * tm * rb +
+                         (mf * 16 + ((lane >> 3) & 1) * 8 + r8) * rb +
+                         (((o - chunk * s.o_box) * 2) ^ xor_r8);
+          stmatrix_x4(row, r[0], r[1], r[2], r[3]);
+        }
+        return;
+      }
+      uint8_t* rows = stage + (mf * 16 + g) * rb;
+#pragma unroll
+      for (int j = 0; j < kTileN / 8; ++j) {
+        const int o = n0 + j * 8 + 2 * t;
+        if (o >= s.o) continue;
+        const int chunk = s.tma_out ? o >> box_shift : 0;
+        const int oc = o - chunk * s.o_box;
+        const bool pair = o + 1 < s.o && (s.o_box & 1) == 0;
+        const float4 sbj = sb[o >> 1];  // scale, scale, bias, bias
+        uint8_t* col = rows + chunk * tm * rb +
+                       ((oc * static_cast<int>(sizeof(TOut))) ^ xor16);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0, v1;
+          requant(ac[j][2 * h], ac[j][2 * h + 1], sbj, v0, v1);
+          TOut* dst = reinterpret_cast<TOut*>(col + 8 * h * rb);
+          if (pair) {
+            store2(dst, v0, v1);
+          } else {
+            store(dst, v0);  // rows of odd length: the threads' store
+            if (o + 1 < s.o) store(dst + 1, v1);
+          }
+        }
+      }
+    };
+
+    // a warp's unit: kUnitM fragments of 16 output pixels x kTileN
+    // channels, each B fragment serving kUnitM products
+    for (int u = warp; u < units; u += kNarrowThreads / 32) {
+      const int mf0 = (u % mgroups) * kUnitM;
+      const int n0 = (u / mgroups) * kTileN;
+      // ldmatrix.x4 of A: lanes 8q..8q+7 address matrix q = (rows 0-7 |
+      // 8-15) x (tap 2 kk | 2 kk + 1), so lane l gives output pixel
+      // 16 mf + l % 16 at tap 2 kk + l / 16 (a fragment past the tile reads
+      // the last one's pixels, its products unused)
+      const uint8_t* a_row[kUnitM];
+#pragma unroll
+      for (int i = 0; i < kUnitM; ++i) {
+        const int p = min(mf0 + i, mfrags - 1) * 16 + (lane & 15);
+        const int oy = p / s.tile_w;
+        a_row[i] = q + oy * s.stride * s.row_pitch + (p - oy * s.tile_w) * 16;
+      }
+      int acc[kUnitM][kTileN / 8][4];
+#pragma unroll
+      for (int i = 0; i < kUnitM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTileN / 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+        }
+      }
+      for (int kk = 0; kk < s.k_steps; ++kk) {
+        int a[kUnitM][4];
+#pragma unroll
+        for (int i = 0; i < kUnitM; ++i) {
+          ldmatrix_x4(a[i], a_row[i] + toff[2 * kk + (lane >> 4)]);
+        }
+#pragma unroll
+        for (int np = 0; np < kTileN / 16; ++np) {
+          if (n0 + np * 16 >= s.o_pad) break;  // the same in every lane
+          // B: (bytes 0-15 | 16-31) x (channels of tile 2 np | 2 np + 1)
+          int r[4];
+          ldmatrix_x4(r, wsm + (n0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                   s.w_pitch +
+                             kk * 32 + ((lane >> 3) & 1) * 16);
+#pragma unroll
+          for (int i = 0; i < kUnitM; ++i) {
+            mma_s8(acc[i][2 * np], a[i], r[0], r[1]);
+            mma_s8(acc[i][2 * np + 1], a[i], r[2], r[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kUnitM; ++i) {
+        if (mf0 + i < mfrags) epilogue(mf0 + i, n0, acc[i]);
+      }
+    }
+    if (s.tma_out) {
+      // the async proxy (TMA) reads what the threads wrote
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();  // the staging tile whole, q free for the next box
+    if (s.tma_out) {
+      if (tid == 0) {
+        for (int ch = 0; ch < chunks; ++ch) {
+          tma_store_4d(&y_map, stage + ch * tm * rb, ch * s.o_box,
+                       d.tx * s.tile_w, d.ty * s.tile_h, d.n);
+        }
+      }
+    } else {
+      // rows of o channels, clipped at the output's edges
+      const TOut* src = reinterpret_cast<const TOut*>(stage);
+      for (int i = tid; i < tm * s.o; i += kNarrowThreads) {
+        const int pp = i / s.o;
+        const int oy = d.ty * s.tile_h + pp / s.tile_w;
+        const int ox = d.tx * s.tile_w + pp % s.tile_w;
+        if (oy < s.voh && ox < s.vow) {
+          y[((static_cast<size_t>(d.n) * s.voh + oy) * s.vow + ox) * s.o +
+            (i - pp * s.o)] = src[i];
+        }
+      }
+    }
+  }
+  if (tid == 0 && s.tma_out) bulk_wait_read<0>();  // smem outlives the stores
+}
+
 // -- host ---------------------------------------------------------------------
 
 // Errors past cudaError_t's: a tensor map the driver refused (kEncodeError
@@ -1710,13 +2219,8 @@ int launch_mma_sync(const Int8ConvArgs& a, const TIn* x, const void* w,
   const long long m_total = static_cast<long long>(a.n) * a.oh * a.ow;
   const dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM),
                   static_cast<unsigned>((a.o + kBN - 1) / kBN));
-  if (cw % 8 == 0) {
-    int8_conv_gemm_kernel<TOut, true><<<grid, kThreads, 0, stream>>>(
-        qt, static_cast<const int*>(w), scale, bias, y, a, a.k_pad);
-  } else {
-    int8_conv_gemm_kernel<TOut, false><<<grid, kThreads, 0, stream>>>(
-        qt, static_cast<const int*>(w), scale, bias, y, a, a.k_pad);
-  }
+  int8_conv_gemm_kernel<TOut><<<grid, kThreads, 0, stream>>>(
+      qt, static_cast<const int*>(w), scale, bias, y, a, a.k_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1738,11 +2242,12 @@ DwShape dw_shape(const Int8ConvArgs& a) {
 }
 
 // The tiled 4-D map of an NHWC tensor (dims C, W, H, N; bfloat16 or float32)
-// in boxes of (chunk, box_w, box_h, 1), unswizzled; coordinates outside
-// it read zeros.
+// in boxes of (chunk, box_w, box_h, 1), unswizzled unless `swizzle` says;
+// coordinates outside it read zeros.
 int encode_nhwc_map(const void* t, bool bf16, int n, int h, int w, int c,
                     int chunk, int box_w, int box_h, bool promote,
-                    CUtensorMap* map) {
+                    CUtensorMap* map,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static const auto tiled = reinterpret_cast<EncodeTiled>(
       driver_symbol("cuTensorMapEncodeTiled"));
   if (tiled == nullptr) return kNoDriverEntry;
@@ -1761,7 +2266,7 @@ int encode_nhwc_map(const void* t, bool bf16, int n, int h, int w, int c,
       map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       4, const_cast<void*>(t), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       promote ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
               : CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1777,10 +2282,12 @@ struct LaunchFacts {
   std::map<std::pair<int, int>, int> resident;  // (device, smem) -> CTAs
 };
 
-// CTAs of `kernel` that `device` holds at once with `smem` bytes a CTA
-// (the occupancy calculator's CTAs an SM x the SMs), or a negated error.
+// CTAs of `kernel` that `device` holds at once with `threads` threads and
+// `smem` bytes a CTA (the occupancy calculator's CTAs an SM x the SMs), or
+// a negated error.
 template <typename Kernel>
-int resident_ctas(Kernel kernel, LaunchFacts& facts, int device, int smem) {
+int resident_ctas(Kernel kernel, LaunchFacts& facts, int device, int smem,
+                  int threads) {
   if (device < 0 || device >= kMaxDevices) {
     return -static_cast<int>(cudaErrorInvalidDevice);
   }
@@ -1796,7 +2303,7 @@ int resident_ctas(Kernel kernel, LaunchFacts& facts, int device, int smem) {
   if (found != facts.resident.end()) return found->second;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kDwThreads, static_cast<size_t>(smem));
+      &per_sm, kernel, threads, static_cast<size_t>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -1820,7 +2327,8 @@ int launch_dw_window(const CUtensorMap& xm, const CUtensorMap& ym,
                      cudaStream_t stream) {
   auto kernel = int8_conv_dw_kernel<TIn, TOut, K, S>;
   static LaunchFacts facts;
-  const int resident = resident_ctas(kernel, facts, device, smem);
+  const int resident = resident_ctas(kernel, facts, device, smem,
+                                     kDwThreads);
   if (resident < 0) return -resident;
   // a programmatic dependent launch: the prologue (barriers, weights)
   // overlaps the previous kernel's tail
@@ -1852,7 +2360,8 @@ int launch_depthwise(const Int8ConvArgs& a, const TIn* x, const void* w,
   if (a.design == kDepthwiseGeneric) {
     auto kernel = int8_conv_dw_generic_kernel<TIn, TOut>;
     static LaunchFacts facts;
-    const int resident = resident_ctas(kernel, facts, device, a.smem);
+    const int resident = resident_ctas(kernel, facts, device, a.smem,
+                                       kDwThreads);
     if (resident < 0) return -resident;
     kernel<<<static_cast<unsigned>(dw_grid(s, resident)), kDwThreads, a.smem,
              stream>>>(x, wq, scale, bias, y, sc, s);
@@ -1882,6 +2391,139 @@ int launch_depthwise(const Int8ConvArgs& a, const TIn* x, const void* w,
   }
 }
 
+NarrowShape narrow_shape(const Int8ConvArgs& a) {
+  NarrowShape s{};
+  const long long pixels = static_cast<long long>(a.n) * a.h * a.w;
+  const long long outs = static_cast<long long>(a.n) * a.oh * a.ow;
+  s.vn = a.flat ? 1 : a.n;
+  s.vh = a.flat ? 1 : a.h;
+  s.vw = a.flat ? static_cast<int>(pixels < (1LL << 31) ? pixels : -1) : a.w;
+  s.voh = a.flat ? 1 : a.oh;
+  s.vow = a.flat ? s.vw : a.ow;
+  s.c = a.c;
+  s.o = a.o;
+  s.kh = a.kh;
+  s.kw = a.kw;
+  s.stride = a.stride;
+  s.pad_t = a.pad_t;
+  s.pad_l = a.pad_l;
+  s.tile_h = a.tile_h;
+  s.tile_w = a.tile_w;
+  s.box_h = a.box_h;
+  s.box_w = a.box_w;
+  s.row_pitch = a.row_pitch;
+  s.k_steps = a.k_steps;
+  s.w_pitch = a.w_pitch;
+  s.o_pad = a.o_pad;
+  s.o_box = a.o_box;
+  s.out_bufs = a.out_bufs;
+  s.stages = a.stages;
+  s.tma_out = a.tma_out;
+  s.q_off = a.q_off;
+  s.w_off = a.w_off;
+  s.sb_off = a.sb_off;
+  s.tap_off = a.tap_off;
+  s.out_off = a.out_off;
+  s.bar_off = a.bar_off;
+  s.tiles_y = (s.voh + a.tile_h - 1) / a.tile_h;
+  s.tiles_x = (s.vow + a.tile_w - 1) / a.tile_w;
+  const long long items =
+      static_cast<long long>(s.vn) * s.tiles_y * s.tiles_x;
+  s.items = s.vw > 0 && outs < (1LL << 31) && items < (1LL << 31)
+                ? static_cast<int>(items)
+                : -1;
+  return s;
+}
+
+// a persistent grid: every item if the device holds them all at once,
+// else the CTAs it holds
+template <typename TIn, typename TOut, bool kTmaIn, int kTileN>
+int launch_narrow_kernel(const CUtensorMap& xm, const CUtensorMap& ym,
+                         const TIn* x, const int* w, int k_pad,
+                         const float* scale, const float* bias, TOut* y,
+                         Scale sc, const NarrowShape& s, int smem,
+                         int device, cudaStream_t stream) {
+  auto kernel = int8_conv_narrow_kernel<TIn, TOut, kTmaIn, kTileN>;
+  static LaunchFacts facts;
+  const int resident =
+      resident_ctas(kernel, facts, device, smem, kNarrowThreads);
+  if (resident < 0) return -resident;
+  // a programmatic dependent launch: the prologue (barriers, weights)
+  // overlaps the previous kernel's tail
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim =
+      dim3(static_cast<unsigned>(s.items < resident ? s.items : resident));
+  config.blockDim = dim3(kNarrowThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&config, kernel, xm, ym, x, w,
+                                           k_pad, scale, bias, y, sc, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The swizzle of the output map whose box rows are `bytes` long: the one
+// of that width (the staging tile is written in it), none for 16 bytes.
+CUtensorMapSwizzle narrow_out_swizzle(int bytes) {
+  return bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+template <typename TIn, typename TOut>
+int launch_narrow(const Int8ConvArgs& a, const TIn* x, const void* w,
+                  const float* scale, const float* bias, TOut* y, Scale sc,
+                  int device, cudaStream_t stream) {
+  const NarrowShape s = narrow_shape(a);
+  const int rb = a.o_box * static_cast<int>(sizeof(TOut));
+  if (s.items < 0 || a.smem > kSmemLimit || a.c > 16 ||
+      (a.tma_in && a.stages < 1) ||
+      (a.tma_out && (rb % 16 != 0 || rb > 128 || (rb & (rb - 1)) != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap xm, ym;
+  memset(&xm, 0, sizeof(xm));  // unread without TMA
+  memset(&ym, 0, sizeof(ym));
+  if (a.tma_in) {
+    if (reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    const int enc = encode_nhwc_map(x, sizeof(TIn) == 2, s.vn, s.vh, s.vw,
+                                    a.c, a.c, a.box_w, a.box_h, true, &xm);
+    if (enc != 0) return enc;
+  }
+  if (a.tma_out) {
+    if (reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    const int enc = encode_nhwc_map(y, sizeof(TOut) == 2, s.vn, s.voh,
+                                    s.vow, a.o, a.o_box, a.tile_w, a.tile_h,
+                                    false, &ym, narrow_out_swizzle(rb));
+    if (enc != 0) return enc;
+  }
+  const int* wi = static_cast<const int*>(w);
+  switch (a.tile_n * 2 + a.tma_in) {
+#define NARROW_CASE(N, TMA)                                                 \
+  case N * 2 + TMA:                                                         \
+    return launch_narrow_kernel<TIn, TOut, (TMA != 0), N>(                  \
+        xm, ym, x, wi, a.k_pad, scale, bias, y, sc, s, a.smem, device,      \
+        stream);
+    NARROW_CASE(32, 0)
+    NARROW_CASE(32, 1)
+    NARROW_CASE(64, 0)
+    NARROW_CASE(64, 1)
+#undef NARROW_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TIn, typename TOut>
 int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
                  const float* scale, const float* bias, void* y, void* q,
@@ -1899,6 +2541,9 @@ int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
     case kDepthwiseGeneric:
       return launch_depthwise<TIn, TOut>(a, xt, w, scale, bias, yt, sc,
                                          device, stream);
+    case kNarrow:
+      return launch_narrow<TIn, TOut>(a, xt, w, scale, bias, yt, sc, device,
+                                      stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1915,8 +2560,8 @@ extern "C" {
 // pick bfloat16 over float32. `bias` may be null. `w` is packed as the
 // header says. `q` is scratch for the quantized input of a dense conv,
 // 16-byte aligned: n * qh * qw * c_tap bytes for the wgmma design, n * h *
-// w * ceil(c / 4) int32 words for mma_sync (unused by the depthwise
-// designs).
+// w * ceil(c / 4) int32 words for mma_sync (unused, and may be null, for
+// the narrow and depthwise designs).
 int int8_conv_launch(const Int8ConvArgs* a, const void* x, int x_bf16,
                      const void* w, const float* scale, const float* bias,
                      void* y, int y_bf16, void* q, float s_a, int device,

@@ -14,16 +14,18 @@ implementation for the output shape, so that `torch.export` can capture
 the int8 serving graph. Importing this module (or `retinanet_torch.ops`)
 registers the op, which loading such a graph needs.
 
-`int8_design` picks one of four designs from the shape alone (and, for a
+`int8_design` picks one of five designs from the shape alone (and, for a
 depthwise conv, the input's 16-byte alignment, which TMA needs; the
 source's note says what each does): "wgmma" (dense, C > 16: TMA and
-wgmma), "mma_sync" (dense, C <= 16: the stem), "depthwise" (windows 1, 3
-and 5 at stride 1 or 2, C % 8 == 0: tiles by TMA, quantized once into
-shared memory, dp4a) and "depthwise_generic" (every other depthwise conv:
-the same tiles, loaded by the threads). No design stands in for another:
-a launch that fails raises. `kernel.launches` counts the convolutions
-launched (a dense one is two CUDA kernels on one stream, the quantizing
-pass and the GEMM; a depthwise one is one); `kernel.launches_by` splits
+wgmma), "narrow" (dense, 4 <= C <= 16: one launch, the input box quantized
+once into shared memory, mma.sync from ldmatrix), "mma_sync" (dense, C <
+4: the stems), "depthwise" (windows 1, 3 and 5 at stride 1 or 2, C % 8 ==
+0: tiles by TMA, quantized once into shared memory, dp4a) and
+"depthwise_generic" (every other depthwise conv: the same tiles, loaded by
+the threads). No design stands in for another: a launch that fails
+raises. `kernel.launches` counts the convolutions launched (a wgmma or
+mma_sync one is two CUDA kernels on one stream, the quantizing pass and
+the GEMM; a narrow or depthwise one is one); `kernel.launches_by` splits
 them by design.
 
 The wgmma design reads its input through an im2col-mode TMA tensor map.
@@ -31,8 +33,9 @@ The wgmma design reads its input through an im2col-mode TMA tensor map.
 input's shape, the box's corners, the traversal stride); the CPU tests walk
 a numpy model of the copies from those numbers and hold it to `F.unfold`.
 `depthwise_plan` gives the depthwise designs' tile, box and shared-memory
-layout; the CPU tests check it at every depthwise conv of the configs and
-walk a numpy model of its tiles to the plain int32 conv.
+layout, `narrow_plan` the narrow design's; the CPU tests check both at
+every such conv of the configs and walk numpy models of their items to the
+plain int32 conv.
 
 Build: `ops/cuda_build.py` compiles `csrc/int8_conv.cu` with `nvcc` on
 first use and loads it with ctypes. Importing this module needs no `nvcc`.
@@ -54,7 +57,7 @@ from retinanet_torch.ops.int8_conv import (WGMMA_MIN_CHANNELS,
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _DESIGN_CODE = {"depthwise": 0, "mma_sync": 1, "wgmma": 2,
-                "depthwise_generic": 3}  # `Design` in C
+                "depthwise_generic": 3, "narrow": 4}  # `Design` in C
 TILE_M = 128             # `kTileM`: output pixels a tile of the wgmma design
 TILE_NS = (64, 128, 256)  # its output channels a tile
 CHUNKS = (32, 64, 128)   # its int8 channels a stage: the swizzle widths
@@ -77,6 +80,28 @@ DW_TILES = ((8, 32), (8, 16), (4, 32), (4, 16), (4, 8), (4, 4))
 DW_SMEM_BUDGET = SM_SMEM // 3 - 1024
 DW_TAP_BLOCK = 16        # "depthwise_generic": taps of a window block a side
 
+# The narrow design (csrc/int8_conv.cu, "narrow")
+NARROW_MIN_CHANNELS = 4  # dense convs with fewer channels: mma_sync
+# output channels a warp's unit (the kernel's kTileN): the narrowest that
+# holds O, up to 64 (units of 128 measured slower at O = 128: their 64
+# accumulators a thread cost resident warps; PERF.md)
+NARROW_TILE_NS = (32, 64)
+NARROW_PIXEL = 16        # bytes of a quantized pixel: C <= 16 int8, zeros
+# output pixels an item, in the order tried: the largest that leaves at
+# least NARROW_MIN_ITEMS items (fewer items than that leave SMs idle in the
+# last round; larger ones pass fewer barriers a pixel)
+NARROW_TILE_MS = (256, 128, 64)
+NARROW_MIN_ITEMS = 4 * SMS
+NARROW_STAGES = 2        # raw boxes in the ring, at most
+NARROW_OUT_BUFS = 2      # staging tiles, at most
+# inputs of fewer pixels (the squeeze-excite convs' 1x1 maps) are loaded and
+# stored by the threads: no tensor map is encoded for them
+NARROW_MAP_MIN_PIXELS = 4096
+# three CTAs an SM first, then two, then one: each CTA's items pass through
+# phases that few of its warps fill (the quantization, the epilogue), and
+# more CTAs hide them (the tool's plan variants, PERF.md)
+NARROW_SMEM_BUDGETS = (SM_SMEM // 3 - 1024, SM_SMEM // 2 - 1024, SMEM_LIMIT)
+
 
 def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
                 groups: int, aligned: bool = True) -> str:
@@ -86,16 +111,23 @@ def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
     TMA takes the input's and the output's rows) takes "depthwise", any
     other "depthwise_generic". A dense conv with C > 16 takes wgmma: its
     taps are `tap_channels(C)`, a multiple of 32, so every stage is whole
-    k32 steps (C = 24 and 40 of EfficientNet-lite pad to 32 and 64). C <=
-    16 keeps the mma.sync GEMM, whose taps are 4 bytes: on wgmma the 7x7/2
-    stem (C = 3) would copy 49 taps of 32-byte rows a tile, and measured
-    3.3x slower there (`tools/int8_conv_experiments.py`, PERF.md)."""
+    k32 steps (C = 24 and 40 of EfficientNet-lite pad to 32 and 64). 4 <=
+    C <= 16 takes "narrow": a 16-byte quantized pixel a tap, two taps a
+    k32 step. The stems (C = 3) stay on the mma.sync GEMM, which beats
+    cuDNN bf16 there: on wgmma the 7x7/2 stem copies 49 taps of 32-byte
+    rows a tile and measured 3.3x slower. On narrow (taps of 16 bytes of
+    which 3 are channels, the input loaded by the threads: TMA takes no
+    6-byte bfloat16 rows) the stems measured 11-34% faster still
+    (`tools/int8_conv_experiments.py`, PERF.md); sending them there
+    retires the mma_sync design and is ROADMAP's next routing."""
     del o  # the same design at every width
     if groups != 1:
         tiled = (kh == kw and kh in DW_WINDOWS and stride in DW_STRIDES
                  and c % 8 == 0 and aligned)
         return "depthwise" if tiled else "depthwise_generic"
-    return "wgmma" if c >= WGMMA_MIN_CHANNELS else "mma_sync"
+    if c >= WGMMA_MIN_CHANNELS:
+        return "wgmma"
+    return "narrow" if c >= NARROW_MIN_CHANNELS else "mma_sync"
 
 
 def wgmma_chunk(c_tap: int) -> int:
@@ -259,6 +291,136 @@ def depthwise_plan(design: str, c: int, oh: int, ow: int, kh: int, kw: int,
                      f"window at stride {stride}")
 
 
+@dataclass(frozen=True)
+class NarrowPlan:
+    """How the narrow design walks a conv (the fields of the same names in
+    `Int8ConvArgs`; tile_n is `Int8ConvArgs.tile_n`, the kernel's kTileN:
+    output channels of a warp's unit, which is kUnitM fragments of 16
+    output pixels). `flat`: a 1x1 conv at stride 1 without pads, whose N H
+    W input pixels the kernel views as one row (N, H, W = 1, 1, N H W). A
+    work item is tile_h x tile_w output pixels of one image of that view
+    (tiles in row-major order, then images); its input box, box_h x box_w
+    pixels from (ty tile_h stride - pad_t, tx tile_w stride - pad_l), is
+    quantized into NARROW_PIXEL-byte pixels, box_h rows of row_pitch bytes
+    = stride phases of row_pitch / (16 stride) pixels (column x at phase x
+    % stride, place x // stride). K is k_steps k32 steps, two taps of 16
+    bytes a step; the weights in shared memory are o_pad rows (O rounded up
+    to 16) of w_pitch bytes (32 k_steps + 16, so that 8 rows fall on 32
+    banks). The output leaves in ceil(O / o_box) boxes of o_box channels a
+    pixel, by TMA from a staging tile whose rows of o_box channels are
+    swizzled at their width (tma_out; ceil(o_pad / o_box) rows a pixel, so
+    that the channels past O have a place), else by the threads. The input
+    comes by TMA into `stages` raw boxes (tma_in), else the threads load
+    it (stages 0). Shared memory, from a 1024-byte aligned base: the raw
+    boxes from 0, the quantized box at q_off, the weights at w_off, scale
+    and bias (o_pad floats each) at sb_off, the taps' byte offsets (2
+    k_steps ints) at tap_off, `out_bufs` staging tiles at out_off, the
+    ring's barriers at bar_off, `smem` bytes with 1024 of alignment slack.
+    (The kernel sizes its persistent grid from the CTAs the card holds.)"""
+    flat: bool
+    tile_n: int
+    tile_h: int
+    tile_w: int
+    box_h: int
+    box_w: int
+    row_pitch: int
+    k_steps: int
+    w_pitch: int
+    o_pad: int
+    o_box: int
+    tma_in: bool
+    tma_out: bool
+    stages: int
+    out_bufs: int
+    q_off: int
+    w_off: int
+    sb_off: int
+    tap_off: int
+    out_off: int
+    bar_off: int
+    smem: int
+
+
+def narrow_staging_bytes(tile_h: int, tile_w: int, o: int, o_box: int,
+                         out_bytes: int, tma_out: bool) -> int:
+    """`narrow_staging_bytes` of the source: one staging tile."""
+    rows = _ceil(_align(o, 16), o_box) if tma_out else 1
+    return _align(tile_h * tile_w * rows * o_box * out_bytes, 1024)
+
+
+def narrow_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
+                stride: int, pads: Tuple[int, int, int, int], in_bytes: int,
+                out_bytes: int, aligned: bool = True) -> NarrowPlan:
+    """The plan of a dense conv (n, h, w, c) -> (n, ., ., o), 4 <= c <= 16,
+    with a kh x kw window at `stride`; in_bytes / out_bytes the element
+    sizes; aligned: the input's address is a multiple of 16.
+
+    Items of the first of NARROW_TILE_MS output pixels that leaves
+    NARROW_MIN_ITEMS items (else the last): a run of them in a flat conv, a
+    tile 16 wide (8 where the output is at most 8 wide) otherwise. TMA
+    takes the input where its pixels' rows are whole 16-byte units, and
+    the output where its rows are; neither on maps of fewer than
+    NARROW_MAP_MIN_PIXELS pixels. The first ring depth (NARROW_STAGES
+    down) and staging count (NARROW_OUT_BUFS down) whose shared memory
+    fits a budget of NARROW_SMEM_BUDGETS, in order."""
+    top, bottom, left, right = pads
+    s = stride
+    oh = conv_out_size(h, kh, s, top, bottom)
+    ow = conv_out_size(w, kw, s, left, right)
+    flat = kh == kw == 1 and s == 1 and not any(pads)
+    tm = next((t for t in NARROW_TILE_MS
+               if n * oh * ow >= t * NARROW_MIN_ITEMS), NARROW_TILE_MS[-1])
+    if flat:
+        tile_h, tile_w = 1, min(tm, _align(n * h * w, 16))
+    else:
+        tile_w = 16 if ow > 8 else 8
+        tile_h = min(tm // tile_w, _align(oh, 16 // tile_w))
+    box_h, box_w = (tile_h - 1) * s + kh, (tile_w - 1) * s + kw
+    if max(box_h, box_w) > 256:
+        raise ValueError(f"a narrow box of {box_h} x {box_w} pixels: TMA "
+                         "takes at most 256 a side")
+    maps = n * h * w >= NARROW_MAP_MIN_PIXELS
+    tma_in = maps and aligned and (c * in_bytes) % 16 == 0
+    tma_out = maps and (o * out_bytes) % 16 == 0
+    # a staging row: a power of two of 16 to 128 bytes, so that the swizzle
+    # of that width spreads 8 rows on 32 banks, no wider than the output's
+    # rows; of those the one that leaves the fewest channels of the last box
+    # empty, then the widest; the threads' store reads rows of O channels
+    o_box = o
+    if tma_out:
+        widths = [b // out_bytes for b in (128, 64, 32, 16)
+                  if b <= o * out_bytes]
+        o_box = min(widths, key=lambda b: _ceil(o, b) * b)
+    k_steps = _ceil(kh * kw, 2)
+    w_pitch = 32 * k_steps + 16
+    o_pad = _align(o, 16)
+    tile_n = next((t for t in NARROW_TILE_NS if t >= o_pad),
+                  NARROW_TILE_NS[-1])
+    row_pitch = s * _ceil(box_w, s) * NARROW_PIXEL
+    raw = _align(box_h * box_w * c * in_bytes, 128)
+    staging = narrow_staging_bytes(tile_h, tile_w, o, o_box, out_bytes,
+                                   tma_out)
+    for budget in NARROW_SMEM_BUDGETS:
+        for stages in (range(NARROW_STAGES, 0, -1) if tma_in else (0,)):
+            for bufs in (range(NARROW_OUT_BUFS, 0, -1) if tma_out
+                         else (1,)):
+                q_off = stages * raw
+                w_off = q_off + _align(box_h * row_pitch, 128)
+                sb_off = w_off + o_pad * w_pitch
+                tap_off = sb_off + 8 * o_pad
+                out_off = _align(tap_off + 8 * k_steps, 1024)
+                bar_off = out_off + bufs * staging
+                smem = bar_off + 8 * stages + 1024
+                if smem <= budget:
+                    return NarrowPlan(flat, tile_n, tile_h, tile_w, box_h,
+                                      box_w, row_pitch, k_steps, w_pitch,
+                                      o_pad, o_box, tma_in, tma_out, stages,
+                                      bufs, q_off, w_off, sb_off, tap_off,
+                                      out_off, bar_off, smem)
+    raise ValueError(f"no narrow plan fits shared memory for a {kh}x{kw} "
+                     f"window over {c} channels into {o}")
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.int8_conv_launch.argtypes = (
         [ctypes.POINTER(_Args), ctypes.c_void_p, ctypes.c_int,
@@ -283,7 +445,8 @@ class _Args(ctypes.Structure):
         "lower_w", "lower_h", "upper_w", "upper_h", "tile_n", "chunk",
         "tile_h", "tile_w", "dw_chunk", "box_h", "box_w", "taps_h",
         "taps_w", "row_pitch", "plane_pitch", "stages", "q_off", "out_off",
-        "bar_off", "smem")]
+        "bar_off", "smem", "flat", "w_off", "w_pitch", "sb_off", "tap_off",
+        "k_steps", "o_pad", "o_box", "out_bufs", "tma_in", "tma_out")]
 
 
 # the built library, and the counts of kernel launches
@@ -325,6 +488,11 @@ def conv_args(x_shape, packed_shape, out_channels: int, stride: int,
         scratch = n * plan.qh * plan.qw * plan.c_tap
     elif design == "mma_sync":
         scratch = n * h * w * 4 * (-(-c // 4))
+    elif design == "narrow":
+        plan = narrow_plan(n, h, w, c, o, kh, kw, stride, pads, in_bytes,
+                           out_bytes, aligned)
+        for name in NarrowPlan.__dataclass_fields__:
+            setattr(args, name, int(getattr(plan, name)))
     else:
         plan = depthwise_plan(design, c, oh, ow, kh, kw, stride, in_bytes,
                               out_bytes)
@@ -353,14 +521,16 @@ def launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     design, args, scratch = conv_args(
         x.shape, packed.shape, scale.shape[0], stride, pads, groups, kh, kw,
         x.element_size(), y.element_size(), x.data_ptr() % 16 == 0)
-    # the quantized input of a dense conv (int32 words keep it 16-byte
-    # aligned)
-    q = torch.empty(-(-scratch // 4), dtype=torch.int32, device=x.device)
+    # the quantized input of a wgmma or mma_sync conv (int32 words keep it
+    # 16-byte aligned); the narrow and depthwise designs take none
+    q = (torch.empty(-(-scratch // 4), dtype=torch.int32, device=x.device)
+         if scratch else None)
     err = lib.int8_conv_launch(
         ctypes.byref(args), x.data_ptr(), int(x.dtype == torch.bfloat16),
         packed.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
-        int(out_dtype == torch.bfloat16), q.data_ptr(), float(s_a),
+        int(out_dtype == torch.bfloat16),
+        None if q is None else q.data_ptr(), float(s_a),
         device_index(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -1,27 +1,32 @@
-"""Int8 conv kernel experiments on the card: where the time of the wgmma
-and depthwise designs goes, at the flagship's and EfficientNet-lite2's
-shapes.
+"""Int8 conv kernel experiments on the card: where the time of the wgmma,
+depthwise and narrow designs goes, at the shapes of the int8 lane.
 
     python -m retinanet_torch.tools.int8_conv_experiments \
-        [--designs wgmma depthwise]
+        [--designs wgmma depthwise narrow]
 
 Seven convs of a batch-8 flagship request, bfloat16 in and out, seeded
 inputs, and the 7x7/2 stem a second time on the wgmma design (routed there
 as if C = 3 were above `WGMMA_MIN_CHANNELS`: taps of 32 channels), which
-says what keeping it on the mma_sync design saves; and seven depthwise
-convs of a batch-8 lite2 request. For each variant and case: the design,
-the device ms of a call (`utils/benchmark.py:device_time_ms`), and the ms
-of its CUDA kernels by name from a profiler trace (the quantizing pass and
-the GEMM), beside the card's name and power limit.
+says what keeping it on the mma_sync design saves; seven depthwise convs
+of a batch-8 lite2 request; and the dense convs with C <= 16 of batch-8
+lite2, MobileDet-cpu and MobileDet-edge_tpu requests, each a second time on
+the other of the narrow and mma_sync designs (routed by
+`NARROW_MIN_CHANNELS`: C <= 16 on mma_sync, what narrow replaced; the C = 3
+stems on narrow). For each variant and case: the design, the device ms of
+a call (`utils/benchmark.py:device_time_ms`), and the ms of its CUDA
+kernels by name from a profiler trace (the quantizing pass and the GEMM),
+beside the card's name and power limit.
 
 A source variant is `csrc/int8_conv.cu` with one edit, compiled beside the
-package's build; a plan variant (`DW_PLANS`) is the depthwise plan of
-`ops/int8_conv_kernel.py` with one constant changed (tile, channel chunk,
-ring depth, shared-memory budget), on the package's build. The cut
-variants (name "cut: ...": no stores, no epilogue, no products, no
-quantization) compute something else and are timed only; every other
-variant must equal the plain version at every case, and the tool exits 1
-when one does not.
+package's build; a plan variant (`DW_PLANS`, `NARROW_PLANS`) is the
+depthwise or narrow plan of `ops/int8_conv_kernel.py` with one constant
+changed (tile or item size, channel chunk, ring depth, staging tiles,
+shared-memory budget), on the package's build. The cut variants (name
+"cut: ...": no stores, no epilogue, no products, no quantization) compute
+something else and are timed only; every other variant must equal the
+plain version at every case, and the tool exits 1 when one does not.
+`routed` and `NARROW_ROUTES` also serve `chip_smoke.py`, which times each
+narrow call on mma_sync too.
 """
 
 from __future__ import annotations
@@ -65,6 +70,25 @@ DW_SHAPES = (
     ("dw 32 x720 5x5/1", (8, 32, 32, 720), 5, 1),
     ("dw 4 x160 3x3/1", (8, 4, 4, 160), 3, 1),
 )
+# (label, (N, H, W, C), O, k, stride, pads): dense convs with C <= 16 of
+# batch-8 requests (lite2 and MobileDet-cpu's 1x1 convs and a squeeze-excite
+# conv on a 1x1 map, MobileDet-edge_tpu's windows), and the C = 3 stems
+NARROW_SHAPES = (
+    ("lite2 1x1 256 16->96", (8, 256, 256, 16), 96, 1, 1, (0, 0, 0, 0)),
+    ("mdc 1x1 224 8->32", (8, 224, 224, 8), 32, 1, 1, (0, 0, 0, 0)),
+    ("mdc 1x1 224 16->8", (8, 224, 224, 16), 8, 1, 1, (0, 0, 0, 0)),
+    ("mdc 1x1 112 16->128", (8, 112, 112, 16), 128, 1, 1, (0, 0, 0, 0)),
+    ("mdc SE 1x1 8->32", (8, 1, 1, 8), 32, 1, 1, (0, 0, 0, 0)),
+    ("edge 3x3 224 8->16", (8, 224, 224, 8), 16, 3, 1, (1, 1, 1, 1)),
+    ("edge 3x3/2 224 16->128", (8, 224, 224, 16), 128, 3, 2, (0, 1, 0, 1)),
+    ("edge 5x5/2 112 16->128", (8, 112, 112, 16), 128, 5, 2, (1, 2, 1, 2)),
+    ("stem 3x3/2 448 3->16", (8, 448, 448, 3), 16, 3, 2, (0, 1, 0, 1)),
+    ("stem 3x3/2 512 3->32", (8, 512, 512, 3), 32, 3, 2, (0, 1, 0, 1)),
+    ("stem 7x7/2 646 3->64", (8, 646, 646, 3), 64, 7, 2, (0, 0, 0, 0)),
+)
+# the routes of a dense conv with C <= 16 to the other design
+NARROW_ROUTES = {"mma_sync": {"NARROW_MIN_CHANNELS": 17},
+                 "narrow": {"NARROW_MIN_CHANNELS": 1}}
 
 VARIANTS: Dict[str, Edits] = {
     "non-persistent grid": [
@@ -129,6 +153,59 @@ DW_VARIANTS: Dict[str, Edits] = {
         ("      tma_store_4d(&y_map, out,",
          "      if (s.c < 0) tma_store_4d(&y_map, out,")],
 }
+# one-edit variants of the narrow design (source)
+NARROW_VARIANTS: Dict[str, Edits] = {
+    "narrow: no programmatic dependent launch": [
+        ("early.val.programmaticStreamSerializationAllowed = 1;\n"
+         "  cudaLaunchConfig_t config = {};\n"
+         "  config.gridDim =\n      dim3(static_cast<unsigned>(s.items < "
+         "resident",
+         "early.val.programmaticStreamSerializationAllowed = 0;\n"
+         "  cudaLaunchConfig_t config = {};\n"
+         "  config.gridDim =\n      dim3(static_cast<unsigned>(s.items < "
+         "resident")],
+    "narrow: units of one fragment (16 pixels)": [
+        ("constexpr int kUnitM = 2;", "constexpr int kUnitM = 1;")],
+    "narrow: the epilogue's stores a pair a lane, no stmatrix": [
+        ("const bool matrices = kMatrices && s.tma_out;",
+         "const bool matrices = kMatrices && s.tma_out && s.c < 0;")],
+    "narrow: registers for 3 CTAs an SM": [
+        ("__global__ void __launch_bounds__(kNarrowThreads, 2)",
+         "__global__ void __launch_bounds__(kNarrowThreads, 3)")],
+    "narrow: registers for 4 CTAs an SM": [
+        ("__global__ void __launch_bounds__(kNarrowThreads, 2)",
+         "__global__ void __launch_bounds__(kNarrowThreads, 4)")],
+    "cut: narrow without the epilogue": [
+        ("        if (mf0 + i < mfrags) epilogue(mf0 + i, n0, acc[i]);",
+         "        if (mf0 + i < mfrags && s.c < 0) epilogue(mf0 + i, n0, "
+         "acc[i]);")],
+    "cut: narrow without the barrier before the stores": [
+        ("    __syncthreads();  // the staging tile whole, q free for the "
+         "next box",
+         "    // the staging tile whole, q free for the next box")],
+    "cut: narrow without quantization": [
+        ("      narrow_quantize_raw(reinterpret_cast<const TIn*>(smem + st * "
+         "raw_stride),\n                          q, s, sc, pw);\n", "")],
+    "cut: narrow without products": [
+        ("for (int kk = 0; kk < s.k_steps; ++kk) {",
+         "for (int kk = 0; kk < s.k_steps * 0; ++kk) {")],
+    "cut: narrow without stores": [
+        ("          tma_store_4d(&y_map, stage + ch * tm * rb,",
+         "          if (s.c < 0) tma_store_4d(&y_map, stage + ch * tm * rb,")],
+}
+# one-constant variants of the narrow plan (ops/int8_conv_kernel.py)
+NARROW_PLANS: Dict[str, Dict[str, object]] = {
+    "narrow plan: ring of 1 box": {"NARROW_STAGES": 1},
+    "narrow plan: ring of 3 boxes": {"NARROW_STAGES": 3},
+    "narrow plan: one staging tile": {"NARROW_OUT_BUFS": 1},
+    "narrow plan: items of 64 pixels": {"NARROW_TILE_MS": (64,)},
+    "narrow plan: items of 128 pixels": {"NARROW_TILE_MS": (128,)},
+    "narrow plan: items of 256 pixels": {"NARROW_TILE_MS": (256,)},
+    "narrow plan: units of 32 channels": {"NARROW_TILE_NS": (32,)},
+    "narrow plan: three CTAs an SM": {
+        "NARROW_SMEM_BUDGETS": (int8_conv_kernel.SM_SMEM // 3 - 1024,
+                                int8_conv_kernel.SMEM_LIMIT)},
+}
 # one-constant variants of the depthwise plan (ops/int8_conv_kernel.py)
 DW_PLANS: Dict[str, Dict[str, object]] = {
     "dw plan: tiles of 4 x 16 at most": {
@@ -173,6 +250,17 @@ def wgmma_from(channels: int):
         int8_conv_kernel.WGMMA_MIN_CHANNELS = old
 
 
+@contextlib.contextmanager
+def routed(route: Dict[str, int]):
+    """Dense convs routed as `route` says while the block runs: its
+    WGMMA_MIN_CHANNELS (`wgmma_from`) and NARROW_MIN_CHANNELS."""
+    rest = {k: v for k, v in route.items() if k != "WGMMA_MIN_CHANNELS"}
+    with wgmma_from(route.get("WGMMA_MIN_CHANNELS",
+                              int8_conv.WGMMA_MIN_CHANNELS)), \
+            plan_constants(rest):
+        yield
+
+
 def shape_args(shape, rng, groups: int = 1):
     """The arguments of `launch` for a dense shape of SHAPES, or (groups
     C) a depthwise shape of DW_SHAPES."""
@@ -215,8 +303,9 @@ def kernel_ms(fn, calls: int = 10) -> Dict[str, float]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--designs", nargs="+", default=["wgmma", "depthwise"],
-                    choices=["wgmma", "depthwise"],
+    ap.add_argument("--designs", nargs="+",
+                    default=["wgmma", "depthwise", "narrow"],
+                    choices=["wgmma", "depthwise", "narrow"],
                     help="whose shapes and variants to run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -231,46 +320,65 @@ def main(argv=None) -> int:
     if "depthwise" in args.designs:
         runs += [(n, e, {}, "depthwise") for n, e in DW_VARIANTS.items()]
         runs += [(n, None, c, "depthwise") for n, c in DW_PLANS.items()]
+    if "narrow" in args.designs:
+        runs += [(n, e, {}, "narrow") for n, e in NARROW_VARIANTS.items()]
+        runs += [(n, None, c, "narrow") for n, c in NARROW_PLANS.items()]
     libs = {"base": base}
     libs.update({name: variant_library(base, int8_conv_kernel.declare, name,
                                        edits)
                  for name, edits, _, _ in runs if edits is not None})
     build_all(libs.values())
     for name, lib in libs.items():
+        entry = "?"
         for line in lib.build_log.splitlines():
+            if "Compiling entry function" in line:
+                # the mangled kernel name: its name and template arguments
+                entry = line.split("'")[1].split("int8_conv_")[-1][:48]
             if "registers" in line or "stack frame" in line:
-                print(f"[build] {name}: {line.strip()}")
-    # design -> [(label, the route's WGMMA_MIN_CHANNELS, args, plain)]
-    cases = {"wgmma": [], "depthwise": []}
+                print(f"[build] {name}: {entry}: {line.strip()}")
+    # design -> [(label, the route, args, plain)]
+    cases = {"wgmma": [], "depthwise": [], "narrow": []}
     if "wgmma" in args.designs:
         for shape in SHAPES:
-            routes = [int8_conv.WGMMA_MIN_CHANNELS] + (
-                [1] if shape[0] in ON_WGMMA else [])
-            for channels in routes:
-                with wgmma_from(channels), torch.inference_mode():
+            routes = [{}] + ([{"WGMMA_MIN_CHANNELS": 1}]
+                             if shape[0] in ON_WGMMA else [])
+            for route in routes:
+                with routed(route), torch.inference_mode():
                     a = shape_args(shape, np.random.default_rng(
                         len(cases["wgmma"])))
-                    cases["wgmma"].append((shape[0], channels, a,
+                    cases["wgmma"].append((shape[0], route, a,
                                            int8_conv2d_plain(*a)))
     if "depthwise" in args.designs:
         for i, shape in enumerate(DW_SHAPES):
             with torch.inference_mode():
                 a = shape_args(shape, np.random.default_rng(100 + i),
                                groups=shape[1][3])
-                cases["depthwise"].append((shape[0], int8_conv.
-                                           WGMMA_MIN_CHANNELS, a,
+                cases["depthwise"].append((shape[0], {}, a,
                                            int8_conv2d_plain(*a)))
+    if "narrow" in args.designs:
+        for i, shape in enumerate(NARROW_SHAPES):
+            other = NARROW_ROUTES["narrow" if shape[1][3] <
+                                  int8_conv_kernel.NARROW_MIN_CHANNELS
+                                  else "mma_sync"]
+            with torch.inference_mode():
+                a = shape_args(shape, np.random.default_rng(200 + i))
+                want = int8_conv2d_plain(*a)
+            cases["narrow"] += [(shape[0], {}, a, want),
+                                (shape[0], other, a, want)]
     failed = []
     try:
         for name, edits, constants, design_of in runs:
             int8_conv_kernel.kernel = libs[name if edits is not None
                                            else "base"]
-            for label, channels, a, want in cases[design_of]:
+            for label, route, a, want in cases[design_of]:
                 x, _, scale, _, _, stride, _, groups, kh, kw, _ = a
-                with wgmma_from(channels), plan_constants(constants), \
+                with routed(route), plan_constants(constants), \
                         torch.inference_mode():
                     design = int8_conv_kernel.int8_design(
                         x.shape[3], scale.shape[0], kh, kw, stride, groups)
+                    if (design_of == "narrow" and design != "narrow"
+                            and name != "base"):
+                        continue    # mma_sync: the base build only
                     got = int8_conv_kernel.launch(*a)
                     ms = device_time_ms(
                         lambda: int8_conv_kernel.launch(*a), reps=20)

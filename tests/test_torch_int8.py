@@ -5,7 +5,8 @@
     `lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
     bit for bit at every shape the kernel takes: stride 1 and 2, "SAME"
     with asymmetric pads, 1x1, 3x3, the 7x7 stem with C = 3, depthwise 1x1,
-    3x3 and 5x5 (C = 7 among them), C = 6, 24 and 40, and the largest
+    3x3 and 5x5 (C = 7 among them), C = 6, 24 and 40, the narrow design's
+    1x1, 3x3/2 and 5x5/2 at C = 4, 6, 8, 12 and 16, and the largest
     magnitude of the flagship (4,608 terms of 127 * -127).
   * The activation quantization and the epilogue equal the JAX
     interceptor's expressions under `jit`, bit for bit, in float32 and
@@ -78,6 +79,22 @@ _CONV_CASES = [
     ("dw5x5_s2_same_asym_c16", 2, (11, 14), 16, 16, 5, 2, 16, "SAME"),
     ("dw1x1", 2, (6, 7), 24, 24, 1, 1, 24, (0, 0, 0, 0)),
     ("dw5x5_s1_c7", 1, (9, 8), 7, 7, 5, 1, 7, "SAME"),
+    # the narrow design's classes (dense, 4 <= C <= 16): 1x1, 3x3/2 and
+    # 5x5/2 "SAME" at C = 4, 6, 8, 12 and 16 where the cases above have
+    # none
+    ("n1x1_c4", 3, (5, 6), 4, 96, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c6", 2, (7, 5), 6, 24, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c8", 2, (6, 6), 8, 32, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c12", 2, (5, 7), 12, 40, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c16", 2, (6, 7), 16, 8, 1, 1, 1, (0, 0, 0, 0)),
+    ("n3x3_s2_c4", 2, (9, 10), 4, 16, 3, 2, 1, "SAME"),
+    ("n3x3_s2_c6", 1, (11, 9), 6, 12, 3, 2, 1, "SAME"),
+    ("n3x3_s2_c12", 2, (10, 11), 12, 20, 3, 2, 1, "SAME"),
+    ("n5x5_s2_c4", 2, (11, 12), 4, 8, 5, 2, 1, "SAME"),
+    ("n5x5_s2_c6", 1, (12, 11), 6, 16, 5, 2, 1, "SAME"),
+    ("n5x5_s2_c8", 2, (10, 13), 8, 12, 5, 2, 1, "SAME"),
+    ("n5x5_s2_c12", 1, (13, 12), 12, 24, 5, 2, 1, "SAME"),
+    ("n5x5_s2_c16", 2, (12, 12), 16, 128, 5, 2, 1, "SAME"),
 ]
 
 

@@ -4,7 +4,7 @@ Imports nothing of JAX, so that it runs on a machine with a card and no
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py`.
 The output is bit-equal: the accumulators are exact integers and the
 epilogue rounds in the same two places. The cases meet every branch of the
-four designs (`int8_design`); `test_cases_meet_every_branch` checks that
+five designs (`int8_design`); `test_cases_meet_every_branch` checks that
 on the CPU too."""
 
 import numpy as np
@@ -63,6 +63,24 @@ _CASES = [
     ("dw7x7_g", 1, 20, 16, 16, 7, 1, 16, None),
     ("dw3x3_s3_g", 2, 17, 8, 8, 3, 3, 8, (1, 1, 1, 1)),
     ("dw19x19_s2_g", 1, 30, 12, 12, 19, 2, 12, None),
+    # narrow (c6_odd and c16_head above too): 1x1 runs across rows and
+    # images with a ragged last item, tensor maps both ways (4,096 pixels
+    # and more), more than one store box a pixel, 3x3/1 with edge tiles,
+    # 3x3/2 "SAME", 5x5/2, C = 12 (bfloat16 rows of 24 bytes: the threads
+    # load, TMA stores), and the squeeze-excite convs on 1x1 maps (the
+    # threads load and store; O = 4 and 288)
+    ("n1x1_c16_o96", 2, 48, 16, 96, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c8_o32", 3, 40, 8, 32, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c16_o8", 2, 50, 16, 8, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c16_o128", 2, 56, 16, 128, 1, 1, 1, (0, 0, 0, 0)),
+    ("n1x1_c12_o24", 2, 48, 12, 24, 1, 1, 1, (0, 0, 0, 0)),
+    ("n3x3_s1_c8_o16", 2, 50, 8, 16, 3, 1, 1, (1, 1, 1, 1)),
+    ("n3x3_s1_c16_o64", 2, 48, 16, 64, 3, 1, 1, (1, 1, 1, 1)),
+    ("n3x3_s2_c16_o128", 2, 64, 16, 128, 3, 2, 1, None),
+    ("n5x5_s2_c16_o128", 2, 57, 16, 128, 5, 2, 1, (1, 2, 1, 2)),
+    ("se_c4_o96", 8, 1, 4, 96, 1, 1, 1, (0, 0, 0, 0)),
+    ("se_c12_o288", 8, 1, 12, 288, 1, 1, 1, (0, 0, 0, 0)),
+    ("se_c16_o4", 8, 1, 16, 4, 1, 1, 1, (0, 0, 0, 0)),
 ]
 _DTYPES = [("f32", torch.float32), ("bf16", torch.bfloat16)]
 
@@ -95,7 +113,27 @@ def _case_args(case):
 def test_cases_meet_every_branch():
     args = {case[0]: _case_args(case) for case in _CASES}
     designs = {d for d, _ in args.values()}
-    assert designs == {"wgmma", "mma_sync", "depthwise", "depthwise_generic"}
+    assert designs == {"wgmma", "mma_sync", "depthwise", "depthwise_generic",
+                       "narrow"}
+    # narrow, in bfloat16 (the lane's type) and float32
+    for nbytes in (2, 4):
+        nar = [conv_args((case[1], case[2], case[2], case[3]),
+                         (case[4], 32), case[4], case[6],
+                         case[8] or same_pads(case[2], case[5], case[6]) * 2,
+                         1, case[5], case[5], nbytes, nbytes)[1]
+               for case in _CASES if _case_args(case)[0] == "narrow"]
+        for flag in ("flat", "tma_in", "tma_out"):
+            assert {getattr(a, flag) for a in nar} == {0, 1}, flag
+        assert {a.out_bufs for a in nar} == {1, 2}
+        assert any(-(-a.o // a.o_box) > 1 and a.tma_out for a in nar)
+        # C = 12 in bfloat16: rows of 24 bytes
+        assert any(a.tma_out and not a.tma_in for a in nar) == (nbytes == 2)
+        assert any(a.flat and (a.n * a.h * a.w) % a.tile_w for a in nar)
+        assert any(not a.flat and a.ow % a.tile_w and a.tma_out
+                   for a in nar)
+        assert {(a.kh, a.stride) for a in nar} >= {(1, 1), (3, 1), (3, 2),
+                                                  (5, 2)}
+        assert {a.o for a in nar} >= {4, 288}
     dw = [a for d, a in args.values() if d == "depthwise"]
     assert {(a.kh, a.stride) for a in dw} == {(k, s) for k in (1, 3, 5)
                                               for s in (1, 2)}
@@ -194,6 +232,30 @@ def test_int8_depthwise_unaligned_input_takes_the_generic_design():
 
 
 @pytest.mark.cuda
+def test_int8_narrow_unaligned_input_takes_the_threads_loads():
+    """TMA needs a 16-byte aligned input: a narrow conv on one that is not
+    stays on "narrow", its threads loading the box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
+                    "mode")
+    case = ("n1x1_c16_o96", 2, 48, 16, 96, 1, 1, 1, (0, 0, 0, 0))
+    x, packed, scale, bias, pads = _case_inputs(case, torch.bfloat16, seed=7)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = flat[1:].view(x.shape)              # 2 bytes off 16
+    x_odd.copy_(x.cuda())
+    args = (packed.cuda(), scale.cuda(), bias.cuda(), 0.02, 1, pads, 1, 1,
+            1, torch.bfloat16)
+    _, a, _ = conv_args(x.shape, packed.shape, 96, 1, pads, 1, 1, 1,
+                        aligned=False)
+    assert not a.tma_in and a.tma_out
+    before = kernel.launches_by["narrow"]
+    got = int8_conv2d(x_odd, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches_by["narrow"] == before + 1
+    assert torch.equal(got, int8_conv2d_plain(x_odd, *args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,k", [(24, 3), (64, 1)], ids=["c24k3", "c64k1"])
 def test_int8_conv_refuses_the_earlier_layout(c, k):
     """Weights packed as before (ceil(C / 4) words a tap, rows padded to 16
@@ -218,14 +280,18 @@ def test_int8_conv_refuses_the_earlier_layout(c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design,c,groups", [("wgmma", 64, 1),
-                                             ("mma_sync", 8, 1),
-                                             ("depthwise", 8, 8),
-                                             ("depthwise_generic", 7, 7)],
+@pytest.mark.parametrize("design,c,groups,size", [("wgmma", 64, 1, 12),
+                                                  ("mma_sync", 3, 1, 12),
+                                                  ("depthwise", 8, 8, 12),
+                                                  ("depthwise_generic", 7, 7,
+                                                   12),
+                                                  ("narrow", 8, 1, 12),
+                                                  ("narrow", 16, 1, 48)],
                          ids=["wgmma", "mma_sync", "depthwise",
-                              "depthwise_generic"])
+                              "depthwise_generic", "narrow", "narrow_tma"])
 @pytest.mark.parametrize("s_a", [0.0137, 3e-39], ids=["s_a", "s_a_subnormal"])
-def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, s_a):
+def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, size,
+                                                    s_a):
     """Inputs on and one float32 step beside every half-integer multiple of
     s_a up to the clip, and past it: the kernels' quantization (a
     reciprocal product checked against its error bound, else the
@@ -239,9 +305,9 @@ def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, s_a):
     vals = np.concatenate([base, np.nextafter(base, np.inf),
                            np.nextafter(base, -np.inf), [0.0, -0.0]])
     rng = np.random.default_rng(5)
-    vals = np.resize(rng.permutation(vals), 2 * 12 * 12 * c).astype(
+    vals = np.resize(rng.permutation(vals), 2 * size * size * c).astype(
         np.float32)
-    x = torch.from_numpy(vals.reshape(2, 12, 12, c)).cuda()
+    x = torch.from_numpy(vals.reshape(2, size, size, c)).cuda()
     o = c if groups > 1 else 16
     qw = torch.from_numpy(rng.integers(1, 128, (o, c // groups, 1, 1))
                           .astype(np.int8))

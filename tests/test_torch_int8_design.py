@@ -3,10 +3,10 @@
   * `int8_design` is a function of the shape: every int8 conv of the
     flagship (ResNet50-FPN), of EfficientNet-lite2 and -lite3, B2 768 and
     B3 896, and of MobileDet cpu, edge_tpu and gpu gets the design the rule
-    gives (the stem and C <= 16 mma_sync, every other dense conv wgmma,
-    every depthwise conv "depthwise"); the numbers passed for the wgmma
-    design fit the tensor maps' limits, and the depthwise plan fits shared
-    memory and TMA's boxes at every depthwise call.
+    gives (the C = 3 stems mma_sync, 4 <= C <= 16 "narrow", every other
+    dense conv wgmma, every depthwise conv "depthwise"); the numbers passed
+    for the wgmma design fit the tensor maps' limits, and the depthwise and
+    narrow plans fit shared memory and TMA's boxes at every such call.
   * The packed weights' padded layout round-trips, and a tensor packed in
     the earlier layout (ceil(C / 4) words a tap, rows padded to 16 words)
     is refused by the shape check.
@@ -22,6 +22,15 @@
     the store clipped at the edges), from the numbers the wrapper passes,
     equals the plain int32 accumulators, and the fast quantization's
     float32 arithmetic equals `quantize_activation`.
+  * A numpy model of the narrow design's walk (items across rows and
+    images or tiles of one image, the box's origin and halo, the zero fill
+    as the padding, 16-byte quantized pixels stored by column phase, the
+    A rows that each lane's ldmatrix address gathers, the weights widened
+    from `pack_weights` order to 16 bytes a tap, units of 32 or 64
+    channels in N tiles of 8, the ragged last item, the store clipped at
+    the edges),
+    from the numbers the wrapper passes, equals the plain int32
+    accumulators at every narrow shape class of the eight configs.
 No JAX is compiled; the models are walked on `device="meta"`.
 """
 
@@ -43,10 +52,13 @@ from retinanet_torch.models.retinanet import build_model  # noqa: E402
 from retinanet_torch.ops.int8_conv import (  # noqa: E402
     K_WORDS_ALIGN, conv_out_size, dense_k_words, int8_conv_acc,
     pack_weights, quantize_activation, tap_channels, unpack_weights)
+from retinanet_torch.ops import \
+    int8_conv_kernel as int8_conv_kernel_module  # noqa: E402
 from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
-    CHUNKS, DW_BLOCK, DW_SMEM_BUDGET, DW_THREADS, SMEM_LIMIT, TILE_M,
-    TILE_NS, Im2colPlan, conv_args, int8_conv2d, int8_design, wgmma_chunk,
-    wgmma_tile_n)
+    CHUNKS, DW_BLOCK, DW_SMEM_BUDGET, DW_THREADS, NARROW_MAP_MIN_PIXELS,
+    NARROW_PIXEL, NARROW_SMEM_BUDGETS, NARROW_TILE_NS, SMEM_LIMIT, TILE_M,
+    TILE_NS, Im2colPlan, conv_args, int8_conv2d, int8_design,
+    narrow_staging_bytes, wgmma_chunk, wgmma_tile_n)
 
 _REPO = Path(__file__).resolve().parent.parent
 _CONFIGS = {
@@ -69,13 +81,16 @@ _CONFIGS = {
 # float)
 _DESIGNS = {
     "flagship": {"mma_sync": 1, "wgmma": 101},
-    "lite2": {"mma_sync": 2, "wgmma": 69, "depthwise": 50},
+    "lite2": {"mma_sync": 1, "narrow": 1, "wgmma": 69, "depthwise": 50},
     "lite3": {"mma_sync": 1, "wgmma": 96, "depthwise": 73},
-    "b2": {"mma_sync": 13, "wgmma": 117, "depthwise": 62},
-    "b3": {"mma_sync": 10, "wgmma": 142, "depthwise": 75},
-    "mobiledet_cpu": {"mma_sync": 7, "wgmma": 93, "depthwise": 43},
-    "mobiledet_edge_tpu": {"mma_sync": 8, "wgmma": 70, "depthwise": 43},
-    "mobiledet_gpu": {"mma_sync": 10, "wgmma": 68, "depthwise": 30},
+    "b2": {"mma_sync": 1, "narrow": 12, "wgmma": 117, "depthwise": 62},
+    "b3": {"mma_sync": 1, "narrow": 9, "wgmma": 142, "depthwise": 75},
+    "mobiledet_cpu": {"mma_sync": 1, "narrow": 6, "wgmma": 93,
+                      "depthwise": 43},
+    "mobiledet_edge_tpu": {"mma_sync": 1, "narrow": 7, "wgmma": 70,
+                           "depthwise": 43},
+    "mobiledet_gpu": {"mma_sync": 1, "narrow": 9, "wgmma": 68,
+                      "depthwise": 30},
 }
 
 
@@ -103,12 +118,15 @@ def _int8_calls(name):
 
 def _want_design(c, kh, kw, stride, groups):
     """The rule, said again: depthwise convs with a square window of 1, 3
-    or 5 at stride 1 or 2 and C % 8 == 0 are tiled by TMA."""
+    or 5 at stride 1 or 2 and C % 8 == 0 are tiled by TMA; dense convs
+    with 4 <= C <= 16 are narrow, the C = 3 stems mma_sync."""
     if groups != 1:
         tiled = (kh == kw and kh in (1, 3, 5) and stride in (1, 2)
                  and c % 8 == 0)
         return "depthwise" if tiled else "depthwise_generic"
-    return "mma_sync" if c <= 16 else "wgmma"
+    if c < 4:
+        return "mma_sync"
+    return "narrow" if c <= 16 else "wgmma"
 
 
 def _check_depthwise_args(args, c, in_bytes, out_bytes,
@@ -151,6 +169,63 @@ def _check_depthwise_args(args, c, in_bytes, out_bytes,
         assert args.out_off + sums + 128 <= args.smem
 
 
+def _check_narrow_args(args, in_bytes, out_bytes):
+    """The narrow plan's limits: shared memory and its layout, TMA's boxes
+    and strides, the ldmatrix rows' alignment and banks, the staging
+    swizzle's period."""
+    c, o, s = args.c, args.o, args.stride
+    tm = args.tile_h * args.tile_w
+    assert args.smem <= max(NARROW_SMEM_BUDGETS) == SMEM_LIMIT
+    assert args.tile_w % 8 == 0 and tm % 16 == 0
+    assert args.box_h == (args.tile_h - 1) * s + args.kh
+    assert args.box_w == (args.tile_w - 1) * s + args.kw
+    assert max(args.box_h, args.box_w, args.tile_h, args.tile_w) <= 256
+    assert args.flat == (args.kh == args.kw == 1 and s == 1
+                         and args.pad_t == args.pad_l == 0
+                         and args.oh == args.h and args.ow == args.w)
+    if args.flat:
+        assert args.tile_h == 1
+    assert args.row_pitch == s * -(-args.box_w // s) * NARROW_PIXEL
+    assert args.k_steps == -(-args.kh * args.kw // 2)
+    # 8 weight rows of one ldmatrix phase on 8 distinct 16-byte bank groups
+    assert args.w_pitch == 32 * args.k_steps + 16
+    assert (args.w_pitch // 16) % 2 == 1
+    assert args.o_pad % 16 == 0 and o <= args.o_pad < o + 16
+    # a warp's unit: the narrowest that holds O, up to 128 channels (the
+    # tile widths the module holds now: a plan variant may change them)
+    tile_ns = int8_conv_kernel_module.NARROW_TILE_NS
+    assert args.tile_n in tile_ns and set(tile_ns) <= set(NARROW_TILE_NS)
+    assert args.tile_n >= args.o_pad or args.tile_n == max(tile_ns)
+    assert args.q_off % 128 == 0 and args.w_off % 16 == 0
+    assert args.out_off % 1024 == 0 and args.bar_off % 8 == 0
+    assert args.q_off + args.box_h * args.row_pitch <= args.w_off
+    assert args.w_off + args.o_pad * args.w_pitch <= args.sb_off
+    assert args.sb_off + 8 * args.o_pad <= args.tap_off
+    assert args.tap_off + 8 * args.k_steps <= args.out_off
+    staging = narrow_staging_bytes(args.tile_h, args.tile_w, o, args.o_box,
+                                   out_bytes, args.tma_out)
+    assert args.out_off + args.out_bufs * staging <= args.bar_off
+    assert args.bar_off + 8 * args.stages + 1024 <= args.smem
+    maps = args.n * args.h * args.w >= NARROW_MAP_MIN_PIXELS
+    assert args.tma_in == (maps and (c * in_bytes) % 16 == 0)
+    assert args.tma_out == (maps and (o * out_bytes) % 16 == 0)
+    if args.tma_in:
+        # TMA: the box's rows whole 16-byte units, a ring of raw boxes
+        raw = -(-args.box_h * args.box_w * c * in_bytes // 128) * 128
+        assert args.stages >= 1 and args.q_off == args.stages * raw
+    else:
+        assert args.stages == 0 and args.q_off == 0
+    if args.tma_out:
+        # staging rows of 16 to 128 bytes, a power of two (the swizzle's
+        # width), no wider than the output's rows; each box's tile a whole
+        # number of swizzle periods (8 rows)
+        rb = args.o_box * out_bytes
+        assert rb in (16, 32, 64, 128) and args.o_box <= o
+        assert (tm * rb) % (8 * rb) == 0 and args.out_bufs in (1, 2)
+    else:
+        assert args.o_box == o and args.out_bufs == 1
+
+
 @pytest.mark.parametrize("name", sorted(_CONFIGS))
 def test_design_of_every_int8_conv(name):
     calls = _int8_calls(name)
@@ -168,6 +243,15 @@ def test_design_of_every_int8_conv(name):
                     kw, in_bytes, out_bytes)
                 assert scratch == 0
                 _check_depthwise_args(args, c, in_bytes, out_bytes)
+            continue
+        if design == "narrow":
+            packed_shape = (o, dense_k_words(c, kh, kw)[1])
+            for in_bytes, out_bytes in ((2, 2), (4, 4), (2, 4), (4, 2)):
+                _, args, scratch = conv_args(
+                    (n, h, w, c), packed_shape, o, stride, pads, groups, kh,
+                    kw, in_bytes, out_bytes)
+                assert scratch == 0
+                _check_narrow_args(args, in_bytes, out_bytes)
             continue
         if design != "wgmma":
             continue
@@ -188,7 +272,14 @@ def test_design_of_every_int8_conv(name):
 
 def test_design_rule():
     assert int8_design(3, 64, 7, 7, 2, 1) == "mma_sync"     # the stem
-    assert int8_design(16, 96, 1, 1, 1, 1) == "mma_sync"
+    assert int8_design(3, 32, 3, 3, 2, 1) == "mma_sync"
+    assert int8_design(16, 96, 1, 1, 1, 1) == "narrow"
+    assert int8_design(4, 16, 1, 1, 1, 1) == "narrow"
+    assert int8_design(8, 16, 3, 3, 1, 1) == "narrow"
+    assert int8_design(16, 128, 5, 5, 2, 1) == "narrow"
+    # the alignment does not move a dense conv off narrow (its threads load
+    # what TMA cannot take)
+    assert int8_design(8, 32, 1, 1, 1, 1, aligned=False) == "narrow"
     assert int8_design(17, 64, 3, 3, 1, 1) == "wgmma"
     # EfficientNet-lite's C = 24 and 40: wgmma, taps padded to 32 and 64
     assert int8_design(24, 144, 1, 1, 1, 1) == "wgmma"
@@ -419,12 +510,33 @@ def test_experiment_edits_apply():
     variant names constants of the wrapper and gives a plan that fits."""
     from retinanet_torch.ops import int8_conv_kernel
     from retinanet_torch.tools.int8_conv_experiments import (
-        DW_PLANS, DW_SHAPES, DW_VARIANTS, VARIANTS, plan_constants)
+        DW_PLANS, DW_SHAPES, DW_VARIANTS, NARROW_PLANS, NARROW_ROUTES,
+        NARROW_SHAPES, NARROW_VARIANTS, VARIANTS, plan_constants, routed)
     from retinanet_torch.tools.kernel_variants import variant_source
     kernel = int8_conv_kernel.kernel
-    for name, edits in {**VARIANTS, **DW_VARIANTS}.items():
+    for name, edits in {**VARIANTS, **DW_VARIANTS,
+                        **NARROW_VARIANTS}.items():
         source = variant_source(kernel, name, edits)
         assert source != kernel.source.read_text()
+    # the narrow plan variants fit at every narrow shape of the tool, and
+    # each route sends its shapes to the other design
+    for name, changes in NARROW_PLANS.items():
+        for constant in changes:
+            assert hasattr(int8_conv_kernel, constant), (name, constant)
+        for label, (n, h, w, c), o, k, stride, pads in NARROW_SHAPES:
+            if c < int8_conv_kernel.NARROW_MIN_CHANNELS:
+                continue
+            packed_shape = (o, dense_k_words(c, k, k)[1])
+            with plan_constants(changes):
+                _, args, _ = conv_args((n, h, w, c), packed_shape, o, stride,
+                                       pads, 1, k, k)
+                _check_narrow_args(args, 2, 2)
+    for label, (n, h, w, c), o, k, stride, pads in NARROW_SHAPES:
+        base = int8_design(c, o, k, k, stride, 1)
+        other = "narrow" if base == "mma_sync" else "mma_sync"
+        with routed(NARROW_ROUTES[other]):
+            assert int8_design(c, o, k, k, stride, 1) == other, label
+        assert int8_design(c, o, k, k, stride, 1) == base
     for name, changes in DW_PLANS.items():
         for constant in changes:
             assert hasattr(int8_conv_kernel, constant), (name, constant)
@@ -693,3 +805,174 @@ def test_fast_quantization_equals_the_division(s_a):
     got = quantize_byte_model(v, s_a)
     want = quantize_activation(torch.from_numpy(v), s_a).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# -- the narrow design --------------------------------------------------------
+
+def narrow_walk(qx, packed, args, pads):
+    """int32 accumulators of the "narrow" kernel, walked as it walks: qx
+    (N, H, W, C) int8, `packed` the (O, K_pad) int32 weights of
+    `pack_weights`, `args` the wrapper's."""
+    n, h, w, c = qx.shape
+    o, s, kh, kw = args.o, args.stride, args.kh, args.kw
+    taps = kh * kw
+    if args.flat:     # one row of N H W pixels
+        view, voh, vow = qx.reshape(1, 1, n * h * w, c), 1, n * h * w
+    else:
+        view, voh, vow = qx, args.oh, args.ow
+    vn, vh, vw = view.shape[:3]
+    # the weights widened: tap t at bytes 16 t .. 16 t + 15 of a row, its
+    # c_tap channels (a word of the packed row for every 4) then zeros
+    cw = -(-c // 4)
+    wbytes = packed.view(np.int8).reshape(o, -1).astype(np.int64)
+    wide = np.zeros((args.o_pad, 32 * args.k_steps), np.int64)
+    for tap in range(taps):
+        wide[:o, 16 * tap:16 * tap + 4 * cw] = \
+            wbytes[:, 4 * cw * tap:4 * cw * (tap + 1)]
+    # byte offset of each tap in the quantized box (past the window: 0)
+    pw = args.row_pitch // (NARROW_PIXEL * s)
+    toff = [(t // kw) * args.row_pitch
+            + ((t % kw % s) * pw + t % kw // s) * NARROW_PIXEL
+            if t < taps else 0 for t in range(2 * args.k_steps)]
+    tm = args.tile_h * args.tile_w
+    p = np.arange(tm)
+    # each lane's A row: its output pixel's first tap
+    a_row = (p // args.tile_w) * s * args.row_pitch \
+        + (p % args.tile_w) * NARROW_PIXEL
+    cols = np.arange(NARROW_PIXEL)
+    yy, xx = np.meshgrid(np.arange(args.box_h), np.arange(args.box_w),
+                         indexing="ij")
+    at = yy * args.row_pitch + ((xx % s) * pw + xx // s) * NARROW_PIXEL
+    tiles_y, tiles_x = -(-voh // args.tile_h), -(-vow // args.tile_w)
+    mfrags = tm // 16
+    units = mfrags * -(-args.o_pad // args.tile_n)
+    rng = np.random.default_rng(0)
+    acc = np.zeros((vn, voh, vow, o), np.int64)
+    written = np.zeros(acc.shape, np.int64)
+    for item in range(vn * tiles_y * tiles_x):
+        tx, rest = item % tiles_x, item // tiles_x
+        ty, img = rest % tiles_y, rest // tiles_y
+        iy = ty * args.tile_h * s - pads[0] + yy
+        ix = tx * args.tile_w * s - pads[2] + xx
+        inside = (iy >= 0) & (iy < vh) & (ix >= 0) & (ix < vw)
+        # the quantized box; what no pixel's store reaches keeps noise
+        q = rng.integers(-128, 128, args.box_h * args.row_pitch)
+        pix = np.zeros((args.box_h, args.box_w, NARROW_PIXEL), np.int64)
+        pix[inside, :c] = view[img, iy[inside], ix[inside]]
+        q[at[..., None] + cols] = pix
+        # A (tm, 32 k_steps): taps 2 kk and 2 kk + 1 of each pixel, 16 bytes
+        # each, as its lane's ldmatrix address reads them
+        a = np.concatenate([q[a_row[:, None] + toff[2 * kk + half] + cols]
+                            for kk in range(args.k_steps)
+                            for half in (0, 1)], axis=1)
+        tile = np.zeros((tm, args.o_pad), np.int64)
+        count = np.zeros(tile.shape, np.int64)
+        for u in range(units):   # a warp's unit: 16 pixels x tile_n channels
+            rows = slice(u % mfrags * 16, u % mfrags * 16 + 16)
+            n0 = u // mfrags * args.tile_n
+            for pair in range(args.tile_n // 16):
+                if n0 + 16 * pair >= args.o_pad:
+                    break
+                for nt in (2 * pair, 2 * pair + 1):   # N tiles of 8
+                    ch = slice(n0 + 8 * nt, n0 + 8 * nt + 8)
+                    tile[rows, ch] += a[rows] @ wide[ch].T
+                    count[rows, ch] += 1
+        assert (count[:, :o] == 1).all()
+        # the store, clipped at the output's edges
+        oy = ty * args.tile_h + p // args.tile_w
+        ox = tx * args.tile_w + p % args.tile_w
+        keep = (oy < voh) & (ox < vow)
+        acc[img, oy[keep], ox[keep]] += tile[keep, :o]
+        written[img, oy[keep], ox[keep]] += 1
+    assert (written == 1).all()          # every output once
+    return acc.reshape(n, args.oh, args.ow, o)
+
+
+# (name, N, H, W, C, O, k, stride, pads or "SAME"): the narrow shape classes
+# of the eight configs with H and W cut to <= 32 (1x1 at stride 1 across rows
+# and images, with and without tensor maps; 3x3/1 and 3x3/2 "SAME"; 5x5/2;
+# the squeeze-excite convs on 1x1 maps at every C they have), and C = 6,
+# O = 10 off every alignment
+_NARROW_WALKS = [
+    ("1x1_c16_o96_maps", 4, 32, 32, 16, 96, 1, 1, (0, 0, 0, 0)),
+    ("1x1_c8_o32_ragged", 3, 27, 29, 8, 32, 1, 1, (0, 0, 0, 0)),
+    ("1x1_c16_o8", 2, 30, 31, 16, 8, 1, 1, (0, 0, 0, 0)),
+    ("1x1_c16_o128", 4, 32, 32, 16, 128, 1, 1, (0, 0, 0, 0)),
+    ("1x1_c8_o16", 5, 32, 32, 8, 16, 1, 1, (0, 0, 0, 0)),
+    ("3x3_s1_c8_o16", 4, 32, 32, 8, 16, 3, 1, (1, 1, 1, 1)),
+    ("3x3_s1_c16_o64", 2, 19, 23, 16, 64, 3, 1, (1, 1, 1, 1)),
+    ("3x3_s1_c8_o8_edge", 1, 13, 6, 8, 8, 3, 1, (1, 1, 1, 1)),
+    ("3x3_s2_c16_o128", 4, 32, 32, 16, 128, 3, 2, "SAME"),
+    ("5x5_s2_c16_o128", 2, 29, 31, 16, 128, 5, 2, (1, 2, 1, 2)),
+    ("se_c4_o96", 8, 1, 1, 4, 96, 1, 1, (0, 0, 0, 0)),
+    ("se_c6_o144", 8, 1, 1, 6, 144, 1, 1, (0, 0, 0, 0)),
+    ("se_c8_o32", 8, 1, 1, 8, 32, 1, 1, (0, 0, 0, 0)),
+    ("se_c10_o40", 8, 1, 1, 10, 40, 1, 1, (0, 0, 0, 0)),
+    ("se_c12_o288", 8, 1, 1, 12, 288, 1, 1, (0, 0, 0, 0)),
+    ("se_c16_o4", 8, 1, 1, 16, 4, 1, 1, (0, 0, 0, 0)),
+    ("c6_o10_3x3", 3, 17, 17, 6, 10, 3, 1, "SAME"),
+]
+
+
+@pytest.mark.parametrize("case", _NARROW_WALKS,
+                         ids=[t[0] for t in _NARROW_WALKS])
+@pytest.mark.parametrize("in_bytes,out_bytes", [(2, 2), (4, 4)],
+                         ids=["bf16", "f32"])
+def test_narrow_walk_equals_conv(case, in_bytes, out_bytes):
+    name, n, h, w, c, o, k, stride, pads = case
+    if pads == "SAME":
+        pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+    rng = np.random.default_rng(len(name))
+    qx = rng.integers(-127, 128, (n, h, w, c)).astype(np.int8)
+    qw = rng.integers(-127, 128, (o, c, k, k)).astype(np.int8)
+    packed = pack_weights(torch.from_numpy(qw), 1)
+    design, args, scratch = conv_args((n, h, w, c), packed.shape, o, stride,
+                                      pads, 1, k, k, in_bytes, out_bytes)
+    assert design == "narrow" and scratch == 0
+    _check_narrow_args(args, in_bytes, out_bytes)
+    got = narrow_walk(qx, packed.numpy(), args, pads)
+    want = int8_conv_acc(torch.from_numpy(qx), torch.from_numpy(qw), stride,
+                         pads, 1)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_narrow_walks_meet_every_branch():
+    """The walks above reach: flat runs and tiles, a ragged last item, edge
+    tiles, tensor maps both ways and the threads' loads and stores, more
+    than one store box a pixel, one and two staging tiles, no ring and a
+    ring of two raw boxes, an odd window's zero half step."""
+    seen = set()
+    for name, n, h, w, c, o, k, stride, pads in _NARROW_WALKS:
+        if pads == "SAME":
+            pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+        for nbytes in (2, 4):
+            _, a, _ = conv_args((n, h, w, c), (o, dense_k_words(c, k, k)[1]),
+                                o, stride, pads, 1, k, k, nbytes, nbytes)
+            m = a.oh * a.ow * (n if a.flat else 1)
+            seen |= {("flat", a.flat), ("tma_in", a.tma_in),
+                     ("tma_out", a.tma_out),
+                     ("ragged", (m if a.flat else a.ow) % a.tile_w != 0),
+                     ("boxes", -(-o // a.o_box) > 1),
+                     ("bufs", a.out_bufs), ("stages", a.stages),
+                     ("odd_taps", k * k % 2 == 1 and k > 1)}
+    for branch in ("flat", "tma_in", "tma_out", "ragged", "boxes",
+                   "odd_taps"):
+        assert (branch, True) in seen and (branch, False) in seen, branch
+    assert {("bufs", 1), ("bufs", 2), ("stages", 0), ("stages", 2)} <= seen
+
+
+@pytest.mark.parametrize("rb", [16, 32, 64, 128])
+def test_narrow_staging_swizzle_is_a_permutation(rb):
+    """The epilogue's swizzle (16-byte unit u of byte a becomes u ^ ((a >>
+    7) & mask), mask = rb / 16 - 1) maps a staging box onto itself, and
+    the 8 rows that one store instruction writes at one column fall on 8
+    distinct 16-byte bank groups (rows of 16 bytes are 8 consecutive
+    units already)."""
+    tm, mask = 128, rb // 16 - 1
+    a = np.arange(tm * rb)
+    swz = a ^ (((a >> 7) & mask) << 4)
+    assert sorted(swz) == list(a)
+    for col in range(0, rb, 16):
+        for r0 in range(0, tm, 8):
+            groups = {(swz[(r0 + r) * rb + col] // 16) % 8 for r in range(8)}
+            assert len(groups) == 8, (rb, col, r0)
