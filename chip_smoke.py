@@ -127,7 +127,28 @@ JAX. Phases, each fatal on failure:
      from their configs on `device="meta"`, on seeded inputs and weights:
      bit-equal to the plain version, timed beside the mma_sync design at
      the same shape (`tools/int8_conv_experiments.py:routed`), cuDNN bf16
-     and the bound.
+     and the bound;
+ 13. the host data path: (a) a COCO download folder written here
+     (`annotations/instances_{train,val}2017.json`, scenes encoded by the
+     port's JPEG route under COCO's 80 category ids, crowd boxes, an image
+     without a box, a train scene of 600 boxes, one file that is no JPEG)
+     through `python -m retinanet_torch.tools.create_coco_tfrecords
+     --remap_class_ids` as a subprocess: the one corrupt file skipped,
+     every record of every shard read and parsed by the C++ reader equal
+     to the Python codec (a record of more than 512 boxes among them), the
+     records/s of both on one thread; then a flagship train_val on those
+     shards in process (8 steps, one COCO evaluation of the val shards):
+     the matching kernel once a step and the NMS sweep kernel once a val
+     batch; (b) the COCO matcher on 500 seeded synthetic val images (80
+     categories, ~7 gts and 100 detections an image): the C++ matcher's
+     arrays equal the numpy matcher's and so do the summaries, both timed;
+     the C++ matcher alone at 5,000 images; (c) an Executor fine-tuning the
+     flagship from phase 12's artifact directory
+     (`fine_tuning.pretrained_checkpoint`, which reads
+     `<dir>/params.msgpack`): every tensor equal to the artifact's, all
+     matched, none skipped.
+Phase 8 also prints where the pipeline's threads spend their time, by
+stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times; the
@@ -295,6 +316,25 @@ NARROW_CONFIGS = (
     ("efficientnet-b3 896", REPO / "configs" / "v3-32"
      / "mscoco-retinanet-efficientnet-b3-896x896-30x-256.json"),
 )
+# phase 13: the host data path. A COCO-layout folder (COCO's 80 category
+# ids, scenes of 240-640 px), its shards written by the dataset tool, a
+# short flagship train_val on them, the COCO matcher at val2017's scale
+HOST_TRAIN_IMAGES, HOST_VAL_IMAGES = 56, 24
+HOST_CROWDED_BOXES = 600        # one train scene: more than 512 boxes
+HOST_TRAIN_SHARDS = 4
+HOST_CHANGES = (
+    (("training", "train_steps"), 8),
+    (("training", "save_every"), 8),
+    (("training", "validation_freq"), 8),
+    (("training", "validation_samples"), 16),
+    (("training", "steps_per_execution"), 4),
+    (("training", "batch_size", "train"), 8),
+)
+COCO_IDS = tuple(i for i in range(1, 91) if i not in (
+    12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+EVAL_IMAGES = 500               # the matcher, native and numpy
+EVAL_IMAGES_NATIVE = 5000       # val2017's image count, native only
+EVAL_GTS, EVAL_DETECTIONS = 7, 100   # an image
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
 
@@ -987,10 +1027,12 @@ def check_jpeg_decode(route: str) -> None:
 
 def pipeline_rate(params) -> tuple:
     """images/s of InputPipeline("train") over the batches after the first
-    until PIPELINE_SECONDS have passed, and that window's start and end
-    (perf_counter)."""
+    until PIPELINE_SECONDS have passed, that window's start and end
+    (perf_counter), and the pipeline's stage seconds over the whole run
+    with its count of finished samples."""
     from retinanet_torch.data.pipeline import InputPipeline
-    it = iter(InputPipeline("train", params))
+    pipeline = InputPipeline("train", params)
+    it = iter(pipeline)
     next(it)
     start = end = time.perf_counter()
     batches = 0
@@ -999,8 +1041,19 @@ def pipeline_rate(params) -> tuple:
         batches += 1
         end = time.perf_counter()
     it.close()
+    stages = dict(pipeline.stage_seconds, samples=pipeline.stage_samples)
     return (batches * int(params.training.batch_size.train) / (end - start),
-            start, end)
+            start, end, stages)
+
+
+def print_stages(label: str, stages: dict) -> None:
+    """Where the pipeline's threads spent their time: seconds summed over
+    the threads of each stage, per finished sample."""
+    n = max(stages["samples"], 1)
+    total = sum(v for k, v in stages.items() if k != "samples")
+    print(f"[executor] pipeline stages {label}, {stages['samples']} samples:"
+          + "".join(f" {k} {v / n * 1e3:.3f} ms/sample ({v / total:.1%})"
+                    for k, v in stages.items() if k != "samples"))
 
 
 def pipeline_beside_step(params) -> tuple:
@@ -1030,14 +1083,14 @@ def pipeline_beside_step(params) -> tuple:
     thread = threading.Thread(target=loop, name="train-step")
     thread.start()
     try:
-        rate, start, end = pipeline_rate(params)
+        rate, start, end, stages = pipeline_rate(params)
     finally:
         stop.set()
         thread.join()
     del state, batch
     torch.cuda.empty_cache()
     steps = sum(start < t <= end for t in ends)
-    return rate, steps, steps * bs / (end - start)
+    return rate, steps, steps * bs / (end - start), stages
 
 
 def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
@@ -1073,17 +1126,19 @@ def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
     # the host pipeline with no train step beside it (on the nvJPEG route
     # the decode itself runs on the card), then beside the bare train step
     # looping on the card, as it runs in training
-    pipe_rate = pipeline_rate(params)[0]
+    pipe_rate, _, _, stages = pipeline_rate(params)
     print(f"[executor] host pipeline alone: train batches of {train_batch} "
           f"at {params.input.input_shape} with augmentation for "
           f"{PIPELINE_SECONDS} s, {pipe_rate:.1f} images/s "
           f"({os.cpu_count()} CPUs)")
-    beside_rate, beside_steps, step_beside_rate = pipeline_beside_step(
-        params)
+    print_stages("alone", stages)
+    beside_rate, beside_steps, step_beside_rate, stages = \
+        pipeline_beside_step(params)
     print(f"[executor] host pipeline beside the train step: "
           f"{beside_rate:.1f} images/s; the step beside the pipeline: "
           f"{beside_steps} steps in the window, {step_beside_rate:.2f} "
           f"images/s (alone in phase 6: {step_images_per_s:.2f})")
+    print_stages("beside the step", stages)
 
     # (a) the entry point a user runs
     start = time.perf_counter()
@@ -2607,6 +2662,339 @@ def doubt_share(x, s_a: float) -> float:
             ).float().mean().item()
 
 
+# -- phase 13: the host data path ---------------------------------------------
+
+def write_coco_layout(root: Path, rng) -> dict:
+    """A COCO download folder: `annotations/instances_{train,val}2017.json`
+    and scenes encoded by the port's JPEG route under `{train,val}2017/`,
+    with crowd boxes, an image without a box, a train scene of
+    HOST_CROWDED_BOXES boxes and one file that is no JPEG. Returns
+    {split: images that hold a non-crowd box}."""
+    from retinanet_torch.data.synthetic import _scene_jpeg
+    (root / "annotations").mkdir(parents=True)
+    cats = [{"id": cid, "name": f"category_{cid:02d}"} for cid in COCO_IDS]
+    usable = {}
+    for split, n in (("train", HOST_TRAIN_IMAGES), ("val", HOST_VAL_IMAGES)):
+        (root / f"{split}2017").mkdir()
+        images, anns = [], []
+        usable[split] = 0
+        for i in range(n):
+            image_id = 100_000 + 17 * i + (0 if split == "train" else 9)
+            h, w = (int(v) for v in rng.integers(240, 640, 2))
+            name = f"{image_id:012d}.jpg"
+            images.append({"id": image_id, "height": h, "width": w,
+                           "file_name": name})
+            if i == 1:
+                k = 0               # an image without a box
+            elif split == "train" and i == 2:
+                k = HOST_CROWDED_BOXES
+            else:
+                k = int(rng.integers(1, 8))
+            side = 0.02 if k == HOST_CROWDED_BOXES else 0.3
+            x1, y1 = rng.uniform(0, 0.99 - side, (2, k))
+            bw = rng.uniform(0.01, side, k)
+            bh = rng.uniform(0.01, side, k)
+            labels = rng.integers(0, len(COCO_IDS), k)
+            crowd = rng.uniform(size=k) < 0.1
+            boxes = np.stack([x1, y1, x1 + bw, y1 + bh], -1)
+            if i == 3 and split == "val":
+                (root / f"{split}2017" / name).write_bytes(
+                    rng.bytes(5000))  # no JPEG: skipped by the tool
+            else:
+                (root / f"{split}2017" / name).write_bytes(
+                    _scene_jpeg(rng, h, w, boxes, labels))
+                usable[split] += int((~crowd).any())
+            for b, c, cr in zip(boxes, labels, crowd):
+                anns.append({"id": len(anns) + 1, "image_id": image_id,
+                             "category_id": COCO_IDS[int(c)],
+                             "bbox": [float(b[0] * w), float(b[1] * h),
+                                      float((b[2] - b[0]) * w),
+                                      float((b[3] - b[1]) * h)],
+                             "area": float((b[2] - b[0]) * w
+                                           * (b[3] - b[1]) * h),
+                             "iscrowd": int(cr)})
+        (root / "annotations" / f"instances_{split}2017.json").write_text(
+            json.dumps({"images": images, "annotations": anns,
+                        "categories": cats}))
+    return usable
+
+
+def records_per_s(paths, read, parse) -> tuple:
+    """Records and records/s of reading and parsing every shard."""
+    start = time.perf_counter()
+    n = 0
+    for path in paths:
+        for record in read(str(path)):
+            parse(record)
+            n += 1
+    return n, n / (time.perf_counter() - start)
+
+
+def host_tools(workdir: Path) -> dict:
+    """Phase 13 (a). Returns the kernels' launches in its train_val run."""
+    from retinanet_torch.__main__ import main as cli_main
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data import host_codec, tfrecord
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    rng = np.random.default_rng(13)
+    root = workdir / "coco"
+    start = time.perf_counter()
+    usable = write_coco_layout(root, rng)
+    print(f"[host] wrote a COCO folder of {HOST_TRAIN_IMAGES} train and "
+          f"{HOST_VAL_IMAGES} val images through the "
+          f"{host_codec.jpeg_route()} route in "
+          f"{time.perf_counter() - start:.2f} s")
+
+    out = workdir / "shards"
+    start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "retinanet_torch.tools.create_coco_tfrecords",
+         "--download_path", str(root), "--output_dir", str(out),
+         "--num_shards", str(HOST_TRAIN_SHARDS), "--remap_class_ids"],
+        cwd=str(workdir), env=env, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - start
+    check(proc.returncode == 0, "create_coco_tfrecords exited "
+          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    check("Skipped 1 corrupted samples from val" in proc.stderr
+          and "corrupted samples from train" not in proc.stderr,
+          f"the tool skipped other files than the one corrupt one:\n"
+          f"{proc.stderr[-3000:]}")
+    shards = {split: sorted(out.glob(f"{split}-*.tfrecord"))
+              for split in ("train", "val")}
+    check(len(shards["train"]) == HOST_TRAIN_SHARDS,
+          f"train shards {shards['train']}")
+
+    # every record: the native reader's parse equal to the Python codec's
+    n_boxes = []
+    for path in shards["train"] + shards["val"]:
+        records = list(host_codec.read_records(str(path), verify_crc=True))
+        check(records == list(tfrecord.read_records(str(path), True)),
+              f"{path.name}: the native index differs from the codec's")
+        for record in records:
+            got = host_codec.parse_detection_example(record)
+            want = tfrecord.parse_detection_example(record)
+            check(got["image"] == want["image"]
+                  and got["image_id"] == want["image_id"]
+                  and np.array_equal(got["boxes"], want["boxes"])
+                  and np.array_equal(got["classes"], want["classes"]),
+                  f"{path.name}: a native parse differs from the codec's")
+            n_boxes.append(len(got["classes"]))
+    check(sum(1 for p in shards["val"] for _ in tfrecord.read_records(
+        str(p))) == usable["val"] and
+          len(n_boxes) == usable["train"] + usable["val"],
+          f"{len(n_boxes)} records for {usable} images with a box that "
+          "decode")
+    check(max(n_boxes) > 512, f"largest scene {max(n_boxes)} boxes")
+    paths = shards["train"] + shards["val"]
+    n, native_rate = records_per_s(paths, host_codec.read_records,
+                                   host_codec.parse_detection_example)
+    _, python_rate = records_per_s(paths, tfrecord.read_records,
+                                   tfrecord.parse_detection_example)
+    print(f"[host] (a) create_coco_tfrecords: exit 0 in {seconds:.1f} s, "
+          f"{len(shards['train'])} train and {len(shards['val'])} val "
+          f"shards, 1 corrupt file skipped; {n} records, up to "
+          f"{max(n_boxes)} boxes a record, every native parse equal to the "
+          f"Python codec's; read and parse, one thread: native "
+          f"{native_rate:.1f} records/s, Python {python_rate:.1f} records/s")
+
+    # a short flagship train_val on the tool's shards
+    tree = json.loads(FLAGSHIP.read_text())
+    tree["dataloader_params"]["tfrecords"] = {
+        "train": str(out / "train-*.tfrecord"),
+        "val": str(out / "val-*.tfrecord")}
+    tree["training"]["annotation_file_path"] = str(
+        root / "annotations" / "instances_val2017.json")
+    tree["experiment"]["model_dir"] = str(workdir / "models")
+    for key, value in HOST_CHANGES:
+        node = tree
+        for part in key[:-1]:
+            node = node[part]
+        node[key[-1]] = value
+    config = workdir / "config.json"
+    config.write_text(json.dumps(tree, indent=2))
+    params = Config(str(config)).params
+    steps = dict(HOST_CHANGES)[("training", "train_steps")]
+    n_val = int(params.training.validation_samples) // int(
+        params.training.batch_size.val)
+    start = time.perf_counter()
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    done = cli_main(["--config_path", str(config)])
+    launches = {"nms_lanes": {"host data train_val":
+                              nms_kernel.kernel.launches},
+                "match_lanes": {"host data train_val":
+                                match_kernel.kernel.launches}}
+    check(done is True, "the train_val run on the tool's shards did not end")
+    check(match_kernel.kernel.launches == steps,
+          f"matching kernel launched {match_kernel.kernel.launches} times in "
+          f"{steps} steps")
+    check(nms_kernel.kernel.launches_by["sweep"] == n_val,
+          f"NMS sweep kernel launched {nms_kernel.kernel.launches_by} for "
+          f"{n_val} val batches")
+    model_dir = workdir / "models" / params.experiment.name
+    records = read_jsonl(model_dir / "logs" / "train_metrics.jsonl")
+    evals = [r for r in records if any(k.startswith("evaluation/")
+                                       for k in r)]
+    check(len(evals) == 1, f"{len(evals)} evaluation records")
+    check_eval_record(evals[0], steps)
+    print(f"[host] (a) flagship train_val on the tool's shards: {steps} "
+          f"steps and a COCO evaluation in "
+          f"{time.perf_counter() - start:.1f} s; matching launches "
+          f"{match_kernel.kernel.launches}, NMS sweep launches "
+          f"{nms_kernel.kernel.launches_by['sweep']}; "
+          + json.dumps({k: round(evals[0][f"evaluation/{k}"], 5)
+                        for k in COCO_KEYS}))
+    return launches
+
+
+def synthetic_coco_eval(n_images: int, seed: int) -> tuple:
+    """COCO-like annotations and detections: 80 categories, about
+    EVAL_GTS gts an image (1 in 20 crowd), EVAL_DETECTIONS detections an
+    image, some near a gt of its category and the rest anywhere."""
+    rng = np.random.default_rng(seed)
+    images = [{"id": i + 1, "height": 480, "width": 640}
+              for i in range(n_images)]
+    cats = [{"id": cid, "name": f"category_{cid:02d}"} for cid in COCO_IDS]
+    anns, dets = [], []
+    for img in images:
+        n_gt = int(rng.poisson(EVAL_GTS))
+        xy = rng.uniform(0, 500, (n_gt, 2))
+        wh = np.exp(rng.uniform(np.log(4), np.log(300), (n_gt, 2)))
+        labels = rng.choice(COCO_IDS, n_gt)
+        for b, c in zip(np.concatenate([xy, wh], 1), labels):
+            anns.append({"id": len(anns) + 1, "image_id": img["id"],
+                         "category_id": int(c), "bbox": b.tolist(),
+                         "area": float(b[2] * b[3]),
+                         "iscrowd": int(rng.uniform() < 0.05)})
+        near = min(n_gt * 5, EVAL_DETECTIONS // 2)
+        pick = rng.integers(0, max(n_gt, 1), near)
+        boxes = np.concatenate([
+            np.concatenate([xy, wh], 1)[pick] * rng.normal(
+                1, 0.1, (near, 4)) if n_gt else np.zeros((0, 4)),
+            np.concatenate([rng.uniform(0, 500, (EVAL_DETECTIONS - near,
+                                                 2)),
+                            rng.uniform(4, 300, (EVAL_DETECTIONS - near,
+                                                 2))], 1)])
+        labels = np.concatenate([labels[pick] if n_gt else labels[:0],
+                                 rng.choice(COCO_IDS, EVAL_DETECTIONS - near)])
+        for b, c, s in zip(np.abs(boxes), labels,
+                           rng.uniform(0, 1, len(boxes))):
+            dets.append({"image_id": img["id"], "category_id": int(c),
+                         "bbox": b.tolist(), "score": float(s)})
+    return {"images": images, "annotations": anns, "categories": cats}, dets
+
+
+def timed_eval(gt: dict, dets: list, use_native) -> tuple:
+    """(COCOEval after evaluate and accumulate, evaluate s, accumulate s)."""
+    from retinanet_torch.eval.coco import COCOEval, COCOIndex
+    ev = COCOEval(COCOIndex(gt), dets)
+    start = time.perf_counter()
+    ev.evaluate(use_native=use_native)
+    mid = time.perf_counter()
+    ev.accumulate()
+    return ev, mid - start, time.perf_counter() - mid
+
+
+def host_coco_eval() -> dict:
+    """Phase 13 (b): the native COCO matcher against the numpy one at 500
+    images, and alone at val2017's 5,000."""
+    gt, dets = synthetic_coco_eval(EVAL_IMAGES, seed=1)
+    from retinanet_torch.eval import coco, native as coco_native
+    native, n_eval, n_acc = timed_eval(gt, dets, None)
+    spec, s_eval, s_acc = timed_eval(gt, dets, False)
+    p = native._packed
+    lo = np.array([a for a, _ in coco.AREA_RNG.values()])
+    hi = np.array([b for _, b in coco.AREA_RNG.values()])
+    start = time.perf_counter()
+    coco_native.match_groups(p, lo, hi, coco.IOU_THRS)
+    match_s = time.perf_counter() - start
+    for key in ("dt_matched", "dt_ignore", "num_gt"):
+        check(np.array_equal(native._packed[key], spec._packed[key]),
+              f"the native matcher's {key} differs from numpy's")
+    check(np.array_equal(native.stats, spec.stats),
+          f"summaries differ: {native.stats} vs {spec.stats}")
+    groups = len(native._packed["group_keys"])
+    print(f"[host] (b) COCOeval at {EVAL_IMAGES} images ({len(dets)} "
+          f"detections, {len(gt['annotations'])} gts, {groups} groups): "
+          f"arrays and summaries equal; evaluate native {n_eval:.3f} s, "
+          f"numpy {s_eval:.3f} s ({s_eval / n_eval:.1f}x), of which the "
+          f"native match call {match_s:.4f} s; accumulate "
+          f"{n_acc:.3f} / {s_acc:.3f} s; AP {native.stats[0]:.5f}")
+    gt, dets = synthetic_coco_eval(EVAL_IMAGES_NATIVE, seed=2)
+    big, b_eval, b_acc = timed_eval(gt, dets, None)
+    check(np.isfinite(big.stats).all(), f"stats {big.stats}")
+    start = time.perf_counter()
+    coco_native.match_groups(big._packed, lo, hi, coco.IOU_THRS)
+    big_match_s = time.perf_counter() - start
+    print(f"[host] (b) COCOeval at {EVAL_IMAGES_NATIVE} images "
+          f"({len(dets)} detections, "
+          f"{len(big._packed['group_keys'])} groups), native: evaluate "
+          f"{b_eval:.3f} s, of which the match call {big_match_s:.4f} s; "
+          f"accumulate {b_acc:.3f} s; AP {big.stats[0]:.5f}")
+    return {"images": EVAL_IMAGES, "evaluate_native_s": n_eval,
+            "evaluate_numpy_s": s_eval, "match_call_s": match_s,
+            "images_native": EVAL_IMAGES_NATIVE,
+            "evaluate_native_5000_s": b_eval,
+            "match_call_5000_s": big_match_s,
+            "accumulate_5000_s": b_acc}
+
+
+def host_pretrained(workdir: Path, artifact: Path) -> None:
+    """Phase 13 (c): the flagship fine-tuned from phase 12's artifact
+    directory; the Executor's state equals the artifact's weights."""
+    from retinanet_torch.convert import torch_to_flax
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.export import msgpack_codec
+    from retinanet_torch.train.executor import Executor
+    tree = json.loads(FLAGSHIP.read_text())
+    tree["experiment"]["model_dir"] = str(workdir / "finetune")
+    tree["fine_tuning"] = {"fine_tune": True,
+                           "pretrained_checkpoint": str(artifact)}
+    start = time.perf_counter()
+    ex = Executor(from_dict(tree), run_mode="train", device="cuda")
+    path, matched, skipped = ex.pretrained
+    want = msgpack_codec.read_file(str(artifact / "params.msgpack"))
+    got = torch_to_flax(ex.model.state_dict())
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+    want, got = dict(leaves(want)), dict(leaves(got))
+    check(sorted(want) == sorted(got), "the artifact's leaves differ from "
+          "the model's")
+    differ = [k for k in want if not np.array_equal(want[k], got[k])]
+    check(not differ, f"{len(differ)} tensors differ from the artifact's, "
+          f"e.g. {differ[:3]}")
+    check(path == str(artifact / "params.msgpack") and matched == len(want)
+          and skipped == 0, f"{path}: {matched} matched, {skipped} skipped "
+          f"of {len(want)}")
+    ex.close()
+    print(f"[host] (c) fine-tuning from {path}: {matched} tensors matched, "
+          f"{skipped} skipped; every tensor of the Executor equal to the "
+          f"artifact's ({time.perf_counter() - start:.1f} s)")
+
+
+def phase_host_data(workdir: Path, artifact: Path) -> tuple:
+    """Phase 13. Returns the kernels' launches on its paths and the
+    matcher's times."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    launches = host_tools(workdir)
+    print(f"[host] (a) took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    times = host_coco_eval()
+    print(f"[host] (b) took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    host_pretrained(workdir, artifact)
+    print(f"[host] (c) took {time.perf_counter() - start:.1f} s")
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -2668,6 +3056,10 @@ def main() -> int:
         int8_record, export_nms = phase_export_int8(Path(tmp) / "export")
         records.append(int8_record)
         print(f"[phase 12] took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        host_launches, host_eval = phase_host_data(
+            Path(tmp) / "host", Path(tmp) / "export" / "artifact")
+        print(f"[phase 13] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)
@@ -2682,6 +3074,11 @@ def main() -> int:
             record["high_res_shape"] = {"config": str(HIGH_RES.relative_to(
                 REPO)), **high_res[record["name"]]}
     records[0]["launches_on_export_paths"] = export_nms
+    for record in records:
+        if record["name"] in host_launches:
+            record["launches_on_host_data_path"] = host_launches[
+                record["name"]]
+    print(json.dumps({"host_coco_eval": host_eval}))
     print(json.dumps({"zoo": [{k: a[k] for k in (
         "name", "config", "input", "batch", "parameters", "request_ms",
         "step_ms", "images_per_s", "peak_gb")} for a in archs]}))

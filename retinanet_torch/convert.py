@@ -11,11 +11,14 @@ follow the flax paths (`backbone/group1/block0/conv1/conv/kernel` ->
   * every other leaf (conv `bias`, fusion weights) keeps its name.
 `torch_to_flax` is the inverse. A tree shaped like the parameters (the SGD
 velocity) goes through the same two functions as a `params` collection.
+A partial tree (pretrained weights of a backbone alone, or of a model with
+another head) is merged by name into the model's own whole tree first
+(`merge_by_name`), and the whole tree is then loaded.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,6 +110,35 @@ def torch_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(value)
     return out
+
+
+def merge_by_name(dst: Mapping, src: Mapping) -> Tuple[dict, int, int]:
+    """`src`'s leaves merged into the tree `dst` where a leaf of the same
+    path and shape is there, cast to its dtype; every other key of `src` is
+    skipped (a subtree whose counterpart is a leaf counts once). Returns
+    (merged, matched, skipped): the JAX Executor's merge of pretrained
+    weights (`retinanet_tpu/train/executor.py:_maybe_load_pretrained`)."""
+    merged = dict(dst)
+    matched = skipped = 0
+    for key, value in src.items():
+        if key not in dst:
+            skipped += 1
+            continue
+        if isinstance(value, Mapping) and isinstance(dst[key], Mapping):
+            merged[key], m, s = merge_by_name(dst[key], value)
+            matched += m
+            skipped += s
+            continue
+        if isinstance(value, torch.Tensor):  # a bfloat16 leaf
+            value = value.float().numpy()
+        shape = getattr(dst[key], "shape", None)
+        if hasattr(value, "shape") and shape is not None and \
+                tuple(shape) == tuple(value.shape):
+            merged[key] = np.asarray(value).astype(dst[key].dtype)
+            matched += 1
+        else:
+            skipped += 1  # another shape: skipped, as JAX loads by name
+    return merged, matched, skipped
 
 
 def velocity_to_flax(optimizer, model: nn.Module) -> Optional[dict]:

@@ -16,6 +16,7 @@
 #include <cstring>
 
 #include <jpeglib.h>
+#include <jerror.h>
 
 namespace {
 
@@ -30,6 +31,18 @@ void on_error(j_common_ptr cinfo) {
 }
 
 void silence(j_common_ptr, int) {}
+
+// a warning that the data ended early: libjpeg goes on as if it had ended
+// there, with the rest of the image grey
+struct EofCtx {
+  ErrorCtx err;
+  bool eof = false;
+};
+
+void note_eof(j_common_ptr cinfo, int level) {
+  if (level < 0 && cinfo->err->msg_code == JWRN_JPEG_EOF)
+    reinterpret_cast<EofCtx*>(cinfo->err)->eof = true;
+}
 
 }  // namespace
 
@@ -101,6 +114,46 @@ int jpg_decode_rgb(const unsigned char* data, long len, unsigned char* out,
   *w = static_cast<int>(width);
   *h = static_cast<int>(height);
   return 0;
+}
+
+// The size of a JPEG whose every scanline decodes from the data given:
+// the whole image is decoded (into one scratch row) and refused when the
+// data ends before its last scanline, as OpenCV's cv2.imdecode refuses it,
+// or when libjpeg fails. Returns 0 and fills (*w, *h), or -1.
+int jpg_size(const unsigned char* data, long len, int* w, int* h) {
+  jpeg_decompress_struct cinfo;
+  EofCtx ctx;
+  JSAMPROW row = nullptr;
+  cinfo.err = jpeg_std_error(&ctx.err.mgr);
+  ctx.err.mgr.error_exit = on_error;
+  ctx.err.mgr.emit_message = note_eof;
+  if (setjmp(ctx.err.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    free(row);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<unsigned char*>(data),
+               static_cast<unsigned long>(len));
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return -1;
+  }
+  cinfo.out_color_space = JCS_RGB;
+  jpeg_start_decompress(&cinfo);
+  row = static_cast<JSAMPROW>(
+      malloc(static_cast<size_t>(cinfo.output_width) *
+             cinfo.output_components));
+  while (!ctx.eof && row != nullptr &&
+         cinfo.output_scanline < cinfo.output_height)
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  const bool whole = !ctx.eof && row != nullptr;
+  *w = static_cast<int>(cinfo.output_width);
+  *h = static_cast<int>(cinfo.output_height);
+  jpeg_abort_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  free(row);
+  return whole ? 0 : -1;
 }
 
 // Baseline encode of an (h, w, 3) RGB image at `quality` with the

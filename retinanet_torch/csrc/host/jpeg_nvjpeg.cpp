@@ -1,6 +1,6 @@
 // JPEG <-> RGB for the host input pipeline, through nvJPEG of the CUDA
 // toolkit: the route on a machine whose system has no libjpeg to build
-// against. The same C interface as jpeg_native.cpp (jpg_dims,
+// against. The same C interface as jpeg_native.cpp (jpg_dims, jpg_size,
 // jpg_decode_rgb, jpg_encode_rgb), so one Python wrapper serves both.
 //
 // Decode: nvjpegDecode stops at the component planes (Y, Cb, Cr at their
@@ -312,6 +312,19 @@ int jpg_decode_rgb(const unsigned char* data, long len, unsigned char* out,
   }
   *w = width;
   *h = height;
+  return 0;
+}
+
+// The size of a JPEG that decodes whole: jpeg_native.cpp's contract,
+// through a full decode into a scratch buffer; refused (-1) wherever
+// nvJPEG refuses the data.
+int jpg_size(const unsigned char* data, long len, int* w, int* h) {
+  int width = 0, height = 0;
+  if (jpg_dims(data, len, &width, &height) != 0) return -1;
+  std::vector<unsigned char> rgb(static_cast<size_t>(width) * height * 3);
+  if (jpg_decode_rgb(data, len, rgb.data(), static_cast<long>(rgb.size()),
+                     w, h) != 0)
+    return -1;
   return 0;
 }
 

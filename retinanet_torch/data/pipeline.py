@@ -10,9 +10,16 @@ the same batches in the same order).
   * val: one epoch, resize-with-pad, the final partial batch padded with
     image_id == -1 sentinels; `val_shard_*` lets a host decode only its
     slice of every global batch
-  * parallel decode on a thread pool (the native codec releases the GIL)
-    behind a sliding submission window. Threads only: no process is forked
-    after the card is initialised.
+  * records indexed and parsed by the C++ reader
+    (`data/host_codec.py:read_records`, `parse_detection_example`), as the
+    JAX package reads them
+  * parallel parse and decode on a thread pool (the native code releases
+    the GIL) behind a sliding submission window. Threads only: no process
+    is forked after the card is initialised.
+  * `stage_seconds`: the seconds spent in each stage, summed over the
+    threads that run it: read (the producer), parse, decode and preprocess
+    (the workers), collate (the producer); `stage_samples` counts the
+    samples the workers finished
 
 Label encoding (anchor matching) is not done here: it runs on the card
 inside the train step.
@@ -23,17 +30,18 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from retinanet_torch.data import tfrecord
-from retinanet_torch.data.host_codec import decode_jpeg
+from retinanet_torch.data import host_codec, tfrecord
 from retinanet_torch.data.preprocessing import HostPreprocessor
 
 _RUN_MODES = ("train", "val")
 _FILE_SHUFFLE_SEED = 1337
+STAGES = ("read", "parse", "decode", "preprocess", "collate")
 
 
 class InputPipeline:
@@ -101,6 +109,15 @@ class InputPipeline:
             self.preprocessor.use_augmentation = False
             self.preprocessor.horizontal_flip = False
             self.preprocessor.jitter = None
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.stage_samples = 0
+        self._stage_lock = threading.Lock()
+
+    def _add_seconds(self, samples: int = 0, **seconds: float) -> None:
+        with self._stage_lock:
+            self.stage_samples += samples
+            for stage, value in seconds.items():
+                self.stage_seconds[stage] += value
 
     # -- sample streams ------------------------------------------------------
 
@@ -112,7 +129,14 @@ class InputPipeline:
             if self.run_mode == "train":
                 files = list(np.array(files)[rng.permutation(len(files))])
             for path in files:
-                yield from tfrecord.read_records(path)
+                records = host_codec.read_records(path)
+                while True:
+                    start = time.perf_counter()
+                    record = next(records, None)
+                    self._add_seconds(read=time.perf_counter() - start)
+                    if record is None:
+                        break
+                    yield record
             epoch += 1
 
     def _shuffled(self, stream: Iterator[bytes]) -> Iterator[bytes]:
@@ -132,17 +156,29 @@ class InputPipeline:
 
     # -- per-sample work (runs in worker threads) ----------------------------
 
+    def _parse_decode(self, record: bytes) -> tuple:
+        """(sample, image, perf_counter at start, after parse, after
+        decode)."""
+        t0 = time.perf_counter()
+        sample = host_codec.parse_detection_example(record)
+        t1 = time.perf_counter()
+        image = host_codec.decode_jpeg(sample["image"])
+        return sample, image, t0, t1, time.perf_counter()
+
     def _process_train(self, record: bytes, sample_seed: int) -> Dict:
-        sample = tfrecord.parse_detection_example(record)
-        image = decode_jpeg(sample["image"])
+        sample, image, t0, t1, t2 = self._parse_decode(record)
         rng = np.random.default_rng(sample_seed)
-        return self.preprocessor(
+        out = self.preprocessor(
             image, sample["boxes"], sample["classes"], rng)
+        self._add_seconds(1, parse=t1 - t0, decode=t2 - t1,
+                          preprocess=time.perf_counter() - t2)
+        return out
 
     def _process_val(self, record: bytes) -> Dict:
-        sample = tfrecord.parse_detection_example(record)
-        image = decode_jpeg(sample["image"])
+        sample, image, t0, t1, t2 = self._parse_decode(record)
         out, resize_scale = self.preprocessor.resize_with_pad(image)
+        self._add_seconds(1, parse=t1 - t0, decode=t2 - t1,
+                          preprocess=time.perf_counter() - t2)
         return {"image": out, "image_id": np.int64(sample["image_id"]),
                 "resize_scale": resize_scale}
 
@@ -208,7 +244,11 @@ class InputPipeline:
                         batch.append(window.popleft().result())
                         if len(batch) == self.batch_size:
                             full, batch = batch, []
-                            return put(self._collate(full))
+                            start = time.perf_counter()
+                            out = self._collate(full)
+                            self._add_seconds(
+                                collate=time.perf_counter() - start)
+                            return put(out)
                         return True
 
                     items = stream if is_train else self._val_slots(stream)

@@ -1,5 +1,6 @@
-"""COCO dataset index and bbox mAP evaluation in numpy (the port's own copy
-of `retinanet_tpu/eval/coco.py`, numpy matcher only).
+"""COCO dataset index and bbox mAP evaluation (the port's own copy of
+`retinanet_tpu/eval/coco.py`): the matcher in C++ (`eval/native.py`) by
+default, the numpy matcher as its spec.
 
 The pycocotools bbox protocol: greedy per-image matching in score order at
 IoU thresholds 0.50:0.05:0.95, crowd handling, area ranges, maxDets, and
@@ -179,7 +180,7 @@ class COCOEval:
         descending score and truncated to `max_det` here, so matcher outputs
         stay column-aligned with `dt_scores`."""
         cat_ranges = []
-        dt_boxes, dt_scores, pos_in_group = [], [], []
+        dt_boxes, dt_areas, dt_scores, pos_in_group = [], [], [], []
         gt_boxes, gt_areas, gt_crowd, gt_igbase = [], [], [], []
         dt_counts, gt_counts = [], []
         group_keys = []
@@ -195,6 +196,8 @@ class COCOEval:
                 dts = [dts[i] for i in d_order]
                 dt_boxes.append(np.array(
                     [d["bbox"] for d in dts], np.float64).reshape(-1, 4))
+                dt_areas.append(np.array(
+                    [d["area"] for d in dts], np.float64))
                 dt_scores.append(np.array(
                     [d["score"] for d in dts], np.float64))
                 pos_in_group.append(np.arange(len(dts), dtype=np.int64))
@@ -225,6 +228,7 @@ class COCOEval:
             "gt_off": np.concatenate(
                 [[0], np.cumsum(gt_counts)]).astype(np.int64),
             "dt_boxes": cat_(dt_boxes, np.float64, 4),
+            "dt_areas": cat_(dt_areas, np.float64),
             "dt_scores": cat_(dt_scores, np.float64),
             "pos_in_group": cat_(pos_in_group, np.int64),
             "gt_boxes": cat_(gt_boxes, np.float64, 4),
@@ -233,13 +237,27 @@ class COCOEval:
             "gt_ignore_base": cat_(gt_igbase, np.uint8),
         }
 
-    def evaluate(self) -> None:
+    def evaluate(self, use_native: Optional[bool] = None) -> None:
         """Match detections to gts for every (image, category, area, IoU
-        threshold) with the numpy matcher (`_evaluate_img`). The JAX
-        package's C++ matcher, which gives the same numbers faster, is
-        ROADMAP Queue 1 #10."""
+        threshold): through the C++ matcher (`eval/native.py`, one call for
+        every group, a group's IoUs computed once) unless `use_native` is
+        False, which runs the numpy matcher (`_evaluate_img`), the spec.
+        Both give the same arrays; a matcher that does not build raises."""
         max_det = max(MAX_DETS)
         p = self._pack_groups(max_det)
+        if use_native is False:
+            dt_matched, dt_ignore, num_gt = self._match_numpy(p, max_det)
+        else:
+            from retinanet_torch.eval import native
+            dt_matched, dt_ignore, num_gt = native.match_groups(
+                p, np.array([lo for lo, _ in AREA_RNG.values()]),
+                np.array([hi for _, hi in AREA_RNG.values()]), IOU_THRS)
+        p["dt_matched"] = dt_matched
+        p["dt_ignore"] = dt_ignore
+        p["num_gt"] = num_gt
+        self._packed = p
+
+    def _match_numpy(self, p: dict, max_det: int) -> tuple:
         T = len(IOU_THRS)
         A = len(AREA_RNG)
         sum_d = int(p["dt_off"][-1])
@@ -255,10 +273,7 @@ class COCOEval:
                 dt_matched[a, :, lo:hi] = e["dt_matches"] > 0
                 dt_ignore[a, :, lo:hi] = e["dt_ignore"]
                 num_gt[a, i] = e["num_gt"]
-        p["dt_matched"] = dt_matched
-        p["dt_ignore"] = dt_ignore
-        p["num_gt"] = num_gt
-        self._packed = p
+        return dt_matched, dt_ignore, num_gt
 
     # -- accumulate -----------------------------------------------------------
 

@@ -198,6 +198,7 @@ class Executor:
         self._profiler = None
         self.enable_weights_info = enable_weights_info
         self._preempt_requested = False
+        self.pretrained = None  # (path, matched, skipped) once loaded
 
         self._setup_state()
 
@@ -219,32 +220,63 @@ class Executor:
     def _maybe_load_pretrained(self) -> None:
         """Backbone-checkpoint init, or fine-tuning from a full pretrained
         state, merged by name: a tensor whose name or shape does not match
-        is skipped. The source is a torch file: a checkpoint of this
-        Executor or a bare state_dict."""
+        is skipped. The source is Flax weights, as the JAX Executor reads
+        them (`<src>` ending in `.msgpack`, else `<src>/params.msgpack`: an
+        export artifact's directory), or a torch file: a checkpoint of this
+        Executor or a bare state_dict. Sets `self.pretrained` to (path,
+        matched, skipped)."""
         bb_ckpt = self.params.architecture.backbone.get("checkpoint", "")
         ft = self.params.fine_tuning
         src, scope = None, None
         if ft.get("fine_tune", False) and ft.get("pretrained_checkpoint"):
             src = ft.pretrained_checkpoint
         elif bb_ckpt:
-            src, scope = bb_ckpt, "backbone."
+            src, scope = bb_ckpt, "backbone"
         if not src:
             return
-        if src.endswith(".msgpack") or os.path.exists(
-                os.path.join(src, "params.msgpack")):
-            raise NotImplementedError(
-                f"{src}: reading Flax .msgpack weights needs msgpack, which "
-                "the port does not use; ROADMAP Queue 1 #13 (Flax pretrained "
-                "weights). Convert them with retinanet_torch.convert and "
-                "torch.save the state_dict")
-        if not os.path.isfile(src):
-            raise FileNotFoundError(f"pretrained weights not found: {src}")
-        loaded = torch.load(src, map_location="cpu", weights_only=True)
+        if src.endswith(".msgpack") or os.path.isdir(src):
+            path = src if src.endswith(".msgpack") else os.path.join(
+                src, "params.msgpack")
+            matched, skipped = self._load_flax_pretrained(path, scope)
+        else:
+            path = src
+            matched, skipped = self._load_torch_pretrained(path, scope)
+        self.pretrained = (path, matched, skipped)
+        log.info("Loaded pretrained weights from %s: %d tensors matched, "
+                 "%d skipped", path, matched, skipped)
+
+    def _load_flax_pretrained(self, path: str, scope: Optional[str]):
+        """JAX's merge: `params` and `batch_stats` each merged by name into
+        the model's own tree; the backbone scope takes the file's
+        `backbone` subtree, or the whole file when it has none."""
+        from retinanet_torch import convert
+        from retinanet_torch.export import msgpack_codec
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"pretrained weights not found: {path}")
+        loaded = msgpack_codec.read_file(path)
+        own = convert.torch_to_flax(self.model.state_dict())
+        src_params = loaded.get("params", loaded)
+        src_stats = loaded.get("batch_stats", {})
+        if scope == "backbone":
+            src_params = {"backbone": src_params.get("backbone", src_params)}
+            src_stats = {"backbone": src_stats.get("backbone", src_stats)}
+        params, m1, s1 = convert.merge_by_name(own.get("params", {}),
+                                               src_params)
+        stats, m2, s2 = convert.merge_by_name(own.get("batch_stats", {}),
+                                              src_stats)
+        convert.load_flax_variables(
+            self.model, {"params": params, "batch_stats": stats})
+        return m1 + m2, s1 + s2
+
+    def _load_torch_pretrained(self, path: str, scope: Optional[str]):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"pretrained weights not found: {path}")
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
         loaded = loaded.get("model", loaded)
         own = self.model.state_dict()
         merged, matched, skipped = {}, 0, 0
         for name, value in loaded.items():
-            if scope is not None and not name.startswith(scope):
+            if scope is not None and not name.startswith(scope + "."):
                 continue
             if name in own and tuple(own[name].shape) == tuple(value.shape):
                 merged[name] = value
@@ -252,8 +284,7 @@ class Executor:
             else:
                 skipped += 1  # by name: a mismatch is skipped
         self.model.load_state_dict(merged, strict=False)
-        log.info("Loaded pretrained weights from %s: %d tensors matched, "
-                 "%d skipped", src, matched, skipped)
+        return matched, skipped
 
     def all_checkpoint_steps(self) -> List[int]:
         steps = []

@@ -268,8 +268,11 @@ def test_pretrained_backbone_by_name(tmp_path, data):
 def test_flax_msgpack_pretrained_raises(tmp_path, data):
     params = _params(tmp_path, data)
     params.fine_tuning.fine_tune = True
-    params.fine_tuning.pretrained_checkpoint = "weights/params.msgpack"
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
+    params.fine_tuning.pretrained_checkpoint = str(
+        tmp_path / "weights" / "params.msgpack")
+    # Flax weights are read (`_load_flax_pretrained`); a file
+    # that is not there raises, as in the JAX Executor
+    with pytest.raises(FileNotFoundError, match="params.msgpack"):
         _executor(params)
 
 

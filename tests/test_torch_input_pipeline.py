@@ -241,3 +241,26 @@ def test_prefetch_staging_failure_surfaces_at_consumer(monkeypatch):
         next(pf)
     pf.close()
     assert not pf._thread.is_alive()
+
+
+@pytest.mark.parametrize("run_mode", ["train", "val"])
+def test_pipeline_reads_through_the_native_reader(pattern, monkeypatch,
+                                                  run_mode):
+    """Records are indexed and parsed by the C++ reader, never by the
+    Python codec, and every stage's seconds are counted."""
+    from retinanet_torch.data import tfrecord
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the Python codec ran on the pipeline's path")
+
+    monkeypatch.setattr(tfrecord, "read_records", refuse)
+    monkeypatch.setattr(tfrecord, "parse_detection_example", refuse)
+    pipe = InputPipeline(run_mode, torch_cfg.from_dict(_tree(pattern)),
+                         num_workers=2)
+    it = iter(pipe)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    assert len(batches) == 3
+    assert pipe.stage_samples >= 12
+    assert all(v > 0 for v in pipe.stage_seconds.values()), \
+        pipe.stage_seconds
