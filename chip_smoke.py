@@ -146,7 +146,26 @@ JAX. Phases, each fatal on failure:
      flagship from phase 12's artifact directory
      (`fine_tuning.pretrained_checkpoint`, which reads
      `<dir>/params.msgpack`): every tensor equal to the artifact's, all
-     matched, none skipped.
+     matched, none skipped;
+ 14. the run's observability and its optimizers: (a) a flagship
+     train_val through the CLI in process (OBS_CHANGES: 50 steps at batch
+     8, one COCO evaluation) with `experiment.tensorboard_dir` and
+     `--enable_weights_info`: the event file, decoded by
+     `train/event_file.py`, holds every JSONL scalar at float32 and no
+     other, and one histogram a weight under its Flax path at step 50,
+     its counts summing to the weight's size; the matching kernel once a
+     step, the NMS sweep once a val batch; one `_write_weights_info`
+     call's ms beside the step's; (b) `get_flops(1)` and `get_flops(8)`
+     of the flagship (190,290,790,400 at batch 1) and of each zoo
+     architecture equal to a count through the conv hook
+     (`models/layers.py:conv_hook`), and the achieved TFLOP/s of the
+     flagship's batch-8 float request and forward (device busy ms) against
+     the dense bf16 peak; (c) `dump_forward_hlo()` of the flagship: one
+     `aten.convolution` node a conv call of the forward; (d) each of the
+     23 registry optimizers (`optimizers/registry.py`) for 3 flagship
+     steps at batch 8 through `build_trainer`: losses finite, the last
+     update equal to the same optimizer's float64 step on the host from
+     the same state and gradients within `obs_optimizers`' bound.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -337,6 +356,25 @@ EVAL_IMAGES_NATIVE = 5000       # val2017's image count, native only
 EVAL_GTS, EVAL_DETECTIONS = 7, 100   # an image
 COCO_KEYS = ("AP-IoU=0.50:0.95", "AP-IoU=0.50", "AP-IoU=0.75",
              "AR-(all)-IoU=0.50:0.95", "AR-(L)-IoU=0.50:0.95")
+# phase 14: the run's observability and its optimizers; (a) the flagship
+# with only these changed (besides the paths): 50 steps reach the one
+# weights-info write (every 50 outer steps), then one evaluation
+OBS_CHANGES = (
+    (("training", "train_steps"), 50),
+    (("training", "save_every"), 50),
+    (("training", "validation_freq"), -1),
+    (("training", "validation_samples"), 16),
+    (("training", "steps_per_execution"), 1),
+    (("training", "log_every"), 10),
+    (("training", "batch_size", "train"), 8),
+)
+OBS_BATCH = 8
+FLAGSHIP_FLOPS_1 = 190_290_790_400   # 2 x multiply-adds at 640x640, batch 1
+BF16_PEAK_TFLOPS = 989.0             # H100 SXM data sheet, dense
+OBS_OPT_STEPS = 3
+OPT_UPDATE_TOL = 1e-3
+OPT_OFF_SHARE = 1e-6
+OPT_L2_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -963,13 +1001,16 @@ def derived_config(workdir: Path, pattern: str, ann: str,
                    train_steps: int, base: Path = FLAGSHIP,
                    step_changes=EXECUTOR_CHANGES) -> tuple:
     """The config at `base` (the flagship) with the dataset's paths, a
-    model_dir under `workdir` and `step_changes` (train_steps overridden);
+    model_dir and a tensorboard_dir under `workdir` and `step_changes`
+    (train_steps overridden);
     returns (path, [(key, the base's value, value)])."""
     tree = json.loads(base.read_text())
     changes = [(("dataloader_params", "tfrecords", "train"), pattern),
                (("dataloader_params", "tfrecords", "val"), pattern),
                (("training", "annotation_file_path"), ann),
-               (("experiment", "model_dir"), str(workdir / "models"))]
+               (("experiment", "model_dir"), str(workdir / "models")),
+               (("experiment", "tensorboard_dir"),
+                str(workdir / "tensorboard"))]
     changes += [(key, train_steps if key[-1] == "train_steps" else value)
                 for key, value in step_changes]
     done = []
@@ -977,7 +1018,7 @@ def derived_config(workdir: Path, pattern: str, ann: str,
         node = tree
         for part in key[:-1]:
             node = node[part]
-        done.append((".".join(key), node[key[-1]], value))
+        done.append((".".join(key), node.get(key[-1]), value))
         node[key[-1]] = value
     path = workdir / f"config-{train_steps}.json"
     path.write_text(json.dumps(tree, indent=2))
@@ -2141,6 +2182,7 @@ def export_config(workdir: Path) -> tuple:
     from retinanet_torch.train.executor import Executor
     tree = json.loads(FLAGSHIP.read_text())
     tree["experiment"]["model_dir"] = str(workdir / "models")
+    tree["experiment"]["tensorboard_dir"] = str(workdir / "tensorboard")
     path = workdir / "flagship.json"
     path.write_text(json.dumps(tree, indent=2))
     params = Config(str(path)).params
@@ -2807,6 +2849,7 @@ def host_tools(workdir: Path) -> dict:
     tree["training"]["annotation_file_path"] = str(
         root / "annotations" / "instances_val2017.json")
     tree["experiment"]["model_dir"] = str(workdir / "models")
+    tree["experiment"]["tensorboard_dir"] = str(workdir / "tensorboard")
     for key, value in HOST_CHANGES:
         node = tree
         for part in key[:-1]:
@@ -2950,6 +2993,7 @@ def host_pretrained(workdir: Path, artifact: Path) -> None:
     from retinanet_torch.train.executor import Executor
     tree = json.loads(FLAGSHIP.read_text())
     tree["experiment"]["model_dir"] = str(workdir / "finetune")
+    tree["experiment"]["tensorboard_dir"] = str(workdir / "tensorboard")
     tree["fine_tuning"] = {"fine_tune": True,
                            "pretrained_checkpoint": str(artifact)}
     start = time.perf_counter()
@@ -2993,6 +3037,394 @@ def phase_host_data(workdir: Path, artifact: Path) -> tuple:
     host_pretrained(workdir, artifact)
     print(f"[host] (c) took {time.perf_counter() - start:.1f} s")
     return launches, times
+
+
+def obs_train_val(workdir: Path) -> tuple:
+    """Phase 14 (a): the flagship train_val through the CLI with
+    `experiment.tensorboard_dir` and `--enable_weights_info`: OBS_CHANGES'
+    50 steps reach one weights-info write, then one evaluation. The event
+    file, decoded by `train/event_file.py`: every scalar equal to its JSONL
+    line at float32 (and none without one), a histogram for each weight of
+    the model under its Flax path, its counts summing to the weight's
+    size. Returns (the kernels' launches, seconds of the weights-info
+    call, the step's median seconds)."""
+    from retinanet_torch.__main__ import main as cli_main
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.data.synthetic import write_synthetic_tfrecords
+    from retinanet_torch.models.retinanet import build_model, flax_path
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.train import event_file
+    from retinanet_torch.train.executor import Executor
+
+    pattern, ann = write_synthetic_tfrecords(
+        str(workdir / "data"), "train", num_shards=2, samples_per_shard=16,
+        num_classes=80, seed=0, write_annotations=True)
+    steps = dict(OBS_CHANGES)[("training", "train_steps")]
+    config, changes = derived_config(workdir, pattern, ann, steps,
+                                     step_changes=OBS_CHANGES)
+    for key, old, new in changes:
+        print(f"[observability] config {key}: {old!r} -> {new!r}")
+    params = Config(str(config)).params
+    n_val = int(params.training.validation_samples) // int(
+        params.training.batch_size.val)
+
+    # one weights-info call timed as the run makes it: the norms and the
+    # buckets on the card, each fetched once
+    seconds = []
+    write = Executor._write_weights_info
+
+    def timed_write(self, step):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        write(self, step)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+
+    nms_kernel.kernel.reset_counts()
+    match_kernel.kernel.reset_counts()
+    start = time.perf_counter()
+    Executor._write_weights_info = timed_write
+    try:
+        done = cli_main(["--config_path", str(config),
+                         "--enable_weights_info"])
+    finally:
+        Executor._write_weights_info = write
+    wall = time.perf_counter() - start
+    launches = {"nms_lanes": {"observability train_val":
+                              nms_kernel.kernel.launches},
+                "match_lanes": {"observability train_val":
+                                match_kernel.kernel.launches}}
+    check(done is True, "the observability train_val run did not end")
+    check(match_kernel.kernel.launches == steps,
+          f"matching kernel launched {match_kernel.kernel.launches} times in "
+          f"{steps} steps")
+    check(nms_kernel.kernel.launches_by["sweep"] == n_val,
+          f"NMS sweep kernel launched {nms_kernel.kernel.launches_by} for "
+          f"{n_val} val batches")
+    check(len(seconds) == 1, f"{len(seconds)} weights-info writes in "
+          f"{steps} steps, 1 expected")
+
+    name = params.experiment.name
+    records = read_jsonl(workdir / "models" / name / "logs" /
+                         "train_metrics.jsonl")
+    logdir = workdir / "tensorboard" / name / "train"
+    files = event_file.event_files(str(logdir))
+    check(len(files) == 1, f"event files under {logdir}: {files}")
+    events = list(event_file.read_events(files[0]))
+    check(events[0].file_version == event_file.FILE_VERSION,
+          f"first event {events[0]}")
+    scalars, hists = {}, {}
+    for event in events[1:]:
+        for value in event.values:
+            array = value.tensor.numpy()
+            if value.plugin_name == event_file.SCALARS_PLUGIN:
+                check(array.dtype == np.float32 and array.shape == (),
+                      f"scalar {value.tag}: {array.dtype} {array.shape}")
+                scalars[(event.step, value.tag)] = array
+            else:
+                check(value.plugin_name == event_file.HISTOGRAMS_PLUGIN,
+                      f"plugin {value.plugin_name}")
+                hists[(event.step, value.tag)] = array
+    want = {(r["step"], k): np.float32(v) for r in records
+            for k, v in r.items() if k != "step"}
+    check(set(want) == set(scalars), "scalars in the events but not the "
+          f"JSONL: {sorted(set(scalars) - set(want))[:5]}; the other way: "
+          f"{sorted(set(want) - set(scalars))[:5]}")
+    differ = [k for k in want if not scalars[k] == want[k]]
+    check(not differ, f"{len(differ)} scalars differ from the JSONL, e.g. "
+          f"{differ[:3]}")
+    model = build_model(params, device="meta")
+    sizes = {f"weights-hist/{flax_path(n)}": p.numel()
+             for n, p in model.named_parameters()}
+    check({k for k in hists} == {(steps, tag) for tag in sizes},
+          f"histogram tags {sorted(hists)[:3]} do not match the model's "
+          f"{len(sizes)} Flax paths")
+    for (_, tag), rows in hists.items():
+        check(rows.shape == (event_file.BUCKET_COUNT, 3)
+              and rows.dtype == np.float64, f"{tag}: {rows.shape}")
+        check(rows[:, 2].sum() == sizes[tag], f"{tag}: counts sum to "
+              f"{rows[:, 2].sum()}, size {sizes[tag]}")
+        check(np.all(np.diff(rows[:, 0]) >= 0), f"{tag}: edges not sorted")
+    step_s = statistics.median(r["execution-time"] for r in records
+                               if "execution-time" in r)
+    evals = [r for r in records if any(k.startswith("evaluation/")
+                                       for k in r)]
+    check(len(evals) == 1, f"{len(evals)} evaluation records")
+    check_eval_record(evals[0], steps)
+    print(f"[observability] (a) train_val, {steps} steps and a COCO "
+          f"evaluation in {wall:.1f} s: {len(scalars)} scalars in the event "
+          f"file, each equal to its JSONL line at float32; "
+          f"{len(hists)} histograms at step {steps}, one a weight, counts "
+          f"summing to its size; one _write_weights_info call (norms and "
+          f"30 buckets of {len(sizes)} weights on the card, each fetched "
+          f"once) {seconds[0] * 1e3:.2f} ms beside the step's "
+          f"{step_s * 1e3:.2f} ms (median execution-time)")
+    return launches, seconds[0], step_s
+
+
+def hook_flops(params, batch: int) -> tuple:
+    """(2 x multiply-adds, convs) of the eval forward at `batch`, counted
+    independently of `get_flops`: the conv hook (`models/layers.py:
+    conv_hook`) sees every conv with its weights, on `device="meta"`."""
+    from retinanet_torch.models.layers import conv_hook
+    from retinanet_torch.models.retinanet import _compute_dtype, build_model
+    model = build_model(params, device="meta").eval()
+    total = [0, 0]
+
+    def hook(x, p, stride, pads, dtype, float_conv):
+        y = float_conv(x)
+        _, c_group, kh, kw = p.weight.shape
+        total[0] += 2 * y.numel() * c_group * kh * kw
+        total[1] += 1
+        return y
+
+    h, w = (int(v) for v in params.input.input_shape)
+    images = torch.zeros((batch, h, w, int(params.input.channels)),
+                         dtype=_compute_dtype(params.floatx.precision),
+                         device="meta")
+    with conv_hook(hook), torch.no_grad():
+        model(images)
+    return total[0], total[1]
+
+
+def forward_busy_ms(params, model, images, count: int = 3) -> float:
+    """Device busy ms of the eval forward alone (no pre- or post-processing)
+    at `images`, from a profiler trace over `count` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+    from retinanet_torch.profile_serving import _NOT_KERNELS
+    from retinanet_torch.models.retinanet import _compute_dtype
+    from retinanet_torch.train.step import make_eval_forward
+    forward = make_eval_forward(model, _compute_dtype(
+        params.floatx.precision))
+    forward(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(count):
+            forward(images)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if not e.key.startswith(_NOT_KERNELS))
+    return busy / 1e3 / count
+
+
+def obs_introspection(workdir: Path) -> dict:
+    """Phase 14 (b) and (c): `get_flops(1)` and `get_flops(8)` of the
+    flagship and of each zoo architecture against `hook_flops`; the
+    flagship's batch-8 float request and forward: achieved TFLOP/s of their
+    device busy ms against the dense bf16 peak; `dump_forward_hlo()` of the
+    flagship with one `aten.convolution` node a conv call."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.train.executor import Executor
+    out = {}
+    for label, path in (("flagship", FLAGSHIP),) + tuple(
+            (a, REPO / "configs" / c) for a, c in ZOO):
+        tree = json.loads(path.read_text())
+        tree["experiment"]["model_dir"] = str(workdir / "models")
+        tree["experiment"]["tensorboard_dir"] = str(workdir / "tensorboard")
+        params = from_dict(tree)
+        ex = Executor(params, run_mode="export", device="cuda")
+        start = time.perf_counter()
+        flops = {b: ex.get_flops(b) for b in (1, OBS_BATCH)}
+        seconds = time.perf_counter() - start
+        hooks = {b: hook_flops(params, b) for b in (1, OBS_BATCH)}
+        for b in flops:
+            check(flops[b] == hooks[b][0], f"{label}: get_flops({b}) "
+                  f"{flops[b]:.0f} != the conv hooks' {hooks[b][0]}")
+        print(f"[observability] (b) {label} {path.name} at "
+              f"{params.input.input_shape}: get_flops(1) {flops[1]:.0f}, "
+              f"get_flops({OBS_BATCH}) {flops[OBS_BATCH]:.0f} "
+              f"({seconds:.2f} s for both, device=\"meta\"), equal to the "
+              f"conv hooks' count over {hooks[1][1]} conv calls")
+        out[label] = {"config": str(path.relative_to(REPO)),
+                      "flops_1": flops[1], f"flops_{OBS_BATCH}":
+                      flops[OBS_BATCH], "convs": hooks[1][1]}
+        if label != "flagship":
+            ex.close()
+            continue
+        check(flops[1] == FLAGSHIP_FLOPS_1, f"flagship get_flops(1) "
+              f"{flops[1]:.0f}, {FLAGSHIP_FLOPS_1} expected")
+        # (c) the forward graph
+        start = time.perf_counter()
+        graph = Path(ex.dump_forward_hlo())
+        text = graph.read_text()
+        n_conv = text.count("torch.ops.aten.convolution.default(")
+        check(graph == Path(ex.model_dir) / "forward.export.txt",
+              f"dump_forward_hlo wrote {graph}")
+        check(n_conv == hooks[1][1], f"the exported graph has {n_conv} "
+              f"aten.convolution nodes, the forward {hooks[1][1]} convs")
+        print(f"[observability] (c) dump_forward_hlo: {graph.name}, "
+              f"{len(text)} characters, {n_conv} aten.convolution nodes = "
+              f"the forward's conv calls ({time.perf_counter() - start:.1f}"
+              f" s)")
+        ex.close()
+        # achieved rate of the batch-8 float request and of its forward
+        model = build_model(params, device="cuda", seed=0)
+        zero_class_prior(model)
+        serve = build_serving_fn(params, device="cuda", model=model)
+        h, w = params.input.input_shape
+        images = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (OBS_BATCH, h, w, 3)).astype(np.uint8))
+        request_ms = request_device_ms(serve, images)[0]
+        normalized = images.cuda().float()
+        forward_ms = forward_busy_ms(params, model, normalized)
+        for key, ms in (("request", request_ms), ("forward", forward_ms)):
+            tflops = flops[OBS_BATCH] / (ms / 1e3) / 1e12
+            out["flagship"][f"{key}_busy_ms"] = ms
+            out["flagship"][f"{key}_tflops"] = tflops
+            print(f"[observability] (b) flagship batch-{OBS_BATCH} float "
+                  f"{key}: device busy {ms:.3f} ms, "
+                  f"{flops[OBS_BATCH]:.0f} FLOPs (convolutions) -> "
+                  f"{tflops:.2f} TFLOP/s achieved, "
+                  f"{100 * tflops / BF16_PEAK_TFLOPS:.2f}% of the "
+                  f"{BF16_PEAK_TFLOPS:.0f} TFLOP/s dense bf16 peak "
+                  f"({card_line()})")
+        del model, serve
+    return out
+
+
+def _host64(value):
+    """A float64 copy on the host of every floating tensor in a nested
+    state_dict (other values as they are)."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().to("cpu", copy=True)
+        return value.double() if value.is_floating_point() else value
+    if isinstance(value, dict):
+        return {k: _host64(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_host64(v) for v in value)
+    return value
+
+
+def obs_optimizers() -> dict:
+    """Phase 14 (d): each registry optimizer on the flagship at batch
+    OBS_BATCH for OBS_OPT_STEPS steps through `build_trainer`: losses
+    finite; the last step's update held to the same optimizer's step on
+    the host in float64 from the same state and the card's (clipped)
+    gradients. Bound, a tensor: an element is off when it differs from the
+    float64 result by more than 2^-22 of its magnitude plus OPT_UPDATE_TOL
+    of the tensor's largest float64 update; at most OPT_OFF_SHARE of all
+    elements may be off (a sign taken at the rounding level, in lion and
+    yogi); and the L2 distance to the float64 result rounded to float32
+    (what float32 weights can hold: lars's and adadelta's first updates
+    are ~100 ulps of a weight) stays under OPT_L2_TOL of the update's
+    norm. The flagship's own SGD runs the same steps first, for its step
+    ms beside theirs."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.data.synthetic import synthetic_train_batch
+    from retinanet_torch.optimizers import registry
+    from retinanet_torch.train.trainer import build_trainer
+    params = from_dict(json.loads(FLAGSHIP.read_text()))
+    h, w = params.input.input_shape
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_train_batch(
+        OBS_BATCH, (h, w), int(params.encoder_params.max_boxes),
+        int(params.architecture.head.num_classes), seed=0).items()}
+    rows = {}
+    for name in ("sgd",) + tuple(registry.SIGNATURES):
+        tree = json.loads(FLAGSHIP.read_text())
+        tree["training"]["optimizer"]["name"] = name
+        state, step = build_trainer(from_dict(tree), device="cuda", seed=0)
+        opt = state.optimizer
+        check(name == "sgd" or isinstance(opt, registry.RegistryOptimizer),
+              f"{name}: built {type(opt).__name__}")
+        losses, times = [], []
+        for i in range(OBS_OPT_STEPS):
+            if i == OBS_OPT_STEPS - 1 and name != "sgd":
+                named = {n: p for n, p in state.model.named_parameters()
+                         if p.requires_grad}
+                before = {n: p.detach().to("cpu", torch.float64)
+                          for n, p in named.items()}
+                saved = _host64(opt.state_dict())
+                generator = (None if opt.generator is None
+                             else opt.generator.get_state())
+            marks = []
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = step(state, batch, marks)
+            loss = float(metrics["total-loss"])
+            times.append(time.perf_counter() - start)
+            losses.append(loss)
+        # the clip and the update (the EMA is off): the device span from the
+        # end of the backward to the end of the optimizer, last step
+        spans = dict(marks)
+        opt_ms = spans["backward"].elapsed_time(spans["optimizer"])
+        check(all(math.isfinite(v) for v in losses),
+              f"{name}: losses {losses}")
+        if name == "sgd":
+            rows[name] = {"losses": losses, "optimizer_ms": opt_ms,
+                          "step_ms": [t * 1e3 for t in times]}
+            print(f"[observability] (d) sgd (the flagship's KerasSGD, the "
+                  f"baseline): losses " + " ".join(f"{v:.5f}" for v in losses)
+                  + f"; step ms {times[-1] * 1e3:.1f} (first "
+                  f"{times[0] * 1e3:.1f}), clip and update {opt_ms:.2f} ms "
+                  "on the device")
+            del state, step, opt
+            torch.cuda.empty_cache()
+            continue
+        after = {n: p.detach().to("cpu", torch.float64)
+                 for n, p in named.items()}
+        host = {n: torch.nn.Parameter(v.clone()) for n, v in before.items()}
+        ref = registry.RegistryOptimizer(host, name, opt.schedule,
+                                         opt.hyper, clipnorm=None)
+        if generator is not None:
+            # the same draws: the host step takes them from the card's
+            # generator in its state before the step
+            ref.generator = torch.Generator(device=opt.generator.device)
+            saved["generator"] = generator
+        ref.load_state_dict(saved)
+        for n, p in host.items():
+            p.grad = named[n].grad.detach().to("cpu", torch.float64)
+        ref.step()
+        off = total = 0
+        err2 = norm2 = 0.0
+        for n, p in host.items():
+            want = p.detach()
+            update = want - before[n]
+            tol = (2.0 ** -22 * want.abs()
+                   + OPT_UPDATE_TOL * update.abs().max())
+            diff = (after[n] - want).abs()
+            off += int((diff > tol).sum())
+            total += diff.numel()
+            err2 += float(((after[n] - want.float().double()) ** 2).sum())
+            norm2 += float((update ** 2).sum())
+        l2 = math.sqrt(err2 / max(norm2, 1e-300))
+        check(off <= OPT_OFF_SHARE * total and l2 <= OPT_L2_TOL,
+              f"{name}: {off} of {total} elements off the float64 step, "
+              f"update L2 error {l2:.3g}")
+        rows[name] = {"losses": losses, "optimizer_ms": opt_ms,
+                      "step_ms": [t * 1e3 for t in times],
+                      "off": off, "l2": l2}
+        print(f"[observability] (d) {name} {json.dumps(opt.hyper)}: losses "
+              + " ".join(f"{v:.5f}" for v in losses)
+              + f"; step ms {times[-1] * 1e3:.1f} (first "
+              f"{times[0] * 1e3:.1f}), clip and update {opt_ms:.2f} ms on "
+              f"the device; last update against float64 on the "
+              f"host: {off} of {total} elements off, L2 error {l2:.3g} "
+              "(to the float64 result in float32)")
+        del state, step, opt, ref, host, named, before, after
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_observability(workdir: Path) -> tuple:
+    """Phase 14. Returns the kernels' launches on its paths and its
+    numbers."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    launches, weights_info_s, step_s = obs_train_val(workdir / "train_val")
+    print(f"[observability] (a) took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    flops = obs_introspection(workdir / "introspection")
+    print(f"[observability] (b, c) took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    optimizers = obs_optimizers()
+    print(f"[observability] (d) took {time.perf_counter() - start:.1f} s")
+    return launches, {"weights_info_ms": weights_info_s * 1e3,
+                      "step_ms": step_s * 1e3, "flops": flops,
+                      "optimizers": optimizers}
 
 
 def main() -> int:
@@ -3060,6 +3492,10 @@ def main() -> int:
         host_launches, host_eval = phase_host_data(
             Path(tmp) / "host", Path(tmp) / "export" / "artifact")
         print(f"[phase 13] took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        obs_launches, observability = phase_observability(
+            Path(tmp) / "observability")
+        print(f"[phase 14] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)
@@ -3078,6 +3514,10 @@ def main() -> int:
         if record["name"] in host_launches:
             record["launches_on_host_data_path"] = host_launches[
                 record["name"]]
+        if record["name"] in obs_launches:
+            record["launches_on_observability_path"] = obs_launches[
+                record["name"]]
+    print(json.dumps({"observability": observability}))
     print(json.dumps({"host_coco_eval": host_eval}))
     print(json.dumps({"zoo": [{k: a[k] for k in (
         "name", "config", "input", "batch", "parameters", "request_ms",

@@ -2,7 +2,8 @@
 
 The port's own copy of `retinanet_tpu/core/config.py` (the same JSON schema,
 defaults and validation), so that `retinanet_torch` never imports the JAX
-package. Remote (gs://) paths and the consumed-knob tracing dict are not
+package, and `trace_reads`, the read-traced copy behind the consumed-knob
+audit (`tests/test_torch_knob_audit.py`). Remote (gs://) paths are not
 carried over.
 """
 
@@ -221,3 +222,57 @@ def from_dict(tree: Mapping) -> ConfigDict:
     """Build validated params from an in-memory dict (tests / programmatic)."""
     merged = deep_merge(copy.deepcopy(_DEFAULTS), tree)
     return validate(_wrap(merged))
+
+
+class _TracingConfigDict(ConfigDict):
+    """A ConfigDict that records every LEAF read (its dotted path) into a
+    shared set. It backs the consumed-knob audit: the port is driven over a
+    traced config, and every schema key must have been read or be declared
+    inert, which catches a key that is accepted and then ignored.
+
+    Neutral operations record no read: `to_dict()`, plain dict iteration
+    (`items`, `keys`, `values`) and `dict(...)` copies, since the Executor
+    writes the whole config to JSON at its start."""
+
+    def __init__(self, data: Mapping, prefix: str, reads: set):
+        super().__init__()
+        object.__setattr__(self, "_trace_prefix", prefix)
+        object.__setattr__(self, "_trace_reads", reads)
+        for k, v in data.items():
+            p = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                dict.__setitem__(self, k, _TracingConfigDict(v, p, reads))
+            else:
+                dict.__setitem__(self, k, v)
+
+    def __getitem__(self, key):
+        value = dict.__getitem__(self, key)
+        if not isinstance(value, dict):
+            prefix = self._trace_prefix
+            self._trace_reads.add(f"{prefix}.{key}" if prefix else str(key))
+        return value
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def __setattr__(self, name, value):
+        if name.startswith("_trace"):
+            object.__setattr__(self, name, value)
+        else:
+            self[name] = value
+
+    def __deepcopy__(self, memo):
+        # a deep copy keeps tracing into the same set
+        return _TracingConfigDict(
+            copy.deepcopy(self.to_dict(), memo),
+            self._trace_prefix, self._trace_reads)
+
+
+def trace_reads(params: ConfigDict):
+    """Returns (traced_params, reads): a deep tracing copy of `params` and
+    the live set that gathers the dotted leaf paths on every read."""
+    reads: set = set()
+    return _TracingConfigDict(params, "", reads), reads

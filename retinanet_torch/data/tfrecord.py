@@ -256,6 +256,9 @@ class RecordWriter:
         self._f.write(record)
         self._f.write(struct.pack("<I", masked_crc32c(record)))
 
+    def flush(self) -> None:
+        self._f.flush()
+
     def close(self) -> None:
         self._f.close()
 

@@ -2,7 +2,10 @@
 `retinanet_tpu/optimizers/builder.py`).
 
   * SGD with the Keras momentum semantics of the reference (`KerasSGD`);
-    `adam` and `adamw` map to torch's, driven by the same schedule.
+    `adam` and `adamw` map to torch's, driven by the same schedule; any
+    other name goes to the by-name registry (`optimizers/registry.py`),
+    which forwards the config fields that match the optax factory's
+    keywords, as the JAX package does.
   * Gradient clipping: each tensor to `clipnorm`, then the global norm to
     `clipnorm` (`clip_per_tensor_then_global`).
   * Layer freezing by the config's `freeze_variables` keys: a frozen
@@ -20,7 +23,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from retinanet_torch.models.retinanet import flax_path, freeze_regexes
-from retinanet_torch.optimizers import schedules
+from retinanet_torch.optimizers import registry, schedules
 
 
 @torch.no_grad()
@@ -167,20 +170,26 @@ def freeze_mask_fn(freeze_keys: Sequence[str]) -> Callable[[str], bool]:
 
 def build_optimizer(opt_params, train_steps: int,
                     named_parameters: Dict[str, torch.nn.Parameter],
-                    freeze_variables: Sequence[str] = ()
+                    freeze_variables: Sequence[str] = (), seed: int = 0
                     ) -> Tuple[object, Callable[[int], float]]:
     """Returns (optimizer, schedule) over the trainable ones of
-    `named_parameters`; the frozen ones get `requires_grad` off."""
+    `named_parameters`; the frozen ones get `requires_grad` off. `seed`
+    seeds the noise of `noisy_sgd`. An unknown name, or a factory that
+    cannot run with a schedule, raises ValueError before anything is
+    built."""
+    name = opt_params.name.lower()
+    kwargs = (None if name in ("sgd", "adam", "adamw")
+              else registry.forwarded_kwargs(name, opt_params))
     schedule = schedules.from_params(opt_params.lr_params, train_steps)
     trainable = freeze_mask_fn(freeze_variables)
-    params = []
-    for name, p in named_parameters.items():
-        p.requires_grad_(trainable(name))
+    named = {}
+    for param_name, p in named_parameters.items():
+        p.requires_grad_(trainable(param_name))
         if p.requires_grad:
-            params.append(p)
+            named[param_name] = p
+    params = list(named.values())
     clipnorm = opt_params.get("clipnorm", None)
 
-    name = opt_params.name.lower()
     if name == "sgd":
         return KerasSGD(
             params, schedule,
@@ -194,6 +203,6 @@ def build_optimizer(opt_params, train_steps: int,
         inner = cls(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
                     **kwargs)
         return _ScheduledTorchOptimizer(inner, schedule, clipnorm), schedule
-    raise NotImplementedError(
-        f"optimizer {opt_params.name!r}: only sgd, adam and adamw are "
-        "ported; the by-name optimizer registry is ROADMAP Queue 1 #7")
+    return registry.RegistryOptimizer(named, name, schedule, kwargs,
+                                      clipnorm=clipnorm,
+                                      seed=seed), schedule

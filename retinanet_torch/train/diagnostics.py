@@ -3,9 +3,9 @@
 format, the Discord webhook, the loss-inflection detector that triggers
 the checkpoint-rewind recovery, and the metrics sink.
 
-The metrics sink writes JSONL only: TensorBoard is not ported (ROADMAP
-Queue 1 #11), so there are no histograms, as in the JAX package when
-TensorFlow is absent.
+The metrics sink writes JSONL, and TensorBoard event files through
+`train/event_file.py` (written by hand: no TensorFlow), scalars and
+per-weight histograms, as the JAX package writes them through `tf.summary`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ import urllib.request
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+
+from retinanet_torch.train import event_file
 
 
 class AverageMeter:
@@ -115,27 +118,61 @@ class InflectionDetector:
 
 
 class MetricsLogger:
-    """Scalar metrics sink: one JSON line a call, `{"step": ..., **scalars}`,
-    in `log_dir/<name>_metrics.jsonl`, line-buffered. Disabled (the
-    processes other than the chief), it opens nothing and drops every
-    line."""
+    """Metrics sink: one JSON line a call, `{"step": ..., **scalars}`, in
+    `log_dir/<name>_metrics.jsonl`, line-buffered; with `use_tensorboard`,
+    also TensorBoard events (the same scalars at float32, and histograms)
+    in one event file under `tensorboard_dir`, or `log_dir/<name>` when it
+    is empty. Disabled (the processes other than the chief), it opens
+    nothing and drops everything. An I/O error raises."""
 
     def __init__(self, log_dir: str, name: str = "train",
-                 enabled: bool = True):
+                 use_tensorboard: bool = True, enabled: bool = True,
+                 tensorboard_dir: str = ""):
         self._jsonl = None
-        if enabled:
-            os.makedirs(log_dir, exist_ok=True)
-            self._jsonl = open(os.path.join(log_dir,
-                                            f"{name}_metrics.jsonl"),
-                               "a", buffering=1)
+        self._events: Optional[event_file.EventFileWriter] = None
+        if not enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, f"{name}_metrics.jsonl"),
+                           "a", buffering=1)
+        if use_tensorboard:
+            self._events = event_file.EventFileWriter(
+                tensorboard_dir or os.path.join(log_dir, name))
+
+    @property
+    def has_tensorboard(self) -> bool:
+        return self._events is not None
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         if self._jsonl is None:
             return
         clean = {k: float(v) for k, v in scalars.items()}
         self._jsonl.write(json.dumps({"step": int(step), **clean}) + "\n")
+        if self._events is not None:
+            self._events.add_scalars(step, clean)
+            self._events.flush()
+
+    def log_histograms(self, step: int,
+                       tensors: Dict[str, torch.Tensor]) -> None:
+        """Value histograms of `tensors` (TensorBoard only: a histogram has
+        no JSONL line). The buckets are computed on the tensors' device and
+        fetched in one copy."""
+        if self._events is None:
+            return
+        buckets = event_file.histogram_buckets(list(tensors.values()))
+        self._events.add_histograms(step, dict(zip(tensors, buckets)))
+        self._events.flush()
+
+    def flush(self) -> None:
+        if self._jsonl is not None:
+            self._jsonl.flush()
+        if self._events is not None:
+            self._events.flush()
 
     def close(self) -> None:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+        if self._events is not None:
+            self._events.close()
+            self._events = None

@@ -21,9 +21,13 @@
   * Evaluation swaps in the EMA parameters when configured, runs the model
     in eval mode through `ops/postprocess.py:make_inference_fn` (NMS on the
     card), one batch deep, and scores COCO mAP on the host.
-  * Metrics: JSONL, throughput meter and ETA log lines, optional Discord
-    webhook; a `torch.profiler` window from PROFILE_START_STEP to
-    PROFILE_END_STEP (outer steps) under `model_dir/profile`.
+  * Metrics: JSONL, and TensorBoard event files (`train/event_file.py`,
+    written without TensorFlow) under `experiment.tensorboard_dir/<name>/
+    train`, or `model_dir/logs/train` when that key is empty; per-weight
+    norms and histograms with `enable_weights_info`; throughput meter and
+    ETA log lines, optional Discord webhook; a `torch.profiler` window
+    from PROFILE_START_STEP to PROFILE_END_STEP (outer steps) under
+    `model_dir/profile`.
   * Under a process group (`parallel/distributed.py`) each process trains
     on its share of the global batch (`local_batch_size`) and infers its
     slice of each val batch. The chief alone writes the config, the
@@ -56,7 +60,7 @@ from retinanet_torch.core.device import resolve_device
 from retinanet_torch.core.strategy import resolve_strategy
 from retinanet_torch.data.prefetch import DevicePrefetcher
 from retinanet_torch.eval.coco_evaluator import COCOEvaluator
-from retinanet_torch.models.retinanet import flax_path
+from retinanet_torch.models.retinanet import build_model, flax_path
 from retinanet_torch.ops.postprocess import make_inference_fn
 from retinanet_torch.parallel import distributed
 from retinanet_torch.train import step as step_lib
@@ -92,6 +96,19 @@ def _concat_results(parts: List[Dict]) -> Dict:
             for key in parts[0]}
 
 
+class _EvalForward(torch.nn.Module):
+    """The eval forward as one module, for `torch.export`: images cast to
+    the compute dtype, the raw per-level predictions out."""
+
+    def __init__(self, model: torch.nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.model = model
+        self.dtype = dtype
+
+    def forward(self, images: torch.Tensor):
+        return self.model(images.to(self.dtype))
+
+
 def _host_copy(value):
     """A copy on the host of every tensor in a nested dict/list."""
     if isinstance(value, torch.Tensor):
@@ -111,6 +128,7 @@ class Executor:
                  resume_from: Optional[str] = None,
                  train_input_fn: Optional[Callable[[], Iterator]] = None,
                  val_input_fn: Optional[Callable[[], Iterator]] = None,
+                 enable_tensorboard: bool = True,
                  enable_weights_info: bool = False,
                  device=None):
         if run_mode not in _RUN_MODES:
@@ -182,8 +200,15 @@ class Executor:
         self._pending_saves: List[concurrent.futures.Future] = []
 
         # -- observability ----------------------------------------------------
-        self.metrics = MetricsLogger(os.path.join(self.model_dir, "logs"),
-                                     "train", enabled=self._chief)
+        # experiment.tensorboard_dir, when set, is the root of the event
+        # files (<root>/<experiment>/train, as the JAX package and the
+        # reference put them); the JSONL stays under model_dir/logs
+        tb_root = str(params.experiment.get("tensorboard_dir", "") or "")
+        self.metrics = MetricsLogger(
+            os.path.join(self.model_dir, "logs"), "train",
+            use_tensorboard=enable_tensorboard, enabled=self._chief,
+            tensorboard_dir=os.path.join(
+                tb_root, params.experiment.name, "train") if tb_root else "")
         self.discord = DiscordLogger(enabled=self._chief)
         rec = t.recovery
         self._use_inflection = bool(rec.use_inflection_detector)
@@ -706,8 +731,10 @@ class Executor:
         return scores
 
     def _write_weights_info(self, step: int) -> None:
-        """Per-weight L2 norms, computed on the device and fetched once, by
-        the chief (the weights are the same on every process)."""
+        """Per-weight L2 norms, computed on the device and fetched once, and
+        with TensorBoard each weight's value histogram (`weights-hist/<flax
+        path>`), bucketed on the device and fetched once; by the chief (the
+        weights are the same on every process)."""
         if not self._chief:
             return
         names, params = zip(*self.model.named_parameters())
@@ -716,17 +743,55 @@ class Executor:
                 torch._foreach_norm([p.float() for p in params])).tolist()
         self.metrics.log(step, {f"weights/{flax_path(n)}": v
                                 for n, v in zip(names, norms)})
+        if self.metrics.has_tensorboard:
+            self.metrics.log_histograms(step, {
+                f"weights-hist/{flax_path(n)}": p
+                for n, p in zip(names, params)})
 
     # -------------------------------------------------------- introspection
 
+    def _meta_eval_model(self) -> torch.nn.Module:
+        """The config's model on `device="meta"`, in eval mode: shapes
+        without memory."""
+        return build_model(self.params, device="meta").eval()
+
+    def _meta_images(self, batch_size: int) -> torch.Tensor:
+        h, w = (int(v) for v in self.params.input.input_shape)
+        return torch.zeros((batch_size, h, w,
+                            int(self.params.input.channels)),
+                           dtype=self.compute_dtype, device="meta")
+
     def get_flops(self, batch_size: int = 1) -> float:
-        raise NotImplementedError(
-            "get_flops is not ported: ROADMAP Queue 1 #12 (introspection)")
+        """FLOPs of the batch-`batch_size` eval forward pass at the config's
+        input shape: 2 x the multiply-adds of every convolution and matmul,
+        counted by `torch.utils.flop_counter.FlopCounterMode` on the model
+        built on `device="meta"` (no memory is used on the card). JAX's
+        counterpart reads XLA's cost analysis of the compiled forward, which
+        counts only what its compiler kept (the taps on padding it folded
+        away, among others)."""
+        from torch.utils.flop_counter import FlopCounterMode
+        model = self._meta_eval_model()
+        counter = FlopCounterMode(display=False)
+        with counter, torch.no_grad():
+            model(self._meta_images(batch_size))
+        return float(counter.get_total_flops())
 
     def dump_forward_hlo(self, path: Optional[str] = None) -> str:
-        raise NotImplementedError(
-            "dump_forward_hlo is not ported: ROADMAP Queue 1 #12 "
-            "(introspection)")
+        """Write the graph of the batch-1 eval forward, in the compute
+        dtype, as text: the `torch.export` program lowered to core ATen
+        (`aten.convolution` a conv), traced on `device="meta"`. The name is
+        the JAX package's (which writes XLA's HLO), kept so that callers of
+        either Executor call the same method; the content is not HLO, so the
+        default path is `model_dir/forward.export.txt`. Returns the path."""
+        model = self._meta_eval_model()
+        module = _EvalForward(model, self.compute_dtype)
+        with torch.no_grad():
+            program = torch.export.export(
+                module, (self._meta_images(1),)).run_decompositions()
+        path = path or os.path.join(self.model_dir, "forward.export.txt")
+        with open(path, "w") as f:
+            f.write(str(program))
+        return path
 
     def continuous_evaluate(self, sleep_time: int = 60,
                             max_iterations: Optional[int] = None):

@@ -53,7 +53,7 @@ def build_trainer_parts(params, device=None, seed: int = 0) -> Trainer:
                             params.loss)
     optimizer, schedule = build_optimizer(
         t.optimizer, int(t.train_steps), dict(model.named_parameters()),
-        freeze_variables=freeze)
+        freeze_variables=freeze, seed=seed)
     use_ema = bool(t.optimizer.get("use_moving_average", False))
     state = create_train_state(
         model, optimizer, use_ema=use_ema,

@@ -321,15 +321,6 @@ def test_refused_settings(tmp_path, data, change, error, match):
                  device="cpu").run()
 
 
-def test_introspection_raises(tmp_path, data):
-    ex = _executor(_params(tmp_path, data))
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        ex.get_flops()
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        ex.dump_forward_hlo()
-    ex.close()
-
-
 def test_cli_train_val_in_process(tmp_path, data):
     pattern, ann = data
     tree = tiny_tree(tmp_path / "models", pattern, ann, train_steps=2,

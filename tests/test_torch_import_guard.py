@@ -14,7 +14,7 @@ pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "retinanet_tpu", "absl", "cv2", "PIL", "orbax",
              "flax", "tensorflow", "msgpack", "etils", "requests",
-             "tensorboard")
+             "tensorboard", "optax")
 
 _SCRIPT = """
 import importlib, json, pkgutil, sys

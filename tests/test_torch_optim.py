@@ -22,6 +22,7 @@ from retinanet_tpu.optimizers import schedules as jax_schedules  # noqa: E402
 from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.models import retinanet as torch_retinanet  # noqa: E402
 from retinanet_torch.optimizers import builder as torch_builder  # noqa: E402
+from retinanet_torch.optimizers import registry as torch_registry  # noqa: E402
 from retinanet_torch.optimizers import schedules as torch_schedules  # noqa: E402
 
 PIECEWISE = {"schedule_type": "piecewise_constant_decay",
@@ -207,6 +208,15 @@ def test_build_optimizer_freezes_and_rejects_unported_names():
         opt.step()
         assert opt.count == 1 and not torch.equal(w, before)
         assert opt.inner.param_groups[0]["lr"] == pytest.approx(0.0067)
+    # any other name goes to the by-name registry, behind the same freeze;
+    # a name that is neither raises ValueError
     params.training.optimizer["name"] = "lamb"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
+    opt, _ = torch_builder.build_optimizer(
+        params.training.optimizer, 10, named, freeze_variables=("backbone",))
+    assert isinstance(opt, torch_registry.RegistryOptimizer)
+    held = {id(p) for g in opt.param_groups for p in g["params"]}
+    for name, p in named.items():
+        assert (id(p) in held) != name.startswith("backbone."), name
+    params.training.optimizer["name"] = "not_an_optimizer"
+    with pytest.raises(ValueError, match="Unsupported optimizer"):
         torch_builder.build_optimizer(params.training.optimizer, 10, named)
