@@ -165,7 +165,24 @@ JAX. Phases, each fatal on failure:
      23 registry optimizers (`optimizers/registry.py`) for 3 flagship
      steps at batch 8 through `build_trainer`: losses finite, the last
      update equal to the same optimizer's float64 step on the host from
-     the same state and gradients within `obs_optimizers`' bound.
+     the same state and gradients within `obs_optimizers`' bound;
+ 15. spatial partitioning (`parallel/spatial.py`): (a) two ranks on card
+     0 over gloo on a (1, 2) grid, each the flagship's whole global batch
+     of 8 and a band of its rows, 2 steps in float32 (TF32 off) and in
+     mixed bfloat16: the ranks' losses and parameters bit-equal, and held
+     to one process at batch 8 by phase 11 (a)'s rule (the stated bound
+     plus DP_ORDER_FACTOR x the one process's move under two reorderings
+     of its batch); the matching kernel once a step a rank; the exchange
+     all-reduces, rows and MB a step, and their ms timed alone in a
+     float32 step; then an evaluation batch of 8 through the band forward
+     (`models/retinanet.py:BandedRetinaNet`, the class prior at 0): the
+     head outputs gathered over the group within SPATIAL_EVAL_RTOL of one
+     process's, the NMS kernel once a rank, each image's detections in
+     the chief's gather once, their counts equal to one process's;
+     (b) `v3-32/…-1280x1280-3x-256` at a micro-batch of
+     SPATIAL_HIGH_RES_BATCH on the same grid, one step after one: each
+     rank's peak beside one process's, the step's ms and the exchanges'
+     ms, the losses within one bfloat16 rounding of one process's.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -375,6 +392,17 @@ OBS_OPT_STEPS = 3
 OPT_UPDATE_TOL = 1e-3
 OPT_OFF_SHARE = 1e-6
 OPT_L2_TOL = 1e-3
+
+
+# phase 15: spatial partitioning, each image's rows in bands over SPATIAL
+# ranks on card 0 (a (1, SPATIAL) grid)
+SPATIAL = 2
+SPATIAL_BATCH = 8               # global; the whole batch on every rank
+SPATIAL_EVAL_BATCH = 8
+# the gathered head outputs of a band forward against one process's, in
+# float32 with TF32 off: the bands' convs take other cuDNN algorithms
+SPATIAL_EVAL_RTOL = 1e-3
+SPATIAL_HIGH_RES_BATCH = 16     # HIGH_RES's micro-batch: 256 / HIGH_RES_ACCUM
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1564,17 +1592,17 @@ def dp_tree(precision: str) -> dict:
     return tree
 
 
-def dp_batches(order: str = "") -> list:
-    """The seeded global batches, in their order or in one of DP_ORDERS
-    (the same steps in exact arithmetic)."""
+def dp_batches(order: str = "", batch: int = DP_BATCH) -> list:
+    """The seeded global batches of `batch` images, in their order or in
+    one of DP_ORDERS (the same steps in exact arithmetic)."""
     from retinanet_torch.data.synthetic import synthetic_train_batch
-    rows = np.arange(DP_BATCH)
+    rows = np.arange(batch)
     if order == DP_ORDERS[0]:
-        rows = np.roll(rows, DP_BATCH // 2)
+        rows = np.roll(rows, batch // 2)
     elif order == DP_ORDERS[1]:
         rows = rows[::-1]
     return [{k: v[rows] for k, v in synthetic_train_batch(
-        DP_BATCH, (640, 640), 100, 80, seed=i).items()}
+        batch, (640, 640), 100, 80, seed=i).items()}
         for i in range(DP_STEPS)]
 
 
@@ -1686,16 +1714,20 @@ def phase_data_parallel(workdir: Path) -> dict:
                 for precision in DP_PRECISIONS}}
 
 
-def dp_hold_to_one_process(precision: str, rtol: float, runs: list) -> None:
+def dp_hold_to_one_process(precision: str, rtol: float, runs: list,
+                           batch: int = DP_BATCH, label: str = "dp",
+                           shares: str = f"{DP_BATCH // DP_WORLD} a rank"
+                           ) -> None:
     """The ranks' runs in `precision`: bit-equal to each other, each kernel
-    launched, and held to one process at the same global batch."""
+    launched, and held to one process at the same global batch of
+    `batch` (`shares`: what a rank takes of it)."""
     from retinanet_torch.core.config import from_dict
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     refs = []
     for order in ("",) + DP_ORDERS:
         history, weights, state = dp_steps(
-            from_dict(dp_tree(precision)), dp_batches(order),
+            from_dict(dp_tree(precision)), dp_batches(order, batch),
             torch.device("cuda"))
         refs.append((history, weights))
         del state
@@ -1739,10 +1771,10 @@ def dp_hold_to_one_process(precision: str, rtol: float, runs: list) -> None:
         move = max(float((w[name] - want).abs().max()) for _, w in others)
         hold(name, float((runs[0]["weights"][name] - want).abs().max()),
              rtol * float(want.abs().max()) + DP_ATOL, move, False)
-    print(f"[dp] flagship {precision}, global batch {DP_BATCH} "
-          f"({DP_BATCH // DP_WORLD} a rank), {DP_STEPS} steps: losses and "
+    print(f"[{label}] flagship {precision}, global batch {batch} "
+          f"({shares}), {DP_STEPS} steps: losses and "
           f"parameters bit-equal across the ranks; against one process at "
-          f"batch {DP_BATCH}: {within} of {total} losses and tensors within "
+          f"batch {batch}: {within} of {total} losses and tensors within "
           f"{rtol:.3g} of their magnitude alone, all within it plus "
           f"{DP_ORDER_FACTOR:g} x the one process's largest move under two "
           f"reorderings of its batch; difference / move: median "
@@ -1754,7 +1786,7 @@ def dp_hold_to_one_process(precision: str, rtol: float, runs: list) -> None:
               f"{h['total-loss']:.6f}" for h in ref_history) + "; reordered: "
           + "; ".join(" ".join(f"{h['total-loss']:.6f}" for h in hist)
                       for hist, _ in others) + ")")
-    print(f"[dp] {precision}: matching launches "
+    print(f"[{label}] {precision}: matching launches "
           + ", ".join(str(run["match_launches"]) for run in runs)
           + "; peak allocated a rank "
           + ", ".join(f"{run['peak_gb']:.2f}" for run in runs) + " GB")
@@ -3427,6 +3459,316 @@ def phase_observability(workdir: Path) -> tuple:
                       "optimizers": optimizers}
 
 
+
+# -- phase 15: spatial partitioning -------------------------------------------
+
+def spatial_rank(out_dir: str) -> None:
+    """One rank of phase 15 (a), in a process of its own on card 0, on a
+    (1, SPATIAL) grid: the flagship's steps in each of DP_PRECISIONS on the
+    whole global batch (a band of its rows), the rows and bytes the
+    exchanges move a step and their ms, then (float32) one evaluation batch
+    through the band forward, its detections gathered once."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.preprocessing import make_device_normalizer
+    from retinanet_torch.models.retinanet import BandedRetinaNet
+    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops.postprocess import make_inference_fn
+    from retinanet_torch.parallel import distributed, spatial
+    from retinanet_torch.profile_serving import zero_class_prior
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grid = distributed.make_grid(SPATIAL)
+    device = torch.device("cuda", 0)
+    batches = dp_batches(batch=SPATIAL_BATCH)
+    runs = {}
+    # float32 last: its trained state serves the timing and the evaluation
+    for precision in reversed(DP_PRECISIONS):
+        match_kernel.kernel.reset_counts()
+        spatial.STATS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        history, weights, state = dp_steps(
+            from_dict(dp_tree(precision)), batches, device)
+        runs[precision] = {
+            "history": history, "weights": weights,
+            "match_launches": match_kernel.kernel.launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "exchange": {k: getattr(spatial.STATS, k) / DP_STEPS
+                         for k in ("calls", "rows", "bytes")}}
+        if precision != "float32":
+            del state
+            torch.cuda.empty_cache()
+    params = from_dict(dp_tree("float32"))
+    images = np.random.default_rng(5).integers(
+        0, 256, (SPATIAL_EVAL_BATCH, 640, 640, 3)).astype(np.uint8)
+    state.model.eval()
+    zero_class_prior(state.model)
+    banded = BandedRetinaNet(state.model, grid)
+    normalizer = make_device_normalizer(params)
+    with torch.inference_mode():
+        outputs = banded(normalizer(torch.from_numpy(images).to(device)))
+    nms_kernel.kernel.reset_counts()
+    infer = make_inference_fn(banded, params, from_params(params),
+                              normalizer, compute_dtype=torch.float32,
+                              device=device)
+    det = infer(torch.from_numpy(images))
+    parts = distributed.gather_to_chief(
+        {k: v.cpu().numpy() for k, v in det.items()}
+        if grid.spatial_index == 0 else None)
+    del state, banded, infer
+    torch.cuda.empty_cache()
+    # a float32 step after one: the exchanges alone (the device synchronised
+    # around each all-reduce), then a step untimed
+    from retinanet_torch.train.trainer import build_trainer
+    state, step = build_trainer(params, device=device, seed=0)
+    step_batch = {k: torch.from_numpy(v).to(device)
+                  for k, v in batches[0].items()}
+    step(state, step_batch)
+    spatial.STATS.reset()
+    spatial.STATS.timed = True
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    step(state, step_batch)
+    torch.cuda.synchronize()
+    timed_ms = (time.perf_counter() - start) * 1e3
+    spatial.STATS.timed = False
+    exchange_ms = spatial.STATS.seconds * 1e3
+    start = time.perf_counter()
+    step(state, step_batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3
+    torch.save({"runs": runs,
+                "outputs": {kind: {lvl: y.cpu() for lvl, y in levels.items()}
+                            for kind, levels in outputs.items()},
+                "nms_launches": nms_kernel.kernel.launches,
+                "detections": (None if parts is None else
+                               [p for p in parts if p is not None]),
+                "exchange_ms": exchange_ms, "timed_step_ms": timed_ms,
+                "step_ms": step_ms},
+               f"{out_dir}/rank{distributed.process_index()}.pt")
+
+
+def spatial_eval_reference(weights: dict, ranks: list) -> None:
+    """One process's eval forward and detections on the ranks' float32
+    weights (the class prior at 0 in both, so that every image has
+    detections) and the same images: the gathered head outputs against
+    the whole forward's, each image's detections once and like one
+    process's."""
+    from retinanet_torch.core.config import from_dict
+    from retinanet_torch.data.anchors import from_params
+    from retinanet_torch.data.preprocessing import make_device_normalizer
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops.postprocess import make_inference_fn
+    from retinanet_torch.profile_serving import zero_class_prior
+    params = from_dict(dp_tree("float32"))
+    model = build_model(params, device="cuda")
+    model.load_state_dict(weights)
+    model.eval()
+    zero_class_prior(model)
+    images = np.random.default_rng(5).integers(
+        0, 256, (SPATIAL_EVAL_BATCH, 640, 640, 3)).astype(np.uint8)
+    normalizer = make_device_normalizer(params)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        whole = model(normalizer(torch.from_numpy(images).cuda()))
+        det = make_inference_fn(model, params, from_params(params),
+                                normalizer, compute_dtype=torch.float32,
+                                device="cuda")(torch.from_numpy(images))
+    torch.backends.cudnn.allow_tf32 = tf32
+    worst = 0.0
+    for res in ranks:
+        for kind, levels in whole.items():
+            for lvl, want in levels.items():
+                got = res["outputs"][kind][lvl].cuda()
+                check(got.shape == want.shape,
+                      f"gathered {kind} {lvl}: {tuple(got.shape)}")
+                err = float((got - want).abs().max() / want.abs().max())
+                worst = max(worst, err)
+    check(worst <= SPATIAL_EVAL_RTOL,
+          f"gathered head outputs {worst} of their magnitude from the whole "
+          f"forward's (bound {SPATIAL_EVAL_RTOL})")
+    parts = ranks[0]["detections"]
+    check(len(parts) == 1 and ranks[1]["detections"] is None,
+          "the detections of the spatial group must enter the chief's "
+          "gather once")
+    got = parts[0]
+    check(len(got["valid_detections"]) == SPATIAL_EVAL_BATCH,
+          f"the chief gathered {len(got['valid_detections'])} images")
+    want = {k: v.cpu().numpy() for k, v in det.items()}
+    counts_equal = int(np.sum(got["valid_detections"]
+                              == want["valid_detections"]))
+    check(counts_equal == SPATIAL_EVAL_BATCH and want[
+        "valid_detections"].min() > 0, "detections a image: "
+          f"{got['valid_detections'].tolist()} through the bands, "
+          f"{want['valid_detections'].tolist()} in one process")
+    score_err = max((float(np.abs(
+        np.sort(got["scores"][i][:n])
+        - np.sort(want["scores"][i][:n])).max())
+        for i, n in enumerate(want["valid_detections"])
+        if n and got["valid_detections"][i] == n), default=0.0)
+    for r, res in enumerate(ranks):
+        check(res["nms_launches"] == 1,
+              f"rank {r}: NMS kernel launched {res['nms_launches']} times")
+    print(f"[spatial] evaluation batch of {SPATIAL_EVAL_BATCH} through the "
+          f"band forward (float32, TF32 off): head outputs gathered over the "
+          f"group within {worst:.3g} of their magnitude of one process's "
+          f"(bound {SPATIAL_EVAL_RTOL}); NMS launches a rank "
+          + ", ".join(str(res["nms_launches"]) for res in ranks)
+          + f"; the chief gathered {SPATIAL_EVAL_BATCH} images once; valid "
+          f"detections {got['valid_detections'].tolist()} (one process "
+          f"{want['valid_detections'].tolist()}, {counts_equal} of "
+          f"{SPATIAL_EVAL_BATCH} counts equal, scores within "
+          f"{score_err:.3g} where equal)")
+
+
+def spatial_high_res_rank(out_dir: str) -> None:
+    """One rank of phase 15 (b): the 1280x1280 config at a micro-batch of
+    SPATIAL_HIGH_RES_BATCH, one step and one timed."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.ops import match_kernel
+    from retinanet_torch.parallel import distributed
+    from retinanet_torch.profile_training import measure_step
+    from retinanet_torch.parallel import spatial
+    distributed.make_grid(SPATIAL)
+    params = Config(str(HIGH_RES)).params
+    match_kernel.kernel.reset_counts()
+    out = measure_step(params, SPATIAL_HIGH_RES_BATCH, 1, steps=1,
+                       warmup=1)
+    launches = match_kernel.kernel.launches
+    # one more step with the exchanges timed alone
+    spatial.STATS.reset()
+    spatial.STATS.timed = True
+    out["step"](out["state"], out["batch"])
+    torch.cuda.synchronize()
+    spatial.STATS.timed = False
+    torch.save({k: out[k] for k in ("step_ms", "peak_gb", "metrics")}
+               | {"match_launches": launches,
+                  "exchange_ms": spatial.STATS.seconds * 1e3,
+                  "exchange_mb": spatial.STATS.bytes / 1e6,
+                  "exchange_calls": spatial.STATS.calls},
+               f"{out_dir}/high_res{distributed.process_index()}.pt")
+
+
+def phase_spatial(workdir: Path) -> tuple:
+    """Phase 15: (a) the flagship on a (1, SPATIAL) grid of ranks on card 0
+    against one process, its exchanges and a band evaluation; (b) the
+    1280x1280 config at S = SPATIAL, each rank's peak beside one
+    process's. Returns the kernels' launches on its paths and its
+    numbers."""
+    from retinanet_torch.core.config import Config
+    from retinanet_torch.profile_training import measure_step
+    from retinanet_torch.tools.multiprocess_smoke import run_group
+    workdir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    run_group(spatial_rank, SPATIAL, workdir, args=(str(workdir),),
+              device="cuda:0", backend="gloo", timeout=600)
+    print(f"[spatial] (a) {SPATIAL} ranks on card 0 over gloo: "
+          f"{time.perf_counter() - start:.1f} s")
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+             for r in range(SPATIAL)]
+    for precision, rtol in DP_PRECISIONS.items():
+        dp_hold_to_one_process(
+            precision, rtol, [res["runs"][precision] for res in ranks],
+            batch=SPATIAL_BATCH, label="spatial",
+            shares=f"the whole batch on each of {SPATIAL} ranks, a band of "
+            "its rows each")
+    spatial_eval_reference(ranks[0]["runs"]["float32"]["weights"], ranks)
+    record = {"precisions": {}}
+    for precision in DP_PRECISIONS:
+        ex = [res["runs"][precision]["exchange"] for res in ranks]
+        check(all(e == ex[0] for e in ex), f"{precision}: the ranks' "
+              f"exchanges differ: {ex}")
+        record["precisions"][precision] = {
+            "exchange_calls_a_step": ex[0]["calls"],
+            "exchange_rows_a_step": ex[0]["rows"],
+            "exchange_mb_a_step": ex[0]["bytes"] / 1e6,
+            "peak_gb_a_rank": [res["runs"][precision]["peak_gb"]
+                               for res in ranks]}
+        print(f"[spatial] {precision}: a step moves {ex[0]['calls']:.0f} "
+              f"all-reduces of exchanged rows, {ex[0]['rows']:.0f} rows, "
+              f"{ex[0]['bytes'] / 1e6:.2f} MB a rank (forward and "
+              "backward)")
+    record.update(
+        exchange_ms=[res["exchange_ms"] for res in ranks],
+        timed_step_ms=[res["timed_step_ms"] for res in ranks],
+        step_ms=[res["step_ms"] for res in ranks])
+    print("[spatial] float32 step, batch 8: exchanges "
+          + " / ".join(f"{v:.1f}" for v in record["exchange_ms"])
+          + " ms of a step of "
+          + " / ".join(f"{v:.1f}" for v in record["timed_step_ms"])
+          + " ms with the device synchronised around each all-reduce (rank "
+          "0 / 1, host clock); the step untimed "
+          + " / ".join(f"{v:.1f}" for v in record["step_ms"]) + " ms")
+    launches = {"nms_lanes": {f"spatial rank {r} evaluation":
+                              res["nms_launches"]
+                              for r, res in enumerate(ranks)},
+                "match_lanes": {
+                    f"spatial rank {r} {precision}":
+                        res["runs"][precision]["match_launches"]
+                    for r, res in enumerate(ranks)
+                    for precision in DP_PRECISIONS}}
+    del ranks
+    torch.cuda.empty_cache()
+
+    start = time.perf_counter()
+    run_group(spatial_high_res_rank, SPATIAL, workdir, args=(str(workdir),),
+              device="cuda:0", backend="gloo", timeout=600)
+    high = [torch.load(workdir / f"high_res{r}.pt", weights_only=False)
+            for r in range(SPATIAL)]
+    print(f"[spatial] (b) {SPATIAL} ranks at 1280x1280: "
+          f"{time.perf_counter() - start:.1f} s")
+    torch.cuda.empty_cache()
+    one = measure_step(Config(str(HIGH_RES)).params, SPATIAL_HIGH_RES_BATCH,
+                       1, steps=1, warmup=1)
+    rtol = DP_PRECISIONS["mixed_bfloat16"]
+    for r, res in enumerate(high):
+        check(res["match_launches"] == 2,
+              f"1280x1280 rank {r}: matching launched "
+              f"{res['match_launches']} times in 2 steps")
+        check(res["metrics"] == high[0]["metrics"],
+              f"1280x1280: rank {r}'s losses differ from rank 0's")
+        for key, want in one["metrics"].items():
+            got = res["metrics"][key]
+            check(math.isfinite(got) and abs(got - want)
+                  <= rtol * abs(want) + 1e-7,
+                  f"1280x1280 rank {r} {key}: {got}, one process {want} "
+                  f"(bound {rtol} of it)")
+    record["high_res"] = {
+        "config": str(HIGH_RES.relative_to(REPO)),
+        "micro_batch": SPATIAL_HIGH_RES_BATCH,
+        "peak_gb_a_rank": [res["peak_gb"] for res in high],
+        "peak_gb_one_process": one["peak_gb"],
+        "step_ms_a_rank": [res["step_ms"] for res in high],
+        "step_ms_one_process": one["step_ms"],
+        "exchange_ms_a_rank": [res["exchange_ms"] for res in high],
+        "exchange_mb_a_step": high[0]["exchange_mb"],
+        "exchange_calls_a_step": high[0]["exchange_calls"],
+        "total_loss": high[0]["metrics"]["total-loss"],
+        "total_loss_one_process": one["metrics"]["total-loss"]}
+    launches["match_lanes"].update({f"spatial 1280x1280 rank {r}":
+                                    res["match_launches"]
+                                    for r, res in enumerate(high)})
+    print(f"[spatial] 1280x1280 micro-batch {SPATIAL_HIGH_RES_BATCH} "
+          f"(mixed bfloat16): peak allocated a rank "
+          + ", ".join(f"{res['peak_gb']:.2f}" for res in high)
+          + f" GB against {one['peak_gb']:.2f} GB in one process; step "
+          + ", ".join(f"{res['step_ms']:.1f}" for res in high)
+          + f" ms a rank (two ranks share the card) against "
+          f"{one['step_ms']:.1f} ms; a step's {high[0]['exchange_calls']} "
+          f"exchanges move {high[0]['exchange_mb']:.2f} MB a rank in "
+          + " / ".join(f"{res['exchange_ms']:.1f}" for res in high)
+          + " ms (timed alone, the device synchronised around each); "
+          "total-loss "
+          f"{high[0]['metrics']['total-loss']:.6f} (one process "
+          f"{one['metrics']['total-loss']:.6f}; every loss within {rtol:.3g} "
+          "of it)")
+    del one
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -3496,6 +3838,10 @@ def main() -> int:
         obs_launches, observability = phase_observability(
             Path(tmp) / "observability")
         print(f"[phase 14] took {time.perf_counter() - start:.1f} s")
+        start = time.perf_counter()
+        spatial_launches, spatial_record = phase_spatial(
+            Path(tmp) / "spatial")
+        print(f"[phase 15] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)
@@ -3517,6 +3863,10 @@ def main() -> int:
         if record["name"] in obs_launches:
             record["launches_on_observability_path"] = obs_launches[
                 record["name"]]
+        if record["name"] in spatial_launches:
+            record["launches_on_spatial_path"] = spatial_launches[
+                record["name"]]
+    print(json.dumps({"spatial": spatial_record}))
     print(json.dumps({"observability": observability}))
     print(json.dumps({"host_coco_eval": host_eval}))
     print(json.dumps({"zoo": [{k: a[k] for k in (

@@ -15,9 +15,9 @@ cpu`:
         --device cpu --is_multi_host
 
 Each process reads its share of the train files and decodes its slice of
-every val batch; the global batch sizes stay the config's. Spatial
-partitioning (`training.spatial_partition` > 1) raises: ROADMAP Queue 1
-#16.
+every val batch; the global batch sizes stay the config's. Under
+`training.spatial_partition` S > 1 the S processes of a data index read
+the same batches, a band of their rows each (`parallel/spatial.py`).
 """
 
 from __future__ import annotations
@@ -137,12 +137,14 @@ def _run(args, params, run_mode: str):
     from retinanet_torch.parallel import distributed
     from retinanet_torch.train.executor import Executor
 
-    index, count = distributed.process_index(), distributed.process_count()
-
+    # the data index and count of the process grid, which the Executor
+    # makes before it reads a batch: the processes of a spatial group read
+    # the same files and batches
     def train_input_fn():
         return InputPipeline(
             "train", params, is_multi_host=args.is_multi_host,
-            process_index=index, process_count=count, seed=args.global_seed)
+            process_index=distributed.data_index(),
+            process_count=distributed.data_count(), seed=args.global_seed)
 
     def val_input_fn():
         # every process walks the whole val record stream in the same order
@@ -152,8 +154,8 @@ def _run(args, params, run_mode: str):
             "val", params,
             batch_size=distributed.local_batch_size(
                 int(params.training.batch_size.val)),
-            seed=args.global_seed, val_shard_index=index,
-            val_shard_count=count)
+            seed=args.global_seed, val_shard_index=distributed.data_index(),
+            val_shard_count=distributed.data_count())
 
     executor = Executor(
         params,

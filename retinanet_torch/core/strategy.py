@@ -6,7 +6,9 @@ One process runs the global batch whole on its device, so with
 computes across its replicas. "multi_gpu" is data parallelism over the
 processes of a `torch.distributed` group (`parallel/distributed.py`): each
 takes its share of the global batch, and BatchNorm, the loss normalizer and
-the gradients are summed over the group. Spatial partitioning raises.
+the gradients are summed over the group. `training.spatial_partition` S > 1
+puts the processes on a (world / S, S) grid whose S processes of a data
+index hold the same images, a band of rows each (`parallel/spatial.py`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import torch
 from retinanet_torch.parallel import distributed
 
 _TYPES = ("tpu", "gpu", "multi_gpu", "cpu")
-SPATIAL_ITEM = "ROADMAP Queue 1 #16 (spatial partitioning)"
 
 
 def resolve_strategy(training_params, device: torch.device) -> str:
@@ -26,7 +27,10 @@ def resolve_strategy(training_params, device: torch.device) -> str:
     run of this process on `device`; returns the strategy's name. "tpu",
     "gpu" and "cpu" resolve to the process's device with a log line;
     "multi_gpu" resolves when a process group is up and raises when none
-    is; a spatial partition raises; an unknown type raises ValueError."""
+    is; an unknown type raises ValueError. Then makes the process grid of
+    `spatial_partition` (`distributed.make_grid`), which raises ValueError
+    when it does not divide the world (one process included) and logs
+    this process's place on it."""
     strategy = training_params.get("strategy", {})
     stype = str(strategy.get("type", "tpu")).lower()
     name = str(strategy.get("name", ""))
@@ -39,13 +43,12 @@ def resolve_strategy(training_params, device: torch.device) -> str:
             "training.strategy.type='multi_gpu' needs a torch.distributed "
             "process group, and there is no process group: launch with "
             "torchrun and --is_multi_host")
-    spatial = int(training_params.get("spatial_partition", 1))
-    if spatial > 1:
-        raise NotImplementedError(
-            f"training.spatial_partition={spatial}: spatial partitioning is "
-            f"{SPATIAL_ITEM}")
+    grid = distributed.make_grid(
+        int(training_params.get("spatial_partition", 1)))
     logging.getLogger(__name__).info(
-        "strategy %s(name=%r) resolved to %s in process %d of %d", stype,
-        name, device, distributed.process_index(),
-        distributed.process_count())
+        "strategy %s(name=%r) resolved to %s in process %d of %d (data "
+        "index %d of %d, spatial index %d of %d)", stype, name, device,
+        distributed.process_index(), distributed.process_count(),
+        grid.data_index, grid.data_count, grid.spatial_index,
+        grid.spatial_count)
     return name

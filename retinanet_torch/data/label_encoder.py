@@ -24,7 +24,7 @@ of unmatched anchors set to 0, which is what the one-hot product gives.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -132,10 +132,15 @@ def encode(anchor_boxes: torch.Tensor, gt_boxes: torch.Tensor,
 
 
 def to_pyramid(encoded: EncodedLabels, anchors: AnchorGenerator,
-               use_iou_targets: bool = False) -> Dict:
+               use_iou_targets: bool = False,
+               rows: Optional[Callable[[int], Tuple[int, int]]] = None
+               ) -> Dict:
     """Reshape flat batched targets to per-level dense pyramids keyed by
     level, (B, fh, fw, a) and (B, fh, fw, 4a): the NHWC shapes of the heads'
-    outputs, in the (h, w, anchor) order of `data/anchors.py`."""
+    outputs, in the (h, w, anchor) order of `data/anchors.py`. With `rows`
+    (a level's height -> this rank's rows [lo, hi), under a spatial
+    partition) each level keeps those rows only; `num-positives` stays the
+    whole images'."""
     targets = {"class-targets": {}, "box-targets": {}}
     if use_iou_targets:
         targets["iou-targets"] = {}
@@ -143,24 +148,30 @@ def to_pyramid(encoded: EncodedLabels, anchors: AnchorGenerator,
     for i, lvl in enumerate(range(anchors.min_level, anchors.max_level + 1)):
         lo, hi = anchors.boundaries[i], anchors.boundaries[i + 1]
         fh, fw = anchors.feature_shapes[i]
+        r0, r1 = (0, fh) if rows is None else rows(fh)
         key = str(lvl)
         targets["class-targets"][key] = encoded.cls_target[:, lo:hi].reshape(
-            -1, fh, fw, a)
+            -1, fh, fw, a)[:, r0:r1]
         targets["box-targets"][key] = encoded.box_target[:, lo:hi].reshape(
-            -1, fh, fw, 4 * a)
+            -1, fh, fw, 4 * a)[:, r0:r1]
         if use_iou_targets:
             targets["iou-targets"][key] = encoded.iou_target[
-                :, lo:hi].reshape(-1, fh, fw, a)
+                :, lo:hi].reshape(-1, fh, fw, a)[:, r0:r1]
     targets["num-positives"] = encoded.num_positives
     return targets
 
 
 def make_batched_encoder(anchors: AnchorGenerator, encoder_params,
                          use_iou_targets: bool = False, device=None,
-                         matcher: Callable = match_lanes):
+                         matcher: Callable = match_lanes,
+                         rows: Optional[Callable[[int], Tuple[int, int]]]
+                         = None):
     """Returns fn(gt_boxes (B,G,4), gt_classes (B,G), gt_valid (B,G)) ->
     pyramid targets with batched leaves, for tensors on `device`, where the
-    anchors are copied once. The encoder takes no gradient."""
+    anchors are copied once. The encoder takes no gradient. Under a spatial
+    partition the boxes are matched against the whole anchor set (a box's
+    forced match is its best anchor anywhere) and `rows` cuts each level to
+    this rank's band (`to_pyramid`)."""
     device = resolve_device(device)
     anchor_const = torch.from_numpy(anchors.boxes).to(device)
     match_iou = float(encoder_params.match_iou)
@@ -172,6 +183,6 @@ def make_batched_encoder(anchors: AnchorGenerator, encoder_params,
     def _batched(gt_boxes, gt_classes, gt_valid):
         enc = encode(anchor_const, gt_boxes, gt_classes, gt_valid, match_iou,
                      ignore_iou, variance, scale_targets, matcher)
-        return to_pyramid(enc, anchors, use_iou_targets)
+        return to_pyramid(enc, anchors, use_iou_targets, rows)
 
     return _batched

@@ -124,9 +124,11 @@ class RetinaNetLoss:
                  normalizer_ema: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
         # the positives of the global batch: under data parallelism each
-        # process's share of the loss is divided by the same normalizer
+        # process's share of the loss is divided by the same normalizer. The
+        # processes of a spatial group hold the same images, so the sum
+        # takes one of each group (the data group)
         positives = targets["num-positives"].sum()
-        distributed.all_reduce_sum_(positives)
+        distributed.grid().sum_over_data_(positives)
         batch_normalizer = positives + 1.0
 
         new_ema = None

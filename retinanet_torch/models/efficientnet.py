@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from retinanet_torch.models.layers import BatchNorm, ConvParams, conv2d, \
-    conv2d_same
+    conv2d_same, spatial_mean
+from retinanet_torch.parallel import distributed
 
 
 class BlockArgs(NamedTuple):
@@ -144,11 +145,15 @@ def drop_connect(x: torch.Tensor, uniform: torch.Tensor,
 
 
 def _uniform(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One draw a image for `drop_connect`, made on the generator's
-    device."""
-    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+    """One draw a image for `drop_connect`, made on the generator's device.
+    Under a process grid the draws are those of the global batch, of which
+    this process takes its data index's slice: each image gets the draw one
+    process gives it, and every band of an image the same one."""
+    grid = distributed.grid()
+    n = x.shape[0]
+    u = torch.rand((n * grid.data_count, 1, 1, 1), generator=generator,
                    dtype=x.dtype, device=generator.device)
-    return u.to(x.device)
+    return u[grid.data_index * n:(grid.data_index + 1) * n].to(x.device)
 
 
 def _conv(cin, cout, k, groups=1, use_bias=False, device=None):
@@ -171,7 +176,7 @@ class SqueezeExcite(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        se = spatial_mean(x)
         se = self.act(conv2d(se.to(x.dtype), self.reduce, 1, 0, self.dtype))
         se = conv2d(se, self.expand, 1, 0, self.dtype)
         return torch.sigmoid(se) * x

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from retinanet_torch.models.layers import (BatchNorm, Conv2D, FeatureFusion,
-                                           max_pool, nearest_upsample)
+                                           max_pool, upsample_crop)
 
 
 class FPN(nn.Module):
@@ -81,8 +81,7 @@ class FPN(nn.Module):
 
         for level in range(self.max_level, self.min_level, -1):
             low = str(level - 1)
-            up = nearest_upsample(outputs[str(level)], 2)
-            up = up[:, :, :outputs[low].shape[2], :outputs[low].shape[3]]
+            up = upsample_crop(outputs[str(level)], 2, outputs[low])
             fused = m(f"p{low}_fusion")(outputs[low], up)
             outputs[low] = self.activation(fused)
 
@@ -136,8 +135,7 @@ class FPNP5(nn.Module):
             laterals[key] = m(f"l{key}_conv")(features[key])
         for level in range(self.backbone_max_level, self.min_level, -1):
             low = str(level - 1)
-            up = nearest_upsample(laterals[str(level)], 2)
-            up = up[:, :, :laterals[low].shape[2], :laterals[low].shape[3]]
+            up = upsample_crop(laterals[str(level)], 2, laterals[low])
             laterals[low] = m(f"m{level}_fusion")(laterals[low], up)
 
         outputs = {}

@@ -13,6 +13,13 @@ express, so it is padded explicitly (with -inf for max pools).
 
 BatchNorm runs on its running statistics in eval mode and on batch
 statistics, updating the running ones, in training mode.
+
+Under a spatial partition (`spatial_partition`, `parallel/spatial.py`) the
+model's maps are row bands: every op here that reads across rows (a conv
+taller than one row or strided, a pool, a resize, a mean over the rows)
+fetches the rows its output band needs from the ranks that own them and
+runs with the padding of the whole map, and `map_hw` gives a band's global
+size.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from torch import nn
 
 from retinanet_torch.core.device import device_constant
 from retinanet_torch.parallel import distributed
+from retinanet_torch.parallel.spatial import Partition
 
 _SUPPORTED_ACTIVATIONS = ("relu", "relu6", "swish")
 
@@ -140,12 +148,27 @@ def conv2d(x: torch.Tensor, p: ConvParams, stride: int, pad,
     """flax `nn.Conv` in `dtype` (input, kernel and bias cast first) with
     `pad` zeros on both sides of each spatial axis (an int, or one int an
     axis): k // 2 is "SAME" for an odd kernel at stride 1, 0 is "VALID"."""
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
+    part = _SPATIAL.get()
+    if part is not None:
+        return _band_conv(part, x, p, stride, (ph, ph), (pw, pw), dtype)
     hook = _CONV_HOOK.get()
     if hook is None:
         return _conv_float(x, p, stride, pad, dtype)
-    ph, pw = (pad, pad) if isinstance(pad, int) else pad
     return hook(x, p, stride, (ph, ph, pw, pw), dtype,
                 lambda x: _conv_float(x, p, stride, pad, dtype))
+
+
+def conv2d_padded(x: torch.Tensor, p: ConvParams, stride: int,
+                  pads: Tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """`pads` (begin, end) zeros on both spatial axes, then a "VALID" conv
+    (the ResNet's fixed padding of a strided conv)."""
+    part = _SPATIAL.get()
+    if part is not None:
+        return _band_conv(part, x, p, stride, pads, pads, dtype)
+    if any(pads):
+        x = F.pad(x, (pads[0], pads[1], pads[0], pads[1]))
+    return conv2d(x, p, stride, 0, dtype)
 
 
 def conv2d_same(x: torch.Tensor, p: ConvParams, stride: int,
@@ -154,8 +177,13 @@ def conv2d_same(x: torch.Tensor, p: ConvParams, stride: int,
     axis gets one more row than its beginning (a stride above 1 on a size
     the stride divides, for an odd kernel), the input is padded first."""
     kh, kw = p.weight.shape[2], p.weight.shape[3]
-    ph = same_pads(x.shape[2], kh, stride)
     pw = same_pads(x.shape[3], kw, stride)
+    part = _SPATIAL.get()
+    if part is not None:
+        ph = ((0, 0) if kh == 1 and stride == 1
+              else same_pads(part.height(x), kh, stride))
+        return _band_conv(part, x, p, stride, ph, pw, dtype)
+    ph = same_pads(x.shape[2], kh, stride)
     hook = _CONV_HOOK.get()
     if hook is None:
         return _conv_same_float(x, p, stride, ph, pw, dtype)
@@ -169,6 +197,78 @@ def _conv_same_float(x: torch.Tensor, p: ConvParams, stride: int, ph, pw,
         return _conv_float(x, p, stride, (ph[0], pw[0]), dtype)
     x = F.pad(x.to(dtype), (pw[0], pw[1], ph[0], ph[1]))
     return _conv_float(x, p, stride, 0, dtype)
+
+
+# The spatial partition: while one is set (`spatial_partition`), the maps of
+# the model are row bands (`parallel/spatial.py`) and the ops below run on
+# them. Unset, nothing differs.
+_SPATIAL = contextvars.ContextVar("spatial_partition", default=None)
+
+
+@contextlib.contextmanager
+def spatial_partition(part: Partition):
+    """Run the model's ops on row bands of `part` inside the block (None:
+    on whole maps)."""
+    token = _SPATIAL.set(part)
+    try:
+        yield
+    finally:
+        _SPATIAL.reset(token)
+
+
+def current_partition():
+    return _SPATIAL.get()
+
+
+def map_hw(x: torch.Tensor) -> Tuple[int, int]:
+    """The (H, W) of the whole map of which x (NCHW) is a band: x's own
+    outside a spatial partition."""
+    part = _SPATIAL.get()
+    h = x.shape[2] if part is None else part.height(x)
+    return int(h), int(x.shape[3])
+
+
+def _strided_windows(part: Partition, out_h: int, k: int, stride: int,
+                     pad_begin: int):
+    """Every rank's input rows for its output band of a sliding window op
+    (k rows, `stride`, `pad_begin` rows of padding on top). A rank with no
+    output rows asks for k rows above the map, all fill: the op still runs,
+    and its one row of output is dropped."""
+    windows = []
+    for j in range(part.count):
+        o0, o1 = part.band(out_h, j)
+        windows.append((-k, 0) if o0 == o1 else
+                       (o0 * stride - pad_begin,
+                        (o1 - 1) * stride - pad_begin + k))
+    return windows
+
+
+def _band_conv(part: Partition, x: torch.Tensor, p: ConvParams, stride: int,
+               ph: Tuple[int, int], pw: Tuple[int, int],
+               dtype: torch.dtype) -> torch.Tensor:
+    """A conv with (top, bottom) pads `ph` of the whole map and (left,
+    right) pads `pw` on this rank's band: rows fetched, zeros on top and
+    bottom of the map, W padded as usual. A 1x1 conv of stride 1 reads its
+    own row only and runs as it is (also on maps that are no band, such as
+    a squeeze-excite's (B, C, 1, 1))."""
+    if _CONV_HOOK.get() is not None:
+        raise RuntimeError("a conv hook (calibration, int8) runs on whole "
+                           "images; serving and export are not partitioned")
+    kh = p.weight.shape[2]
+    if kh == 1 and stride == 1 and not any(ph):
+        if x.shape[2]:
+            return _conv_same_float(x, p, 1, (0, 0), pw, dtype)
+        # an empty band: a row of zeros through the conv, none of it kept
+        return _conv_same_float(F.pad(x, (0, 0, 0, 1)), p, 1, (0, 0), pw,
+                                dtype).narrow(2, 0, 0)
+    height = part.height(x)
+    out_h = (height + ph[0] + ph[1] - kh) // stride + 1
+    x = part.fetch(x.to(dtype), height,
+                   _strided_windows(part, out_h, kh, stride, ph[0]))
+    y = _conv_same_float(x, p, stride, (0, 0), pw, dtype)
+    o0, o1 = part.band(out_h)
+    part.register(out_h, y.shape[3])
+    return y.narrow(2, 0, o1 - o0)
 
 
 # True while a checkpointed block is run again in the backward pass: the
@@ -383,45 +483,128 @@ class Conv2D(nn.Module):
 
 def nearest_upsample(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest upsample by an integer factor (each pixel repeated)."""
+    part = _SPATIAL.get()
+    if part is not None:
+        h = part.height(x)
+        return _band_rows(part, x, [r // scale for r in range(h * scale)],
+                          _repeat_columns(x, scale))
     b, c, h, w = x.shape
     x = x[:, :, :, None, :, None].expand(b, c, h, scale, w, scale)
     return x.reshape(b, c, h * scale, w * scale)
 
 
+def upsample_crop(x: torch.Tensor, scale: int,
+                  like: torch.Tensor) -> torch.Tensor:
+    """`nearest_upsample(x, scale)` cropped to the size of the map `like`
+    (the FPN's top-down path onto a level of odd size)."""
+    part = _SPATIAL.get()
+    if part is None:
+        return nearest_upsample(x, scale)[:, :, :like.shape[2],
+                                          :like.shape[3]]
+    h, w = map_hw(like)
+    return _band_rows(part, x, [r // scale for r in range(h)],
+                      _repeat_columns(x, scale)[:w])
+
+
+def _repeat_columns(x: torch.Tensor, scale: int) -> list:
+    return [c // scale for c in range(x.shape[3] * scale)]
+
+
+def _band_rows(part: Partition, x: torch.Tensor, rows: list,
+               columns: list) -> torch.Tensor:
+    """A resize that copies pixels: output row r of the whole map is input
+    row rows[r] (nondecreasing), output column c is input column
+    columns[c]. The rows of this rank's output band are fetched."""
+    height = part.height(x)
+    windows = []
+    for j in range(part.count):
+        o0, o1 = part.band(len(rows), j)
+        windows.append((0, 0) if o0 == o1 else (rows[o0], rows[o1 - 1] + 1))
+    x = part.fetch(x, height, windows)
+    o0, o1 = part.band(len(rows))
+    lo = windows[part.index][0]
+    x = x.index_select(2, device_constant(
+        tuple(r - lo for r in rows[o0:o1]), torch.int64, x.device))
+    x = x.index_select(3, device_constant(tuple(columns), torch.int64,
+                                          x.device))
+    part.register(len(rows), x.shape[3])
+    return x
+
+
 def max_pool(x: torch.Tensor, window: int, strides: int,
              padding: str = "VALID") -> torch.Tensor:
     """flax `nn.max_pool`; "SAME" pads with -inf, end side >= begin side."""
-    if padding == "SAME":
-        ph = same_pads(x.shape[2], window, strides)
-        pw = same_pads(x.shape[3], window, strides)
-        if any(ph + pw):
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
-    elif padding != "VALID":
+    if padding not in ("SAME", "VALID"):
         raise ValueError(f"Unsupported padding: {padding}")
-    return F.max_pool2d(x, window, strides)
+    part = _SPATIAL.get()
+    h, w = map_hw(x)
+    ph = pw = (0, 0)
+    if padding == "SAME":
+        ph = same_pads(h, window, strides)
+        pw = same_pads(w, window, strides)
+    if part is not None:
+        out_h = (h + ph[0] + ph[1] - window) // strides + 1
+        x = part.fetch(x, h, _strided_windows(part, out_h, window, strides,
+                                              ph[0]), fill=float("-inf"))
+        ph = (0, 0)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    y = F.max_pool2d(x, window, strides)
+    if part is None:
+        return y
+    o0, o1 = part.band(out_h)
+    part.register(out_h, y.shape[3])
+    return y.narrow(2, 0, o1 - o0)
 
 
-def _nearest_indices(size_in: int, size_out: int, device) -> torch.Tensor:
+def _nearest_rows(size_in: int, size_out: int) -> list:
     # jax.image.resize(method="nearest"): half-pixel centres, computed in
     # float32 as ((i + 0.5) * in) / out and floored. The same rule as torch's
     # "nearest-exact", but evaluated in jax's order so that no index can
     # round differently.
     offsets = (np.arange(size_out, dtype=np.float32) + 0.5) * size_in
     offsets = offsets / np.float32(size_out)
-    rows = np.minimum(np.floor(offsets).astype(np.int64), size_in - 1)
-    return device_constant(tuple(rows.tolist()), torch.int64, device)
+    return np.minimum(np.floor(offsets).astype(np.int64),
+                      size_in - 1).tolist()
+
+
+def _nearest_indices(size_in: int, size_out: int, device) -> torch.Tensor:
+    return device_constant(tuple(_nearest_rows(size_in, size_out)),
+                           torch.int64, device)
 
 
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Nearest resize to an arbitrary size (BalanceFeatures)."""
-    h, w = x.shape[2], x.shape[3]
+    """Nearest resize to an arbitrary size (BalanceFeatures); `out_hw` is
+    the size of the whole map."""
+    h, w = map_hw(x)
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == (h, w):
         return x
-    if oh % h == 0 and ow % w == 0 and oh // h == ow // w:
+    exact = oh % h == 0 and ow % w == 0 and oh // h == ow // w
+    part = _SPATIAL.get()
+    if part is not None:
+        if exact:
+            rows = [r // (oh // h) for r in range(oh)]
+            columns = [c // (ow // w) for c in range(ow)]
+        else:
+            rows, columns = _nearest_rows(h, oh), _nearest_rows(w, ow)
+        return _band_rows(part, x, rows, columns)
+    if exact:
         return nearest_upsample(x, oh // h)
     return (x.index_select(2, _nearest_indices(h, oh, x.device))
             .index_select(3, _nearest_indices(w, ow, x.device)))
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over H and W, accumulated and returned in float32, with the
+    kept (B, C, 1, 1) shape; under a spatial partition over the whole map:
+    the bands' sums summed over the group."""
+    part = _SPATIAL.get()
+    if part is None:
+        return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+    h, w = map_hw(x)
+    total = part.sum(x.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+    return total / float(h * w)
 
 
 class FeatureFusion(nn.Module):
@@ -475,7 +658,7 @@ class BalanceFeatures(nn.Module):
     def forward(self, features: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         inter = self.intermediate_level
-        target_hw = features[str(inter)].shape[2:4]
+        target_hw = map_hw(features[str(inter)])
         num_levels = self.max_level - self.min_level + 1
 
         pooled = []
@@ -493,7 +676,7 @@ class BalanceFeatures(nn.Module):
         for level in range(self.min_level, self.max_level + 1):
             x = mean_feat
             if level < inter:
-                x = resize_nearest(x, features[str(level)].shape[2:4])
+                x = resize_nearest(x, map_hw(features[str(level)]))
             elif level > inter:
                 factor = 2 ** (level - inter)
                 x = max_pool(x, factor, factor, padding="SAME")

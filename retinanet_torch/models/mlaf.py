@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from retinanet_torch.models.layers import (BatchNorm, Conv2D, max_pool,
-                                           nearest_upsample)
+                                           nearest_upsample, spatial_mean)
 
 
 class MultiLevelAttentionFusion(nn.Module):
@@ -103,8 +103,7 @@ class MultiLevelAttentionFusion(nn.Module):
             summed = sum(fused)
             stacked = torch.stack(fused, 1)                 # (B,L,C,H,W)
 
-            g = summed.mean(dim=(2, 3), keepdim=True,
-                            dtype=torch.float32).to(summed.dtype)
+            g = spatial_mean(summed).to(summed.dtype)
             g = m(f"l{current}_projection_conv")(g)
             g = F.relu(m(f"l{current}_projection_bn")(g))
             att = m(f"l{current}_attention_conv")(g)        # (B,L*att,1,1)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from retinanet_torch.models.layers import _TRUNC_STD_CORRECTION, \
-    BatchNorm, ConvParams, conv2d_same, swish6
+    BatchNorm, ConvParams, conv2d_same, spatial_mean, swish6
 
 
 def scale_filters(filters: int, multiplier: float, base: int = 8) -> int:
@@ -306,7 +306,7 @@ class MobileDet(nn.Module):
                     x = getattr(self, bn)(x)
                 x = act(x)
             elif kind == "se":
-                u = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+                u = spatial_mean(x)
                 u = self.act(conv2d_same(u.to(x.dtype), getattr(self, step[1]),
                                          1, self.dtype))
                 u = torch.sigmoid(conv2d_same(u, getattr(self, step[2]), 1,

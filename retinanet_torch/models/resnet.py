@@ -18,7 +18,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from retinanet_torch.models.layers import BatchNorm, ConvParams, conv2d, \
-    max_pool, recomputing
+    conv2d_padded, current_partition, max_pool, recomputing, \
+    spatial_partition
 
 MODEL_CONFIG = {
     10: ("residual", (1, 1, 1, 1)),
@@ -51,10 +52,8 @@ class ConvFixedPadding(nn.Module):
             return conv2d(x, self.conv, 1, self.kernel_size // 2, self.dtype)
         pad_total = self.kernel_size - 1
         beg = pad_total // 2
-        end = pad_total - beg
-        if pad_total:
-            x = F.pad(x, (beg, end, beg, end))
-        return conv2d(x, self.conv, self.strides, 0, self.dtype)
+        return conv2d_padded(x, self.conv, self.strides,
+                             (beg, pad_total - beg), self.dtype)
 
 
 class ResidualBlock(nn.Module):
@@ -124,9 +123,16 @@ class BottleneckBlock(nn.Module):
         return F.relu(x + shortcut)
 
 
+@contextlib.contextmanager
+def _recompute(part):
+    with recomputing(), spatial_partition(part):
+        yield
+
+
 def _remat_contexts():
-    # (first forward, second forward in the backward pass)
-    return contextlib.nullcontext(), recomputing()
+    # (first forward, second forward in the backward pass); the second runs
+    # on the bands of the first, and makes its exchanges again
+    return contextlib.nullcontext(), _recompute(current_partition())
 
 
 class BlockGroup(nn.Module):

@@ -9,6 +9,10 @@ does, and returns
    ['iou-predictions':  {lvl: (B,H,W,A)}]}.
 Inside, tensors are NCHW; the NHWC input viewed as NCHW is a channels-last
 tensor, which cuDNN's convolutions keep.
+
+Under a spatial partition (`models/layers.py:spatial_partition`) the model
+takes this process's band of the images' rows and its outputs per level are
+band-high; `BandedRetinaNet` gathers them into whole maps for evaluation.
 """
 
 from __future__ import annotations
@@ -26,12 +30,14 @@ from retinanet_torch.models.fpn import FPN, FPNP5
 from retinanet_torch.models.heads import (build_auxillary_head,
                                           build_detection_heads)
 from retinanet_torch.models.layers import (BalanceFeatures, BatchNorm,
-                                           get_activation, init_parameters)
+                                           get_activation, init_parameters,
+                                           spatial_partition)
 from retinanet_torch.models.mlaf import (MultiLevelAttentionFusion,
                                          StackedMultiLevelAttentionFusion)
 from retinanet_torch.models.mobiledet import MobileDet
 from retinanet_torch.models.resnet import ResNet
 from retinanet_torch.parallel import distributed
+from retinanet_torch.parallel.spatial import image_band, partition_for
 
 # Regexes for layer freezing, written against flax-style parameter paths
 # such as 'backbone/group1/block0/conv1/conv/kernel'; the same keys as the
@@ -98,6 +104,29 @@ class RetinaNet(nn.Module):
         if self.auxillary_head is not None:
             outputs["iou-predictions"] = self.auxillary_head(features)
         return outputs
+
+
+class BandedRetinaNet(nn.Module):
+    """`model` over the spatial group of `grid`
+    (`parallel/distributed.py`): the whole NHWC images in, this process's
+    band of their rows through the model, and every level's outputs
+    gathered over the group, so that each process of the group returns the
+    outputs of the whole images. The evaluation's forward; no gradient
+    flows through the gather."""
+
+    def __init__(self, model: RetinaNet, grid):
+        super().__init__()
+        self.model = model
+        self.grid = grid
+
+    def forward(self, images: torch.Tensor
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+        part = partition_for(self.grid, images.shape[1:3])
+        with spatial_partition(part):
+            outputs = self.model(image_band(images, part))
+        return {kind: {level: part.gather(y.permute(0, 3, 1, 2))
+                       .permute(0, 2, 3, 1) for level, y in levels.items()}
+                for kind, levels in outputs.items()}
 
 
 def _compute_dtype(precision: str) -> torch.dtype:

@@ -1,5 +1,5 @@
-"""Data parallelism over processes with `torch.distributed` (counterpart of
-`retinanet_tpu/parallel/mesh.py`).
+"""Data parallelism and the (data, spatial) grid over processes with
+`torch.distributed` (counterpart of `retinanet_tpu/parallel/mesh.py`).
 
 The JAX package shards one global batch over a device mesh, and GSPMD
 inserts the collectives that make the sharded step compute what one device
@@ -20,12 +20,22 @@ group, made at initialisation, carries host objects, so that they travel
 the same way under NCCL and never touch the card (gloo has no CUDA
 all_gather).
 
+The grid (`make_grid`, counterpart of `create_mesh(spatial=S)`) puts the
+processes on a (data, spatial) grid: process r is data index r // S and
+spatial index r % S, so that each spatial group is S consecutive ranks. The
+S processes of one data index hold the same images, each a band of their
+rows (`parallel/spatial.py`); the D = world / S data indices split the
+global batch as data parallelism does. Without `make_grid` the grid is S = 1
+and every process is a data index of its own.
+
 Without a process group, or at world size 1, every helper here is a no-op
 and its callers run the one-process path unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import os
 from typing import Any, List, Optional, Sequence
 
@@ -43,6 +53,7 @@ class _Process:
     host_group = None
     local_rank = 0
     device_set = False
+    grid: Optional["Grid"] = None
 
 
 _PROCESS = _Process()
@@ -109,6 +120,7 @@ def shutdown() -> None:
         dist.destroy_process_group()
     _PROCESS.host_group = None
     _PROCESS.device_set = False
+    _PROCESS.grid = None
 
 
 def is_initialized() -> bool:
@@ -140,11 +152,90 @@ def default_device() -> torch.device:
     return device
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This process's place on the (data, spatial) grid, and the groups it
+    sums over. `data_group` and `spatial_group` are None where the sum is
+    over the whole default group (S = 1 for the data sum) or over this
+    process alone (a group of one)."""
+    data_index: int
+    data_count: int
+    spatial_index: int
+    spatial_count: int
+    data_group: Any = None
+    spatial_group: Any = None
+
+    def sum_over_data_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum `tensor` in place over the processes of this spatial index
+        (every data index once); returns it."""
+        if self.data_count > 1:
+            dist.all_reduce(tensor, group=self.data_group)
+        return tensor
+
+    def sum_over_spatial_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum `tensor` in place over this process's spatial group (the
+        processes that hold the same images); returns it."""
+        if self.spatial_count > 1:
+            dist.all_reduce(tensor, group=self.spatial_group)
+        return tensor
+
+
+def make_grid(spatial: int) -> Grid:
+    """Put the processes on a (world / spatial, spatial) grid and make it
+    this process's grid. Every process calls it, with the same `spatial`:
+    each group is made by every process, in the same order. A world that
+    `spatial` does not divide raises ValueError, one process included."""
+    spatial = int(spatial)
+    world, rank = process_count(), process_index()
+    if spatial < 1 or world % spatial:
+        raise ValueError(
+            f"{world} processes not divisible by spatial={spatial}: spatial "
+            "partitioning puts each image on `spatial` processes")
+    data_count = world // spatial
+    data_group = spatial_group = None
+    if spatial > 1:
+        for d in range(data_count):
+            group = dist.new_group(list(range(d * spatial,
+                                              (d + 1) * spatial)))
+            if d == rank // spatial:
+                spatial_group = group
+        if data_count > 1:
+            for s in range(spatial):
+                group = dist.new_group(list(range(s, world, spatial)))
+                if s == rank % spatial:
+                    data_group = group
+    grid = Grid(rank // spatial, data_count, rank % spatial, spatial,
+                data_group, spatial_group)
+    _PROCESS.grid = grid
+    logging.getLogger(__name__).info(
+        "process %d of %d: data index %d of %d, spatial index %d of %d",
+        rank, world, grid.data_index, data_count, grid.spatial_index,
+        spatial)
+    return grid
+
+
+def grid() -> Grid:
+    """This process's grid: the one `make_grid` made, else S = 1 (each
+    process its own data index)."""
+    if _PROCESS.grid is not None:
+        return _PROCESS.grid
+    return Grid(process_index(), process_count(), 0, 1)
+
+
+def data_index() -> int:
+    return grid().data_index
+
+
+def data_count() -> int:
+    return grid().data_count
+
+
 def local_batch_size(global_batch_size: int,
                      count: Optional[int] = None) -> int:
-    """The per-process batch: the global batch over the `count` processes
-    (the group's size by default)."""
-    count = process_count() if count is None else int(count)
+    """The per-process batch: the global batch over `count` (the grid's
+    data count by default: the processes of a spatial group share their
+    images)."""
+    count = data_count() if count is None else int(count)
     if global_batch_size % count:
         raise ValueError(
             f"global batch {global_batch_size} not divisible by process "
@@ -155,7 +246,8 @@ def local_batch_size(global_batch_size: int,
 def process_slice(x: np.ndarray, process_index: int,
                   process_count: int) -> np.ndarray:
     """This process's contiguous slice of a batch that every process holds
-    in full. The slices of all processes are the batch, each row once."""
+    in full. The slices of all processes are the batch, each row once.
+    Under a spatial grid pass the data index and count."""
     b = x.shape[0]
     if b % process_count:
         raise ValueError(

@@ -38,6 +38,13 @@
     SIGTERM flag agreed over the group (`agree_preemption`) and the chief's
     checkpoint listing. Otherwise one process would reach a collective
     that the others never call.
+  * Under spatial partitioning (`training.spatial_partition` S > 1, a grid
+    of world / S data indices, `parallel/distributed.py:make_grid`) the S
+    processes of a data index read the same batches; each trains on its
+    band of the rows, and the evaluation runs the band forward and gathers
+    the head outputs over the spatial group before post-processing
+    (`models/retinanet.py:BandedRetinaNet`). Spatial index 0 alone sends
+    its detections to the chief, so that every image counts once.
 
 PyTorch runs eagerly: there is no ahead-of-time compile, so the JAX
 package's background precompile of the eval function has no counterpart.
@@ -60,7 +67,8 @@ from retinanet_torch.core.device import resolve_device
 from retinanet_torch.core.strategy import resolve_strategy
 from retinanet_torch.data.prefetch import DevicePrefetcher
 from retinanet_torch.eval.coco_evaluator import COCOEvaluator
-from retinanet_torch.models.retinanet import build_model, flax_path
+from retinanet_torch.models.retinanet import (BandedRetinaNet, build_model,
+                                              flax_path)
 from retinanet_torch.ops.postprocess import make_inference_fn
 from retinanet_torch.parallel import distributed
 from retinanet_torch.train import step as step_lib
@@ -601,8 +609,11 @@ class Executor:
 
     def _build_inference(self):
         if self._inference_fn is None:
+            grid = distributed.grid()
+            model = (self.model if grid.spatial_count == 1
+                     else BandedRetinaNet(self.model, grid))
             self._inference_fn = make_inference_fn(
-                self.model, self.params, self.anchors, self.normalizer,
+                model, self.params, self.anchors, self.normalizer,
                 compute_dtype=self.compute_dtype, device=self.device)
         return self._inference_fn
 
@@ -637,10 +648,13 @@ class Executor:
         slice of every global val batch (`val_shard_*`); the detections and
         the images' metadata are gathered to the chief in process order, so
         that every image is counted once, and the chief scores them. The
-        other processes return {}."""
+        other processes return {}. Under a spatial grid the processes of a
+        spatial group take the same slice, and only spatial index 0's
+        detections are gathered."""
         if self.val_input_fn is None:
             raise ValueError("val_input_fn is required for evaluation")
         infer = self._build_inference()
+        sends = distributed.grid().spatial_index == 0
         evaluator = None if not self._chief else COCOEvaluator(
             input_shape=self.params.input.input_shape,
             annotation_file_path=self.params.training.annotation_file_path,
@@ -668,7 +682,7 @@ class Executor:
 
         def gather_and_accumulate(detections, meta) -> None:
             t0 = time.perf_counter()
-            results = {
+            results = None if not sends else {
                 "image_id": meta["image_id"],
                 "detections": {k: v.cpu().numpy()
                                for k, v in detections.items()},
@@ -677,7 +691,8 @@ class Executor:
             timing["gather_s"] += time.perf_counter() - t0
             if evaluator is not None:
                 t0 = time.perf_counter()
-                evaluator.accumulate_results(_concat_results(parts))
+                evaluator.accumulate_results(_concat_results(
+                    [p for p in parts if p is not None]))
                 timing["accumulate_s"] += time.perf_counter() - t0
 
         staged = DevicePrefetcher(make_eval_batch, self._prefetch_depth(),

@@ -20,6 +20,14 @@ global normalizer, the gradients are summed over the processes once a step,
 after the last micro-batch's backward and before the clip, and the L2
 penalty is differentiated on the chief only, so that it counts once. The
 logged losses are the global ones, the same on every process.
+
+Under spatial partitioning (a grid of D data indices by S spatial ones,
+`parallel/distributed.py:make_grid`) the S processes of a data index take
+the same images: each cuts its band of rows (`parallel/spatial.py`), runs
+the model on it, and takes the loss of its own anchors over the global
+normalizer, whose positives are summed over the data group. The gradients
+and the logged losses are summed over the whole world as above; the batch
+is the data count's.
 """
 
 from __future__ import annotations
@@ -30,9 +38,10 @@ import torch
 from torch import nn
 
 from retinanet_torch.losses.losses import RetinaNetLoss
-from retinanet_torch.models.layers import BatchNorm
+from retinanet_torch.models.layers import BatchNorm, spatial_partition
 from retinanet_torch.models.retinanet import flax_path, freeze_regexes
 from retinanet_torch.parallel import distributed
+from retinanet_torch.parallel.spatial import image_band, partition_for
 from retinanet_torch.train.train_state import TrainState
 
 BATCH_KEYS = ("image", "boxes", "classes", "valid")
@@ -152,7 +161,11 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
     moments and the loss normalizer are per micro-batch, and the running
     statistics and the normalizer's moving average advance K times; under
     data parallelism micro-batch i is the union of every process's
-    micro-batch i, as JAX folds each host's batch before sharding it."""
+    micro-batch i, as JAX folds each host's batch before sharding it.
+
+    Under a spatial grid (`distributed.grid()` when the step is built; the
+    encoder then cuts the targets to the same bands) each micro-batch's
+    images are cut into this process's band of rows."""
     regexes = freeze_regexes(freeze_keys)
     set_frozen_batch_norms(model, regexes)
     kernels = decay_kernels(model, regexes) if use_weight_decay else []
@@ -160,13 +173,19 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
     device = next(model.parameters()).device
     world = distributed.process_count()
     chief = distributed.is_chief()
+    grid = distributed.grid()
 
     def losses_and_backward(state: TrainState, batch: Dict,
                             marks: Optional[list]) -> Dict:
-        images = normalizer(batch["image"]).to(compute_dtype)
+        images, part = batch["image"], None
+        if grid.spatial_count > 1:
+            part = partition_for(grid, images.shape[1:3])
+            images = image_band(images, part)
+        images = normalizer(images).to(compute_dtype)
         targets = encoder(batch["boxes"], batch["classes"], batch["valid"])
         _mark(marks, "encode")
-        preds = model(images)
+        with spatial_partition(part):
+            preds = model(images)
         losses, new_norm_ema = loss_fn(targets, preds, state.normalizer_ema)
         total = losses["weighted-loss"]
         if use_weight_decay:
@@ -229,7 +248,7 @@ def make_train_step(model: nn.Module, loss_fn: RetinaNetLoss,
             # clip inside optimizer.step() sees the gradient
             distributed.all_reduce_gradients(trainable)
             losses = global_losses(losses)
-            batch_size *= world
+            batch_size *= grid.data_count
 
         optimizer.step()
 

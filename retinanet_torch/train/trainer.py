@@ -15,6 +15,8 @@ from retinanet_torch.data.preprocessing import make_device_normalizer
 from retinanet_torch.losses.losses import RetinaNetLoss
 from retinanet_torch.models.retinanet import _compute_dtype, build_model
 from retinanet_torch.optimizers.builder import build_optimizer
+from retinanet_torch.parallel import distributed
+from retinanet_torch.parallel.spatial import band_rows
 from retinanet_torch.train import step as step_lib
 from retinanet_torch.train.train_state import TrainState, create_train_state
 
@@ -37,17 +39,22 @@ def build_trainer_parts(params, device=None, seed: int = 0) -> Trainer:
     """model -> encoder -> normalizer -> loss -> optimizer -> state -> step,
     from the config tree `params`, on the card unless `device="cpu"`; the
     weights are drawn from `seed`. With `training.grad_accum_steps` K > 1
-    the step takes batches folded by `fold_micro_batches(batch, K)`."""
+    the step takes batches folded by `fold_micro_batches(batch, K)`. Under
+    a spatial grid (`distributed.make_grid`, made before) the step and the
+    encoder work on this process's bands."""
     device = resolve_device(device)
     t = params.training
     freeze = list(t.get("freeze_variables", []))
     model = build_model(params, device=device, seed=seed).train()
     anchors = anchor_lib.from_params(params)
+    grid = distributed.grid()
     encoder = make_batched_encoder(
         anchors, params.encoder_params,
         use_iou_targets=bool(
             params.architecture.auxillary_head.use_auxillary_head),
-        device=device)
+        device=device,
+        rows=(None if grid.spatial_count == 1 else
+              lambda h: band_rows(h, grid.spatial_count, grid.spatial_index)))
     normalizer = make_device_normalizer(params)
     loss_fn = RetinaNetLoss(int(params.architecture.head.num_classes),
                             params.loss)

@@ -304,7 +304,8 @@ def test_continuous_evaluation_scores_the_latest_checkpoint(tmp_path, data):
     ({"run_mode": "serve"}, ValueError, "run_mode"),
     ({"strategy": "multi_gpu"}, RuntimeError, "no process group"),
     ({"strategy": "fpga"}, ValueError, "strategy"),
-    ({"spatial_partition": 2}, NotImplementedError, "Queue 1 #16"),
+    # one process cannot hold a spatial group of two
+    ({"spatial_partition": 2}, ValueError, "not divisible by spatial=2"),
     ({"grad_accum_steps": 3}, ValueError, "grad_accum"),
 ], ids=["export", "unknown", "multi_gpu", "bad_strategy",
         "spatial", "grad_accum"])
