@@ -182,7 +182,26 @@ JAX. Phases, each fatal on failure:
      (b) `v3-32/…-1280x1280-3x-256` at a micro-batch of
      SPATIAL_HIGH_RES_BATCH on the same grid, one step after one: each
      rank's peak beside one process's, the step's ms and the exchanges'
-     ms, the losses within one bfloat16 rounding of one process's.
+     ms, the losses within one bfloat16 rounding of one process's;
+ 16. the selection lanes on the top-k kernel (`csrc/topk.cu`,
+     `ops/topk_kernel.py`): the kernel index- and value-exact against its
+     plain version (`ops/topk.py:top_k_rows_plain`) on the card, on the
+     flagship's batch-8 fused logits (phase 5's seeded model, class bias
+     0, so that the bf16 logits tie heavily) in the default lane ("packed",
+     drop 1, k = 256), the exact lane ("f32", k = 256), the skip_nms lane
+     ("f32", k = 5,000) and the global lane ((B, A·C) rows, "bf16" and
+     "f32"); on the zoo's anchor counts at batch 8 (37,485 and 49,104:
+     drop 0; 110,484: drop 1; 150,381 and 306,900: "bf16"); on rows of
+     one value and on the top-k over the NMS survivors; each case timed
+     beside its plain version, the stable `torch.sort` lane the port ran
+     before (its transpose and float32 copy included), `torch.topk` (the
+     same set, no tie order) and its bound (one read of the rows); then
+     the flagship request at batch 1 and 8 in the default and the exact
+     lane as the main path (host ms, device busy ms; the kernel's counts
+     at 0 just before), with no sort kernel in a default-lane request's
+     trace. The kernel's launches on the serving (5), evaluation (8),
+     export and int8 (12) and spatial (15) paths are counted there and
+     reported here.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -403,6 +422,18 @@ SPATIAL_EVAL_BATCH = 8
 # float32 with TF32 off: the bands' convs take other cuDNN algorithms
 SPATIAL_EVAL_RTOL = 1e-3
 SPATIAL_HIGH_RES_BATCH = 16     # HIGH_RES's micro-batch: 256 / HIGH_RES_ACCUM
+TOPK_BATCH = 8
+TOPK_ZOO_ANCHORS = (            # anchors, where a config has them
+    (37485, "MobileDet 448"), (49104, "512 (lite2, lite3, MobileDet-gpu)"),
+    (110484, "EfficientNet-B2 768"), (150381, "EfficientNet-B3 896"),
+    (306900, "1280x1280"))
+TOPK_REQUESTS = 5               # timed, after one that is not
+TOPK_PRIOR = -4.59511985        # -log(99), the class head's prior
+# kernel names of a sort or a library top-k in a trace
+TOPK_SORT_NAMES = ("sort", "Sort", "radix", "Radix", "gatherTopK", "sbtopk",
+                   "mbtopk", "bitonic")
+# the kernel's launches on the other phases' paths, by path
+TOPK_PATHS = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -646,6 +677,7 @@ def check_detections(det, bs: int, md: int) -> None:
 def phase_serving(params, worst_err: float) -> dict:
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import topk_kernel
     from retinanet_torch.ops.nms_kernel import kernel
     from retinanet_torch.profile_serving import zero_class_prior
 
@@ -666,6 +698,7 @@ def phase_serving(params, worst_err: float) -> dict:
 
     # the main path: every count at 0 just before, read just after
     kernel.reset_counts()
+    topk_kernel.kernel.reset_counts()
     outputs, times = [], {bs: [] for bs in BATCHES}
     for bs, images in requests:
         start = time.perf_counter()
@@ -674,13 +707,20 @@ def phase_serving(params, worst_err: float) -> dict:
         times[bs].append((time.perf_counter() - start) * 1e3)
         outputs.append(det)
     launches = kernel.launches
+    topk_by = dict(topk_kernel.kernel.launches_by)
+    TOPK_PATHS["serving (phase 5)"] = topk_kernel.kernel.launches
+    check(topk_by == {"packed": len(requests), "f32": len(requests)},
+          f"top-k kernel launches by mode {topk_by} for {len(requests)} "
+          "requests (the default lane: packed, then f32 over the NMS "
+          "survivors)")
     check(launches == len(requests)
           and kernel.launches_by["sweep"] == len(requests),
           f"NMS kernels launched {launches} times, the sweep "
           f"{kernel.launches_by['sweep']} times, for {len(requests)} "
           "requests")
     print(f"[serving] {len(requests)} requests, NMS kernel launches "
-          f"{launches}, by design {dict(kernel.launches_by)}")
+          f"{launches}, by design {dict(kernel.launches_by)}; top-k kernel "
+          f"launches by mode {topk_by}")
 
     md = int(params.inference.max_detections)
     for (bs, _), det in zip(requests, outputs):
@@ -1169,7 +1209,7 @@ def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
     from retinanet_torch.core.config import Config
     from retinanet_torch.data import host_codec
     from retinanet_torch.data.synthetic import write_synthetic_tfrecords
-    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops import match_kernel, nms_kernel, topk_kernel
 
     route = host_codec.jpeg_route()
     print(f"[executor] JPEG route: {route}")
@@ -1264,7 +1304,9 @@ def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
     # (b) evaluation alone, in process
     nms_kernel.kernel.reset_counts()
     match_kernel.kernel.reset_counts()
+    topk_kernel.kernel.reset_counts()
     scores = cli_main(["--config_path", str(config), "--run_evaluation"])
+    TOPK_PATHS["evaluation (phase 8 b)"] = topk_kernel.kernel.launches
     sweeps = nms_kernel.kernel.launches_by["sweep"]
     eval_matches = match_kernel.kernel.launches
     n_val = int(params.training.validation_samples) // val_batch
@@ -1273,6 +1315,9 @@ def phase_executor(workdir: Path, step_images_per_s: float) -> dict:
           f"({nms_kernel.kernel.launches} in all) for {n_val} val batches")
     check(eval_matches == 0, f"matching kernel launched {eval_matches} "
           "times in an evaluation")
+    check(topk_kernel.kernel.launches_by["packed"] == n_val,
+          f"top-k kernel launched {dict(topk_kernel.kernel.launches_by)} "
+          f"for {n_val} val batches")
     check((model_dir / "predictions.json").exists(), "no predictions.json")
     check(all(-1.0 <= scores[k] <= 1.0 for k in COCO_KEYS), f"{scores}")
     timing = {k[len("eval-timing/"):]: v for k, v in read_jsonl(
@@ -2279,7 +2324,7 @@ def phase_export_int8(workdir: Path) -> tuple:
     from retinanet_torch.export.quantize import (detection_agreement_ap,
                                                  make_quantized_serving_fn)
     from retinanet_torch.export.serving import load_artifact
-    from retinanet_torch.ops import int8_conv_kernel, nms_kernel
+    from retinanet_torch.ops import int8_conv_kernel, nms_kernel, topk_kernel
     from retinanet_torch.ops.int8_conv_kernel import encode_us, int8_design
     workdir.mkdir(parents=True, exist_ok=True)
     int8 = int8_conv_kernel.kernel
@@ -2321,7 +2366,10 @@ def phase_export_int8(workdir: Path) -> tuple:
     module = load_artifact(str(art), use_exported=True, device="cuda")
     one = batches[frozen_bs]
     eager = module.run_inference(one)
+    topk_kernel.kernel.reset_counts()
     frozen = check_frozen_nms(module, one)
+    TOPK_PATHS["frozen float graph (phase 12 b)"] = \
+        topk_kernel.kernel.launches
     check(all(np.array_equal(eager[k], frozen[k]) for k in eager),
           "run_exported differs from run_inference (float lane)")
     check(int(eager["valid_detections"].sum()) > 0, "no detection")
@@ -2339,11 +2387,13 @@ def phase_export_int8(workdir: Path) -> tuple:
     requests = {bs: torch.from_numpy(batches[bs]) for bs in INT8_BATCHES}
     # the main path: the int8 kernel's count at 0 just before, read after
     int8.reset_counts()
+    topk_kernel.kernel.reset_counts()
     q_ms, q_det = {}, {}
     for bs in INT8_BATCHES:
         q_ms[bs], q_det[bs] = served_ms(q_module.serve, requests[bs],
                                         INT8_REQUESTS)
     launches = int8.launches
+    TOPK_PATHS["int8 requests (phase 12 c)"] = topk_kernel.kernel.launches
     launches_by = dict(int8.launches_by)
     served = len(INT8_BATCHES) * (INT8_REQUESTS + 1)
     int8_model = q_module.module.model
@@ -2461,7 +2511,10 @@ def phase_export_int8(workdir: Path) -> tuple:
     record["launches_on_export_paths"] = dict(export_paths["int8_conv2d"])
     int8.reset_counts()
     nms_kernel.kernel.reset_counts()
+    topk_kernel.kernel.reset_counts()
     scores = evaluate_goldens(art, workdir / "eval")
+    TOPK_PATHS["evaluate_artifact (phase 12 d)"] = \
+        topk_kernel.kernel.launches
     record["launches_on_export_paths"]["evaluate_artifact"] = int8.launches
     export_paths["nms_lanes"]["evaluate_artifact"] = \
         nms_kernel.kernel.launches
@@ -3472,7 +3525,7 @@ def spatial_rank(out_dir: str) -> None:
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.data.preprocessing import make_device_normalizer
     from retinanet_torch.models.retinanet import BandedRetinaNet
-    from retinanet_torch.ops import match_kernel, nms_kernel
+    from retinanet_torch.ops import match_kernel, nms_kernel, topk_kernel
     from retinanet_torch.ops.postprocess import make_inference_fn
     from retinanet_torch.parallel import distributed, spatial
     from retinanet_torch.profile_serving import zero_class_prior
@@ -3508,6 +3561,7 @@ def spatial_rank(out_dir: str) -> None:
     with torch.inference_mode():
         outputs = banded(normalizer(torch.from_numpy(images).to(device)))
     nms_kernel.kernel.reset_counts()
+    topk_kernel.kernel.reset_counts()
     infer = make_inference_fn(banded, params, from_params(params),
                               normalizer, compute_dtype=torch.float32,
                               device=device)
@@ -3541,6 +3595,7 @@ def spatial_rank(out_dir: str) -> None:
                 "outputs": {kind: {lvl: y.cpu() for lvl, y in levels.items()}
                             for kind, levels in outputs.items()},
                 "nms_launches": nms_kernel.kernel.launches,
+                "topk_launches": topk_kernel.kernel.launches,
                 "detections": (None if parts is None else
                                [p for p in parts if p is not None]),
                 "exchange_ms": exchange_ms, "timed_step_ms": timed_ms,
@@ -3701,6 +3756,9 @@ def phase_spatial(workdir: Path) -> tuple:
           + " ms with the device synchronised around each all-reduce (rank "
           "0 / 1, host clock); the step untimed "
           + " / ".join(f"{v:.1f}" for v in record["step_ms"]) + " ms")
+    for r, res in enumerate(ranks):
+        TOPK_PATHS[f"spatial rank {r} evaluation (phase 15)"] = res[
+            "topk_launches"]
     launches = {"nms_lanes": {f"spatial rank {r} evaluation":
                               res["nms_launches"]
                               for r, res in enumerate(ranks)},
@@ -3769,13 +3827,200 @@ def phase_spatial(workdir: Path) -> tuple:
     return launches, record
 
 
+def topk_bound_ms(rows: torch.Tensor, k: int) -> float:
+    """Least time of one selection: the rows read once, the k values and
+    int32 indices of each written once, at the card's memory rate (the
+    compares are far below the compute rate)."""
+    b, _, c = rows.shape
+    nbytes = rows.numel() * rows.element_size() + b * c * k * (
+        rows.element_size() + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def topk_sort_lane(rows: torch.Tensor, k: int):
+    """The lane the port ran before: the rows transposed to (B, C, N) in
+    float32, a stable descending sort, cut to k."""
+    values, idx = torch.sort(rows.to(torch.float32).transpose(1, 2), dim=-1,
+                             descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
+              timed: bool = True) -> dict:
+    """The kernel on rows (B, N, C) against its plain version on the card:
+    indices and value bits equal. Timed beside plain, the sort lane and
+    `torch.topk` along N, and the bound."""
+    from retinanet_torch.ops.topk import top_k_rows_plain
+    from retinanet_torch.ops.topk_kernel import launch
+    got_v, got_i = launch(rows, k, mode)
+    want_v, want_i = top_k_rows_plain(rows, k, mode)
+    torch.cuda.synchronize()
+    view = torch.int32 if mode == "f32" else torch.int16
+    check(torch.equal(got_i, want_i), f"top-k {label}: indices differ")
+    check(torch.equal(got_v.view(view), want_v.view(view)),
+          f"top-k {label}: values differ")
+    b, n, c = rows.shape
+    out = {"case": label, "mode": mode, "shape": [b, n, c], "k": k,
+           "bound_ms": topk_bound_ms(rows, k)}
+    if mode == "packed":
+        from retinanet_torch.ops.topk import packed_layout
+        out["drop"] = packed_layout(n)[1]
+    if timed:
+        times = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            times[name].append(time_ms(
+                (lambda: launch(rows, k, mode)) if name == "kernel" else
+                (lambda: top_k_rows_plain(rows, k, mode)),
+                reps=10 if name == "kernel" else 2))
+        out["ms"] = statistics.mean(times["kernel"])
+        out["plain_ms"] = statistics.mean(times["plain"])
+        out["sort_lane_ms"] = time_ms(lambda: topk_sort_lane(rows, k),
+                                      reps=3)
+        out["torch_topk_ms"] = time_ms(
+            lambda: torch.topk(rows, k, dim=1), reps=10)
+        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}): kernel "
+              f"{out['ms']:.4f} ms, bound {out['bound_ms']:.5f} ms, plain "
+              f"{out['plain_ms']:.3f}, stable sort lane "
+              f"{out['sort_lane_ms']:.3f}, torch.topk "
+              f"{out['torch_topk_ms']:.4f}; index- and value-exact")
+    else:
+        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}): index- and "
+              "value-exact")
+    return out
+
+
+def sort_kernels(names) -> list:
+    return sorted({n for n in names if any(s in n for s in TOPK_SORT_NAMES)
+                   and "topk_rows_kernel" not in n})
+
+
+def phase_topk() -> dict:
+    """Phase 16. Returns the top-k kernel's record."""
+    from retinanet_torch.core.config import Config, from_dict
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import topk_kernel
+    from retinanet_torch.profile_serving import zero_class_prior
+    params = Config(str(FLAGSHIP)).params
+    model = build_model(params, device="cuda", seed=0)
+    zero_class_prior(model)
+    h, w = params.input.input_shape
+    rng = np.random.default_rng(16)
+    images = {bs: torch.from_numpy(rng.integers(
+        0, 256, (bs, h, w, 3)).astype(np.uint8)) for bs in (8, 1)}
+    fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
+                                model=model)
+    with torch.inference_mode():
+        logits = fused_fn(images[8])["class_logits"]        # (8, A, 80) f32
+    k = min(int(params.inference.get("nms_top_k", 256)),
+            int(params.inference.pre_nms_top_k))
+    pre_k = int(params.inference.pre_nms_top_k)
+    md = int(params.inference.max_detections)
+    a, c = logits.shape[1], logits.shape[2]
+    bf = logits.to(torch.bfloat16)
+    distinct = torch.unique(bf[0, :, 0]).numel()
+    print(f"[topk] flagship fused logits at batch 8, class bias 0: {a} "
+          f"anchors x {c} classes, {distinct} distinct bf16 values in "
+          f"{a} of one row")
+    cases = []
+    with torch.inference_mode():
+        cases.append(hold_topk("flagship default lane", bf, k, "packed"))
+        cases.append(hold_topk("flagship exact lane", logits, k, "f32"))
+        cases.append(hold_topk("flagship skip_nms lane",
+                               torch.sigmoid(logits), pre_k, "f32"))
+        flat = bf.reshape(TOPK_BATCH, a * c, 1)
+        cases.append(hold_topk("flagship global lane", flat, k, "bf16"))
+        cases.append(hold_topk(
+            "flagship global skip_nms lane",
+            torch.sigmoid(logits).reshape(TOPK_BATCH, a * c, 1), pre_k,
+            "f32"))
+        survivors = torch.from_numpy(np.where(
+            rng.uniform(size=(TOPK_BATCH, c * md, 1)) < 0.3, -1.0,
+            np.round(rng.uniform(0.05, 1.0, (TOPK_BATCH, c * md, 1)) * 64)
+            / 64).astype(np.float32)).cuda()
+        cases.append(hold_topk("NMS survivors", survivors, md, "f32"))
+        cases.append(hold_topk(
+            "rows of one value", torch.zeros(
+                (TOPK_BATCH, TOPK_ZOO_ANCHORS[0][0], c),
+                dtype=torch.bfloat16, device="cuda"), k, "packed",
+            timed=False))
+        for anchors, label in TOPK_ZOO_ANCHORS:
+            zoo = torch.from_numpy(rng.normal(
+                TOPK_PRIOR, 1.5, (TOPK_BATCH, anchors, c)).astype(
+                    np.float32)).cuda().to(torch.bfloat16)
+            mode = "packed" if anchors <= 1 << 17 else "bf16"
+            cases.append(hold_topk(f"{label} default lane", zoo, k, mode))
+            if anchors == TOPK_ZOO_ANCHORS[-1][0]:
+                cases.append(hold_topk(f"{label} skip_nms lane",
+                                       zoo.to(torch.float32), pre_k, "f32",
+                                       timed=False))
+            del zoo
+        torch.cuda.empty_cache()
+
+    # the main path: the flagship request at batch 1 and 8, both lanes
+    exact_tree = params.to_dict()
+    exact_tree["inference"]["use_approx_top_k"] = False
+    lanes = {"default": build_serving_fn(params, device="cuda", model=model),
+             "exact": build_serving_fn(from_dict(exact_tree), device="cuda",
+                                       model=model)}
+    kernel = topk_kernel.kernel
+    kernel.reset_counts()
+    request = {}
+    for lane, serve in lanes.items():
+        for bs in (8, 1):
+            host, _ = served_ms(serve, images[bs], TOPK_REQUESTS)
+            request[f"{lane} batch {bs}"] = {"host_ms": host}
+    launches, launches_by = kernel.launches, dict(kernel.launches_by)
+    served = 2 * (TOPK_REQUESTS + 1)
+    check(launches_by == {"packed": served, "f32": 3 * served},
+          f"top-k launches by mode {launches_by} for {served} requests a "
+          "lane (default: packed + f32 a request; exact: f32 twice)")
+    for lane, serve in lanes.items():
+        for bs in (8, 1):
+            busy = request_device_ms(serve, images[bs])[0]
+            request[f"{lane} batch {bs}"]["device_busy_ms"] = busy
+            print(f"[topk] flagship {lane} lane, batch {bs}: request "
+                  f"{request[f'{lane} batch {bs}']['host_ms']:.3f} ms (host, "
+                  f"median of {TOPK_REQUESTS}), device busy {busy:.3f} ms")
+    traces = {}
+    for lane, serve in lanes.items():
+        names = kernels_on_card("top_k_rows",
+                                lambda: serve(images[8]))
+        traces[lane] = sort_kernels(names)
+        tops = sum("topk_rows_kernel" in n for n in names)
+        check(tops == 2, f"{lane} lane: {tops} top-k kernels in a request")
+    check(not traces["default"],
+          f"sort kernels in a default-lane request: {traces['default']}")
+    print(f"[topk] a default-lane request ran the top-k kernel twice and no "
+          f"sort kernel; the exact lane's sort kernels: {traces['exact']}")
+    for path, count in TOPK_PATHS.items():
+        check(count > 0, f"top-k kernel launched no time on {path}")
+    main = cases[0]
+    return {"name": "top_k_rows", "route": "cuda",
+            "source": "retinanet_torch/csrc/topk.cu",
+            "replaces": "retinanet_tpu/ops/postprocess.py:54",
+            "replaces_note": "approx_max_k_packed / lax.approx_max_k and "
+                             "lax.top_k, XLA paths (no Pallas kernel)",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["torch_topk_ms"],
+            "library": "torch.topk along the anchors (no tie order)",
+            "sort_lane_ms": main["sort_lane_ms"],
+            "work": f"the default lane's selection of a batch-8 flagship "
+                    f"request ({main['shape']}, k={main['k']})",
+            "launches_by": launches_by, "cases": cases,
+            "request": request, "launches_on_paths": dict(TOPK_PATHS)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 1
     from retinanet_torch.core.config import Config
-    from retinanet_torch.ops import int8_conv_kernel, match_kernel, nms_kernel
+    from retinanet_torch.ops import (int8_conv_kernel, match_kernel,
+                                     nms_kernel, topk_kernel)
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3788,7 +4033,7 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     kernels = (nms_kernel.kernel, match_kernel.kernel,
-               int8_conv_kernel.kernel)
+               int8_conv_kernel.kernel, topk_kernel.kernel)
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.build) for k in kernels]:
@@ -3842,6 +4087,9 @@ def main() -> int:
         spatial_launches, spatial_record = phase_spatial(
             Path(tmp) / "spatial")
         print(f"[phase 15] took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    records.append(phase_topk())
+    print(f"[phase 16] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)

@@ -4,7 +4,8 @@
 * fuse_predictions: per-level (B,H,W,A*C) maps -> flat (B, anchors, C).
 * decode: xy = t_xy * a_wh + a_xy, wh = exp(t_wh) * a_wh -> corners,
   normalized by the input shape; float32 throughout.
-* filter_top_k: per-class or global pre-NMS top-k.
+* filter_top_k: per-class or global pre-NMS top-k, through
+  `ops/topk.py:select_top_k` (the kernel of `csrc/topk.cu` on the card).
 * generate_detections: CombinedNMS / GlobalSoftNMS / GlobalHardNMS /
   PerClassSoftNMS / PerClassHardNMS, all through one NMS over lanes
   (`ops/nms_kernel.nms_lanes`: the CUDA kernel on the card).
@@ -12,13 +13,21 @@
 Output: scores (B, max_det), boxes (B, max_det, 4) normalized corners,
 classes (B, max_det) int32, valid_detections (B,) int32; empty slots -1.
 
-Top-k is exact. The JAX package's default serving lane selects with XLA's
-approximate top-k (`approx_max_k_packed`), which has no PyTorch
-counterpart; its exact lane (`inference.use_approx_top_k=false`) computes
-the set the approximate lane approximates, and that is the lane ported
-here, with the logits in float32. `lax.top_k` breaks ties toward the lower
-index while `torch.topk` on CUDA promises no order among ties, so top-k is
-a stable descending sort cut to k.
+Two selection lanes, as in the JAX package (`make_inference_fn`):
+
+* the default lane (`inference.use_approx_top_k`, true by default): each
+  level's class map is cast to bf16 before the concat, the pre-NMS top-k
+  runs on the bf16 logits with the JAX package's packed key
+  (`approx_max_k_packed`: "packed" mode up to 2^17 anchors, "bf16" above),
+  and the sigmoid runs in float32 on the k winners only. The scores are
+  the values the packed key keeps (see `ops/topk.py`);
+* the exact lane (`use_approx_top_k=false`) and the export lanes
+  (`skip_decoding`, `skip_nms`): float32 logits end to end, `lax.top_k`.
+
+Off the TPU XLA computes the approximate top-k exactly, so both lanes are
+deterministic and the port computes them bit for bit (`ops/topk.py`;
+`inference.approx_recall_target` is checked and changes nothing). The
+top-k over the NMS survivors is `lax.top_k` in float32.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from torch import nn
 from retinanet_torch.core.device import device_constant, resolve_device
 from retinanet_torch.data.anchors import AnchorGenerator
 from retinanet_torch.ops.nms_kernel import nms_lanes
+from retinanet_torch.ops.topk import check_recall_target, lane_mode, \
+    select_top_k
 
 NMS_MODES = ("CombinedNMS", "GlobalSoftNMS", "GlobalHardNMS",
              "PerClassSoftNMS", "PerClassHardNMS")
@@ -38,14 +49,19 @@ NMS_MODES = ("CombinedNMS", "GlobalSoftNMS", "GlobalHardNMS",
 
 def top_k(x: torch.Tensor, k: int):
     """`jax.lax.top_k` over the last axis: descending, ties to the lower
-    index."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
+    index; int64 indices."""
+    values, idx = select_top_k(x, k, lane_mode(x.dtype, x.shape[-1], False))
+    return values, idx.long()
 
 
 def fuse_predictions(predictions: Dict, min_level: int,
-                     max_level: int) -> Dict[str, torch.Tensor]:
-    """Per-level (B,H,W,A*C) maps -> flat (B, total_anchors, C)."""
+                     max_level: int,
+                     logits_dtype: Optional[torch.dtype] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Per-level (B,H,W,A*C) maps -> flat (B, total_anchors, C).
+
+    `logits_dtype` (bf16 in the default lane) casts each level's class map
+    before the concat, so that the concat moves half the bytes."""
     cls_preds = predictions["class-predictions"]
     box_preds = predictions["box-predictions"]
     first = str(min_level)
@@ -58,7 +74,10 @@ def fuse_predictions(predictions: Dict, min_level: int,
         key = str(level)
         _, h, w, _ = box_preds[key].shape
         n = h * w * anchors_per_loc
-        logits.append(cls_preds[key].reshape(batch, n, num_classes))
+        cls_map = cls_preds[key]
+        if logits_dtype is not None:
+            cls_map = cls_map.to(logits_dtype)
+        logits.append(cls_map.reshape(batch, n, num_classes))
         boxes.append(box_preds[key].reshape(batch, n, 4))
     return {
         "class_logits": torch.cat(logits, dim=1),
@@ -105,19 +124,27 @@ def decode_detections(fused: Dict[str, torch.Tensor],
 def filter_top_k(detections: Dict[str, torch.Tensor],
                  k_max: int,
                  filter_per_class: bool = True,
+                 approx: bool = False,
+                 recall_target: float = 0.95,
                  anchor_boxes: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
-    """Exact pre-NMS top-k. With `anchor_boxes` (A, 4), each selected
-    candidate's anchor row is gathered too, under "anchors"."""
+    """Pre-NMS top-k: `approx=True` is the JAX package's
+    `approx_max_k_packed` lane, else `lax.top_k` (`ops/topk.py:lane_mode`
+    picks the mode from the scores' type and the row length; all exact).
+    With `anchor_boxes` (A, 4), each selected candidate's anchor row is
+    gathered too, under "anchors"."""
+    check_recall_target(recall_target)
     scores = detections["scores"]       # (B, A, C)
     boxes = detections["boxes"]         # (B, A, 4)
     b, num_anchors, num_classes = scores.shape
 
     if filter_per_class:
         k = min(k_max, num_anchors)
-        scores_t = scores.transpose(1, 2)                 # (B, C, A)
-        top_scores, idx = top_k(scores_t, k)              # (B, C, k)
-        flat_idx = idx.reshape(b, num_classes * k)
+        # along the anchors of each (image, class), read in place
+        top_scores, idx = select_top_k(
+            scores, k, lane_mode(scores.dtype, num_anchors, approx),
+            dim=1)                                        # (B, C, k)
+        flat_idx = idx.reshape(b, num_classes * k).long()
         top_boxes = torch.gather(
             boxes, 1, flat_idx[..., None].expand(-1, -1, 4)).reshape(
                 b, num_classes, k, 4)
@@ -130,8 +157,10 @@ def filter_top_k(detections: Dict[str, torch.Tensor],
                 b, num_classes, k, 4).transpose(1, 2)      # (B, k, C, 4)
         return out
     k = min(k_max, num_anchors * num_classes)
-    _, idx = top_k(scores.reshape(b, num_anchors * num_classes), k)
-    anchor_idx = idx // num_classes                        # (B, k)
+    _, idx = select_top_k(
+        scores.reshape(b, num_anchors * num_classes), k,
+        lane_mode(scores.dtype, num_anchors * num_classes, approx))
+    anchor_idx = idx.long() // num_classes                 # (B, k)
     out = {
         "scores": torch.gather(
             scores, 1, anchor_idx[..., None].expand(-1, -1, num_classes)),
@@ -264,6 +293,10 @@ def make_postprocess_fn(params, anchors: AnchorGenerator,
     box_variance = tuple(params.encoder_params.box_variance)
     scale_boxes = bool(params.encoder_params.scale_box_targets)
     anchor_boxes = torch.from_numpy(anchors.boxes).to(device)
+    # the default lane selects on bf16 logits (see the module docstring)
+    approx = bool(inf.get("use_approx_top_k", True))
+    recall_target = check_recall_target(
+        inf.get("approx_recall_target", 0.95))
     # NMS candidate cap: greedy NMS only ever selects boxes above
     # score_threshold, and only a higher-scoring box can suppress one, so
     # the top `nms_top_k` candidates give the same detections as the full
@@ -277,21 +310,27 @@ def make_postprocess_fn(params, anchors: AnchorGenerator,
     def postprocess(fused: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         # top-k on the logits (sigmoid is monotonic), sigmoid on the k
-        # survivors only
+        # survivors only; the default lane's logits are bf16 (a no-op where
+        # `fuse_predictions` cast them already)
+        logits = fused["class_logits"]
+        if approx:
+            logits = logits.to(torch.bfloat16)
         if decode_after:
             filtered = filter_top_k(
-                {"scores": fused["class_logits"],
-                 "boxes": fused["encoded_boxes"]},
-                nms_k, bool(inf.filter_per_class), anchor_boxes=anchor_boxes)
+                {"scores": logits, "boxes": fused["encoded_boxes"]},
+                nms_k, bool(inf.filter_per_class), approx=approx,
+                recall_target=recall_target, anchor_boxes=anchor_boxes)
             filtered["boxes"] = decode_box_regressions(
                 filtered["boxes"], filtered.pop("anchors"), input_shape,
                 box_variance, scale_boxes)
         else:
-            decoded = decode_detections(fused, anchor_boxes, input_shape,
-                                        box_variance, scale_boxes)
+            boxes = decode_box_regressions(
+                fused["encoded_boxes"], anchor_boxes[None], input_shape,
+                box_variance, scale_boxes)
             filtered = filter_top_k(
-                {"scores": fused["class_logits"], "boxes": decoded["boxes"]},
-                nms_k, bool(inf.filter_per_class))
+                {"scores": logits, "boxes": boxes}, nms_k,
+                bool(inf.filter_per_class), approx=approx,
+                recall_target=recall_target)
         filtered["scores"] = torch.sigmoid(
             filtered["scores"].to(torch.float32))
         return generate_detections(
@@ -308,9 +347,11 @@ class InferenceModule(nn.Module):
     """The serving function as a module: raw NHWC images, already on the
     device, -> final detections, with the export-mode skips
     (`skip_decoding` returns the fused maps, `skip_nms` the decoded
-    pre-NMS top-k). No device copy and no inference mode inside, so that
-    `torch.export` can trace it (`export/serving.py`); `model` is its
-    child, and its weights the graph's parameters."""
+    pre-NMS top-k, both in float32). The full lane selects on bf16 logits
+    unless `inference.use_approx_top_k` is false, as the JAX package's
+    `make_inference_fn` does. No device copy and no inference mode inside,
+    so that `torch.export` can trace it (`export/serving.py`); `model` is
+    its child, and its weights the graph's parameters."""
 
     def __init__(self, model, params, anchors: AnchorGenerator, normalizer,
                  compute_dtype=torch.bfloat16, skip_decoding: bool = False,
@@ -325,6 +366,9 @@ class InferenceModule(nn.Module):
         self.skip_nms = skip_nms
         ff = params.architecture.feature_fusion
         self.levels = (int(ff.min_level), int(ff.max_level))
+        self.approx_lane = (bool(params.inference.get("use_approx_top_k",
+                                                      True))
+                            and not skip_decoding and not skip_nms)
         self.postprocess = make_postprocess_fn(params, anchors, device)
         self.register_buffer("anchor_boxes",
                              torch.from_numpy(anchors.boxes).to(device),
@@ -333,7 +377,9 @@ class InferenceModule(nn.Module):
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         params = self.params
         images = self.normalizer(images).to(self.compute_dtype)
-        fused = fuse_predictions(self.model(images), *self.levels)
+        fused = fuse_predictions(
+            self.model(images), *self.levels,
+            logits_dtype=torch.bfloat16 if self.approx_lane else None)
         if self.skip_decoding:
             return fused
         if self.skip_nms:

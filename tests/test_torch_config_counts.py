@@ -25,6 +25,8 @@ from retinanet_torch.models import retinanet as torch_retinanet  # noqa: E402
 from test_backbones import (  # noqa: E402
     EFFICIENTNET_COUNTS, MOBILEDET_COUNTS)
 from test_torch_model import _jax_counts, _torch_counts  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 CONFIG_PATHS = sorted(glob.glob(os.path.join(CONFIGS, "*", "*.json")))

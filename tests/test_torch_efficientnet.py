@@ -32,6 +32,8 @@ from retinanet_torch.convert import (  # noqa: E402
 from retinanet_torch.models import efficientnet as torch_eff  # noqa: E402
 
 from test_torch_model import _random_variables  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 # every block form: depthwise with and without expansion, fused with
 # squeeze-excite, conv_type 1 with and without expansion, a k5 stride-2

@@ -32,6 +32,8 @@ from retinanet_torch.convert import load_flax_variables, torch_to_flax  # noqa: 
 from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.data.pipeline import InputPipeline  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 CLASS_BIAS = "class_head.prediction.conv.bias"
 

@@ -21,6 +21,7 @@ from retinanet_torch.train import executor as executor_mod  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
 
 from test_torch_executor import tiny_tree  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

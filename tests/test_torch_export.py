@@ -35,6 +35,8 @@ from retinanet_torch.export import serving  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
 
 from test_torch_model import _build_pair  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 _TREE = {
     "experiment": {"name": "export_port"},

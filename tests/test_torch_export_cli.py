@@ -34,6 +34,8 @@ from retinanet_torch.export.evaluate_artifact import evaluate  # noqa: E402
 from retinanet_torch.export.serving import load_artifact  # noqa: E402
 from retinanet_torch.utils.image_utils import (  # noqa: E402
     read_image, rescale_boxes)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 _FILES = ("config.json", "params.msgpack", "serving_default.pt2",
           "params_int8.msgpack", "activation_scales.json",

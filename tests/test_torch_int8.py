@@ -52,6 +52,8 @@ from retinanet_torch.ops.int8_conv import (  # noqa: E402
 from retinanet_torch.ops.int8_conv_kernel import int8_conv2d  # noqa: E402
 
 from test_torch_model import _build_pair  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 # The port's int8 lane against JAX's, head outputs and detections: the
 # largest difference seen was 9.5e-7 (heads, real and fake) and 3.6e-7

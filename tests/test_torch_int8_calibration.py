@@ -31,6 +31,8 @@ from retinanet_torch.export.calibration import (  # noqa: E402
     NUM_BINS, abs_histogram, calibrate_activations, histogram_edges)
 
 from test_torch_model import _build_pair  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 _BACKBONES = {
     "resnet10": {"type": "resnet", "depth": 10},

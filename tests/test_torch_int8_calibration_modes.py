@@ -16,6 +16,7 @@ from retinanet_torch.export.calibration import (  # noqa: E402
     NUM_BINS, calibrate_activations)
 
 from test_torch_int8_calibration import _setup  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("mode", ["percentile", "entropy"])

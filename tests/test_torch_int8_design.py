@@ -59,6 +59,8 @@ from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
     NARROW_PIXEL, NARROW_SMEM_BUDGETS, NARROW_TILE_NS, SMEM_LIMIT, TILE_M,
     TILE_NS, Im2colPlan, conv_args, int8_conv2d, int8_design,
     narrow_staging_bytes, wgmma_chunk, wgmma_tile_n)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 _REPO = Path(__file__).resolve().parent.parent
 _CONFIGS = {

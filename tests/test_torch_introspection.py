@@ -21,6 +21,8 @@ from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
 
 import test_introspection  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 CONV_FLOPS = 150_555_648    # the lowered text's 31 convolutions, batch 1
 CONVS = 31

@@ -30,6 +30,8 @@ from retinanet_torch.data.synthetic import (  # noqa: E402
 from retinanet_torch.export.serving import export_artifact  # noqa: E402
 from retinanet_torch.models.retinanet import build_model  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,10 +41,6 @@ INTENTIONALLY_INERT = {
         "inert in the reference and in the JAX package as well: no module "
         "reads it (MobileDet's residual connections are fixed by the "
         "architecture)",
-    "inference.use_approx_top_k":
-        "the port serves the exact top-k lane only (ROADMAP, chosen "
-        "differences): an approximate top-k is a TPU instruction; on the "
-        "card the exact sort is the one lane, whatever the key says",
 }
 
 # Keys read outside what the drives below reach, with the reading line.
@@ -155,7 +153,9 @@ def _drive_tree(tmp, pattern, ann):
         "inference": {"batch_size": 1, "mode": "PerClassHardNMS",
                       "iou_threshold": 0.5, "score_threshold": 0.05,
                       "soft_nms_sigma": 0.5, "pre_nms_top_k": 200,
-                      "filter_per_class": True, "max_detections": 10},
+                      "filter_per_class": True, "max_detections": 10,
+                      "use_approx_top_k": True,
+                      "approx_recall_target": 0.95},
     }
 
 
@@ -231,6 +231,13 @@ def test_inert_list_is_minimal(traced_reads):
     declaration goes."""
     stale = sorted(set(INTENTIONALLY_INERT) & traced_reads)
     assert not stale, f"keys declared inert but read: {stale}"
+
+
+def test_selection_lane_keys_are_read(traced_reads):
+    """The keys of the selection lane, which no shipped config sets (the
+    default lane serves them all), are read when a config sets them."""
+    assert {"inference.use_approx_top_k",
+            "inference.approx_recall_target"} <= traced_reads
 
 
 def test_tensorboard_dir_is_read(traced_reads, tmp_path):

@@ -39,6 +39,8 @@ from retinanet_torch.train.trainer import build_trainer  # noqa: E402
 from test_torch_train_step import (  # noqa: E402
     SIZE, _assert_metrics, _assert_trees_close, _batch, _random_variables,
     _tree)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 MODELS = {
     "efficientnet-mlaf-aux": {

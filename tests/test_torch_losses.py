@@ -16,6 +16,8 @@ from retinanet_tpu.core import config as jax_cfg  # noqa: E402
 from retinanet_tpu.losses import losses as jax_losses  # noqa: E402
 from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.losses import losses as torch_losses  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
                        "loss_goldens.npz")

@@ -30,6 +30,8 @@ from retinanet_torch.convert import (  # noqa: E402
 from retinanet_torch.models import mobiledet as torch_md  # noqa: E402
 
 from test_torch_model import _random_variables  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 MULTIPLIER = 0.25
 # even sizes pad "SAME" stride-2 convs one row more at the end, odd sizes

@@ -23,6 +23,7 @@ from retinanet_torch.convert import flax_to_torch, \
     load_flax_variables  # noqa: E402
 from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.models import retinanet as torch_retinanet  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 
 def _tree(depth=10, size=(128, 128), max_level=7, precision="float32",

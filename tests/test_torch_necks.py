@@ -34,6 +34,8 @@ from retinanet_torch.models import retinanet as torch_retinanet  # noqa: E402
 
 from test_torch_model import (  # noqa: E402
     _build_pair, _random_variables, _tree)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 CHANNELS = {"3": 8, "4": 12, "5": 20}
 SIZES = {"even": (16, 8, 4), "odd": (12, 6, 3)}

@@ -26,6 +26,7 @@ from retinanet_tpu.train.executor import Executor as JaxExecutor  # noqa: E402
 from retinanet_torch.convert import torch_to_flax  # noqa: E402
 from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
 
 
 def _tree(model_dir, num_classes=6, **changes):

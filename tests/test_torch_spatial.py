@@ -54,6 +54,8 @@ from retinanet_torch.train.executor import Executor  # noqa: E402
 from test_torch_distributed import (  # noqa: E402
     GLOBAL_BATCH, global_batches, one_process_batch, randomize_batch_norms,
     rank_batch, run_steps, step_tree)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 STEP_MODELS = ("resnet", "resnet_remat", "efficientnet")
 ACCUMS = {"resnet": (1, 2), "resnet_remat": (1,), "efficientnet": (1,)}

@@ -11,6 +11,8 @@ torch = pytest.importorskip("torch")
 
 from test_torch_spatial import (  # noqa: E402
     check_backbone, check_bands, check_pipelines, check_steps, spawn_grid)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 DATA, SPATIAL = 2, 2
 

@@ -23,6 +23,8 @@ from retinanet_torch.models import layers  # noqa: E402
 from retinanet_torch.models.resnet import ResNet  # noqa: E402
 from retinanet_torch.parallel.spatial import (  # noqa: E402
     Partition, band_rows)
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 SPATIAL = [2, 3, 4]
 S_IDS = [f"s{s}" for s in SPATIAL]

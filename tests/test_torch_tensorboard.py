@@ -35,6 +35,8 @@ from retinanet_torch.train.diagnostics import MetricsLogger  # noqa: E402
 from retinanet_torch.train.executor import Executor  # noqa: E402
 
 from test_torch_executor import tiny_tree  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 EDGE_TOL = 1e-12
 

@@ -38,6 +38,8 @@ from retinanet_torch.core import config as torch_cfg  # noqa: E402
 from retinanet_torch.data.synthetic import synthetic_train_batch  # noqa: E402
 from retinanet_torch.train import step as torch_step  # noqa: E402
 from retinanet_torch.train.trainer import build_trainer  # noqa: E402
+from test_torch_threads import one_thread  # noqa: E402,F401
+
 
 SIZE = (64, 64)
 LOSS_KEYS = ("box-loss", "class-loss", "weighted-loss", "l2-regularization",
