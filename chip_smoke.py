@@ -184,24 +184,28 @@ JAX. Phases, each fatal on failure:
      rank's peak beside one process's, the step's ms and the exchanges'
      ms, the losses within one bfloat16 rounding of one process's;
  16. the selection lanes on the top-k kernel (`csrc/topk.cu`,
-     `ops/topk_kernel.py`): the kernel index- and value-exact against its
-     plain version (`ops/topk.py:top_k_rows_plain`) on the card, on the
-     flagship's batch-8 fused logits (phase 5's seeded model, class bias
-     0, so that the bf16 logits tie heavily) in the default lane ("packed",
-     drop 1, k = 256), the exact lane ("f32", k = 256), the skip_nms lane
-     ("f32", k = 5,000) and the global lane ((B, A·C) rows, "bf16" and
-     "f32"); on the zoo's anchor counts at batch 8 (37,485 and 49,104:
-     drop 0; 110,484: drop 1; 150,381 and 306,900: "bf16"); on rows of
-     one value and on the top-k over the NMS survivors; each case timed
-     beside its plain version, the stable `torch.sort` lane the port ran
-     before (its transpose and float32 copy included), `torch.topk` (the
-     same set, no tie order) and its bound (one read of the rows); then
-     the flagship request at batch 1 and 8 in the default and the exact
-     lane as the main path (host ms, device busy ms; the kernel's counts
-     at 0 just before), with no sort kernel in a default-lane request's
-     trace. The kernel's launches on the serving (5), evaluation (8),
-     export and int8 (12) and spatial (15) paths are counted there and
-     reported here.
+     `ops/topk_kernel.py`): both designs, "row" and "slab", index- and
+     value-exact against the plain version
+     (`ops/topk.py:top_k_rows_plain`) on the card, on the flagship's
+     batch-8 fused logits (phase 5's seeded model, class bias 0, so that
+     the bf16 logits tie heavily) in the default lane ("packed", drop 1,
+     k = 256), the exact lane ("f32", k = 256), the skip_nms lane ("f32",
+     k = 5,000) and the global lane ((B, A·C) rows, "bf16" and "f32"); on
+     the zoo's anchor counts at batch 8 (37,485 and 49,104: drop 0;
+     110,484: drop 1; 150,381 and 306,900: "bf16"); on rows of one value
+     and on the top-k over the NMS survivors; each case timed under both
+     designs beside its plain version, the stable `torch.sort` lane the
+     port ran before (its transpose and float32 copy included),
+     `torch.topk` (the same set, no tie order) and its bound (one read of
+     the rows), with the slab design's levels and the device ms of its
+     phases (its own %globaltimer stamps); then the flagship request at
+     batch 1 and 8 in the default and the exact lane as the main path
+     (host ms, device busy ms; the kernel's counts at 0 just before, by
+     mode and by design), and in a request's trace slab_select_kernel,
+     slab_final_kernel and topk_rows_kernel once each by name, no sort
+     kernel in the default lane. The kernel's launches on the serving
+     (5), evaluation (8), export and int8 (12) and spatial (15) paths are
+     counted there and reported here.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -434,6 +438,9 @@ TOPK_SORT_NAMES = ("sort", "Sort", "radix", "Radix", "gatherTopK", "sbtopk",
                    "mbtopk", "bitonic")
 # the kernel's launches on the other phases' paths, by path
 TOPK_PATHS = {}
+# the top-k kernels' names in a trace: the slab design's two, row's one
+TOPK_KERNEL_NAMES = ("slab_select_kernel", "slab_final_kernel",
+                     "topk_rows_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -712,6 +719,11 @@ def phase_serving(params, worst_err: float) -> dict:
     check(topk_by == {"packed": len(requests), "f32": len(requests)},
           f"top-k kernel launches by mode {topk_by} for {len(requests)} "
           "requests (the default lane: packed, then f32 over the NMS "
+          "survivors)")
+    topk_designs = dict(topk_kernel.kernel.launches_by_design)
+    check(topk_designs == {"slab": len(requests), "row": len(requests)},
+          f"top-k kernel launches by design {topk_designs} for "
+          f"{len(requests)} requests (slab the per-class rows, row the NMS "
           "survivors)")
     check(launches == len(requests)
           and kernel.launches_by["sweep"] == len(requests),
@@ -3847,55 +3859,77 @@ def topk_sort_lane(rows: torch.Tensor, k: int):
 
 def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
               timed: bool = True) -> dict:
-    """The kernel on rows (B, N, C) against its plain version on the card:
-    indices and value bits equal. Timed beside plain, the sort lane and
-    `torch.topk` along N, and the bound."""
-    from retinanet_torch.ops.topk import top_k_rows_plain
-    from retinanet_torch.ops.topk_kernel import launch
-    got_v, got_i = launch(rows, k, mode)
+    """Both designs of the kernel on rows (B, N, C) against the plain
+    version on the card: indices and value bits equal. Timed beside plain,
+    the sort lane and `torch.topk` along N, and the bound; the slab
+    design's phases from its own stamps."""
+    from retinanet_torch.ops.topk import packed_layout, top_k_rows_plain
+    from retinanet_torch.ops.topk_kernel import (DESIGNS, launch,
+                                                 slab_trace, topk_design)
     want_v, want_i = top_k_rows_plain(rows, k, mode)
-    torch.cuda.synchronize()
     view = torch.int32 if mode == "f32" else torch.int16
-    check(torch.equal(got_i, want_i), f"top-k {label}: indices differ")
-    check(torch.equal(got_v.view(view), want_v.view(view)),
-          f"top-k {label}: values differ")
+    for design in DESIGNS:
+        got_v, got_i = launch(rows, k, mode, design=design)
+        torch.cuda.synchronize()
+        check(torch.equal(got_i, want_i),
+              f"top-k {label} ({design}): indices differ")
+        check(torch.equal(got_v.view(view), want_v.view(view)),
+              f"top-k {label} ({design}): values differ")
+    del want_v, want_i, got_v, got_i
     b, n, c = rows.shape
     out = {"case": label, "mode": mode, "shape": [b, n, c], "k": k,
+           "design": topk_design(b, n, c, k),
            "bound_ms": topk_bound_ms(rows, k)}
     if mode == "packed":
-        from retinanet_torch.ops.topk import packed_layout
         out["drop"] = packed_layout(n)[1]
+    trace = slab_trace(rows, k, mode)
+    out["slab_levels"] = trace["levels"]
+    out["slab_rows_active"] = trace["rows_active"]
+    out["slab_rows_deep"] = trace["rows_deep"]
+    out["slab_candidates"] = trace["candidates"]
+    out["slab_phase_ms"] = {name: ns / 1e6
+                            for name, ns in trace["phase_ns"].items()}
     if timed:
-        times = {"kernel": [], "plain": []}
-        for name in ("kernel", "plain", "plain", "kernel"):
+        times = {"row": [], "slab": [], "plain": []}
+        for name in ("row", "slab", "plain", "plain", "slab", "row"):
             times[name].append(time_ms(
-                (lambda: launch(rows, k, mode)) if name == "kernel" else
-                (lambda: top_k_rows_plain(rows, k, mode)),
-                reps=10 if name == "kernel" else 2))
-        out["ms"] = statistics.mean(times["kernel"])
+                (lambda: top_k_rows_plain(rows, k, mode)) if name == "plain"
+                else (lambda d=name: launch(rows, k, mode, design=d)),
+                reps=2 if name == "plain" else 10))
+        out["row_ms"] = statistics.mean(times["row"])
+        out["slab_ms"] = statistics.mean(times["slab"])
+        out["ms"] = out[f"{out['design']}_ms"]
         out["plain_ms"] = statistics.mean(times["plain"])
         out["sort_lane_ms"] = time_ms(lambda: topk_sort_lane(rows, k),
                                       reps=3)
         out["torch_topk_ms"] = time_ms(
             lambda: torch.topk(rows, k, dim=1), reps=10)
-        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}): kernel "
-              f"{out['ms']:.4f} ms, bound {out['bound_ms']:.5f} ms, plain "
+        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}, "
+              f"{out['design']}): slab {out['slab_ms']:.4f} ms, row "
+              f"{out['row_ms']:.4f}, bound {out['bound_ms']:.5f}, plain "
               f"{out['plain_ms']:.3f}, stable sort lane "
               f"{out['sort_lane_ms']:.3f}, torch.topk "
-              f"{out['torch_topk_ms']:.4f}; index- and value-exact")
-    else:
-        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}): index- and "
+              f"{out['torch_topk_ms']:.4f}; both designs index- and "
               "value-exact")
+    else:
+        print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}): both designs "
+              "index- and value-exact")
+    print(f"[topk] {label}: slab levels {trace['levels']}, rows deep or "
+          f"ready after each {trace['rows_active']} (deep "
+          f"{trace['rows_deep']}), {trace['candidates']} candidates, "
+          "phases (ms) "
+          + ", ".join(f"{name} {ms:.4f}"
+                      for name, ms in out["slab_phase_ms"].items()))
     return out
 
 
 def sort_kernels(names) -> list:
     return sorted({n for n in names if any(s in n for s in TOPK_SORT_NAMES)
-                   and "topk_rows_kernel" not in n})
+                   and not any(t in n for t in TOPK_KERNEL_NAMES)})
 
 
-def phase_topk() -> dict:
-    """Phase 16. Returns the top-k kernel's record."""
+def phase_topk() -> list:
+    """Phase 16. Returns the records of the top-k kernel's two designs."""
     from retinanet_torch.core.config import Config, from_dict
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
@@ -3942,8 +3976,7 @@ def phase_topk() -> dict:
         cases.append(hold_topk(
             "rows of one value", torch.zeros(
                 (TOPK_BATCH, TOPK_ZOO_ANCHORS[0][0], c),
-                dtype=torch.bfloat16, device="cuda"), k, "packed",
-            timed=False))
+                dtype=torch.bfloat16, device="cuda"), k, "packed"))
         for anchors, label in TOPK_ZOO_ANCHORS:
             zoo = torch.from_numpy(rng.normal(
                 TOPK_PRIOR, 1.5, (TOPK_BATCH, anchors, c)).astype(
@@ -3971,10 +4004,15 @@ def phase_topk() -> dict:
             host, _ = served_ms(serve, images[bs], TOPK_REQUESTS)
             request[f"{lane} batch {bs}"] = {"host_ms": host}
     launches, launches_by = kernel.launches, dict(kernel.launches_by)
+    by_design = dict(kernel.launches_by_design)
     served = 2 * (TOPK_REQUESTS + 1)
     check(launches_by == {"packed": served, "f32": 3 * served},
           f"top-k launches by mode {launches_by} for {served} requests a "
           "lane (default: packed + f32 a request; exact: f32 twice)")
+    check(by_design == {"slab": 2 * served, "row": 2 * served},
+          f"top-k launches by design {by_design} for {served} requests a "
+          "lane (each: its per-class selection on slab, the NMS "
+          "survivors' on row)")
     for lane, serve in lanes.items():
         for bs in (8, 1):
             busy = request_device_ms(serve, images[bs])[0]
@@ -3987,30 +4025,49 @@ def phase_topk() -> dict:
         names = kernels_on_card("top_k_rows",
                                 lambda: serve(images[8]))
         traces[lane] = sort_kernels(names)
-        tops = sum("topk_rows_kernel" in n for n in names)
-        check(tops == 2, f"{lane} lane: {tops} top-k kernels in a request")
+        counts = {t: sum(t in n for n in names) for t in TOPK_KERNEL_NAMES}
+        check(counts == {"slab_select_kernel": 1, "slab_final_kernel": 1,
+                         "topk_rows_kernel": 1},
+              f"{lane} lane: top-k kernels {counts} in a request (the slab "
+              "design's two on the per-class selection, row's one on the "
+              "NMS survivors)")
     check(not traces["default"],
           f"sort kernels in a default-lane request: {traces['default']}")
-    print(f"[topk] a default-lane request ran the top-k kernel twice and no "
-          f"sort kernel; the exact lane's sort kernels: {traces['exact']}")
+    print("[topk] a request of either lane ran slab_select_kernel, "
+          "slab_final_kernel and topk_rows_kernel once each, and the "
+          "default lane no sort kernel; the exact lane's sort kernels: "
+          f"{traces['exact']}")
     for path, count in TOPK_PATHS.items():
         check(count > 0, f"top-k kernel launched no time on {path}")
-    main = cases[0]
-    return {"name": "top_k_rows", "route": "cuda",
-            "source": "retinanet_torch/csrc/topk.cu",
-            "replaces": "retinanet_tpu/ops/postprocess.py:54",
-            "replaces_note": "approx_max_k_packed / lax.approx_max_k and "
-                             "lax.top_k, XLA paths (no Pallas kernel)",
-            "launches": launches, "max_abs_err": 0.0,
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": "bytes",
-            "library_ms": main["torch_topk_ms"],
-            "library": "torch.topk along the anchors (no tie order)",
-            "sort_lane_ms": main["sort_lane_ms"],
-            "work": f"the default lane's selection of a batch-8 flagship "
-                    f"request ({main['shape']}, k={main['k']})",
-            "launches_by": launches_by, "cases": cases,
-            "request": request, "launches_on_paths": dict(TOPK_PATHS)}
+    main, tail = cases[0], cases[5]
+    common = {"route": "cuda", "source": "retinanet_torch/csrc/topk.cu",
+              "max_abs_err": 0.0, "bound_by": "bytes",
+              "library": "torch.topk along the anchors (no tie order)"}
+    return [
+        {"name": "top_k_slab", **common,
+         "replaces": "retinanet_tpu/ops/postprocess.py:54",
+         "replaces_note": "approx_max_k_packed / lax.approx_max_k and "
+                          "lax.top_k, XLA paths (no Pallas kernel); two "
+                          "launches a selection",
+         "launches": by_design["slab"], "ms": main["slab_ms"],
+         "row_ms": main["row_ms"], "plain_ms": main["plain_ms"],
+         "bound_ms": main["bound_ms"], "library_ms": main["torch_topk_ms"],
+         "sort_lane_ms": main["sort_lane_ms"],
+         "phase_ms": main["slab_phase_ms"],
+         "work": f"the default lane's selection of a batch-8 flagship "
+                 f"request ({main['shape']}, k={main['k']})",
+         "launches_by": launches_by, "launches_by_design": by_design,
+         "cases": cases, "request": request,
+         "launches_on_paths": dict(TOPK_PATHS)},
+        {"name": "top_k_rows", **common,
+         "replaces": "retinanet_tpu/ops/postprocess.py:326",
+         "replaces_note": "lax.top_k over the NMS survivors, an XLA path "
+                          "(no Pallas kernel)",
+         "launches": by_design["row"], "ms": tail["row_ms"],
+         "slab_ms": tail["slab_ms"], "plain_ms": tail["plain_ms"],
+         "bound_ms": tail["bound_ms"], "library_ms": tail["torch_topk_ms"],
+         "work": f"the top-k over a batch-8 request's NMS survivors "
+                 f"({tail['shape']}, k={tail['k']})"}]
 
 
 def main() -> int:
@@ -4088,7 +4145,7 @@ def main() -> int:
             Path(tmp) / "spatial")
         print(f"[phase 15] took {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
-    records.append(phase_topk())
+    records.extend(phase_topk())
     print(f"[phase 16] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})

@@ -1,5 +1,5 @@
-"""Top-k selection over rows: the CUDA kernel of `csrc/topk.cu`, its build,
-its binding and its wrapper.
+"""Top-k selection over rows: the CUDA kernels of `csrc/topk.cu`, their
+build, their binding and their wrapper.
 
 Replaces no Pallas kernel: it replaces two XLA paths of the JAX package,
 `approx_max_k_packed` / `lax.approx_max_k` (the default serving lane,
@@ -14,20 +14,43 @@ Bound on an H100: one read of the rows, B * N * C * itemsize bytes, and
 the k outputs written; at the flagship's batch 8 (76,725 anchors, 80
 classes, bf16) 98.2 MB, 0.0293 ms at 3.35 TB/s.
 
+Two designs, picked by `topk_design` from the shape alone, both exact:
+
+* "row": one CTA of 1024 threads a (image, class) row, read in place
+  (stride C), an 8-bit radix select, an ordered compaction, a bitonic
+  sort. It serves short rows (the top-k over the NMS survivors), where one
+  launch of a few small CTAs is all the work.
+* "slab": every long row (the per-class and global lanes). A cooperative
+  kernel reads each image's (N, C) slab whole with 16-byte loads, all CTAs
+  sharing every row: a histogram level (the next `hist_bits` of the unique
+  key, per class in shared memory) and a level that writes each row's
+  candidates, at or above the digit found, into its buffer of
+  `capacity` keys; a row whose candidates would not fit reads the slab
+  again for the next digit. A second kernel, a CTA a row, finishes the
+  radix select inside the candidates and sorts the k. Two launches a
+  selection; the scratch is one `torch.empty` that the kernel zeroes.
+  `slab_plan` gives the numbers; `tests/test_torch_topk_slab.py` walks the
+  design in numpy from them.
+
+A failed build or launch raises; neither design gives way to the other or
+to the plain version.
+
 Build: `ops/cuda_build.py` compiles `csrc/topk.cu` with `nvcc` on first use
 and loads it with ctypes. Importing this module needs no `nvcc`.
-`select_top_k` reaches the kernel through the custom op
+`select_top_k` reaches the kernels through the custom op
 `torch.ops.retinanet_torch.top_k_rows`, which dispatches by the tensor's
-device (the kernel for CUDA, `top_k_rows_plain` for the CPU) and has a
+device (the kernels for CUDA, `top_k_rows_plain` for the CPU) and has a
 fake implementation for its output shapes, so that `torch.export` can
 capture a serving graph with the selection in it. `kernel.launches` counts
-every launch, `kernel.launches_by[mode]` those of one mode.
+every selection, `kernel.launches_by[mode]` those of one mode and
+`kernel.launches_by_design[design]` those of one design.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +60,72 @@ from retinanet_torch.ops.topk import check_rows, packed_layout, \
 
 MAX_K = 8192    # the final sort's keys in shared memory, 8 bytes each
 _MODE_CODE = {"packed": 0, "bf16": 1, "f32": 2}
+DESIGNS = ("row", "slab")
+
+# The slab design. Those that csrc/topk.cu also has (kSlab*, kFinalBits,
+# kChunkAnchors) carry the same values there.
+SLAB_MIN_ROW = 16384        # shorter rows take "row"
+SLAB_MAX_CLASSES = 320      # C x 256 16-bit counters in the budget
+SLAB_HIST_BYTES = 160 * 1024
+SLAB_CAPACITY = 16384       # a row's candidate buffer: max(this, 2 k)
+SLAB_FINAL_BITS = 11        # the final kernel's digit
+SLAB_MAX_LEVELS = 16
+SLAB_ROW_STATE_BYTES = 32
+SLAB_STAMPS = 4 + 2 * SLAB_MAX_LEVELS
+SLAB_CHUNK_ANCHORS = 65528  # a chunk's anchors: 16-bit counters suffice
+SLAB_THREADS = 512          # the cooperative kernel's CTA
+
+
+def topk_design(b: int, n: int, c: int, k: int) -> str:
+    """The design that selects k of each of the B x C rows of N elements:
+    "slab" for rows of at least SLAB_MIN_ROW elements and at most
+    SLAB_MAX_CLASSES rows an image, else "row". By shape alone."""
+    del b, k
+    return "slab" if n >= SLAB_MIN_ROW and c <= SLAB_MAX_CLASSES else "row"
+
+
+class SlabPlan(NamedTuple):
+    key_bits: int       # V: bits of the value key
+    idx_bits: int       # I: bits of the index part of the unique key
+    hist_bits: int      # D: bits of a slab level's digit
+    capacity: int       # a row's candidate buffer, min(capacity, n) >= k
+    levels: int         # the most levels (reads of the slab)
+    scratch_bytes: int
+    offsets: Tuple[int, int, int, int, int]   # buf, ghist, rows, active,
+    #                                           stamps
+
+
+def _up16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def slab_plan(b: int, n: int, c: int, k: int, mode: str,
+              capacity: Optional[int] = None) -> SlabPlan:
+    """The slab design's numbers for x (b, n, c) and k. `capacity` (at
+    least k) replaces the default buffer of max(SLAB_CAPACITY, 2 k) keys a
+    row, as the tests do to make rows overflow."""
+    if c > SLAB_MAX_CLASSES:
+        raise ValueError(f"the slab design takes at most "
+                         f"{SLAB_MAX_CLASSES} classes, got {c}")
+    drop = packed_layout(n)[1] if mode == "packed" else 0
+    key_bits = 32 if mode == "f32" else 16 - drop
+    idx_bits = max(int(n - 1).bit_length(), 1)
+    hist_bits = min(16, key_bits,
+                    (SLAB_HIST_BYTES // (2 * c)).bit_length() - 1)
+    cap = max(SLAB_CAPACITY, 2 * k) if capacity is None else int(capacity)
+    if cap < k:
+        raise ValueError(f"capacity {cap} is below k={k}")
+    cap = min(cap, n)
+    levels = -(-(key_bits + idx_bits) // hist_bits) + 1
+    rows = b * c
+    buf = 0
+    ghist = _up16(buf + rows * cap * 8)
+    states = _up16(ghist + (rows << hist_bits) * 4)
+    active = _up16(states + rows * SLAB_ROW_STATE_BYTES)
+    stamps = _up16(active + 2 * SLAB_MAX_LEVELS * 4)
+    total = _up16(stamps + SLAB_STAMPS * 8)
+    return SlabPlan(key_bits, idx_bits, hist_bits, cap, levels, total,
+                    (buf, ghist, states, active, stamps))
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -45,20 +134,83 @@ def declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.topk_rows_launch.restype = ctypes.c_int
+    lib.topk_slab_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.topk_slab_scratch_bytes.restype = ctypes.c_longlong
+    lib.topk_slab_launch.argtypes = [
+        ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_slab_launch.restype = ctypes.c_int
     lib.topk_error_string.argtypes = [ctypes.c_int]
     lib.topk_error_string.restype = ctypes.c_char_p
 
 
+class TopkLibrary(CudaLibrary):
+    """`csrc/topk.cu` built, with its counts: a selection adds one to
+    `launches`, to `launches_by[mode]` and to `launches_by_design[design]`
+    (the slab design's selection is two kernel launches)."""
+
+    def __init__(self, name: str = "topk", source=None):
+        super().__init__(name, declare, source)
+        self.launches_by_design: collections.Counter = collections.Counter()
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.launches_by_design.clear()
+
+
 # the built library, and the counts of kernel launches
-kernel = CudaLibrary("topk", declare)
+kernel = TopkLibrary()
 
 
-def launch(x: torch.Tensor, k: int, mode: str,
+def launch(x: torch.Tensor, k: int, mode: str, design: Optional[str] = None,
+           capacity: Optional[int] = None,
            library: Optional[CudaLibrary] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch on a checked contiguous CUDA tensor x (B, N, C): values
-    and int32 indices (B, C, k). `library` is another build of
-    `csrc/topk.cu` for measurements."""
+    """One selection on a checked contiguous CUDA tensor x (B, N, C):
+    values and int32 indices (B, C, k). `design` forces "row" or "slab"
+    (default `topk_design`); `capacity` sets the slab design's candidate
+    buffer; `library` is another build of `csrc/topk.cu` for
+    measurements."""
+    return _launch(x, k, mode, design, capacity, library)[:2]
+
+
+def slab_trace(x: torch.Tensor, k: int, mode: str,
+               capacity: Optional[int] = None,
+               library: Optional[CudaLibrary] = None) -> dict:
+    """One slab selection, then what its scratch recorded: the device ns
+    of each phase of the cooperative kernel (the zeroing, then each level's
+    read of the slab and its choice) and of the final kernel, and the rows
+    deep or ready after each level's choice, and of those the rows still
+    deep, and the candidates written in all."""
+    _, _, scratch, plan = _launch(x, k, mode, "slab", capacity, library)
+    torch.cuda.synchronize(x.device)
+    _, _, states_at, active_at, stamps_at = plan.offsets
+    b, _, c = x.shape
+    states = scratch[states_at:states_at + b * c * SLAB_ROW_STATE_BYTES].view(
+        torch.int32).view(b * c, SLAB_ROW_STATE_BYTES // 4)
+    written = int(states[:, 6].sum())      # RowState.cnt
+    counts = scratch[active_at:active_at + 2 * SLAB_MAX_LEVELS * 4].view(
+        torch.int32).tolist()
+    active, deep = counts[:SLAB_MAX_LEVELS], counts[SLAB_MAX_LEVELS:]
+    stamps = scratch[stamps_at:stamps_at + SLAB_STAMPS * 8].view(
+        torch.int64).tolist()
+    levels = next((i + 1 for i, a in enumerate(active) if a == 0),
+                  plan.levels)
+    phases = {"zero": stamps[1] - stamps[0]}
+    prev = stamps[1]
+    for level in range(levels):
+        pass_end, choose_end = stamps[2 + 2 * level], stamps[3 + 2 * level]
+        phases[f"level {level} read"] = pass_end - prev
+        phases[f"level {level} choice"] = choose_end - pass_end
+        prev = choose_end
+    phases["final"] = stamps[-1] - stamps[-2]
+    return {"phase_ns": phases, "levels": levels,
+            "rows_active": active[:levels], "rows_deep": deep[:levels],
+            "candidates": written, "plan": plan._asdict()}
+
+
+def _launch(x, k, mode, design, capacity, library):
     library = library or kernel
     check_rows(x, k, mode)
     if x.device.type != "cuda" or not x.is_contiguous():
@@ -69,22 +221,42 @@ def launch(x: torch.Tensor, k: int, mode: str,
     if n >= 2 ** 31 or b * c >= 2 ** 31:
         raise ValueError(f"too many rows or too long a row for the kernel: "
                          f"{tuple(x.shape)}")
+    design = design or topk_design(b, n, c, k)
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     values = torch.empty((b, c, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((b, c, k), dtype=torch.int32, device=x.device)
+    scratch = plan = None
     if b * c == 0:
-        return values, idx
+        return values, idx, scratch, plan
     lib = library.build()
     drop = packed_layout(n)[1] if mode == "packed" else 0
-    err = lib.topk_rows_launch(
-        x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop, values.data_ptr(),
-        idx.data_ptr(), device_index(x.device),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if design == "row":
+        err = lib.topk_rows_launch(
+            x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
+            values.data_ptr(), idx.data_ptr(), device_index(x.device),
+            stream)
+    else:
+        if n * c >= 2 ** 31:
+            raise ValueError(f"an image of {n} x {c} elements is too large "
+                             "for the slab design")
+        plan = slab_plan(b, n, c, k, mode, capacity)
+        scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                              device=x.device)
+        err = lib.topk_slab_launch(
+            x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
+            plan.hist_bits, plan.capacity, plan.levels, scratch.data_ptr(),
+            plan.scratch_bytes, values.data_ptr(), idx.data_ptr(),
+            device_index(x.device), stream)
     if err != 0:
-        raise RuntimeError(f"top-k kernel ({mode}) launch failed: "
+        raise RuntimeError(f"top-k kernel ({design}, {mode}) launch failed: "
                            + lib.topk_error_string(err).decode())
     library.launches += 1
     library.launches_by[mode] += 1
-    return values, idx
+    if isinstance(library, TopkLibrary):
+        library.launches_by_design[design] += 1
+    return values, idx, scratch, plan
 
 
 @torch.library.custom_op("retinanet_torch::top_k_rows", mutates_args=(),

@@ -35,7 +35,7 @@ _FAMILIES = (
     ("nms (hand kernel)", r"nms_lanes_kernel|nms_sweep_kernel"),
     ("match (hand kernel)", r"match_kernel|decode_keys_kernel"),
     ("optimizer / clip (foreach)", r"multi_tensor"),
-    ("sort / top-k", r"sort|radix|Sort|topk|bitonic"),
+    ("sort / top-k", r"sort|radix|Sort|topk|bitonic|slab_select|slab_final"),
     ("batch norm", r"batch_norm|batchnorm|bn_fw"),
     # cuDNN names its depthwise kernels (one channel a group) *2d_c1_k1_*;
     # ATen's own are conv_depthwise2d_*

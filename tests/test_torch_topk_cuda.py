@@ -1,12 +1,15 @@
-"""The CUDA top-k kernel against its plain PyTorch version on the card.
+"""The CUDA top-k kernels against their plain PyTorch version on the card.
 
 Imports nothing of JAX, so that it runs on a machine with a card and no
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_topk_cuda.py`.
-Indices and value bits exactly equal in every mode ("packed" with drop 0
-and 1, "bf16", "f32"), on normal logits around the class prior, on
-quarter-step logits and rows of one value (heavy ties), on signed zeros,
-at k from 1 to 8192 and on rows laid out in place ((B, N, C), stride C)
-and as one long row ((B, N, 1))."""
+Both designs ("row" and "slab", forced through `launch(design=...)`) on
+every case: indices and value bits exactly equal in every mode ("packed"
+with drop 0 and 1, "bf16", "f32"), on normal logits around the class
+prior, on quarter-step logits and rows of one value (heavy ties), on signed
+zeros, at k from 1 to 8192 and on rows laid out in place ((B, N, C), stride
+C) and as one long row ((B, N, 1), the global lane); the slab design also
+with a candidate buffer of k keys, so that rows overflow it and read the
+slab again."""
 
 import numpy as np
 import pytest
@@ -15,22 +18,30 @@ torch = pytest.importorskip("torch")
 
 from retinanet_torch.ops.topk import (  # noqa: E402
     select_top_k, top_k_rows_plain)
-from retinanet_torch.ops.topk_kernel import kernel, launch  # noqa: E402
+from retinanet_torch.ops.topk_kernel import (  # noqa: E402
+    kernel, launch, slab_trace, topk_design)
 
 _CASES = [
     # mode, batch, n, classes, k, kind
     ("packed", 8, 76725, 80, 256, "normal"),    # the flagship, drop 1
+    ("packed", 8, 76725, 80, 5000, "quarter"),
     ("packed", 2, 37485, 80, 256, "quarter"),   # drop 0
+    ("packed", 8, 37485, 80, 256, "one"),       # rows of one value
     ("packed", 2, 110484, 8, 1000, "normal"),   # drop 1
     ("packed", 2, 3069, 5, 3069, "quarter"),    # k = N
     ("packed", 3, 774, 7, 1, "one"),            # one value, k = 1
     ("bf16", 2, 150381, 4, 256, "quarter"),     # above 2^17
     ("bf16", 2, 306900, 2, 5000, "normal"),
     ("bf16", 1, 9207 * 80, 1, 256, "normal"),   # the global lane
+    ("bf16", 8, 76725 * 80, 1, 256, "normal"),  # ... at batch 8
+    ("bf16", 2, 76725 * 80, 1, 8192, "one"),
     ("f32", 2, 76725, 16, 256, "normal"),       # the exact lane
+    ("f32", 8, 76725, 80, 256, "sigmoid"),
     ("f32", 2, 76725, 8, 5000, "quarter"),      # the skip_nms lane
+    ("f32", 2, 76725, 80, 8192, "quarter"),
     ("f32", 8, 8000, 1, 100, "zeros"),          # the NMS survivors
     ("f32", 1, 20000, 3, 8192, "one"),          # the largest k
+    ("f32", 2, 70001, 3, 300, "zeros"),         # odd rows: unaligned images
 ]
 
 
@@ -44,25 +55,50 @@ def _rows(case):
         x = np.full_like(x, -2.0)
     elif kind == "zeros":
         x = np.round(x) * 0.0           # +0.0 and -0.0
+    elif kind == "sigmoid":
+        x = 1.0 / (1.0 + np.exp(-rng.normal(0.0, 0.3, x.shape)))
     t = torch.from_numpy(x.astype(np.float32)).cuda()
     return t if mode == "f32" else t.to(torch.bfloat16)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", _CASES, ids=str)
-def test_topk_kernel_matches_plain(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the top-k kernel has no CPU mode")
-    mode, _, _, _, k, _ = case
-    x = _rows(case)
-    before = kernel.launches_by[mode]
-    got_v, got_i = launch(x, k, mode)
-    assert kernel.launches_by[mode] == before + 1
+def _check(x, k, mode, got_v, got_i):
     want_v, want_i = top_k_rows_plain(x, k, mode)
     torch.cuda.synchronize()
     view = torch.int32 if mode == "f32" else torch.int16
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_v.view(view), want_v.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["row", "slab"])
+@pytest.mark.parametrize("case", _CASES, ids=str)
+def test_topk_kernel_matches_plain(case, design):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the top-k kernel has no CPU mode")
+    mode, _, _, _, k, _ = case
+    x = _rows(case)
+    before = dict(kernel.launches_by), dict(kernel.launches_by_design)
+    got_v, got_i = launch(x, k, mode, design=design)
+    assert kernel.launches_by[mode] == before[0].get(mode, 0) + 1
+    assert kernel.launches_by_design[design] == before[1].get(design, 0) + 1
+    _check(x, k, mode, got_v, got_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in _CASES if c[2] > c[4]],
+                         ids=str)
+def test_slab_rows_that_overflow_read_the_slab_again(case):
+    """A buffer of k keys: a row whose candidates at the digit found exceed
+    it takes another level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the top-k kernel has no CPU mode")
+    mode, _, _, _, k, kind = case
+    x = _rows(case)
+    got_v, got_i = launch(x, k, mode, design="slab", capacity=k)
+    _check(x, k, mode, got_v, got_i)
+    trace = slab_trace(x, k, mode, capacity=k)
+    if kind in ("one", "quarter", "zeros"):
+        assert trace["levels"] > 2, trace
 
 
 @pytest.mark.cuda
@@ -78,3 +114,9 @@ def test_select_top_k_dispatches_to_the_kernel():
     assert torch.equal(values, want.values[..., :50])
     with pytest.raises(ValueError):
         launch(torch.zeros((1, 9000, 1), device="cuda"), 8193, "f32")
+    # the flagship's default lane takes the slab design, by shape alone
+    x = torch.zeros((1, 76725, 80), dtype=torch.bfloat16, device="cuda")
+    assert topk_design(1, 76725, 80, 256) == "slab"
+    before = kernel.launches_by_design["slab"]
+    select_top_k(x, 256, "packed", dim=1)
+    assert kernel.launches_by_design["slab"] == before + 1
