@@ -100,26 +100,31 @@ JAX. Phases, each fatal on failure:
      int8-activation lane (frozen graph equal to the rebuilt function),
      then 4 requests each at batch 1 and 8 as the main path, the int8
      kernel's counts at 0 before them: every dense call but the stem
-     launched on the "wgmma" design, the stem on "mma_sync"
+     launched on the "wgmma" design, the stem on "stem"
      (`ops/int8_conv_kernel.py:int8_design`); every int8 conv call of one
      batch-8 request bit-equal to `ops/int8_conv.py` and timed beside its
-     bounds, cuDNN bf16 at its shape and `torch._int_mm` for a 1x1 conv,
-     printed a shape a line with its design; float, weight-only and int8
-     request ms; the device busy ms of a request and the int8 conv's
-     kernels in it by name (profiler); the host us that encoding a wgmma
-     call's three tensor maps takes; detection_agreement_ap of int8
-     against float; (d) `evaluate_artifact` through the frozen int8 graph
-     on the JPEGs of tests/goldens/jpeg_decode_goldens.npz; (e)
-     EfficientNet-lite2 512 and (f) MobileDet-cpu 448, each calibrated on
-     synthetic scenes, one batch-8 request with its launches by design
-     checked ({mma_sync: 1, narrow: 1, wgmma: 69, depthwise: 50} and {1,
-     6, 93, 43}), every int8 conv call bit-equal to the plain version and
-     timed (depthwise beside cuDNN's bf16 depthwise, a narrow call beside
-     the mma_sync design at its shape; each design's total beside its
-     bound), the share of depthwise inputs left to the division, the
-     request's device busy and, in its trace, the narrow kernel at most
-     once a narrow call and the quantizing passes at most once a wgmma or
-     mma_sync call (launches by kernel name), and the "depthwise_generic"
+     bounds, cuDNN bf16 at its shape and `torch._int_mm` for a 1x1 conv
+     (the stem also on "mma_sync" and "narrow" by their routes,
+     `tools/int8_conv_experiments.py:STEM_ROUTES`), printed a shape a line
+     with its design; float, weight-only and int8 request ms; the device
+     busy ms of a request and the int8 conv's kernels in it by name
+     (profiler; at batch 8 also with the stem routed to mma_sync), the stem
+     kernel at most once a request and no `quantize_words_kernel`; the host
+     us that encoding a wgmma call's three tensor maps takes;
+     detection_agreement_ap of int8 against float; (d)
+     `evaluate_artifact` through the frozen int8 graph on the JPEGs of
+     tests/goldens/jpeg_decode_goldens.npz; (e) EfficientNet-lite2 512 and
+     (f) MobileDet-cpu 448, each calibrated on synthetic scenes, one
+     batch-8 request with its launches by design checked ({stem: 1,
+     narrow: 1, wgmma: 69, depthwise: 50} and {1, 6, 93, 43}), every int8
+     conv call bit-equal to the plain version and timed (depthwise beside
+     cuDNN's bf16 depthwise, a narrow call beside the mma_sync design at
+     its shape, the stem beside mma_sync and narrow; each design's total
+     beside its bound), the share of depthwise inputs left to the
+     division, the request's device busy and, in its trace, the narrow and
+     stem kernels at most once a call of their design, no
+     `quantize_words_kernel`, and `quantize_bytes_kernel` at most once a
+     wgmma call (launches by kernel name), and the "depthwise_generic"
      design
      bit-equal at the first depthwise call through an input off 16-byte
      alignment; (g) every distinct narrow shape (dense, 4 <= C <= 16) of
@@ -351,16 +356,17 @@ INT8_SHAPES = (
 )
 # the int8 conv's CUDA kernels, by name in a profiler trace
 INT8_KERNEL_NAMES = ("int8_conv_", "int8_conv_narrow_kernel",
-                     "quantize_words_kernel", "quantize_bytes_kernel")
+                     "int8_conv_stem_kernel", "quantize_words_kernel",
+                     "quantize_bytes_kernel")
 # phase 12 (e), (f): models with depthwise convs, one batch-8 int8 request
 # each, and the int8 conv launches it makes by design
 INT8_ZOO = (
     ("efficientnet-lite2 512", REPO / "configs" / "v3-32"
      / "mscoco-retinanet-efficientnet-lite2-512x512-30x-256.json",
-     {"mma_sync": 1, "narrow": 1, "wgmma": 69, "depthwise": 50}),
+     {"stem": 1, "narrow": 1, "wgmma": 69, "depthwise": 50}),
     ("mobiledet-cpu 448", REPO / "configs" / "v3-8"
      / "mscoco-retinanet-mobiledet-cpu-448x448-30x-64.json",
-     {"mma_sync": 1, "narrow": 6, "wgmma": 93, "depthwise": 43}),
+     {"stem": 1, "narrow": 6, "wgmma": 93, "depthwise": 43}),
 )
 # phase 12 (e), (f): requests in the trace that counts the int8 kernels
 INT8_PROFILED_REQUESTS = 3
@@ -2103,15 +2109,16 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
     """Every recorded call bit for bit against `int8_conv2d_plain` on the
     same tensors; with `timed`, each call's kernel, plain and cuDNN bf16
     device ms (and `torch._int_mm` for a 1x1 conv; a narrow call also on
-    the mma_sync design it replaced) and its bounds. Returns (rows, the
-    largest |kernel - plain| over the calls)."""
+    the mma_sync design it replaced, a stem call on mma_sync and on
+    narrow, by their routes) and its bounds. Returns (rows, the largest
+    |kernel - plain| over the calls)."""
     import torch.nn.functional as F
     from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,
                                                quantize_activation,
                                                unpack_weights)
     from retinanet_torch.ops.int8_conv_kernel import int8_design, launch
-    from retinanet_torch.tools.int8_conv_experiments import (NARROW_ROUTES,
-                                                             routed)
+    from retinanet_torch.tools.int8_conv_experiments import (
+        NARROW_ROUTES, STEM_ROUTES, routed)
     rows, max_err = [], 0.0
     for args, out in calls:
         x, packed, scale, bias, s_a, stride, pads, groups, kh, kw, dt = args
@@ -2125,6 +2132,7 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
               f"by {err}")
         row = {"path": path, "x": list(x.shape), "out": list(out.shape),
                "k": kh, "stride": stride, "groups": groups,
+               "max_abs_err": err,
                "design": int8_design(x.shape[3], out.shape[3], kh, kw,
                                      stride, groups,
                                      x.data_ptr() % 16 == 0)}
@@ -2134,11 +2142,17 @@ def hold_int8_calls(calls, paths_of, label: str, timed: bool) -> tuple:
             row.update(ops_s=t_ops, bytes_s=t_bytes)
             with torch.inference_mode():
                 row["ms"] = time_ms(lambda: launch(*args), reps=5)
-                row["mma_sync_ms"] = None
-                if row["design"] == "narrow":
-                    with routed(NARROW_ROUTES["mma_sync"]):
-                        row["mma_sync_ms"] = time_ms(lambda: launch(*args),
-                                                     reps=5)
+                row["mma_sync_ms"] = row["narrow_ms"] = None
+                routes = ({"mma_sync": NARROW_ROUTES["mma_sync"]}
+                          if row["design"] == "narrow" else STEM_ROUTES
+                          if row["design"] == "stem" else {})
+                for other, route in routes.items():
+                    with routed(route):
+                        check(torch.equal(launch(*args), want),
+                              f"{label}: int8 conv {path} on {other} "
+                              "differs from its plain version")
+                        row[f"{other}_ms"] = time_ms(
+                            lambda: launch(*args), reps=5)
                 row["plain_ms"] = time_ms(
                     lambda: int8_conv2d_plain(*args), reps=1, warmup=0)
                 c = x.shape[3]
@@ -2187,7 +2201,8 @@ def print_int8_shapes(label: str, rows: list) -> list:
                "plain_ms": mean("plain_ms"),
                "cudnn_bf16_ms": mean("cudnn_bf16_ms"),
                "int_mm_ms": mean("int_mm_ms"),
-               "mma_sync_ms": mean("mma_sync_ms")}
+               "mma_sync_ms": mean("mma_sync_ms"),
+               "narrow_ms": mean("narrow_ms")}
         table.append(rec)
         print(f"[int8] {label} {design:9s} {k}x{k}/{stride}"
               f"{' dw' if groups > 1 else ''} x {list(x)} -> {list(out)} "
@@ -2197,13 +2212,17 @@ def print_int8_shapes(label: str, rows: list) -> list:
               + ("" if rec["int_mm_ms"] is None else
                  f", torch._int_mm {rec['int_mm_ms']:.4f}")
               + ("" if rec["mma_sync_ms"] is None else
-                 f", on mma_sync {rec['mma_sync_ms']:.4f}"))
+                 f", on mma_sync {rec['mma_sync_ms']:.4f}")
+              + ("" if rec["narrow_ms"] is None else
+                 f", on narrow {rec['narrow_ms']:.4f}"))
     for rec in design_totals(label, rows, {}):
         print(f"[int8] {label} {rec['design']}: {rec['calls']} calls, "
               f"kernel {rec['ms']:.4f} ms, cuDNN bf16 "
               f"{rec['cudnn_bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
               f"ms" + ("" if rec["mma_sync_ms"] is None else
-                       f", on mma_sync {rec['mma_sync_ms']:.4f} ms"))
+                       f", on mma_sync {rec['mma_sync_ms']:.4f} ms")
+              + ("" if rec["narrow_ms"] is None else
+                 f", on narrow {rec['narrow_ms']:.4f} ms"))
     return table
 
 
@@ -2219,17 +2238,23 @@ def design_totals(label: str, rows: list, launches_by: dict) -> list:
                     "ms": sum(r["ms"] for r in mine),
                     "bound_ms": sum(max(r["ops_s"], r["bytes_s"])
                                     for r in mine) * 1e3,
+                    "plain_ms": sum(r["plain_ms"] for r in mine),
                     "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in mine),
                     "mma_sync_ms": (sum(r["mma_sync_ms"] for r in mine)
-                                    if design == "narrow" else None)})
+                                    if design in ("narrow", "stem")
+                                    else None),
+                    "narrow_ms": (sum(r["narrow_ms"] for r in mine)
+                                  if design == "stem" else None)})
     return out
 
 
-def request_device_ms(serve, images, count: int = 3) -> tuple:
+def request_device_ms(serve, images, count: int = 3,
+                      every: dict = None) -> tuple:
     """(device busy ms, ms of the int8 conv's kernels, those ms by kernel
     name, their launches by kernel name) of one request, from a profiler
     trace over `count` requests after one that is not (launches: over the
-    `count` requests)."""
+    `count` requests); `every`, if given, gets every kernel's ms a request
+    by name."""
     from torch.profiler import ProfilerActivity, profile
     from retinanet_torch.profile_serving import _NOT_KERNELS
     serve(images)
@@ -2244,6 +2269,8 @@ def request_device_ms(serve, images, count: int = 3) -> tuple:
         if dev_us <= 0 or evt.key.startswith(_NOT_KERNELS):
             continue
         busy += dev_us
+        if every is not None:
+            every[evt.key] = every.get(evt.key, 0.0) + dev_us / 1e3 / count
         if any(n in evt.key for n in INT8_KERNEL_NAMES):
             # the kernel's name and template arguments, without the
             # namespace and the parameter list
@@ -2338,6 +2365,8 @@ def phase_export_int8(workdir: Path) -> tuple:
     from retinanet_torch.export.serving import load_artifact
     from retinanet_torch.ops import int8_conv_kernel, nms_kernel, topk_kernel
     from retinanet_torch.ops.int8_conv_kernel import encode_us, int8_design
+    from retinanet_torch.tools.int8_conv_experiments import (STEM_ROUTES,
+                                                             routed)
     workdir.mkdir(parents=True, exist_ok=True)
     int8 = int8_conv_kernel.kernel
 
@@ -2414,8 +2443,8 @@ def phase_export_int8(workdir: Path) -> tuple:
     check(len(calls) > 0 and launches == served * len(calls),
           f"int8 kernel launched {launches} times for {served} requests of "
           f"{len(calls)} int8 convs")
-    # every dense call but the stem on the wgmma design, the stem on
-    # mma.sync, and the counts of the main path say so
+    # every dense call but the stem on the wgmma design, the stem on the
+    # stem design, and the counts of the main path say so
     stem = INT8_SHAPES[0][1]
     designs = {}
     for args, _ in calls:
@@ -2423,11 +2452,11 @@ def phase_export_int8(workdir: Path) -> tuple:
         path = paths_of.get(packed.data_ptr(), "?")
         design = int8_design(x.shape[3], scale.shape[0], kh, kw, stride,
                              groups)
-        want = ("mma_sync" if path == stem else
+        want = ("stem" if path == stem else
                 "wgmma" if groups == 1 else "depthwise")
         check(design == want, f"int8 conv {path} takes {design}")
         designs[design] = designs.get(design, 0) + 1
-    check(designs == {"wgmma": len(calls) - 1, "mma_sync": 1}
+    check(designs == {"wgmma": len(calls) - 1, "stem": 1}
           and launches_by == {d: served * n for d, n in designs.items()},
           f"int8 launches by design {launches_by} for {served} requests "
           f"of {designs}")
@@ -2464,11 +2493,45 @@ def phase_export_int8(workdir: Path) -> tuple:
         for bs in INT8_BATCHES:
             busy[f"{lane} batch {bs}"] = request_device_ms(serve,
                                                            requests[bs])
+    # the batch-8 int8 request with the stem on "stem" and on the design it
+    # replaced, in turns: (device busy ms, ms of the int8 conv's kernels)
+    turns = {"stem": [], "stem on mma_sync": []}
+    every = {"stem": {}, "stem on mma_sync": {}}  # kernel -> ms, 2 turns
+    for i in range(4):
+        key = "stem on mma_sync" if i % 2 else "stem"
+        with routed(STEM_ROUTES["mma_sync"] if i % 2 else {}):
+            got = request_device_ms(q_module.serve, requests[8],
+                                    every=every[key])
+        turns[key].append(got[:2])
+        busy[f"int8 batch 8, {key} ({len(turns[key])})"] = got
+    # the kernels whose time a request moves most between the two
+    names = set(every["stem"]) | set(every["stem on mma_sync"])
+    moved = sorted(((every["stem"].get(n, 0.0)
+                     - every["stem on mma_sync"].get(n, 0.0)) / 2, n)
+                   for n in names)
+    for delta, name in moved[:5] + moved[-8:]:
+        print(f"[int8] a batch-8 int8 request's kernel {name[:110]}: "
+              f"{delta:+.4f} ms on stem against mma_sync (mean of 2 "
+              "turns)")
     for key, (ms, int8_ms, by_name, _) in busy.items():
         print(f"[int8] {key} request, profiler: device busy {ms:.3f} ms, "
               f"of which the int8 conv's kernels {int8_ms:.3f} ms: "
               + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
                   by_name.items(), key=lambda kv: -kv[1])))
+    # a stem call is one kernel: in the trace of 3 requests of each batch
+    # the stem kernel runs, at most once a request (the trace may lose a
+    # launch), and no quantizing pass of words
+    for bs in INT8_BATCHES:
+        ran = busy[f"int8 batch {bs}"][3]
+        stem_ran = sum(n for k, n in ran.items()
+                       if "int8_conv_stem_kernel" in k)
+        words_ran = sum(n for k, n in ran.items()
+                        if "quantize_words_kernel" in k)
+        check(0 < stem_ran <= 3 and words_ran == 0,
+              f"int8 batch {bs}: int8_conv_stem_kernel {stem_ran} and "
+              f"quantize_words_kernel {words_ran} launches in 3 requests")
+    print("[int8] the flagship's int8 requests: int8_conv_stem_kernel at "
+          "most once a request, no quantize_words_kernel (profiler)")
     head_args = next(a for a, _ in calls
                      if paths_of.get(a[1].data_ptr()) == INT8_SHAPES[3][1])
     x, packed, scale, _, _, stride, pads, _, kh, kw, dt = head_args
@@ -2518,6 +2581,38 @@ def phase_export_int8(workdir: Path) -> tuple:
           f"plain version; kernel {record['ms']:.3f} ms in all, bound "
           f"{record['bound_ms']:.4f} ms ({record['bound_by']}), cuDNN bf16 "
           f"{record['library_ms']:.3f}, plain {record['plain_ms']:.1f}")
+    # the stem design's own row: the flagship's stem call
+    top = shapes[0]
+    stem_record = {
+        "name": "int8_conv_stem", "route": "cuda",
+        "source": "retinanet_torch/csrc/int8_conv.cu",
+        "replaces": "retinanet_tpu/export/quantize.py:100",
+        "replaces_note": "the stem's lax.conv_general_dilated(int8, int8, "
+                         "int32) at :147, an XLA path (no Pallas kernel); "
+                         "the mma_sync design before it",
+        "launches": launches_by.get("stem", 0),
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["design"] == "stem"),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["cudnn_bf16_ms"],
+        "library": "cuDNN bf16 F.conv2d at the stem's shape",
+        "mma_sync_ms": top["mma_sync_ms"], "narrow_ms": top["narrow_ms"],
+        "work": f"the flagship's 7x7/2 stem in a batch-8 request "
+                f"({top['x']} -> {top['out']})",
+        "request_device_busy_ms": {k: [b for b, _ in v]
+                                   for k, v in turns.items()},
+        "request_int8_conv_ms": {k: [c for _, c in v]
+                                 for k, v in turns.items()}}
+    print(f"[int8] flagship stem: stem {top['ms']:.4f} ms, on mma_sync "
+          f"{top['mma_sync_ms']:.4f}, on narrow {top['narrow_ms']:.4f}, "
+          f"cuDNN bf16 {top['cudnn_bf16_ms']:.4f}, bound "
+          f"{top['bound_ms']:.5f} ({top['bound_by']}); the batch-8 int8 "
+          "request's device busy (int8 conv kernels) in turns: "
+          + ", ".join(f"{k} {b:.3f} ({c:.3f})" for i in range(2)
+                      for k, v in turns.items() for b, c in [v[i]])
+          + " ms")
+    record["stem_kernel"] = stem_record
 
     # (d) evaluate_artifact on the goldens' JPEGs through the int8 graph
     record["launches_on_export_paths"] = dict(export_paths["int8_conv2d"])
@@ -2540,6 +2635,10 @@ def phase_export_int8(workdir: Path) -> tuple:
         zoo = int8_zoo_request(label, path, want)
         record["depthwise_models"].append(zoo)
         record["designs"] += zoo.pop("designs")
+        stem_record.setdefault("zoo_stems", []).append(
+            {"model": label, **zoo.pop("stem")})
+        stem_record.setdefault("launches_on_int8_zoo_paths", {})[label] = \
+            zoo["launches_by"].get("stem", 0)
         record["max_abs_err"] = max(record["max_abs_err"],
                                     zoo["max_abs_err"])
         print(f"[int8] {label} took {time.perf_counter() - start:.1f} s")
@@ -2645,27 +2744,29 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
           f"{busy:.3f} ms, of which the int8 conv's kernels {int8_ms:.3f} "
           "ms: " + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
               by_name.items(), key=lambda kv: -kv[1])))
-    # a narrow call is one kernel: no quantizing pass. In the trace of
-    # INT8_PROFILED_REQUESTS requests the narrow kernel runs, at most once
-    # a narrow call, and the quantizing passes (quantize_bytes_kernel of
-    # wgmma, quantize_words_kernel of mma_sync) at most once a call of
-    # their design: a pass of the narrow calls would pass those bounds.
-    # The trace may lose a launch (seen in the whole script's runs, never
-    # in phase 12 alone), so the counts bound from above.
+    # a narrow or stem call is one kernel: no quantizing pass. In the trace
+    # of INT8_PROFILED_REQUESTS requests the narrow and stem kernels run,
+    # each at most once a call of its design, no quantize_words_kernel
+    # (mma_sync's pass, on no path), and quantize_bytes_kernel (wgmma's) at
+    # most once a wgmma call: a pass of the narrow calls would pass those
+    # bounds. The trace may lose a launch (seen in the whole script's runs,
+    # never in phase 12 alone), so the counts bound from above.
     def ran_of(name):
         return sum(n for k, n in ran.items() if name in k)
     most = {"int8_conv_narrow_kernel": by.get("narrow", 0),
-            "quantize_words_kernel": by.get("mma_sync", 0),
+            "int8_conv_stem_kernel": by.get("stem", 0),
+            "quantize_words_kernel": 0,
             "quantize_bytes_kernel": by.get("wgmma", 0)}
     most = {k: n * INT8_PROFILED_REQUESTS for k, n in most.items()}
     got_ran = {k: ran_of(k) for k in most}
     check(0 < got_ran["int8_conv_narrow_kernel"]
+          and 0 < got_ran["int8_conv_stem_kernel"]
           and all(got_ran[k] <= n for k, n in most.items()),
           f"{label}: launches by kernel in {INT8_PROFILED_REQUESTS} "
           f"requests {got_ran}, at most {most}")
     print(f"[int8] {label}: launches by kernel in {INT8_PROFILED_REQUESTS} "
-          f"requests (profiler) {got_ran}, at most {most}: each narrow call "
-          "one kernel, no quantizing pass")
+          f"requests (profiler) {got_ran}, at most {most}: each narrow and "
+          "stem call one kernel, no quantizing pass")
     f_det = build_serving_fn(params, device="cuda", model=model)(images)
     agreement = detection_agreement_ap(
         as_numpy(f_det), as_numpy(q_det), (h, w),
@@ -2698,7 +2799,12 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
           f"bit-equal, {generic_ms:.4f} ms; bound {generic_bound:.5f} ms "
           f"(bytes), cuDNN bf16 depthwise {generic['cudnn_bf16_ms']:.4f} "
           "ms at the shape")
+    stem = next(r for r in rows if r["design"] == "stem")
     return {"config": str(path.relative_to(REPO)), "calls": len(calls),
+            "stem": {k: stem[k] for k in (
+                "x", "out", "k", "stride", "ms", "mma_sync_ms", "narrow_ms",
+                "plain_ms", "cudnn_bf16_ms", "max_abs_err")} | {
+                "bound_ms": max(stem["ops_s"], stem["bytes_s"]) * 1e3},
             "launches_by": by, "detection_agreement_ap": agreement,
             "max_abs_err": max_err, "ms": sum(r["ms"] for r in rows),
             "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in rows),
@@ -4130,7 +4236,7 @@ def main() -> int:
         print(f"[phase 11] took {time.perf_counter() - start:.1f} s")
         start = time.perf_counter()
         int8_record, export_nms = phase_export_int8(Path(tmp) / "export")
-        records.append(int8_record)
+        records += [int8_record, int8_record.pop("stem_kernel")]
         print(f"[phase 12] took {time.perf_counter() - start:.1f} s")
         start = time.perf_counter()
         host_launches, host_eval = phase_host_data(

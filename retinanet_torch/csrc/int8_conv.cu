@@ -41,8 +41,8 @@
 // own adds a write and a read of the int8 input to those bytes (~0.5 ms a
 // batch-8 request); fusing it into the previous layer is later work.
 //
-// Five designs, picked by the wrapper from the shape alone
-// (ops/int8_conv_kernel.py:int8_design):
+// Six designs, five picked by the wrapper from the shape alone
+// (ops/int8_conv_kernel.py:int8_design), "mma_sync" by routing only:
 //   * "wgmma", every dense conv with C > 16: (1) a quantizing pass writes
 //     the int8 input as (N, QH, QW, c_tap) bytes, each element quantized
 //     once; for a strided 1x1 conv only the pixels the conv reads (the
@@ -65,15 +65,42 @@
 //     tile's products; the ring runs on across tiles. The GEMM is a
 //     programmatic dependent launch: its prologue overlaps the pass's
 //     tail;
-//   * "mma_sync", dense convs with C < 4 (the stems, C = 3): the input is
-//     quantized into (N, H, W, ceil(C / 4)) int32 words, then an implicit
-//     GEMM with mma.sync m16n8k32: one CTA of 8 warps a 128 x 128 tile,
-//     stages of 16 words (64 int8 terms) copied with cp.async two deep
-//     (the gather zero-fills the padding), K-major rows padded against
-//     bank conflicts. Its taps are 4 bytes: the wgmma design would copy 49
-//     taps of 32-byte rows a stem tile, and runs the stem 3.3x slower
-//     (tools/int8_conv_experiments.py); this one beats cuDNN bf16 there
-//     (and "narrow" measured faster still; ROADMAP queues that routing);
+//   * "mma_sync", on no path since "stem" (the stems' first design, kept
+//     as the yardstick the stem design is timed beside, reached by
+//     tools/int8_conv_experiments.py:STEM_ROUTES): the input is quantized
+//     into (N, H, W, ceil(C / 4)) int32 words, then an implicit GEMM with
+//     mma.sync m16n8k32: one CTA of 8 warps a 128 x 128 tile, stages of 16
+//     words (64 int8 terms) copied with cp.async two deep (the gather
+//     zero-fills the padding), K-major rows padded against bank conflicts;
+//   * "stem", dense convs with C < 4 (the stems, C = 3): the same XLA path.
+//     Bound by bytes, most of them the output (85% at the flagship's
+//     7x7/2, 8 x 646^2 x 3 -> 64: 105 MB of bf16, 0.037 ms at 3.35
+//     TB/s); its 23.5 G operations take 0.018 ms at mma.sync's own peak
+//     (~1,290 int8 TOPS on the card, 65% of wgmma's:
+//     tools/int8_conv_experiments.py --mma_peak). It replaces
+//     mma_sync, whose faults it answers: (1) two launches and the input
+//     written and read back: one launch, no scratch, each item's box
+//     quantized once into shared memory; (2) 128-channel B tiles for 16 to
+//     64 channels: units of 32 or 64 channels, no N tile past O
+//     rounded to 16; (3) K padded to the packed row (64 words): K is the
+//     taps, a 4-byte pixel (3 channels and a zero) a tap, 8 taps a k32
+//     step, 7 steps for 7x7 and 2 for 3x3; (4) 4-byte stores in fragment
+//     order: narrow's swizzled staging tile stored by TMA; (5) no
+//     persistent CTAs, two-deep copies: narrow's persistent walk, a ring
+//     of raw boxes on mbarriers (each thread's cp.async copies arrive
+//     on it: a row of a stem's input is no whole number of 16-byte units,
+//     so no tensor map takes it), PDL. The walk is narrow's with 4-byte
+//     pixels: the pixels of a row by column phase of the stride, the row
+//     8 words past a multiple of 32 and each group of four K slots four
+//     rows of one window column, so that the 32 words one A register
+//     takes in a warp fall on 32 banks; each A register is one 32-bit
+//     load from the lane's own pixel plus its slot's offset (one k32 step
+//     ahead of the products), the packed weights are copied as they are
+//     into the slots. What holds it (PERF.md, B.6): the products take
+//     twice their mma.sync floor, the quantization of each box (its halo
+//     included) and the epilogue follow them, and shared memory carries
+//     1.5 cycles of operand traffic a product, as much as the products'
+//     own rate;
 //   * "narrow", dense convs with 4 <= C <= 16 (MobileDet's and
 //     EfficientNet's 1x1 expansions and projections, their squeeze-excite
 //     convs, MobileDet's 3x3 and 5x5 convs on 8 or 16 channels): the same
@@ -191,6 +218,10 @@ struct Int8ConvArgs {
   int out_bufs, tma_in, tma_out;
   // (narrow also reads tile_n: output channels a warp's unit, 32, 64 or
   // 128)
+  // stem (ops/int8_conv_kernel.py:stem_plan), with the narrow fields: the
+  // box's rows in the raw ring are raw_pitch bytes apart (its quantized
+  // pixels are 4 bytes, K slots of one word; no TMA load, no flat view)
+  int raw_pitch;
 };
 
 namespace {
@@ -204,6 +235,7 @@ constexpr int kDwThreads = 256;  // depthwise: threads a CTA
 constexpr int kDwBlock = 4;     // depthwise: a thread's block, 4 x 4 outputs
 constexpr int kNarrowThreads = 256;  // narrow: threads a CTA, 8 warps
 constexpr int kUnitM = 2;  // narrow: m16 fragments of a warp's unit
+constexpr int kStemThreads = kNarrowThreads;  // stem: the same body's
 constexpr int kQuantThreads = 256;
 
 constexpr int kTileM = 128;        // wgmma: output pixels a tile
@@ -239,7 +271,8 @@ enum Design {
   kMmaSync = 1,
   kWgmma = 2,
   kDepthwiseGeneric = 3,
-  kNarrow = 4
+  kNarrow = 4,
+  kStem = 5
 };
 
 // What the wgmma kernel reads of Int8ConvArgs.
@@ -387,6 +420,18 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// mma_s8 and ldmatrix_x4 without `volatile`, which the compiler may order
+// among the code around them (the stem's loop: each ldmatrix reads weights
+// that no thread writes after the prologue, each product is pure)
+__device__ __forceinline__ void mma_s8_free(int (&c)[4], const int (&a)[4],
+                                            int b0, int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // x (NHWC) -> q: (N, H, W, ceil(C / 4)) int32 words, four quantized
 // channels a word, the channels past C zero. VEC: C % 4 == 0 and x aligned
 // to four elements. The caller keeps `words` below 2^31.
@@ -413,6 +458,12 @@ __device__ __forceinline__ unsigned smem_address(const void* p) {
 __device__ __forceinline__ void ldmatrix_x4(int (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_address(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_free(int (&r)[4], const void* p) {
+  asm("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_address(p)));
 }
@@ -1498,6 +1549,7 @@ struct NarrowShape {
   int k_steps, w_pitch, o_pad, o_box, out_bufs, stages, tma_out;
   int q_off, w_off, sb_off, tap_off, out_off, bar_off;
   int tiles_y, tiles_x, items;
+  int raw_pitch;  // stem: bytes of a raw box row
 };
 
 // One work item: image n (0 in a flat conv), output tile (ty, tx).
@@ -1658,27 +1710,207 @@ __device__ __forceinline__ void narrow_load_box(const CUtensorMap* x_map,
               d.ty * s.tile_h * s.stride - s.pad_t, d.n);
 }
 
-// The "narrow" design: a dense conv with 4 <= C <= 16, one launch. A CTA
-// (persistent, 256 threads) widens the packed weights into shared memory
-// once (16 bytes a tap, zeros past c_tap: two taps a k32 step), then walks
-// its items: the input box by TMA into a ring of raw boxes (or loaded by
-// the threads), quantized once into 16-byte pixels; each warp takes units
-// of 16 output pixels x 32 channels, `mma.sync` m16n8k32 s8 over k_steps
-// steps, its A fragments by `ldmatrix` straight from the quantized pixels
-// (each lane addresses its own output pixel's tap: the im2col gather is in
-// the addresses), B by `ldmatrix` from the weights; the epilogue
-// requantizes into a staging tile (rows of o_box channels, swizzled as
-// the TMA store's map says) that one thread stores by TMA, or the threads
-// store it clipped at the edges.
-template <typename TIn, typename TOut, bool kTmaIn, int kTileN>
-__global__ void __launch_bounds__(kNarrowThreads, 2)
-    int8_conv_narrow_kernel(const __grid_constant__ CUtensorMap x_map,
-                            const __grid_constant__ CUtensorMap y_map,
-                            const TIn* __restrict__ x,
-                            const int* __restrict__ w, int k_pad,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ bias,
-                            TOut* __restrict__ y, Scale sc, NarrowShape s) {
+// -- the stem design ----------------------------------------------------------
+
+// Slot j of a stem's K (a word of its weight rows and of its tap table):
+// four rows of one window column a group of four slots, ceil(kh / 4)
+// groups a column, column by column. Lane t of a row group reads slots
+// 8 kk + t and 8 kk + 4 + t of k32 step kk, so the four lanes that read
+// one register's words at one pixel read four rows of the box, and their
+// 8 pixels each fall on 8 banks of their own when a row is 8 words past a
+// multiple of 32 (`stem_plan`). Returns the tap r kw + c, or -1 for a slot
+// past the window, whose weight is zero and which reads its group's first
+// row (past the last column, the box's first word): an address that
+// another lane reads too, a broadcast.
+__device__ __forceinline__ int stem_slot(int j, int kh, int kw, int& r,
+                                         int& c) {
+  const int blocks = (kh + 3) >> 2;
+  const int group = j >> 2;
+  c = group / blocks;
+  const int r0 = (group - c * blocks) * 4;
+  r = r0 + (j & 3);
+  if (c >= kw) {
+    r = c = 0;
+    return -1;
+  }
+  if (r >= kh) {
+    r = r0;
+    return -1;
+  }
+  return r * kw + c;
+}
+
+// A stem item's box: image n, origin (iy0, ix0) (the tile's window
+// origins minus the pads), and the columns [lo, hi) of it in the input.
+struct StemBox {
+  int n, iy0, ix0, lo, hi;
+};
+
+__device__ __forceinline__ StemBox stem_box(const NarrowShape& s,
+                                            const NarrowItem& d) {
+  StemBox b;
+  b.n = d.n;
+  b.iy0 = d.ty * s.tile_h * s.stride - s.pad_t;
+  b.ix0 = d.tx * s.tile_w * s.stride - s.pad_l;
+  b.lo = max(b.ix0, 0);
+  b.hi = min(b.ix0 + s.box_w, s.vw);
+  return b;
+}
+
+// When this thread's cp.async copies so far have landed, one arrival on
+// `bar` (which counts it among those it expects).
+__device__ __forceinline__ void copies_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_address(bar))
+               : "memory");
+}
+
+// This thread's part of the input box of `item` into `raw` (the caller
+// arrives on the ring's barrier): a warp a box row that lies in the
+// input, a lane a 16-byte cp.async copy, of the units from the one that
+// holds the row's first pixel in the input to the one that holds its
+// last, raw_pitch bytes a row. A stem's pixels are 2 to 12 bytes, so its
+// rows are no whole number of 16-byte units and no tensor map takes them.
+// A unit that holds a byte of the input lies in the input's pages, so it
+// is read whole; its bytes past the row are never read back.
+template <typename TIn>
+__device__ __forceinline__ void stem_copy_box(const TIn* __restrict__ x,
+                                              uint8_t* raw,
+                                              const NarrowShape& s,
+                                              int item) {
+  const StemBox b = stem_box(s, narrow_item(s, item));
+  if (b.hi <= b.lo) return;
+  const int y1 = min(s.box_h, s.vh - b.iy0);
+  const int span = (b.hi - b.lo) * s.c * static_cast<int>(sizeof(TIn));
+  const uintptr_t unit = ~static_cast<uintptr_t>(15);
+  for (int yy = max(0, -b.iy0) + (threadIdx.x >> 5); yy < y1;
+       yy += kNarrowThreads / 32) {
+    const uintptr_t first = reinterpret_cast<uintptr_t>(
+        x + ((static_cast<long long>(b.n) * s.vh + b.iy0 + yy) * s.vw +
+             b.lo) *
+                s.c);
+    const uintptr_t src = first & unit;
+    const int bytes = static_cast<int>(((first + span + 15) & unit) - src);
+    for (int k = (threadIdx.x & 31) * 16; k < bytes; k += 32 * 16) {
+      copy16(raw + yy * s.raw_pitch + k,
+             reinterpret_cast<const void*>(src + k), true);
+    }
+  }
+}
+
+// `quantize` where the product by the reciprocal is sure without the
+// division (clipped: t at or past 128; or more than 1e-4 from a
+// half-integer: `quantize`'s bound), without a branch; else sets `doubt`
+// (also on NaN), and the caller divides.
+__device__ __forceinline__ int quantize_fast(float v, Scale sc, bool& doubt) {
+  const float t = __fmul_rn(v, sc.inv);
+  const float r = rintf(fminf(fmaxf(t, -127.0f), 127.0f));
+  doubt |= !(fabsf(t) >= 128.0f || fabsf(t - r) < 0.4999f);
+  return static_cast<int>(r);
+}
+
+// The raw box b -> 4-byte quantized pixels (its c channels, then zero
+// bytes), placed by column phase of the stride (pw pixels a phase, 16
+// words past a multiple of 32 at stride 2, so that the 32 pixels a warp
+// stores fall on 32 banks); a thread a pixel, each element quantized once
+// (a pixel with an element in doubt takes the division); the pixels
+// outside the input (the pads) are 0. kC, kS: c and the stride known at
+// compile time (0: read from s).
+template <typename TIn, int kC, int kS>
+__device__ __forceinline__ void stem_quantize(const TIn* __restrict__ x,
+                                              const uint8_t* __restrict__ raw,
+                                              uint8_t* __restrict__ q,
+                                              const NarrowShape& s, Scale sc,
+                                              int pw, const StemBox& b) {
+  const int c = kC > 0 ? kC : s.c;
+  const int stride = kS > 0 ? kS : s.stride;
+  const int pixels = s.box_h * s.box_w;
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(s.box_w) + 1;
+  // where box row 0's first pixel in the input lies in its 16-byte unit,
+  // and what a row adds, mod 16 (unsigned arithmetic wraps mod 2^32)
+  const unsigned esize = sizeof(TIn);
+  const unsigned lead0 =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(x)) +
+      ((static_cast<unsigned>(b.n) * s.vh + b.iy0) * s.vw + b.lo) * c *
+          esize;
+  const unsigned row_bytes = static_cast<unsigned>(s.vw) * c * esize;
+  const unsigned in_w = static_cast<unsigned>(b.hi - b.lo);
+#pragma unroll 2
+  for (int u = threadIdx.x; u < pixels; u += kNarrowThreads) {
+    const int yy = narrow_div(u, magic);
+    const int xx = u - yy * s.box_w;
+    const int dx = b.ix0 + xx - b.lo;  // the pixel's column past lo
+    int word = 0;
+    if (static_cast<unsigned>(b.iy0 + yy) < static_cast<unsigned>(s.vh) &&
+        static_cast<unsigned>(dx) < in_w) {
+      const TIn* src =
+          reinterpret_cast<const TIn*>(raw + yy * s.raw_pitch +
+                                       ((lead0 + yy * row_bytes) & 15)) +
+          dx * c;
+      int v[3] = {0, 0, 0};
+      bool doubt = false;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        if (e < c) v[e] = quantize_fast(to_float(src[e]), sc, doubt);
+      }
+      if (doubt) {
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          if (e < c) v[e] = quantize(to_float(src[e]), sc);
+        }
+      }
+      word = pack4(v[0], v[1], v[2], 0);
+    }
+    const int place = stride == 2   ? (xx & 1) * pw + (xx >> 1)
+                      : stride == 1 ? xx
+                                    : (xx % stride) * pw + xx / stride;
+    *reinterpret_cast<int*>(q + yy * s.row_pitch + place * 4) = word;
+  }
+}
+
+// The raw box of item d -> its quantized pixels (`stem_quantize`; the
+// stems, C = 3 at stride 2, with both known at compile time).
+template <typename TIn>
+__device__ __forceinline__ void stem_quantize_raw(const TIn* __restrict__ x,
+                                                  const uint8_t* raw,
+                                                  uint8_t* q,
+                                                  const NarrowShape& s,
+                                                  Scale sc, int pw,
+                                                  const NarrowItem& d) {
+  const StemBox b = stem_box(s, d);
+  if (s.c == 3 && s.stride == 2) {
+    stem_quantize<TIn, 3, 2>(x, raw, q, s, sc, pw, b);
+  } else {
+    stem_quantize<TIn, 0, 0>(x, raw, q, s, sc, pw, b);
+  }
+}
+
+// -- the narrow and stem designs' kernel --------------------------------------
+
+// The "narrow" design (kStem false): a dense conv with 4 <= C <= 16, one
+// launch. A CTA (persistent, 256 threads) widens the packed weights into
+// shared memory once (16 bytes a tap, zeros past c_tap: two taps a k32
+// step), then walks its items: the input box by TMA into a ring of raw
+// boxes (or loaded by the threads), quantized once into 16-byte pixels;
+// each warp takes units of 16 output pixels x 32 channels, `mma.sync`
+// m16n8k32 s8 over k_steps steps, its A fragments by `ldmatrix` straight
+// from the quantized pixels (each lane addresses its own output pixel's
+// tap: the im2col gather is in the addresses), B by `ldmatrix` from the
+// weights; the epilogue requantizes into a staging tile (rows of o_box
+// channels, swizzled as the TMA store's map says) that one thread stores by
+// TMA, or the threads store it clipped at the edges.
+// The "stem" design (kStem true): a dense conv with C < 4, the same walk
+// with 4-byte pixels, one word a tap: the packed weights are copied as they
+// are into K slots (`stem_slot`: four rows of a window column a group of
+// four, eight slots a k32 step), the box comes by the threads' cp.async
+// copies into the raw ring, and each A register is one 32-bit load from
+// the lane's own pixel plus its slot's offset.
+template <typename TIn, typename TOut, bool kTmaIn, int kTileN, bool kStem>
+__device__ __forceinline__ void narrow_conv(
+    const CUtensorMap& x_map, const CUtensorMap& y_map,
+    const TIn* __restrict__ x, const int* __restrict__ w, int k_pad,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    TOut* __restrict__ y, Scale sc, const NarrowShape& s) {
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle of the staging tile repeats every 1024 bytes
   uint8_t* smem =
@@ -1695,8 +1927,15 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
   const int warp = tid >> 5;
   const int taps = s.kh * s.kw;
   const int cw = (s.c + 3) >> 2;  // int32 words of a packed tap
-  const int pw = s.row_pitch / (16 * s.stride);
+  // pixels a phase (the stem's row: stride phases and 8 words)
+  const int pw = kStem ? (s.row_pitch / 4 - 8) / s.stride
+                       : (s.box_w + s.stride - 1) / s.stride;
 
+  if (kStem && tid == 0) {
+    // a stem's box: an arrival of every thread whose copies have landed
+    for (int i = 0; i < s.stages; ++i) mbar_init(&full[i], kNarrowThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   if (kTmaIn && tid == 0) {
     for (int i = 0; i < s.stages; ++i) mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1719,10 +1958,19 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
   // quantized box (a tap past the window reads the first: its weights are
   // zero). Nothing here is the previous kernel's output, so it overlaps
   // that kernel's tail.
-  const int slots = 2 * s.k_steps;
+  // (a stem's rows: its K slots, a packed word each, zero past the window)
+  const int slots = (kStem ? 8 : 2) * s.k_steps;
   for (int i = tid; i < s.o_pad * slots; i += kNarrowThreads) {
     const int o = i / slots;
     const int tap = i - o * slots;
+    if constexpr (kStem) {
+      int r, c;
+      const int src = stem_slot(tap, s.kh, s.kw, r, c);
+      *reinterpret_cast<int*>(wsm + o * s.w_pitch + 4 * tap) =
+          o < s.o && src >= 0 ? w[static_cast<long long>(o) * k_pad + src]
+                              : 0;
+      continue;
+    }
     int v[4] = {0, 0, 0, 0};
     if (o < s.o && tap < taps) {
       const int* src = w + static_cast<long long>(o) * k_pad + tap * cw;
@@ -1743,9 +1991,13 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
     if (bias != nullptr && o + 1 < s.o) v.w = bias[o + 1];
     sb[i] = v;
   }
-  for (int i = tid; i < 2 * s.k_steps; i += kNarrowThreads) {
+  for (int i = tid; i < slots; i += kNarrowThreads) {
     int off = 0;
-    if (i < taps) {
+    if constexpr (kStem) {
+      int r, c;
+      stem_slot(i, s.kh, s.kw, r, c);
+      off = r * s.row_pitch + ((c % s.stride) * pw + c / s.stride) * 4;
+    } else if (i < taps) {
       const int r = i / s.kw;
       const int c = i - r * s.kw;
       off = r * s.row_pitch + ((c % s.stride) * pw + c / s.stride) * 16;
@@ -1756,6 +2008,15 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
   // reads: every thread waits for that grid before it reads x or writes y
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __syncthreads();
+  if constexpr (kStem) {
+    // the first boxes of the ring in flight (the barriers are initialised)
+    for (int i = 0; i < s.stages; ++i) {
+      const int item = blockIdx.x + i * gridDim.x;
+      if (item >= s.items) break;
+      stem_copy_box(x, smem + i * raw_stride, s, item);
+      copies_arrive(&full[i]);
+    }
+  }
 
   const int tm = s.tile_h * s.tile_w;
   const int mfrags = tm / 16;
@@ -1766,6 +2027,7 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
   const int staging = narrow_staging_bytes(s, static_cast<int>(sizeof(TOut)));
   const int g = lane >> 2;  // the fragments' row group
   const int t = lane & 3;   // the thread in the group
+  const int tw_shift = __ffs(s.tile_w) - 1;  // stem: tile_w = 1 << tw_shift
   // the TMA store's swizzle (rows of 32, 64 or 128 bytes: 16-byte unit u of
   // byte a is u ^ ((a >> 7) & mask)). A lane's rows are g + 8 h of a
   // 16-row fragment, so that its term is the same at every row it writes:
@@ -1789,7 +2051,12 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
   int it = 0;
   for (int item = blockIdx.x; item < s.items; item += gridDim.x, ++it) {
     const NarrowItem d = narrow_item(s, item);
-    if constexpr (kTmaIn) {
+    uint8_t* stage = out + (s.out_bufs > 1 ? (it & 1) : 0) * staging;
+    if constexpr (kStem) {
+      const int st = it % s.stages;
+      mbar_wait(&full[st], (it / s.stages) & 1);
+      stem_quantize_raw(x, smem + st * raw_stride, q, s, sc, pw, d);
+    } else if constexpr (kTmaIn) {
       const int st = it % s.stages;
       mbar_wait(&full[st], (it / s.stages) & 1);
       narrow_quantize_raw(reinterpret_cast<const TIn*>(smem + st * raw_stride),
@@ -1799,7 +2066,6 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
                              d.ty * s.tile_h * s.stride - s.pad_t,
                              d.tx * s.tile_w * s.stride - s.pad_l);
     }
-    uint8_t* stage = out + (s.out_bufs > 1 ? (it & 1) : 0) * staging;
     // the store that last read this staging tile is done
     if (tid == 0 && s.tma_out) {
       if (s.out_bufs > 1) {
@@ -1814,7 +2080,13 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
       narrow_load_box<TIn>(&x_map, smem + st * raw_stride, &full[st], s,
                            item + s.stages * gridDim.x);
     }
-
+    if (kStem && item + s.stages * gridDim.x < s.items) {
+      // the box `stages` items on into the raw box just quantized
+      const int st = it % s.stages;
+      stem_copy_box(x, smem + st * raw_stride, s,
+                    item + s.stages * gridDim.x);
+      copies_arrive(&full[st]);
+    }
     // float(acc) * scale (+ bias) of channels o, o + 1 from their float4
     auto requant = [&](int a0, int a1, const float4& sbj, float& v0,
                        float& v1) {
@@ -1891,11 +2163,24 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
       // 16 mf + l % 16 at tap 2 kk + l / 16 (a fragment past the tile reads
       // the last one's pixels, its products unused)
       const uint8_t* a_row[kUnitM];
+      // stem: lane (g, t) loads rows g and g + 8 of each fragment itself
+      // (a stem's tile_w is a power of two)
+      const uint8_t* a_px[kUnitM][2];
 #pragma unroll
       for (int i = 0; i < kUnitM; ++i) {
-        const int p = min(mf0 + i, mfrags - 1) * 16 + (lane & 15);
-        const int oy = p / s.tile_w;
-        a_row[i] = q + oy * s.stride * s.row_pitch + (p - oy * s.tile_w) * 16;
+        if constexpr (kStem) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ph = min(mf0 + i, mfrags - 1) * 16 + g + 8 * h;
+            a_px[i][h] = q + (ph >> tw_shift) * s.stride * s.row_pitch +
+                         (ph & (s.tile_w - 1)) * 4;
+          }
+        } else {
+          const int p = min(mf0 + i, mfrags - 1) * 16 + (lane & 15);
+          const int oy = p / s.tile_w;
+          a_row[i] =
+              q + oy * s.stride * s.row_pitch + (p - oy * s.tile_w) * 16;
+        }
       }
       int acc[kUnitM][kTileN / 8][4];
 #pragma unroll
@@ -1906,24 +2191,96 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
           for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
         }
       }
-      for (int kk = 0; kk < s.k_steps; ++kk) {
-        int a[kUnitM][4];
+      // stem: a0 | a1 are slot 8 kk + t of pixels g | g + 8, a2 | a3 slot
+      // 8 kk + 4 + t; the words come one k32 step ahead of the products,
+      // the slots' offsets two
+      int a_next[kUnitM][4];
+      int o_next[2] = {0, 0};
+      auto stem_offsets = [&](int kk) {
+        if (kk < s.k_steps) {
+          o_next[0] = toff[8 * kk + t];
+          o_next[1] = toff[8 * kk + 4 + t];
+        }
+      };
+      auto stem_a = [&]() {
 #pragma unroll
         for (int i = 0; i < kUnitM; ++i) {
-          ldmatrix_x4(a[i], a_row[i] + toff[2 * kk + (lane >> 4)]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            a_next[i][2 * h] =
+                *reinterpret_cast<const int*>(a_px[i][0] + o_next[h]);
+            a_next[i][2 * h + 1] =
+                *reinterpret_cast<const int*>(a_px[i][1] + o_next[h]);
+          }
+        }
+      };
+      // the products of one k32 step over the unit's first `tiles` N
+      // tiles of 16 (all of them where the unit lies inside o_pad: no test)
+      auto stem_step = [&](int ks, const int (&a)[kUnitM][4], int tiles) {
+        int bq[kTileN / 16][4];  // B of every tile first, then the products
+#pragma unroll
+        for (int np = 0; np < kTileN / 16; ++np) {
+          if (np < tiles) {
+            ldmatrix_x4_free(
+                bq[np], wsm + (n0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                  s.w_pitch +
+                            ks * 32 + ((lane >> 3) & 1) * 16);
+          }
         }
 #pragma unroll
         for (int np = 0; np < kTileN / 16; ++np) {
-          if (n0 + np * 16 >= s.o_pad) break;  // the same in every lane
-          // B: (bytes 0-15 | 16-31) x (channels of tile 2 np | 2 np + 1)
-          int r[4];
-          ldmatrix_x4(r, wsm + (n0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                   s.w_pitch +
-                             kk * 32 + ((lane >> 3) & 1) * 16);
+          if (np < tiles) {
+#pragma unroll
+            for (int i = 0; i < kUnitM; ++i) {
+              mma_s8_free(acc[i][2 * np], a[i], bq[np][0], bq[np][1]);
+              mma_s8_free(acc[i][2 * np + 1], a[i], bq[np][2], bq[np][3]);
+            }
+          }
+        }
+      };
+      if constexpr (kStem) {
+        const int tiles = min(kTileN, s.o_pad - n0) / 16;
+        stem_offsets(0);
+        stem_a();
+        stem_offsets(1);
+        for (int ks = 0; ks < s.k_steps; ++ks) {
+          int a[kUnitM][4];
 #pragma unroll
           for (int i = 0; i < kUnitM; ++i) {
-            mma_s8(acc[i][2 * np], a[i], r[0], r[1]);
-            mma_s8(acc[i][2 * np + 1], a[i], r[2], r[3]);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a[i][r] = a_next[i][r];
+          }
+          if (ks + 1 < s.k_steps) {
+            stem_a();
+            stem_offsets(ks + 2);
+          }
+          if (tiles == kTileN / 16) {
+            stem_step(ks, a, kTileN / 16);  // the unit whole: no tests
+          } else {
+            stem_step(ks, a, tiles);
+          }
+        }
+      } else {
+        for (int kk = 0; kk < s.k_steps; ++kk) {
+          int a[kUnitM][4];
+#pragma unroll
+          for (int i = 0; i < kUnitM; ++i) {
+            ldmatrix_x4(a[i], a_row[i] + toff[2 * kk + (lane >> 4)]);
+          }
+#pragma unroll
+          for (int np = 0; np < kTileN / 16; ++np) {
+            if (n0 + np * 16 >= s.o_pad) break;  // the same in every lane
+            // B: (bytes 0-15 | 16-31) x (channels of tile 2 np | 2 np + 1)
+            int r[4];
+            ldmatrix_x4(
+                r, wsm + (n0 + np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                             s.w_pitch +
+                       kk * 32 + ((lane >> 3) & 1) * 16);
+#pragma unroll
+            for (int i = 0; i < kUnitM; ++i) {
+              mma_s8(acc[i][2 * np], a[i], r[0], r[1]);
+              mma_s8(acc[i][2 * np + 1], a[i], r[2], r[3]);
+            }
           }
         }
       }
@@ -1959,6 +2316,32 @@ __global__ void __launch_bounds__(kNarrowThreads, 2)
     }
   }
   if (tid == 0 && s.tma_out) bulk_wait_read<0>();  // smem outlives the stores
+}
+
+template <typename TIn, typename TOut, bool kTmaIn, int kTileN>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+    int8_conv_narrow_kernel(const __grid_constant__ CUtensorMap x_map,
+                            const __grid_constant__ CUtensorMap y_map,
+                            const TIn* __restrict__ x,
+                            const int* __restrict__ w, int k_pad,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            TOut* __restrict__ y, Scale sc, NarrowShape s) {
+  narrow_conv<TIn, TOut, kTmaIn, kTileN, false>(x_map, y_map, x, w, k_pad,
+                                                scale, bias, y, sc, s);
+}
+
+// A kernel of its own name, so that a trace tells the stem from narrow.
+template <typename TIn, typename TOut, int kTileN>
+__global__ void __launch_bounds__(kStemThreads, 2)
+    int8_conv_stem_kernel(const __grid_constant__ CUtensorMap y_map,
+                          const TIn* __restrict__ x,
+                          const int* __restrict__ w, int k_pad,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
+                          TOut* __restrict__ y, Scale sc, NarrowShape s) {
+  narrow_conv<TIn, TOut, false, kTileN, true>(y_map, y_map, x, w, k_pad,
+                                              scale, bias, y, sc, s);
 }
 
 // -- host ---------------------------------------------------------------------
@@ -2425,6 +2808,7 @@ NarrowShape narrow_shape(const Int8ConvArgs& a) {
   s.tap_off = a.tap_off;
   s.out_off = a.out_off;
   s.bar_off = a.bar_off;
+  s.raw_pitch = a.raw_pitch;
   s.tiles_y = (s.voh + a.tile_h - 1) / a.tile_h;
   s.tiles_x = (s.vow + a.tile_w - 1) / a.tile_w;
   const long long items =
@@ -2524,6 +2908,74 @@ int launch_narrow(const Int8ConvArgs& a, const TIn* x, const void* w,
   }
 }
 
+// The stem's persistent grid: as many CTAs as the device holds, or one an
+// item where there are fewer items.
+template <typename TIn, typename TOut, int kTileN>
+int launch_stem_kernel(const CUtensorMap& ym, const TIn* x, const int* w,
+                       int k_pad, const float* scale, const float* bias,
+                       TOut* y, Scale sc, const NarrowShape& s, int smem,
+                       int device, cudaStream_t stream) {
+  auto kernel = int8_conv_stem_kernel<TIn, TOut, kTileN>;
+  static LaunchFacts facts;
+  const int resident =
+      resident_ctas(kernel, facts, device, smem, kStemThreads);
+  if (resident < 0) return -resident;
+  const int grid = s.items < resident ? s.items : resident;
+  // a programmatic dependent launch: the prologue (weights, slot table)
+  // overlaps the previous kernel's tail
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(grid));
+  config.blockDim = dim3(kStemThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&config, kernel, ym, x, w, k_pad,
+                                           scale, bias, y, sc, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TIn, typename TOut>
+int launch_stem(const Int8ConvArgs& a, const TIn* x, const void* w,
+                const float* scale, const float* bias, TOut* y, Scale sc,
+                int device, cudaStream_t stream) {
+  const NarrowShape s = narrow_shape(a);
+  const int rb = a.o_box * static_cast<int>(sizeof(TOut));
+  if (s.items < 0 || a.flat || a.tma_in || a.smem > kSmemLimit || a.c > 3 ||
+      a.stages < 1 || a.stages > 2 || a.raw_pitch % 16 != 0 ||
+      (a.tma_out && (rb % 16 != 0 || rb > 128 || (rb & (rb - 1)) != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap ym;
+  memset(&ym, 0, sizeof(ym));  // unread without TMA
+  if (a.tma_out) {
+    if (reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    const int enc = encode_nhwc_map(y, sizeof(TOut) == 2, s.vn, s.voh,
+                                    s.vow, a.o, a.o_box, a.tile_w, a.tile_h,
+                                    false, &ym, narrow_out_swizzle(rb));
+    if (enc != 0) return enc;
+  }
+  const int* wi = static_cast<const int*>(w);
+  switch (a.tile_n) {
+    case 32:
+      return launch_stem_kernel<TIn, TOut, 32>(ym, x, wi, a.k_pad, scale,
+                                               bias, y, sc, s, a.smem,
+                                               device, stream);
+    case 64:
+      return launch_stem_kernel<TIn, TOut, 64>(ym, x, wi, a.k_pad, scale,
+                                               bias, y, sc, s, a.smem,
+                                               device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TIn, typename TOut>
 int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
                  const float* scale, const float* bias, void* y, void* q,
@@ -2544,6 +2996,9 @@ int launch_typed(const Int8ConvArgs& a, const void* x, const void* w,
     case kNarrow:
       return launch_narrow<TIn, TOut>(a, xt, w, scale, bias, yt, sc, device,
                                       stream);
+    case kStem:
+      return launch_stem<TIn, TOut>(a, xt, w, scale, bias, yt, sc, device,
+                                    stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2561,7 +3016,7 @@ extern "C" {
 // header says. `q` is scratch for the quantized input of a dense conv,
 // 16-byte aligned: n * qh * qw * c_tap bytes for the wgmma design, n * h *
 // w * ceil(c / 4) int32 words for mma_sync (unused, and may be null, for
-// the narrow and depthwise designs).
+// the narrow, stem and depthwise designs).
 int int8_conv_launch(const Int8ConvArgs* a, const void* x, int x_bf16,
                      const void* w, const float* scale, const float* bias,
                      void* y, int y_bf16, void* q, float s_a, int device,

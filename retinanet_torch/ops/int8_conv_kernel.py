@@ -18,24 +18,27 @@ registers the op, which loading such a graph needs.
 depthwise conv, the input's 16-byte alignment, which TMA needs; the
 source's note says what each does): "wgmma" (dense, C > 16: TMA and
 wgmma), "narrow" (dense, 4 <= C <= 16: one launch, the input box quantized
-once into shared memory, mma.sync from ldmatrix), "mma_sync" (dense, C <
-4: the stems), "depthwise" (windows 1, 3 and 5 at stride 1 or 2, C % 8 ==
-0: tiles by TMA, quantized once into shared memory, dp4a) and
-"depthwise_generic" (every other depthwise conv: the same tiles, loaded by
-the threads). No design stands in for another: a launch that fails
-raises. `kernel.launches` counts the convolutions launched (a wgmma or
-mma_sync one is two CUDA kernels on one stream, the quantizing pass and
-the GEMM; a narrow or depthwise one is one); `kernel.launches_by` splits
-them by design.
+once into shared memory, mma.sync from ldmatrix), "stem" (dense, C < 4:
+narrow's walk with 4-byte pixels, one word a tap), "depthwise" (windows
+1, 3 and 5 at stride 1 or 2, C % 8 == 0: tiles by TMA, quantized once
+into shared memory, dp4a) and "depthwise_generic" (every other depthwise
+conv: the same tiles, loaded by the threads). A sixth, "mma_sync" (the
+GEMM the stems took before "stem"), is on no path: it is
+reached only by routing (`tools/int8_conv_experiments.py:STEM_ROUTES`),
+as the yardstick that the stem design is timed beside. No design stands
+in for another: a launch that fails raises. `kernel.launches` counts the
+convolutions launched (a wgmma or mma_sync one is two CUDA kernels on one
+stream, the quantizing pass and the GEMM; a narrow, stem or depthwise one
+is one); `kernel.launches_by` splits them by design.
 
 The wgmma design reads its input through an im2col-mode TMA tensor map.
 `im2col_plan` gives the numbers the wrapper passes for it (the quantized
 input's shape, the box's corners, the traversal stride); the CPU tests walk
 a numpy model of the copies from those numbers and hold it to `F.unfold`.
 `depthwise_plan` gives the depthwise designs' tile, box and shared-memory
-layout, `narrow_plan` the narrow design's; the CPU tests check both at
-every such conv of the configs and walk numpy models of their items to the
-plain int32 conv.
+layout, `narrow_plan` the narrow design's, `stem_plan` the stem's; the CPU
+tests check each at every such conv of the configs and walk numpy models
+of their items to the plain int32 conv.
 
 Build: `ops/cuda_build.py` compiles `csrc/int8_conv.cu` with `nvcc` on
 first use and loads it with ctypes. Importing this module needs no `nvcc`.
@@ -57,7 +60,8 @@ from retinanet_torch.ops.int8_conv import (WGMMA_MIN_CHANNELS,
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _DESIGN_CODE = {"depthwise": 0, "mma_sync": 1, "wgmma": 2,
-                "depthwise_generic": 3, "narrow": 4}  # `Design` in C
+                "depthwise_generic": 3, "narrow": 4,
+                "stem": 5}  # `Design` in C
 TILE_M = 128             # `kTileM`: output pixels a tile of the wgmma design
 TILE_NS = (64, 128, 256)  # its output channels a tile
 CHUNKS = (32, 64, 128)   # its int8 channels a stage: the swizzle widths
@@ -81,7 +85,7 @@ DW_SMEM_BUDGET = SM_SMEM // 3 - 1024
 DW_TAP_BLOCK = 16        # "depthwise_generic": taps of a window block a side
 
 # The narrow design (csrc/int8_conv.cu, "narrow")
-NARROW_MIN_CHANNELS = 4  # dense convs with fewer channels: mma_sync
+NARROW_MIN_CHANNELS = 4  # dense convs with fewer channels: the stem
 # output channels a warp's unit (the kernel's kTileN): the narrowest that
 # holds O, up to 64 (units of 128 measured slower at O = 128: their 64
 # accumulators a thread cost resident warps; PERF.md)
@@ -102,6 +106,21 @@ NARROW_MAP_MIN_PIXELS = 4096
 # more CTAs hide them (the tool's plan variants, PERF.md)
 NARROW_SMEM_BUDGETS = (SM_SMEM // 3 - 1024, SM_SMEM // 2 - 1024, SMEM_LIMIT)
 
+# The stem design (csrc/int8_conv.cu, "stem"): dense convs with C <=
+# STEM_MAX_CHANNELS (one int32 word a tap) and C < NARROW_MIN_CHANNELS;
+# every other such conv takes "mma_sync" (0 routes every stem there)
+STEM_MAX_CHANNELS = 3
+STEM_PIXEL = 4           # bytes of a quantized pixel: C <= 3 int8, zeros
+STEM_TILE_W = 32         # output columns an item (16 where the output is
+                         # at most 16 wide): a fragment's 16 pixels in a row
+# output pixels an item, in the order tried (as NARROW_TILE_MS): 512 first,
+# whose box's halo is a smaller share (items of 512 measured 8-20% faster
+# than 256 at the three stems: PERF.md, B.6)
+STEM_TILE_MS = (512, 256, 128, 64)
+STEM_STAGES = 2          # raw boxes in the ring, at most (1 or 2)
+# two CTAs an SM first (the kernel's registers hold no third), then one
+STEM_SMEM_BUDGETS = (SM_SMEM // 2 - 1024, SMEM_LIMIT)
+
 
 def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
                 groups: int, aligned: bool = True) -> str:
@@ -113,13 +132,16 @@ def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
     taps are `tap_channels(C)`, a multiple of 32, so every stage is whole
     k32 steps (C = 24 and 40 of EfficientNet-lite pad to 32 and 64). 4 <=
     C <= 16 takes "narrow": a 16-byte quantized pixel a tap, two taps a
-    k32 step. The stems (C = 3) stay on the mma.sync GEMM, which beats
-    cuDNN bf16 there: on wgmma the 7x7/2 stem copies 49 taps of 32-byte
-    rows a tile and measured 3.3x slower. On narrow (taps of 16 bytes of
-    which 3 are channels, the input loaded by the threads: TMA takes no
-    6-byte bfloat16 rows) the stems measured 11-34% faster still
-    (`tools/int8_conv_experiments.py`, PERF.md); sending them there
-    retires the mma_sync design and is ROADMAP's next routing."""
+    k32 step. C < 4 (the stems, C = 3) takes "stem", which replaces the
+    mma_sync GEMM there: that design's quantizing pass wrote the whole
+    input as int32 words and its GEMM gathered each word again from ~12
+    overlapping windows, 4 bytes a copy, into 128-channel tiles for 16 to
+    64 channels, over K padded to 64 words (49 or 9 taps); narrow's 16-byte
+    pixels would carry 3 channels in 16 bytes (5.3x the terms). The stem
+    is bound by its bytes, most of them the output (85% at the flagship),
+    so it keeps narrow's one launch, ring of raw boxes and TMA stores, and
+    makes K the taps: a 4-byte pixel a tap, 8 taps a k32 step, units of O
+    channels (PERF.md, B.6)."""
     del o  # the same design at every width
     if groups != 1:
         tiled = (kh == kw and kh in DW_WINDOWS and stride in DW_STRIDES
@@ -127,7 +149,9 @@ def int8_design(c: int, o: int, kh: int, kw: int, stride: int,
         return "depthwise" if tiled else "depthwise_generic"
     if c >= WGMMA_MIN_CHANNELS:
         return "wgmma"
-    return "narrow" if c >= NARROW_MIN_CHANNELS else "mma_sync"
+    if c >= NARROW_MIN_CHANNELS:
+        return "narrow"
+    return "stem" if c <= STEM_MAX_CHANNELS else "mma_sync"
 
 
 def wgmma_chunk(c_tap: int) -> int:
@@ -421,6 +445,143 @@ def narrow_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
                      f"window over {c} channels into {o}")
 
 
+@dataclass(frozen=True)
+class StemPlan:
+    """How the stem design walks a conv (the fields of the same names in
+    `Int8ConvArgs`; tile_n, a warp's unit of output channels, as
+    `NarrowPlan`'s: a unit computes no N tile of 16 past o_pad). A work item is tile_h x tile_w output pixels of one
+    image (tiles in row-major order, then images); its input box, box_h x
+    box_w pixels from (ty tile_h stride - pad_t, tx tile_w stride - pad_l),
+    comes by the threads' 16-byte copies into one of `stages` raw boxes
+    (rows of raw_pitch bytes: the box row's bytes in the input from the
+    16-byte unit that holds its first one) and is quantized into box_h rows
+    of row_pitch bytes of STEM_PIXEL-byte pixels: `stride` phases of
+    `stem_phase` pixels, then 8 words. K is k_steps k32 steps of 8 one-word
+    slots (`stem_slots`). The weights (o_pad rows of w_pitch bytes) and the
+    output's `out_bufs` staging tiles and store are narrow's (`NarrowPlan`).
+    Shared memory, from a 1024-byte aligned base: the raw boxes from 0, the
+    quantized box at q_off, the weights at w_off, scale and bias at sb_off,
+    the slots' offsets (8 k_steps ints) at tap_off, the staging tiles at
+    out_off, the ring's barriers at bar_off, `smem` bytes with 1024 of
+    alignment slack. (The kernel sizes its persistent grid from the CTAs
+    the card holds.)"""
+    tile_n: int
+    tile_h: int
+    tile_w: int
+    box_h: int
+    box_w: int
+    row_pitch: int
+    raw_pitch: int
+    k_steps: int
+    w_pitch: int
+    o_pad: int
+    o_box: int
+    tma_out: bool
+    stages: int
+    out_bufs: int
+    q_off: int
+    w_off: int
+    sb_off: int
+    tap_off: int
+    out_off: int
+    bar_off: int
+    smem: int
+
+
+def stem_slots(kh: int, kw: int) -> list:
+    """`stem_slot` of the source for every slot of K: (tap or -1, row,
+    column). Four rows of one window column a group of four slots,
+    ceil(kh / 4) groups a column, column by column, then a zero group to
+    a whole k32 step; a slot past the window reads its group's first row
+    (past the last column, row 0 of column 0) with a zero weight."""
+    blocks = _ceil(kh, 4)
+    out = []
+    for j in range(8 * _ceil(kw * blocks, 2)):
+        c, rb = divmod(j // 4, blocks)
+        r0 = 4 * rb
+        r = r0 + j % 4
+        if c >= kw:
+            out.append((-1, 0, 0))
+        elif r >= kh:
+            out.append((-1, r0, c))
+        else:
+            out.append((r * kw + c, r, c))
+    return out
+
+
+def stem_phase(box_w: int, stride: int) -> int:
+    """Pixels a column phase of a stem's quantized box row: the least that
+    holds ceil(box_w / stride) and puts stride * pw at a multiple of 32
+    words, so that the row, 8 words past it, puts rows r .. r + 3 of a
+    column on 8 banks each; at stride 2, 16 past a multiple of 32, so that
+    a warp's 32 consecutive pixels (16 of each phase) fall on 32 banks when
+    quantized."""
+    least = _ceil(box_w, stride)
+    if stride == 2:
+        return least + (16 - least) % 32
+    return _align(least, 32)
+
+
+def stem_plan(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int,
+              stride: int, pads: Tuple[int, int, int, int], in_bytes: int,
+              out_bytes: int) -> StemPlan:
+    """The plan of a dense conv (n, h, w, c) -> (n, ., ., o), c <= 3, with a
+    kh x kw window at `stride`; in_bytes / out_bytes the element sizes.
+
+    Tiles STEM_TILE_W wide (16 where the output is at most 16 wide) of the
+    first of STEM_TILE_MS output pixels that leaves NARROW_MIN_ITEMS items
+    (else the last), cut to the output's height. The output by TMA where
+    its rows are whole 16-byte units and the map has at least
+    NARROW_MAP_MIN_PIXELS input pixels (narrow's rule). The first ring
+    depth (STEM_STAGES down) and staging count (NARROW_OUT_BUFS down) whose
+    shared memory fits a budget of STEM_SMEM_BUDGETS, in order; a ValueError
+    where none does."""
+    top, bottom, left, right = pads
+    s = stride
+    oh = conv_out_size(h, kh, s, top, bottom)
+    ow = conv_out_size(w, kw, s, left, right)
+    tm = next((t for t in STEM_TILE_MS
+               if n * oh * ow >= t * NARROW_MIN_ITEMS), STEM_TILE_MS[-1])
+    tile_w = STEM_TILE_W if ow > 16 else 16
+    tile_h = max(1, min(tm // tile_w, oh))
+    box_h, box_w = (tile_h - 1) * s + kh, (tile_w - 1) * s + kw
+    row_pitch = STEM_PIXEL * (s * stem_phase(box_w, s) + 8)
+    raw_pitch = 16 * _ceil(box_w * c * in_bytes + 15, 16)
+    raw = _align(box_h * raw_pitch, 128)
+    maps = n * h * w >= NARROW_MAP_MIN_PIXELS
+    tma_out = maps and (o * out_bytes) % 16 == 0
+    o_box = o
+    if tma_out:
+        widths = [b // out_bytes for b in (128, 64, 32, 16)
+                  if b <= o * out_bytes]
+        o_box = min(widths, key=lambda b: _ceil(o, b) * b)
+    k_steps = len(stem_slots(kh, kw)) // 8
+    w_pitch = 32 * k_steps + 16
+    o_pad = _align(o, 16)
+    tile_n = next((t for t in NARROW_TILE_NS if t >= o_pad),
+                  NARROW_TILE_NS[-1])
+    staging = narrow_staging_bytes(tile_h, tile_w, o, o_box, out_bytes,
+                                   tma_out)
+    for budget in STEM_SMEM_BUDGETS:
+        for stages in range(STEM_STAGES, 0, -1):
+            for bufs in (range(NARROW_OUT_BUFS, 0, -1) if tma_out else (1,)):
+                q_off = stages * raw
+                w_off = q_off + _align(box_h * row_pitch, 128)
+                sb_off = w_off + o_pad * w_pitch
+                tap_off = sb_off + 8 * o_pad
+                out_off = _align(tap_off + 32 * k_steps, 1024)
+                bar_off = out_off + bufs * staging
+                smem = bar_off + 8 * stages + 1024
+                if smem <= budget:
+                    return StemPlan(tile_n, tile_h, tile_w, box_h, box_w,
+                                    row_pitch, raw_pitch, k_steps, w_pitch,
+                                    o_pad, o_box, tma_out, stages, bufs,
+                                    q_off, w_off, sb_off, tap_off, out_off,
+                                    bar_off, smem)
+    raise ValueError(f"no stem plan fits shared memory for a {kh}x{kw} "
+                     f"window at stride {stride} over {c} channels into {o}")
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.int8_conv_launch.argtypes = (
         [ctypes.POINTER(_Args), ctypes.c_void_p, ctypes.c_int,
@@ -446,7 +607,8 @@ class _Args(ctypes.Structure):
         "tile_h", "tile_w", "dw_chunk", "box_h", "box_w", "taps_h",
         "taps_w", "row_pitch", "plane_pitch", "stages", "q_off", "out_off",
         "bar_off", "smem", "flat", "w_off", "w_pitch", "sb_off", "tap_off",
-        "k_steps", "o_pad", "o_box", "out_bufs", "tma_in", "tma_out")]
+        "k_steps", "o_pad", "o_box", "out_bufs", "tma_in", "tma_out",
+        "raw_pitch")]
 
 
 # the built library, and the counts of kernel launches
@@ -488,10 +650,12 @@ def conv_args(x_shape, packed_shape, out_channels: int, stride: int,
         scratch = n * plan.qh * plan.qw * plan.c_tap
     elif design == "mma_sync":
         scratch = n * h * w * 4 * (-(-c // 4))
-    elif design == "narrow":
-        plan = narrow_plan(n, h, w, c, o, kh, kw, stride, pads, in_bytes,
-                           out_bytes, aligned)
-        for name in NarrowPlan.__dataclass_fields__:
+    elif design in ("narrow", "stem"):
+        plan = (narrow_plan(n, h, w, c, o, kh, kw, stride, pads, in_bytes,
+                            out_bytes, aligned) if design == "narrow" else
+                stem_plan(n, h, w, c, o, kh, kw, stride, pads, in_bytes,
+                          out_bytes))
+        for name in type(plan).__dataclass_fields__:
             setattr(args, name, int(getattr(plan, name)))
     else:
         plan = depthwise_plan(design, c, oh, ow, kh, kw, stride, in_bytes,
@@ -522,7 +686,7 @@ def launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         x.shape, packed.shape, scale.shape[0], stride, pads, groups, kh, kw,
         x.element_size(), y.element_size(), x.data_ptr() % 16 == 0)
     # the quantized input of a wgmma or mma_sync conv (int32 words keep it
-    # 16-byte aligned); the narrow and depthwise designs take none
+    # 16-byte aligned); the narrow, stem and depthwise designs take none
     q = (torch.empty(-(-scratch // 4), dtype=torch.int32, device=x.device)
          if scratch else None)
     err = lib.int8_conv_launch(

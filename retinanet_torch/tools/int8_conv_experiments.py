@@ -2,7 +2,7 @@
 depthwise and narrow designs goes, at the shapes of the int8 lane.
 
     python -m retinanet_torch.tools.int8_conv_experiments \
-        [--designs wgmma depthwise narrow]
+        [--designs wgmma depthwise narrow] [--mma_peak]
 
 Seven convs of a batch-8 flagship request, bfloat16 in and out, seeded
 inputs, and the 7x7/2 stem a second time on the wgmma design (routed there
@@ -10,12 +10,14 @@ as if C = 3 were above `WGMMA_MIN_CHANNELS`: taps of 32 channels), which
 says what keeping it on the mma_sync design saves; seven depthwise convs
 of a batch-8 lite2 request; and the dense convs with C <= 16 of batch-8
 lite2, MobileDet-cpu and MobileDet-edge_tpu requests, each a second time on
-the other of the narrow and mma_sync designs (routed by
-`NARROW_MIN_CHANNELS`: C <= 16 on mma_sync, what narrow replaced; the C = 3
-stems on narrow). For each variant and case: the design, the device ms of
-a call (`utils/benchmark.py:device_time_ms`), and the ms of its CUDA
-kernels by name from a profiler trace (the quantizing pass and the GEMM),
-beside the card's name and power limit.
+the mma_sync design (`NARROW_ROUTES`: C <= 16 on mma_sync, what narrow
+replaced), and the C = 3 stems on the stem design and routed to mma_sync
+and to narrow (`STEM_ROUTES`). For each variant and case: the design, the
+device ms of a call (`utils/benchmark.py:device_time_ms`), and the ms of
+its CUDA kernels by name from a profiler trace (the quantizing pass and
+the GEMM), beside the card's name and power limit. The narrow design's
+source variants edit the body that the stem shares, so each runs on the
+stems too.
 
 A source variant is `csrc/int8_conv.cu` with one edit, compiled beside the
 package's build; a plan variant (`DW_PLANS`, `NARROW_PLANS`) is the
@@ -25,15 +27,22 @@ shared-memory budget), on the package's build. The cut variants (name
 "cut: ...": no stores, no epilogue, no products, no quantization) compute
 something else and are timed only; every other variant must equal the
 plain version at every case, and the tool exits 1 when one does not.
-`routed` and `NARROW_ROUTES` also serve `chip_smoke.py`, which times each
-narrow call on mma_sync too.
+The stem's plan variants (`STEM_PLANS`) run at the stems. `--mma_peak`
+first prints the card's int8 `mma.sync` m16n8k32 rate, registers only
+(`tools/mma_peak.cu`), at 1, 2 and 4 CTAs of 256 threads an SM: the
+products' floor of the narrow and stem designs.
+`routed`, `NARROW_ROUTES` and `STEM_ROUTES` also serve `chip_smoke.py`,
+which times each narrow call on mma_sync too, and each stem call on
+mma_sync and narrow.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import sys
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -41,6 +50,7 @@ import torch
 
 from retinanet_torch.models.layers import same_pads
 from retinanet_torch.ops import int8_conv, int8_conv_kernel
+from retinanet_torch.ops.cuda_build import CudaLibrary
 from retinanet_torch.ops.int8_conv import int8_conv2d_plain, pack_weights
 from retinanet_torch.tools.kernel_variants import (Edits, build_all,
                                                    card_line,
@@ -86,9 +96,12 @@ NARROW_SHAPES = (
     ("stem 3x3/2 512 3->32", (8, 512, 512, 3), 32, 3, 2, (0, 1, 0, 1)),
     ("stem 7x7/2 646 3->64", (8, 646, 646, 3), 64, 7, 2, (0, 0, 0, 0)),
 )
-# the routes of a dense conv with C <= 16 to the other design
+# the routes of a dense conv with 4 <= C <= 16 to mma_sync (and to narrow,
+# its own), and of a stem (C < 4) to the designs it is timed beside
 NARROW_ROUTES = {"mma_sync": {"NARROW_MIN_CHANNELS": 17},
                  "narrow": {"NARROW_MIN_CHANNELS": 1}}
+STEM_ROUTES = {"mma_sync": {"STEM_MAX_CHANNELS": 0},
+               "narrow": {"NARROW_MIN_CHANNELS": 1}}
 
 VARIANTS: Dict[str, Edits] = {
     "non-persistent grid": [
@@ -189,6 +202,19 @@ NARROW_VARIANTS: Dict[str, Edits] = {
     "cut: narrow without products": [
         ("for (int kk = 0; kk < s.k_steps; ++kk) {",
          "for (int kk = 0; kk < s.k_steps * 0; ++kk) {")],
+    "cut: stem without its box's copies": [
+        ("  for (int yy = max(0, -b.iy0) + (threadIdx.x >> 5); yy < y1;",
+         "  for (int yy = max(0, -b.iy0) + (threadIdx.x >> 5); yy < y1 * 0;")],
+    "cut: stem without quantization": [
+        ("  const StemBox b = stem_box(s, d);\n  if (s.c == 3 && s.stride == "
+         "2) {", "  const StemBox b = stem_box(s, d);\n  if (s.c > 0) return;\n"
+                 "  if (s.c == 3 && s.stride == 2) {")],
+    "cut: stem without products": [
+        ("for (int ks = 0; ks < s.k_steps; ++ks) {",
+         "for (int ks = 0; ks < s.k_steps * 0; ++ks) {")],
+    "stem: quantization without its C = 3, stride 2 path": [
+        ("  if (s.c == 3 && s.stride == 2) {\n    stem_quantize<TIn, 3, 2>",
+         "  if (s.c < 0) {\n    stem_quantize<TIn, 3, 2>")],
     "cut: narrow without stores": [
         ("          tma_store_4d(&y_map, stage + ch * tm * rb,",
          "          if (s.c < 0) tma_store_4d(&y_map, stage + ch * tm * rb,")],
@@ -205,6 +231,12 @@ NARROW_PLANS: Dict[str, Dict[str, object]] = {
     "narrow plan: three CTAs an SM": {
         "NARROW_SMEM_BUDGETS": (int8_conv_kernel.SM_SMEM // 3 - 1024,
                                 int8_conv_kernel.SMEM_LIMIT)},
+}
+# one-constant variants of the stem plan (ops/int8_conv_kernel.py)
+STEM_PLANS: Dict[str, Dict[str, object]] = {
+    "stem plan: items of 256": {"STEM_TILE_MS": (256, 128, 64)},
+    "stem plan: ring of 1 box": {"STEM_STAGES": 1},
+    "stem plan: one staging tile": {"NARROW_OUT_BUFS": 1},
 }
 # one-constant variants of the depthwise plan (ops/int8_conv_kernel.py)
 DW_PLANS: Dict[str, Dict[str, object]] = {
@@ -261,6 +293,11 @@ def routed(route: Dict[str, int]):
         yield
 
 
+def _declare_peak(lib) -> None:
+    lib.mma_peak_tops.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mma_peak_tops.restype = ctypes.c_double
+
+
 def shape_args(shape, rng, groups: int = 1):
     """The arguments of `launch` for a dense shape of SHAPES, or (groups
     C) a depthwise shape of DW_SHAPES."""
@@ -307,11 +344,21 @@ def main(argv=None) -> int:
                     default=["wgmma", "depthwise", "narrow"],
                     choices=["wgmma", "depthwise", "narrow"],
                     help="whose shapes and variants to run")
+    ap.add_argument("--mma_peak", action="store_true",
+                    help="first the card's int8 mma.sync rate")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("int8_conv_experiments runs on the card only", file=sys.stderr)
         return 1
     print(f"[card] {card_line()}")
+    if args.mma_peak:
+        peak = CudaLibrary("mma_peak", _declare_peak,
+                           source=Path(__file__).with_name("mma_peak.cu"))
+        lib = peak.build()
+        for ctas in (1, 2, 4):
+            tops = lib.mma_peak_tops(ctas, 4096)
+            print(f"[mma peak] m16n8k32 s8, {ctas} CTA(s) of 256 threads an "
+                  f"SM, 16 accumulators a warp: {tops:.1f} TOPS")
     base = int8_conv_kernel.kernel
     # (variant, the source edits or None, plan constants, the shapes' design)
     runs = [("base", None, {}, d) for d in args.designs]
@@ -322,7 +369,8 @@ def main(argv=None) -> int:
         runs += [(n, None, c, "depthwise") for n, c in DW_PLANS.items()]
     if "narrow" in args.designs:
         runs += [(n, e, {}, "narrow") for n, e in NARROW_VARIANTS.items()]
-        runs += [(n, None, c, "narrow") for n, c in NARROW_PLANS.items()]
+        runs += [(n, None, c, "narrow") for n, c in {**NARROW_PLANS,
+                                                      **STEM_PLANS}.items()]
     libs = {"base": base}
     libs.update({name: variant_library(base, int8_conv_kernel.declare, name,
                                        edits)
@@ -357,14 +405,14 @@ def main(argv=None) -> int:
                                            int8_conv2d_plain(*a)))
     if "narrow" in args.designs:
         for i, shape in enumerate(NARROW_SHAPES):
-            other = NARROW_ROUTES["narrow" if shape[1][3] <
-                                  int8_conv_kernel.NARROW_MIN_CHANNELS
-                                  else "mma_sync"]
+            stem = shape[1][3] < int8_conv_kernel.NARROW_MIN_CHANNELS
+            others = (list(STEM_ROUTES.values()) if stem
+                      else [NARROW_ROUTES["mma_sync"]])
             with torch.inference_mode():
                 a = shape_args(shape, np.random.default_rng(200 + i))
                 want = int8_conv2d_plain(*a)
-            cases["narrow"] += [(shape[0], {}, a, want),
-                                (shape[0], other, a, want)]
+            cases["narrow"] += [(shape[0], route, a, want)
+                                for route in [{}] + others]
     failed = []
     try:
         for name, edits, constants, design_of in runs:
@@ -376,8 +424,10 @@ def main(argv=None) -> int:
                         torch.inference_mode():
                     design = int8_conv_kernel.int8_design(
                         x.shape[3], scale.shape[0], kh, kw, stride, groups)
-                    if (design_of == "narrow" and design != "narrow"
-                            and name != "base"):
+                    if (design_of == "narrow" and name != "base"
+                            and (design not in ("narrow", "stem")
+                                 or name in STEM_PLANS
+                                 and design != "stem")):
                         continue    # mma_sync: the base build only
                     got = int8_conv_kernel.launch(*a)
                     ms = device_time_ms(

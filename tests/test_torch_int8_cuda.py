@@ -4,8 +4,10 @@ Imports nothing of JAX, so that it runs on a machine with a card and no
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py`.
 The output is bit-equal: the accumulators are exact integers and the
 epilogue rounds in the same two places. The cases meet every branch of the
-five designs (`int8_design`); `test_cases_meet_every_branch` checks that
-on the CPU too."""
+five designs on the paths (`int8_design`); `test_cases_meet_every_branch`
+checks that on the CPU too. The stem tests alone:
+`python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py -k
+"stem or c3"`."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,  # noqa: E402
                                            pack_weights, tap_channels)
 from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
     TILE_M, conv_args, int8_conv2d, kernel)
+from retinanet_torch.tools.int8_conv_experiments import (  # noqa: E402
+    STEM_ROUTES, plan_constants, routed)
 
 # (name, batch, size, C, O, k, stride, groups, pads): pads None is "SAME"
 _CASES = [
@@ -81,6 +85,16 @@ _CASES = [
     ("se_c4_o96", 8, 1, 4, 96, 1, 1, 1, (0, 0, 0, 0)),
     ("se_c12_o288", 8, 1, 12, 288, 1, 1, 1, (0, 0, 0, 0)),
     ("se_c16_o4", 8, 1, 16, 4, 1, 1, 1, (0, 0, 0, 0)),
+    # stem (stem7x7_c3_s2 and c3_3x3_ragged above too): the flagship's
+    # 646-wide input without pads (bfloat16 rows of 3,876 bytes, no
+    # multiple of 16), the (0, 1, 0, 1)-padded 3x3/2 of lite2 and
+    # MobileDet, C = 1 and 2, and a ragged M (tiles cut at both edges)
+    ("stem646_7x7_s2", 1, 646, 3, 64, 7, 2, 1, (0, 0, 0, 0)),
+    ("stem3x3_s2_pad0101", 2, 96, 3, 32, 3, 2, 1, (0, 1, 0, 1)),
+    ("stem3x3_s2_o16", 2, 70, 3, 16, 3, 2, 1, (0, 1, 0, 1)),
+    ("stem_c1_3x3_s1", 2, 40, 1, 16, 3, 1, 1, None),
+    ("stem_c2_5x5_s2", 2, 41, 2, 24, 5, 2, 1, None),
+    ("stem_ragged_m", 3, 75, 3, 32, 3, 2, 1, None),
 ]
 _DTYPES = [("f32", torch.float32), ("bf16", torch.bfloat16)]
 
@@ -113,8 +127,28 @@ def _case_args(case):
 def test_cases_meet_every_branch():
     args = {case[0]: _case_args(case) for case in _CASES}
     designs = {d for d, _ in args.values()}
-    assert designs == {"wgmma", "mma_sync", "depthwise", "depthwise_generic",
+    assert designs == {"wgmma", "stem", "depthwise", "depthwise_generic",
                        "narrow"}
+    # stem, in bfloat16 (the lane's type) and float32
+    for nbytes in (2, 4):
+        stem = [conv_args((case[1], case[2], case[2], case[3]),
+                          (case[4], 32), case[4], case[6],
+                          case[8] or same_pads(case[2], case[5], case[6]) * 2,
+                          1, case[5], case[5], nbytes, nbytes)[1]
+                for case in _CASES if _case_args(case)[0] == "stem"]
+        assert {a.c for a in stem} == {1, 2, 3}
+        assert {a.kh for a in stem} == {3, 5, 7}
+        assert {a.tile_w for a in stem} == {16, 32}
+        assert {a.tma_out for a in stem} == {0, 1}
+        assert {a.out_bufs for a in stem} == {1, 2}
+        assert {a.tile_n for a in stem} == {32, 64}
+        assert any(a.o > a.tile_n for a in stem)            # O = 70
+        assert any(a.ow % a.tile_w and a.oh % a.tile_h for a in stem)
+        assert any(a.pad_t == 0 and a.oh * 2 < a.h for a in stem)
+        # rows of the input that are no whole number of 16-byte units
+        assert any((a.w * a.c * nbytes) % 16 for a in stem)
+        assert any(a.tma_out and -(-a.o // a.o_box) > 1 for a in stem) == \
+            (nbytes == 4)
     # narrow, in bfloat16 (the lane's type) and float32
     for nbytes in (2, 4):
         nar = [conv_args((case[1], case[2], case[2], case[3]),
@@ -190,6 +224,35 @@ def test_int8_conv_kernel_equals_plain(case, in_name, in_dtype, out_name,
                                  groups, k, k, out_dtype)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["in_f32", "in_bf16"])
+def test_int8_stem_ring_of_one_box_and_unaligned_input(in_dtype):
+    """The stem's plan with a ring of one raw box (each box's copies wait
+    for the last one's quantization), and an input one element off
+    16-byte alignment (the copies' units start before it): bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
+                    "mode")
+    case = ("stem7x7", 2, 80, 3, 64, 7, 2, 1, (0, 0, 0, 0))
+    x, packed, scale, bias, pads = _case_inputs(case, in_dtype, seed=9)
+    flat = torch.empty(x.numel() + 1, dtype=in_dtype, device="cuda")
+    x_odd = flat[1:].view(x.shape)
+    x_odd.copy_(x.cuda())
+    args = (packed.cuda(), scale.cuda(), bias.cuda(), 0.02, 2, pads, 1, 7,
+            7, torch.bfloat16)
+    for stages in (1, 2):
+        with plan_constants({"STEM_STAGES": stages}):
+            _, a, _ = conv_args(x.shape, packed.shape, 64, 2, pads, 1, 7, 7,
+                                x.element_size(), 2, False)
+            assert a.stages == stages
+            before = kernel.launches_by["stem"]
+            got = int8_conv2d(x_odd, *args)
+            torch.cuda.synchronize()
+        assert kernel.launches_by["stem"] == before + 1
+        assert torch.equal(got, int8_conv2d_plain(x_odd, *args))
 
 
 @pytest.mark.cuda
@@ -286,9 +349,12 @@ def test_int8_conv_refuses_the_earlier_layout(c, k):
                                                   ("depthwise_generic", 7, 7,
                                                    12),
                                                   ("narrow", 8, 1, 12),
-                                                  ("narrow", 16, 1, 48)],
+                                                  ("narrow", 16, 1, 48),
+                                                  ("stem", 3, 1, 12),
+                                                  ("stem", 3, 1, 48)],
                          ids=["wgmma", "mma_sync", "depthwise",
-                              "depthwise_generic", "narrow", "narrow_tma"])
+                              "depthwise_generic", "narrow", "narrow_tma",
+                              "stem", "stem_tma"])
 @pytest.mark.parametrize("s_a", [0.0137, 3e-39], ids=["s_a", "s_a_subnormal"])
 def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, size,
                                                     s_a):
@@ -296,7 +362,9 @@ def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, size,
     s_a up to the clip, and past it: the kernels' quantization (a
     reciprocal product checked against its error bound, else the
     division) equals the plain version's division bit for bit. A
-    subnormal s_a has no normal reciprocal and always divides."""
+    subnormal s_a has no normal reciprocal and always divides. The C = 3
+    convs take "stem", and "mma_sync" by its route (on no path since the
+    stem design: the yardstick it is timed beside)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
                     "mode")
@@ -315,8 +383,9 @@ def test_int8_conv_quantizes_ties_like_the_division(design, c, groups, size,
             torch.full((o,), 1e-3, device="cuda"), None, s_a, 1,
             (0, 0, 0, 0), groups, 1, 1, torch.float32)
     before = kernel.launches_by[design]
-    got = int8_conv2d(x, *args)
-    torch.cuda.synchronize()
+    with routed(STEM_ROUTES["mma_sync"] if design == "mma_sync" else {}):
+        got = int8_conv2d(x, *args)
+        torch.cuda.synchronize()
     assert kernel.launches_by[design] == before + 1
     assert torch.equal(got, int8_conv2d_plain(x, *args))
 

@@ -3,10 +3,11 @@
   * `int8_design` is a function of the shape: every int8 conv of the
     flagship (ResNet50-FPN), of EfficientNet-lite2 and -lite3, B2 768 and
     B3 896, and of MobileDet cpu, edge_tpu and gpu gets the design the rule
-    gives (the C = 3 stems mma_sync, 4 <= C <= 16 "narrow", every other
+    gives (the C = 3 stems "stem", 4 <= C <= 16 "narrow", every other
     dense conv wgmma, every depthwise conv "depthwise"); the numbers passed
-    for the wgmma design fit the tensor maps' limits, and the depthwise and
-    narrow plans fit shared memory and TMA's boxes at every such call.
+    for the wgmma design fit the tensor maps' limits, and the depthwise,
+    narrow and stem plans fit shared memory and TMA's boxes at every such
+    call (the stem's walk: `test_torch_int8_stem.py`).
   * The packed weights' padded layout round-trips, and a tensor packed in
     the earlier layout (ceil(C / 4) words a tap, rows padded to 16 words)
     is refused by the shape check.
@@ -82,16 +83,16 @@ _CONFIGS = {
 # int8 conv calls of one request by design (the prediction convs stay
 # float)
 _DESIGNS = {
-    "flagship": {"mma_sync": 1, "wgmma": 101},
-    "lite2": {"mma_sync": 1, "narrow": 1, "wgmma": 69, "depthwise": 50},
-    "lite3": {"mma_sync": 1, "wgmma": 96, "depthwise": 73},
-    "b2": {"mma_sync": 1, "narrow": 12, "wgmma": 117, "depthwise": 62},
-    "b3": {"mma_sync": 1, "narrow": 9, "wgmma": 142, "depthwise": 75},
-    "mobiledet_cpu": {"mma_sync": 1, "narrow": 6, "wgmma": 93,
+    "flagship": {"stem": 1, "wgmma": 101},
+    "lite2": {"stem": 1, "narrow": 1, "wgmma": 69, "depthwise": 50},
+    "lite3": {"stem": 1, "wgmma": 96, "depthwise": 73},
+    "b2": {"stem": 1, "narrow": 12, "wgmma": 117, "depthwise": 62},
+    "b3": {"stem": 1, "narrow": 9, "wgmma": 142, "depthwise": 75},
+    "mobiledet_cpu": {"stem": 1, "narrow": 6, "wgmma": 93,
                       "depthwise": 43},
-    "mobiledet_edge_tpu": {"mma_sync": 1, "narrow": 7, "wgmma": 70,
+    "mobiledet_edge_tpu": {"stem": 1, "narrow": 7, "wgmma": 70,
                            "depthwise": 43},
-    "mobiledet_gpu": {"mma_sync": 1, "narrow": 9, "wgmma": 68,
+    "mobiledet_gpu": {"stem": 1, "narrow": 9, "wgmma": 68,
                       "depthwise": 30},
 }
 
@@ -121,13 +122,13 @@ def _int8_calls(name):
 def _want_design(c, kh, kw, stride, groups):
     """The rule, said again: depthwise convs with a square window of 1, 3
     or 5 at stride 1 or 2 and C % 8 == 0 are tiled by TMA; dense convs
-    with 4 <= C <= 16 are narrow, the C = 3 stems mma_sync."""
+    with 4 <= C <= 16 are narrow, the C = 3 stems "stem"."""
     if groups != 1:
         tiled = (kh == kw and kh in (1, 3, 5) and stride in (1, 2)
                  and c % 8 == 0)
         return "depthwise" if tiled else "depthwise_generic"
     if c < 4:
-        return "mma_sync"
+        return "stem"
     return "narrow" if c <= 16 else "wgmma"
 
 
@@ -228,6 +229,55 @@ def _check_narrow_args(args, in_bytes, out_bytes):
         assert args.o_box == o and args.out_bufs == 1
 
 
+def _check_stem_args(args, in_bytes, out_bytes):
+    """The stem plan's limits: shared memory and its layout, the box's rows
+    (raw and quantized, the latter 8 words past a multiple of 32), K slots
+    of one word, the output map's boxes and the staging swizzle's period."""
+    c, o, s = args.c, args.o, args.stride
+    tm = args.tile_h * args.tile_w
+    assert c <= 3 and args.design == 5
+    assert args.smem <= SMEM_LIMIT
+    assert args.tile_w in (16, 32) and tm % 16 == 0
+    assert args.box_h == (args.tile_h - 1) * s + args.kh
+    assert args.box_w == (args.tile_w - 1) * s + args.kw
+    assert not args.flat and not args.tma_in
+    words = args.row_pitch // 4
+    assert args.row_pitch % 4 == 0 and words % 32 == 8
+    assert (words - 8) % s == 0 and (words - 8) // s >= -(-args.box_w // s)
+    # a raw row holds the box row's bytes from a 16-byte unit's start
+    assert args.raw_pitch % 16 == 0
+    assert args.raw_pitch >= args.box_w * c * in_bytes + 15
+    assert args.k_steps == -(-args.kw * -(-args.kh // 4) // 2)
+    assert args.w_pitch == 32 * args.k_steps + 16
+    assert (args.w_pitch // 16) % 2 == 1
+    assert args.o_pad % 16 == 0 and o <= args.o_pad < o + 16
+    tile_ns = int8_conv_kernel_module.NARROW_TILE_NS
+    assert args.tile_n in tile_ns
+    assert args.tile_n >= args.o_pad or args.tile_n == max(tile_ns)
+    assert args.stages in (1, 2)
+    raw = -(-args.box_h * args.raw_pitch // 128) * 128
+    assert args.q_off == args.stages * raw
+    assert args.q_off + args.box_h * args.row_pitch <= args.w_off
+    assert args.w_off + args.o_pad * args.w_pitch <= args.sb_off
+    assert args.sb_off + 8 * args.o_pad <= args.tap_off
+    assert args.tap_off + 32 * args.k_steps <= args.out_off
+    assert args.out_off % 1024 == 0
+    staging = narrow_staging_bytes(args.tile_h, args.tile_w, o, args.o_box,
+                                   out_bytes, args.tma_out)
+    assert args.out_off + args.out_bufs * staging <= args.bar_off
+    assert args.bar_off % 8 == 0
+    assert args.bar_off + 8 * args.stages + 1024 <= args.smem
+    maps = args.n * args.h * args.w >= NARROW_MAP_MIN_PIXELS
+    assert args.tma_out == (maps and (o * out_bytes) % 16 == 0)
+    if args.tma_out:
+        rb = args.o_box * out_bytes
+        assert rb in (16, 32, 64, 128) and args.o_box <= o
+        assert args.tile_w <= 256 and args.tile_h <= 256
+        assert args.out_bufs in (1, 2)
+    else:
+        assert args.o_box == o and args.out_bufs == 1
+
+
 @pytest.mark.parametrize("name", sorted(_CONFIGS))
 def test_design_of_every_int8_conv(name):
     calls = _int8_calls(name)
@@ -255,6 +305,15 @@ def test_design_of_every_int8_conv(name):
                 assert scratch == 0
                 _check_narrow_args(args, in_bytes, out_bytes)
             continue
+        if design == "stem":
+            packed_shape = (o, dense_k_words(c, kh, kw)[1])
+            for in_bytes, out_bytes in ((2, 2), (4, 4), (2, 4), (4, 2)):
+                _, args, scratch = conv_args(
+                    (n, h, w, c), packed_shape, o, stride, pads, groups, kh,
+                    kw, in_bytes, out_bytes)
+                assert scratch == 0
+                _check_stem_args(args, in_bytes, out_bytes)
+            continue
         if design != "wgmma":
             continue
         packed_shape = (o, dense_k_words(c, kh, kw)[1])
@@ -273,8 +332,11 @@ def test_design_of_every_int8_conv(name):
 
 
 def test_design_rule():
-    assert int8_design(3, 64, 7, 7, 2, 1) == "mma_sync"     # the stem
-    assert int8_design(3, 32, 3, 3, 2, 1) == "mma_sync"
+    assert int8_design(3, 64, 7, 7, 2, 1) == "stem"     # the stems
+    assert int8_design(3, 32, 3, 3, 2, 1) == "stem"
+    assert int8_design(3, 16, 3, 3, 2, 1) == "stem"
+    assert int8_design(1, 8, 3, 3, 1, 1) == "stem"
+    assert int8_design(2, 70, 5, 5, 2, 1, aligned=False) == "stem"
     assert int8_design(16, 96, 1, 1, 1, 1) == "narrow"
     assert int8_design(4, 16, 1, 1, 1, 1) == "narrow"
     assert int8_design(8, 16, 3, 3, 1, 1) == "narrow"
@@ -513,7 +575,8 @@ def test_experiment_edits_apply():
     from retinanet_torch.ops import int8_conv_kernel
     from retinanet_torch.tools.int8_conv_experiments import (
         DW_PLANS, DW_SHAPES, DW_VARIANTS, NARROW_PLANS, NARROW_ROUTES,
-        NARROW_SHAPES, NARROW_VARIANTS, VARIANTS, plan_constants, routed)
+        NARROW_SHAPES, NARROW_VARIANTS, STEM_PLANS, STEM_ROUTES, VARIANTS,
+        plan_constants, routed)
     from retinanet_torch.tools.kernel_variants import variant_source
     kernel = int8_conv_kernel.kernel
     for name, edits in {**VARIANTS, **DW_VARIANTS,
@@ -533,11 +596,25 @@ def test_experiment_edits_apply():
                 _, args, _ = conv_args((n, h, w, c), packed_shape, o, stride,
                                        pads, 1, k, k)
                 _check_narrow_args(args, 2, 2)
+    # the stem plan variants fit at the tool's stems
+    for name, changes in STEM_PLANS.items():
+        for constant in changes:
+            assert hasattr(int8_conv_kernel, constant), (name, constant)
+        for label, (n, h, w, c), o, k, stride, pads in NARROW_SHAPES:
+            if c >= int8_conv_kernel.NARROW_MIN_CHANNELS:
+                continue
+            packed_shape = (o, dense_k_words(c, k, k)[1])
+            with plan_constants(changes):
+                _, args, _ = conv_args((n, h, w, c), packed_shape, o, stride,
+                                       pads, 1, k, k)
+                _check_stem_args(args, 2, 2)
     for label, (n, h, w, c), o, k, stride, pads in NARROW_SHAPES:
         base = int8_design(c, o, k, k, stride, 1)
-        other = "narrow" if base == "mma_sync" else "mma_sync"
-        with routed(NARROW_ROUTES[other]):
-            assert int8_design(c, o, k, k, stride, 1) == other, label
+        routes = (NARROW_ROUTES if base == "narrow" else STEM_ROUTES)
+        for other, route in routes.items():
+            with routed(route):
+                assert int8_design(c, o, k, k, stride, 1) == other, label
+        assert base in ("narrow", "stem")
         assert int8_design(c, o, k, k, stride, 1) == base
     for name, changes in DW_PLANS.items():
         for constant in changes:
