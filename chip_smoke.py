@@ -198,19 +198,23 @@ JAX. Phases, each fatal on failure:
      k = 5,000) and the global lane ((B, A·C) rows, "bf16" and "f32"); on
      the zoo's anchor counts at batch 8 (37,485 and 49,104: drop 0;
      110,484: drop 1; 150,381 and 306,900: "bf16"); on rows of one value
-     and on the top-k over the NMS survivors; each case timed under both
-     designs beside its plain version, the stable `torch.sort` lane the
-     port ran before (its transpose and float32 copy included),
-     `torch.topk` (the same set, no tie order) and its bound (one read of
-     the rows), with the slab design's levels and the device ms of its
-     phases (its own %globaltimer stamps); then the flagship request at
-     batch 1 and 8 in the default and the exact lane as the main path
-     (host ms, device busy ms; the kernel's counts at 0 just before, by
-     mode and by design), and in a request's trace slab_select_kernel,
-     slab_final_kernel and topk_rows_kernel once each by name, no sort
-     kernel in the default lane. The kernel's launches on the serving
-     (5), evaluation (8), export and int8 (12) and spatial (15) paths are
-     counted there and reported here.
+     and on the top-k over the NMS survivors: seeded rows, the real
+     survivors of a zero-bias request (`_per_class_nms`'s input to
+     `top_k`) and trained-like rows (>= 95% -1.0) at batch 8 and 1; each
+     case timed under both designs beside its plain version, the stable
+     `torch.sort` lane the port ran before (its transpose and float32 copy
+     included), `torch.topk` (the same set, no tie order) and its bound
+     (one read of the rows), with the slab design's levels and the device
+     ms of its phases (its own %globaltimer stamps), the survivors also
+     beside the launch floor (the row design's launch of a kernel that
+     returns at once, `tools/topk_experiments.py`); then the flagship
+     request at batch 1 and 8 in the default and the exact lane as the
+     main path (host ms, device busy ms; the kernel's counts at 0 just
+     before, by mode and by design), and in a request's trace
+     slab_select_kernel, slab_final_kernel and row_select_kernel once each
+     by name, no sort kernel in the default lane. The kernel's launches on
+     the serving (5), evaluation (8), export and int8 (12) and spatial
+     (15) paths are counted there and reported here.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -446,7 +450,9 @@ TOPK_SORT_NAMES = ("sort", "Sort", "radix", "Radix", "gatherTopK", "sbtopk",
 TOPK_PATHS = {}
 # the top-k kernels' names in a trace: the slab design's two, row's one
 TOPK_KERNEL_NAMES = ("slab_select_kernel", "slab_final_kernel",
-                     "topk_rows_kernel")
+                     "row_select_kernel")
+# the row design's timed runs a measurement (a launch is ~0.01 ms)
+TOPK_ROW_REPS = 200
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3964,7 +3970,7 @@ def topk_sort_lane(rows: torch.Tensor, k: int):
 
 
 def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
-              timed: bool = True) -> dict:
+              timed: bool = True, reps: int = 10) -> dict:
     """Both designs of the kernel on rows (B, N, C) against the plain
     version on the card: indices and value bits equal. Timed beside plain,
     the sort lane and `torch.topk` along N, and the bound; the slab
@@ -4001,7 +4007,7 @@ def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
             times[name].append(time_ms(
                 (lambda: top_k_rows_plain(rows, k, mode)) if name == "plain"
                 else (lambda d=name: launch(rows, k, mode, design=d)),
-                reps=2 if name == "plain" else 10))
+                reps=2 if name == "plain" else reps))
         out["row_ms"] = statistics.mean(times["row"])
         out["slab_ms"] = statistics.mean(times["slab"])
         out["ms"] = out[f"{out['design']}_ms"]
@@ -4009,7 +4015,7 @@ def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
         out["sort_lane_ms"] = time_ms(lambda: topk_sort_lane(rows, k),
                                       reps=3)
         out["torch_topk_ms"] = time_ms(
-            lambda: torch.topk(rows, k, dim=1), reps=10)
+            lambda: torch.topk(rows, k, dim=1), reps=reps)
         print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}, "
               f"{out['design']}): slab {out['slab_ms']:.4f} ms, row "
               f"{out['row_ms']:.4f}, bound {out['bound_ms']:.5f}, plain "
@@ -4029,18 +4035,43 @@ def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
     return out
 
 
+def hold_survivors(label: str, rows: torch.Tensor, k: int,
+                   floor_library) -> dict:
+    """The top-k over the NMS survivors (rows (B, C * max_detections, 1)
+    float32): both designs bit-equal to the plain version and timed beside
+    it, `torch.topk` and the bound (`hold_topk`), and the launch floor: the
+    same launch of a kernel that returns at once
+    (`tools/topk_experiments.py:launch_floor_library`)."""
+    from retinanet_torch.ops.topk_kernel import launch
+    out = hold_topk(label, rows, k, "f32", reps=TOPK_ROW_REPS)
+    out["fill_share"] = float((rows == -1.0).float().mean())
+    out["floor_ms"] = time_ms(lambda: launch(
+        rows, k, "f32", design="row", library=floor_library),
+        reps=TOPK_ROW_REPS)
+    print(f"[topk] {label} (-1.0 share {out['fill_share']:.4f}): row design "
+          f"{out['row_ms']:.5f} ms, launch floor {out['floor_ms']:.5f}, slab "
+          f"{out['slab_ms']:.5f}, torch.topk {out['torch_topk_ms']:.5f}, "
+          f"bound {out['bound_ms']:.6f}, plain {out['plain_ms']:.4f} "
+          f"({card_line()})")
+    return out
+
+
 def sort_kernels(names) -> list:
     return sorted({n for n in names if any(s in n for s in TOPK_SORT_NAMES)
                    and not any(t in n for t in TOPK_KERNEL_NAMES)})
 
 
-def phase_topk() -> list:
-    """Phase 16. Returns the records of the top-k kernel's two designs."""
+def phase_topk(floor_library) -> list:
+    """Phase 16. Returns the records of the top-k kernel's two designs.
+    `floor_library`: `csrc/topk.cu` with the row design's kernel returning
+    at once, built beside the kernels."""
     from retinanet_torch.core.config import Config, from_dict
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops import topk_kernel
     from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.tools.topk_experiments import (
+        capture_survivors, trained_like_survivors)
     params = Config(str(FLAGSHIP)).params
     model = build_model(params, device="cuda", seed=0)
     zero_class_prior(model)
@@ -4050,6 +4081,7 @@ def phase_topk() -> list:
         0, 256, (bs, h, w, 3)).astype(np.uint8)) for bs in (8, 1)}
     fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
                                 model=model)
+    default_serve = build_serving_fn(params, device="cuda", model=model)
     with torch.inference_mode():
         logits = fused_fn(images[8])["class_logits"]        # (8, A, 80) f32
     k = min(int(params.inference.get("nms_top_k", 256)),
@@ -4079,6 +4111,19 @@ def phase_topk() -> list:
             np.round(rng.uniform(0.05, 1.0, (TOPK_BATCH, c * md, 1)) * 64)
             / 64).astype(np.float32)).cuda()
         cases.append(hold_topk("NMS survivors", survivors, md, "f32"))
+        # the row design's main path: the real survivors of a zero-bias
+        # request (`_per_class_nms`'s input to `top_k`) and trained-like
+        # rows, at batch 8 and 1
+        survivor_cases = []
+        for bs in (8, 1):
+            real = capture_survivors(default_serve, images[bs])
+            for label, rows in (
+                    (f"real survivors, batch {bs}",
+                     real[..., None].contiguous()),
+                    (f"trained-like survivors, batch {bs}",
+                     trained_like_survivors(bs, c * md))):
+                survivor_cases.append(hold_survivors(label, rows, md,
+                                                     floor_library))
         cases.append(hold_topk(
             "rows of one value", torch.zeros(
                 (TOPK_BATCH, TOPK_ZOO_ANCHORS[0][0], c),
@@ -4099,7 +4144,7 @@ def phase_topk() -> list:
     # the main path: the flagship request at batch 1 and 8, both lanes
     exact_tree = params.to_dict()
     exact_tree["inference"]["use_approx_top_k"] = False
-    lanes = {"default": build_serving_fn(params, device="cuda", model=model),
+    lanes = {"default": default_serve,
              "exact": build_serving_fn(from_dict(exact_tree), device="cuda",
                                        model=model)}
     kernel = topk_kernel.kernel
@@ -4133,19 +4178,22 @@ def phase_topk() -> list:
         traces[lane] = sort_kernels(names)
         counts = {t: sum(t in n for n in names) for t in TOPK_KERNEL_NAMES}
         check(counts == {"slab_select_kernel": 1, "slab_final_kernel": 1,
-                         "topk_rows_kernel": 1},
+                         "row_select_kernel": 1},
               f"{lane} lane: top-k kernels {counts} in a request (the slab "
               "design's two on the per-class selection, row's one on the "
               "NMS survivors)")
     check(not traces["default"],
           f"sort kernels in a default-lane request: {traces['default']}")
     print("[topk] a request of either lane ran slab_select_kernel, "
-          "slab_final_kernel and topk_rows_kernel once each, and the "
+          "slab_final_kernel and row_select_kernel once each, and the "
           "default lane no sort kernel; the exact lane's sort kernels: "
           f"{traces['exact']}")
     for path, count in TOPK_PATHS.items():
         check(count > 0, f"top-k kernel launched no time on {path}")
-    main, tail = cases[0], cases[5]
+    # the row design's record on the seeded survivors, the rows its earlier
+    # records were timed on; the real and trained-like ones beside them
+    main = cases[0]
+    tail = next(case for case in cases if case["case"] == "NMS survivors")
     common = {"route": "cuda", "source": "retinanet_torch/csrc/topk.cu",
               "max_abs_err": 0.0, "bound_by": "bytes",
               "library": "torch.topk along the anchors (no tie order)"}
@@ -4172,8 +4220,12 @@ def phase_topk() -> list:
          "launches": by_design["row"], "ms": tail["row_ms"],
          "slab_ms": tail["slab_ms"], "plain_ms": tail["plain_ms"],
          "bound_ms": tail["bound_ms"], "library_ms": tail["torch_topk_ms"],
-         "work": f"the top-k over a batch-8 request's NMS survivors "
-                 f"({tail['shape']}, k={tail['k']})"}]
+         "floor_ms": survivor_cases[0]["floor_ms"],
+         "survivor_cases": survivor_cases,
+         "work": f"the top-k over a batch-8 request's NMS survivors, "
+                 f"seeded ({tail['shape']}, k={tail['k']}); "
+                 f"survivor_cases: the real ones of a zero-bias request "
+                 f"and trained-like rows at batch 8 and 1"}]
 
 
 def main() -> int:
@@ -4195,13 +4247,16 @@ def main() -> int:
     print(f"[card] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
+    from retinanet_torch.tools.topk_experiments import launch_floor_library
     kernels = (nms_kernel.kernel, match_kernel.kernel,
                int8_conv_kernel.kernel, topk_kernel.kernel)
+    topk_floor = launch_floor_library()
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        for future in [pool.submit(k.build) for k in kernels]:
+    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
+        for future in [pool.submit(k.build) for k in (*kernels, topk_floor)]:
             future.result()
-    print(f"[build] {len(kernels)} kernels built side by side in "
+    print(f"[build] {len(kernels)} kernels and the top-k launch floor built "
+          "side by side in "
           f"{time.perf_counter() - start:.2f} s")
     for k in kernels:
         print(f"[build] {k.source.name} built in {k.build_seconds:.2f} s")
@@ -4251,7 +4306,7 @@ def main() -> int:
             Path(tmp) / "spatial")
         print(f"[phase 15] took {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
-    records.extend(phase_topk())
+    records.extend(phase_topk(topk_floor))
     print(f"[phase 16] took {time.perf_counter() - start:.1f} s")
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})

@@ -17,23 +17,34 @@
 // classes, bf16) 98.2 MB, 0.0293 ms at 3.35 TB/s. Two designs, picked by
 // shape alone (retinanet_torch/ops/topk_kernel.py:topk_design):
 //
-// "row" (short rows: the top-k over the NMS survivors). One CTA of 1024
-// threads a row; the row is read in place (element stride C).
-//   1. Radix select of the k-th value key, 8 bits a pass from the top (2
-//      passes for bf16 keys, 4 for f32): a histogram of the elements that
-//      share the prefix found so far, in shared memory (warp-aggregated
-//      atomics, so that a row of equal values does not serialise on one
-//      bin), then one warp finds the bin where the count from the top
-//      reaches k. After the last pass T is the k-th value key and `need`
-//      the number of elements with key T to take.
-//   2. One ordered compaction pass: chunks of 1024 elements in index
-//      order, a block scan of (key > T, key == T); every element above T
-//      and the first `need` elements equal to T (the lower indices) go to
-//      shared memory as 64-bit keys (value key << 32 | ~index). The pass
-//      ends once all of them are found.
-//   3. A bitonic sort of those k keys (padded to a power of two with 0,
-//      below every real key), descending, in shared memory; the keys
-//      unpack into the index and the value.
+// "row" (short rows: the top-k over the NMS survivors, 8,000 float32 keys
+// a request, k = 100). What bounds it is latency, not bytes (32 KB a row):
+// the launch, one read of the row, and the chain of steps and barriers on
+// one SM, where each instruction runs in all 32 warps. So one CTA a row
+// reads it from global memory once, into registers: kRowItems consecutive
+// keys a thread (8 in the kernel for rows of at most 8,192 keys), with
+// 16-byte loads when the row is contiguous (C = 1) and aligned, else in
+// place at stride C. A row longer than kRowTile = 16,384 keys (only when
+// C > 320) is read in tiles of kRowTile, each read again in every pass. A
+// thread keeps a mask of its keys that share the prefix resolved so far
+// and one of those above it, so that later passes and the compaction
+// touch only those.
+//   1. Radix select of the k-th value key, kRowDigitBits = 11 bits a pass
+//      from the top (3 passes for f32 keys, 2 for 16-bit): a histogram of
+//      2,048 bins in shared memory, an atomic a key. A thread sums its
+//      bins and zeroes them; the one thread whose bins reach k from the
+//      top (a scan of the threads' sums) picks the digit: three barriers a
+//      pass, no warp idle in the scan. The passes stop early when the bin
+//      found holds exactly the winners still needed.
+//   2. The k winners as value key << 32 | ~index into shared memory: the
+//      keys above the k-th prefix, and those at it when all of them win,
+//      or else the first of the equal keys at it by index; their slots by
+//      one scan in index order (tiles, warps, lanes).
+//   3. For k <= kRankSortMax = 128 (every config's max_detections), each
+//      winner's place is the count of the winners above it, counted by
+//      kRankLanes = 8 lanes and summed by shuffles (no barrier; one warp's
+//      bitonic network in registers was slower, PERF.md); larger k, a
+//      bitonic sort of the CTA in shared memory.
 //
 // "slab" (long rows: every per-class and global lane). What bounds the
 // rows is the bytes, and a CTA a row cannot reach them: its loads are 2
@@ -75,7 +86,7 @@
 //     bits, at the same speed, until it fits.
 //   slab_final_kernel, a CTA a row: radix select over the rest of e inside
 //     the row's candidates (11 bits a pass, shared histogram), then the
-//     exactly k winners into shared memory and the bitonic sort of "row".
+//     exactly k winners into shared memory and bitonic_sort_desc.
 // What bounds it now (H100, PERF.md): the levels' reads run at 1-2 TB/s,
 // held by the per-element work of bf16 (a shared atomic an element in the
 // histogram level) and by the candidates' staging, and the final kernel
@@ -92,8 +103,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8192;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -111,193 +120,6 @@ __device__ __forceinline__ uint32_t orderable32(uint32_t bits) {
 
 __device__ __forceinline__ uint32_t unorderable32(uint32_t code) {
   return (code & 0x80000000u) ? (code & 0x7FFFFFFFu) : ~code;
-}
-
-template <bool F32>
-__device__ __forceinline__ uint32_t value_key(const void* x, long long off,
-                                              int drop) {
-  if (F32) {
-    return orderable32(__ldg(static_cast<const unsigned int*>(x) + off));
-  }
-  return orderable16(__ldg(static_cast<const unsigned short*>(x) + off)) >>
-         drop;
-}
-
-// Exclusive block-wide prefix sum of v; *total gets the sum over the block.
-__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
-                                                         uint32_t* warp_sums,
-                                                         uint32_t* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t t = __shfl_up_sync(kFull, inc, o);
-    if (lane >= o) inc += t;
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t s = warp_sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t t = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += t;
-    }
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const uint32_t base = warp ? warp_sums[warp - 1] : 0u;
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();  // warp_sums is written again by the next call
-  return base + inc - v;
-}
-
-template <bool F32>
-__global__ void __launch_bounds__(kThreads)
-    topk_rows_kernel(const void* __restrict__ x, int n, int c, int k,
-                     int drop, void* __restrict__ out_vals,
-                     int* __restrict__ out_idx) {
-  extern __shared__ unsigned long long keys[];  // next power of two >= k
-  __shared__ uint32_t hist[256];
-  __shared__ uint32_t warp_sums[kWarps];
-  __shared__ uint32_t sel_digit, sel_need;
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const long long row = blockIdx.x;
-  const long long b = row / c, col = row % c;
-  const long long base = b * static_cast<long long>(n) * c + col;
-  const int key_bits = F32 ? 32 : 16;
-
-  // 1. radix select of the k-th value key
-  uint32_t prefix = 0, prefix_mask = 0, need = static_cast<uint32_t>(k);
-  for (int shift = key_bits - 8; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    // every lane of a warp takes the same number of turns
-    for (int i = tid; i - lane < n; i += kThreads) {
-      const bool valid = i < n;
-      uint32_t key = 0;
-      if (valid) key = value_key<F32>(x, base + static_cast<long long>(i) * c,
-                                      drop);
-      const bool take = valid && (key & prefix_mask) == prefix;
-      const unsigned takers = __ballot_sync(kFull, take);
-      if (take) {
-        const uint32_t bin = (key >> shift) & 255u;
-        const unsigned peers = __match_any_sync(takers, bin);
-        if (lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // lane l owns bins 255 - 8l down to 248 - 8l
-      uint32_t own = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) own += hist[255 - 8 * lane - j];
-      uint32_t inc = own;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t t = __shfl_up_sync(kFull, inc, o);
-        if (lane >= o) inc += t;
-      }
-      uint32_t above = inc - own;  // elements in the bins above lane's own
-      if (above < need && need <= inc) {
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t bin = 255 - 8 * lane - j;
-          if (above + hist[bin] >= need) {
-            sel_digit = bin;
-            sel_need = need - above;
-            break;
-          }
-          above += hist[bin];
-        }
-      }
-    }
-    __syncthreads();
-    prefix |= sel_digit << shift;
-    prefix_mask |= 255u << shift;
-    need = sel_need;
-    __syncthreads();  // sel_* and hist are written again in the next pass
-  }
-  const uint32_t kth = prefix;
-  const uint32_t above_count = static_cast<uint32_t>(k) - need;
-
-  // 2. ordered compaction of the k winners
-  uint32_t gt_base = 0, eq_base = 0;
-  for (int i0 = 0; i0 < n; i0 += kThreads) {
-    const int i = i0 + tid;
-    uint32_t key = 0, gt = 0, eq = 0;
-    if (i < n) {
-      key = value_key<F32>(x, base + static_cast<long long>(i) * c, drop);
-      gt = key > kth;
-      eq = key == kth;
-    }
-    uint32_t total;
-    const uint32_t pre = block_exclusive_scan(gt | (eq << 16), warp_sums,
-                                              &total);
-    const unsigned long long packed =
-        (static_cast<unsigned long long>(key) << 32) |
-        (0xFFFFFFFFu - static_cast<uint32_t>(i));
-    if (gt) keys[gt_base + (pre & 0xFFFFu)] = packed;
-    if (eq) {
-      const uint32_t slot = eq_base + (pre >> 16);
-      if (slot < need) keys[above_count + slot] = packed;
-    }
-    gt_base += total & 0xFFFFu;
-    eq_base += total >> 16;
-    if (gt_base == above_count && eq_base >= need) break;  // block-uniform
-  }
-
-  // 3. bitonic sort of the k keys, descending
-  int p = 1;
-  while (p < k) p <<= 1;
-  for (int i = k + tid; i < p; i += kThreads) keys[i] = 0ull;
-  __syncthreads();
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < p / 2; t += kThreads) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool descending = (lo & size) == 0;
-        const unsigned long long a = keys[lo], e = keys[hi];
-        if ((a < e) == descending) {
-          keys[lo] = e;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const long long out = row * k;
-  for (int j = tid; j < k; j += kThreads) {
-    const unsigned long long e = keys[j];
-    const uint32_t key = static_cast<uint32_t>(e >> 32);
-    out_idx[out + j] =
-        static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(e));
-    if (F32) {
-      static_cast<unsigned int*>(out_vals)[out + j] = unorderable32(key);
-    } else {
-      static_cast<unsigned short*>(out_vals)[out + j] =
-          static_cast<unsigned short>(unorderable16(key << drop));
-    }
-  }
-}
-
-template <bool F32>
-cudaError_t run(const void* x, long long rows, int n, int c, int k, int drop,
-                void* out_vals, int* out_idx, cudaStream_t stream) {
-  int p = 1;
-  while (p < k) p <<= 1;
-  const size_t smem = static_cast<size_t>(p) * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        topk_rows_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  topk_rows_kernel<F32><<<static_cast<unsigned>(rows), kThreads, smem,
-                          stream>>>(x, n, c, k, drop, out_vals, out_idx);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ slab
@@ -382,6 +204,32 @@ template <bool F32>
 __device__ __forceinline__ uint32_t scalar_of(const void* x, long long f) {
   return F32 ? __ldg(static_cast<const unsigned int*>(x) + f)
              : __ldg(static_cast<const unsigned short*>(x) + f);
+}
+
+// Sorts keys[0..k) descending in shared memory, padded with 0 (below every
+// real key) to the next power of two: all nthreads threads of the CTA, a
+// barrier a stage.
+__device__ void bitonic_sort_desc(unsigned long long* keys, int k, int tid,
+                                  int nthreads) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  for (int i = k + tid; i < p; i += nthreads) keys[i] = 0ull;
+  __syncthreads();
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < p / 2; t += nthreads) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const bool descending = (lo & size) == 0;
+        const unsigned long long x0 = keys[lo], x1 = keys[hi];
+        if ((x0 < x1) == descending) {
+          keys[lo] = x1;
+          keys[hi] = x0;
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 // A thread's run of equal bins: one atomic when the bin changes.
@@ -1266,25 +1114,7 @@ __global__ void slab_final_kernel(SlabArgs a, void* __restrict__ out_vals,
   }
 
   // 3. bitonic sort, descending
-  int p = 1;
-  while (p < k) p <<= 1;
-  for (int i = k + tid; i < p; i += nthreads) keys[i] = 0ull;
-  __syncthreads();
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < p / 2; t += nthreads) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool descending = (lo & size) == 0;
-        const unsigned long long x0 = keys[lo], x1 = keys[hi];
-        if ((x0 < x1) == descending) {
-          keys[lo] = x1;
-          keys[hi] = x0;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort_desc(keys, k, tid, nthreads);
 
   const long long out = static_cast<long long>(r) * k;
   const uint32_t imask = (1u << a.ibits) - 1u;
@@ -1364,12 +1194,324 @@ cudaError_t run_slab(SlabArgs a, int device, void* out_vals, int* out_idx,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- row
+
+constexpr int kRowThreads = 1024;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowItems = 16;               // the most keys a thread holds
+constexpr int kRowTile = kRowThreads * kRowItems;   // a CTA's keys at once
+constexpr int kRowDigitBits = 11;
+constexpr int kRowBins = 1 << kRowDigitBits;
+constexpr int kRowBinsPerThread = kRowBins / kRowThreads;
+constexpr int kRankSortMax = 128;                   // k ranked by counting
+constexpr int kRankLanes = kRowThreads / kRankSortMax;  // lanes a winner
+
+// A thread's run of tile t: `cnt` keys of the row from index `lo` on, into
+// key[0..cnt). 16-byte loads when the row is contiguous and aligned.
+template <bool F32, int ITEMS>
+__device__ __forceinline__ int row_load(uint32_t (&key)[ITEMS],
+                                        const void* x, long long base, int c,
+                                        int drop, bool vec, long long lo,
+                                        long long hi, int per) {
+  constexpr int V = F32 ? 4 : 8;
+  long long left = hi - lo;
+  const int cnt = left <= 0 ? 0 : (left < per ? static_cast<int>(left) : per);
+#pragma unroll
+  for (int v = 0; v < ITEMS / V; ++v) {
+    if (v * V < cnt) {
+      if (vec && v * V + V <= cnt) {
+        const long long f = base + lo + v * V;
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const char*>(x) + f * (F32 ? 4 : 2)));
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          key[v * V + q] = key_of<F32>(element_of<F32>(w, q), drop);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          if (v * V + q < cnt) {
+            key[v * V + q] = key_of<F32>(
+                scalar_of<F32>(x, base + (lo + v * V + q) * c), drop);
+          }
+        }
+      }
+    }
+  }
+  return cnt;
+}
+
+template <bool F32>
+__device__ __forceinline__ void row_write(unsigned long long e, long long at,
+                                          int drop, void* out_vals,
+                                          int* out_idx) {
+  const uint32_t key = static_cast<uint32_t>(e >> 32);
+  out_idx[at] = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(e));
+  if (F32) {
+    static_cast<unsigned int*>(out_vals)[at] = unorderable32(key);
+  } else {
+    static_cast<unsigned short*>(out_vals)[at] =
+        static_cast<unsigned short>(unorderable16(key << drop));
+  }
+}
+
+// The "row" design: a row of the (B, N, C) input on one CTA, in registers,
+// up to ITEMS consecutive keys a thread. A thread keeps two masks over its
+// keys: `live`, those that share the prefix resolved so far, and `win`,
+// those above it.
+template <bool F32, int ITEMS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    row_select_kernel(const void* __restrict__ x, int n, int c, int k,
+                      int drop, void* __restrict__ out_vals,
+                      int* __restrict__ out_idx) {
+  extern __shared__ unsigned long long keys[];  // the k winners
+  __shared__ uint4 hist_words[kRowBins / 4];
+  __shared__ uint32_t wtot[kRowWarps];          // a warp's bins
+  __shared__ uint32_t etot[2][kRowWarps];       // a warp's ties, by tile
+  __shared__ uint32_t sel[3];                   // a pass's digit, count, need
+  uint32_t* hist = reinterpret_cast<uint32_t*>(hist_words);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned row = blockIdx.x;
+  // (image, class) of the row; no division for a row a whole image
+  const unsigned img = c == 1 ? row : row / static_cast<unsigned>(c);
+  const long long base = static_cast<long long>(img) * n * c + (row - img * c);
+  const int key_bits = F32 ? 32 : 16 - drop;
+  constexpr int V = F32 ? 4 : 8;
+
+  // the row's tiles, the keys a thread holds
+  const int tiles = (n + kRowTile - 1) / kRowTile;
+  const int first = min(n, kRowTile);
+  const int per = ((first + kRowThreads - 1) / kRowThreads + V - 1) / V * V;
+  const bool vec =
+      c == 1 && ((reinterpret_cast<uintptr_t>(x) + base * (F32 ? 4 : 2)) &
+                 15u) == 0;
+  auto run_lo = [&](int t) {
+    return static_cast<long long>(t) * kRowTile +
+           static_cast<long long>(tid) * per;
+  };
+  auto run_hi = [&](int t) {
+    return min(static_cast<long long>(n),
+               static_cast<long long>(t + 1) * kRowTile);
+  };
+
+  uint32_t key[ITEMS];
+  uint32_t live = 0, win = 0;
+  uint32_t prefix = 0, pmask = 0;
+  // a tile read again: its masks from the prefix resolved so far
+  auto load = [&](int t) {
+    const int cnt = row_load<F32, ITEMS>(key, x, base, c, drop, vec,
+                                         run_lo(t), run_hi(t), per);
+    live = win = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const uint32_t kp = key[j] & pmask;
+      if (j < cnt) {
+        live |= static_cast<uint32_t>(kp == prefix) << j;
+        win |= static_cast<uint32_t>(kp > prefix) << j;
+      }
+    }
+  };
+  if (tiles == 1) load(0);
+  for (int i = tid; i < kRowBins / 4; i += kRowThreads) {
+    hist_words[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  // 1. radix select, kRowDigitBits a pass from the top. The resolved bits
+  // are pmask; prefix holds the k-th key's; need: winners still to take
+  // among the keys that share it, count: how many do.
+  uint32_t need = static_cast<uint32_t>(k), count = 0, digit = 0;
+  int top = key_bits;
+  for (;;) {
+    const int shift = top > kRowDigitBits ? top - kRowDigitBits : 0;
+    const uint32_t dmask = (1u << (top - shift)) - 1u;
+    for (int t = 0; t < tiles; ++t) {
+      if (tiles > 1) load(t);
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < ITEMS; ++j) {
+          if ((live >> j) & 1u) {
+            atomicAdd(&hist[(key[j] >> shift) & dmask], 1u);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // a thread's kRowBinsPerThread bins, from the top, zeroed for the next
+    // pass by their one reader; the bins above them in its warp by a scan
+    const int b0 = kRowBins - 1 - kRowBinsPerThread * tid;
+    uint32_t v[kRowBinsPerThread], own = 0;
+#pragma unroll
+    for (int q = 0; q < kRowBinsPerThread; ++q) {
+      v[q] = hist[b0 - q];
+      own += v[q];
+    }
+#pragma unroll
+    for (int q = 0; q < kRowBinsPerThread; ++q) hist[b0 - q] = 0u;
+    uint32_t inc = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t u = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane == 31) wtot[warp] = inc;
+    __syncthreads();
+    // the one thread whose bins reach need from the top picks the digit
+    const uint32_t wt = lane < kRowWarps ? wtot[lane] : 0u;
+    uint32_t above = __reduce_add_sync(kFull, lane < warp ? wt : 0u) + inc -
+                     own;
+    if (above < need && need <= above + own) {
+#pragma unroll
+      for (int q = 0; q < kRowBinsPerThread; ++q) {
+        if (above < need && need <= above + v[q]) {
+          sel[0] = b0 - q;
+          sel[1] = v[q];
+          sel[2] = need - above;
+        }
+        above += v[q];
+      }
+    }
+    __syncthreads();
+    digit = sel[0];
+    count = sel[1];
+    need = sel[2];
+    prefix |= digit << shift;
+    pmask |= dmask << shift;
+    // a resident row's masks: its live keys above the digit win, those
+    // off the digit drop out
+    if (tiles == 1 && live) {
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        if ((live >> j) & 1u) {
+          const uint32_t bin = (key[j] >> shift) & dmask;
+          win |= static_cast<uint32_t>(bin > digit) << j;
+          if (bin != digit) live &= ~(1u << j);
+        }
+      }
+    }
+    top = shift;
+    if (top == 0 || count == need) break;
+  }
+
+  // 2. the k winners into shared memory as value key << 32 | ~index. The
+  // keys above the prefix (win), and those at it (live) when all of them
+  // win, in any order (the sort orders them); otherwise the live keys are
+  // equal and the lower indices win. Slots of both by one scan in index
+  // order (the tiles, the warps, the lanes), the two counts packed in one
+  // word.
+  const bool ordered = count != need;
+  const uint32_t above = static_cast<uint32_t>(k) - need;
+  uint32_t gt_base = 0, eq_base = 0;
+  for (int t = 0; t < tiles; ++t) {
+    if (tiles > 1) load(t);
+    const long long lo = run_lo(t);
+    const uint32_t ng = __popc(win) + (ordered ? 0u : __popc(live));
+    const uint32_t ne = ordered ? __popc(live) : 0u;
+    const uint32_t pk = ng | (ne << 16);
+    uint32_t inc = pk;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t u = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane == 31) etot[t & 1][warp] = inc;
+    __syncthreads();
+    const uint32_t mine = lane < kRowWarps ? etot[t & 1][lane] : 0u;
+    const uint32_t pre =
+        __reduce_add_sync(kFull, lane < warp ? mine : 0u) + inc - pk;
+    const uint32_t total = __reduce_add_sync(kFull, mine);
+    uint32_t gslot = gt_base + (pre & 0xFFFFu);
+    uint32_t eslot = eq_base + (pre >> 16);
+    gt_base += total & 0xFFFFu;
+    eq_base += total >> 16;
+    const uint32_t taken = win | live;
+    if (taken) {
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        if ((taken >> j) & 1u) {
+          const unsigned long long e =
+              (static_cast<unsigned long long>(key[j]) << 32) |
+              (0xFFFFFFFFu - static_cast<uint32_t>(lo + j));
+          if (((win >> j) & 1u) || !ordered) {
+            keys[gslot++] = e;
+          } else {
+            if (eslot < need) keys[above + eslot] = e;
+            ++eslot;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the k winners sorted, descending, and written
+  const long long out = static_cast<long long>(row) * k;
+  if (k <= kRankSortMax) {
+    // a winner's place: the winners above it (the keys are unique),
+    // counted by kRankLanes lanes, each over every kRankLanes-th winner
+    if (warp * 32 >= k * kRankLanes) return;
+    const int i = tid / kRankLanes, sub = tid % kRankLanes;
+    const unsigned long long mine = i < k ? keys[i] : ~0ull;
+    int pos = 0;
+    for (int j = sub; j < k; j += kRankLanes) pos += keys[j] > mine;
+#pragma unroll
+    for (int o = kRankLanes / 2; o > 0; o >>= 1) {
+      pos += __shfl_xor_sync(kFull, pos, o);
+    }
+    if (i < k && sub == 0) {
+      row_write<F32>(mine, out + pos, drop, out_vals, out_idx);
+    }
+    return;
+  }
+  bitonic_sort_desc(keys, k, tid, kRowThreads);
+  for (int j = tid; j < k; j += kRowThreads) {
+    row_write<F32>(keys[j], out + j, drop, out_vals, out_idx);
+  }
+}
+
+template <bool F32, int ITEMS>
+cudaError_t launch_row(const void* x, long long rows, int n, int c, int k,
+                       int drop, void* out_vals, int* out_idx,
+                       cudaStream_t stream) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  const size_t smem = static_cast<size_t>(p) * sizeof(unsigned long long);
+  const auto kernel = row_select_kernel<F32, ITEMS>;
+  // on the current device, every launch (a process may use several cards)
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(rows), kRowThreads, smem, stream>>>(
+      x, n, c, k, drop, out_vals, out_idx);
+  return cudaGetLastError();
+}
+
+// A row of at most kRowThreads * kRowItems / 2 keys takes the kernel of
+// kRowItems / 2 keys a thread.
+template <bool F32>
+cudaError_t run_row(const void* x, long long rows, int n, int c, int k,
+                    int drop, void* out_vals, int* out_idx,
+                    cudaStream_t stream) {
+  constexpr int V = F32 ? 4 : 8;
+  const long long first = n < kRowTile ? n : kRowTile;
+  const long long per = ((first + kRowThreads - 1) / kRowThreads + V - 1) /
+                        V * V;
+  return per <= kRowItems / 2
+             ? launch_row<F32, kRowItems / 2>(x, rows, n, c, k, drop,
+                                              out_vals, out_idx, stream)
+             : launch_row<F32, kRowItems>(x, rows, n, c, k, drop, out_vals,
+                                          out_idx, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` (a cudaStream_t) and returns cudaGetLastError(), or
-// the error of the set-up calls; the caller raises when it is not 0.
+// The row design: one launch on `stream` (a cudaStream_t); returns
+// cudaGetLastError(), or the error of the set-up calls; the caller raises
+// when it is not 0.
 // mode: 0 packed, 1 bf16, 2 f32. x is (batch, n, c), contiguous; out_vals
 // and out_idx are (batch, c, k).
 int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
@@ -1381,11 +1523,24 @@ int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = static_cast<long long>(batch) * c;
+  if (rows >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = mode == 2
-            ? run<true>(x, rows, n, c, k, drop, out_vals, out_idx, s)
-            : run<false>(x, rows, n, c, k, drop, out_vals, out_idx, s);
+            ? run_row<true>(x, rows, n, c, k, drop, out_vals, out_idx, s)
+            : run_row<false>(x, rows, n, c, k, drop, out_vals, out_idx, s);
   return static_cast<int>(err);
+}
+
+// The row design's constants, for the wrapper's copy of them: kRowThreads,
+// kRowItems, kRowDigitBits, kRankSortMax, kRankLanes.
+void topk_row_constants(int* out) {
+  out[0] = kRowThreads;
+  out[1] = kRowItems;
+  out[2] = kRowDigitBits;
+  out[3] = kRankSortMax;
+  out[4] = kRankLanes;
 }
 
 // Bytes of the slab design's scratch for these rows (the wrapper allocates

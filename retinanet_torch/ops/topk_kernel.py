@@ -16,10 +16,19 @@ classes, bf16) 98.2 MB, 0.0293 ms at 3.35 TB/s.
 
 Two designs, picked by `topk_design` from the shape alone, both exact:
 
-* "row": one CTA of 1024 threads a (image, class) row, read in place
-  (stride C), an 8-bit radix select, an ordered compaction, a bitonic
-  sort. It serves short rows (the top-k over the NMS survivors), where one
-  launch of a few small CTAs is all the work.
+* "row": short rows (the top-k over the NMS survivors, 8,000 float32 keys
+  a request, k = 100), where latency and not bytes bounds the work. One
+  CTA of 1024 threads a row reads it once into registers (`row_plan`; a
+  row of more than 16,384 keys, only when C > 320, in tiles read again
+  each pass), 16-byte loads when the row is contiguous, in place at
+  stride C otherwise. A radix select of 11 bits a pass (three for f32 keys, two
+  for 16-bit) over a shared histogram, the one thread whose bins reach k
+  picking the digit (three barriers a pass; the passes stop once the bin
+  found holds exactly the winners still needed), the winners into shared
+  memory by a scan (ties at the k-th place ranked in index order), then
+  for k <= 128 each winner's place by counting the winners above it, the
+  CTA's bitonic sort above. `tests/test_torch_topk.py:_kernel_walk` walks
+  the design from the numbers below.
 * "slab": every long row (the per-class and global lanes). A cooperative
   kernel reads each image's (N, C) slab whole with 16-byte loads, all CTAs
   sharing every row: a histogram level (the next `hist_bits` of the unique
@@ -62,6 +71,15 @@ MAX_K = 8192    # the final sort's keys in shared memory, 8 bytes each
 _MODE_CODE = {"packed": 0, "bf16": 1, "f32": 2}
 DESIGNS = ("row", "slab")
 
+# The row design: csrc/topk.cu's kRowThreads, kRowItems, kRowDigitBits,
+# kRankSortMax and kRankLanes, as `topk_row_constants` returns them.
+ROW_THREADS = 1024
+ROW_ITEMS = 16              # the most keys a thread holds
+ROW_DIGIT_BITS = 11
+ROW_RANK_SORT_MAX = 128     # k ranked by counting, no barrier
+ROW_RANK_LANES = ROW_THREADS // ROW_RANK_SORT_MAX   # lanes a winner
+ROW_TILE = ROW_THREADS * ROW_ITEMS                  # a CTA's keys at once
+
 # The slab design. Those that csrc/topk.cu also has (kSlab*, kFinalBits,
 # kChunkAnchors) carry the same values there.
 SLAB_MIN_ROW = 16384        # shorter rows take "row"
@@ -82,6 +100,29 @@ def topk_design(b: int, n: int, c: int, k: int) -> str:
     SLAB_MAX_CLASSES rows an image, else "row". By shape alone."""
     del b, k
     return "slab" if n >= SLAB_MIN_ROW and c <= SLAB_MAX_CLASSES else "row"
+
+
+class RowPlan(NamedTuple):
+    tiles: int          # reads of the row in each pass (1: resident)
+    items: int          # keys a thread holds, consecutive
+    vector: int         # keys a 16-byte load brings, when C = 1
+    digits: Tuple[Tuple[int, int], ...]   # (shift, bits) of each pass
+    rank_sort: bool     # each winner's place by counting
+
+
+def row_plan(n: int, k: int, mode: str) -> RowPlan:
+    """The row design's numbers for rows of n keys and k winners."""
+    vector = 4 if mode == "f32" else 8
+    first = min(n, ROW_TILE)
+    items = -(-(-(-first // ROW_THREADS)) // vector) * vector
+    drop = packed_layout(n)[1] if mode == "packed" else 0
+    top, digits = (32 if mode == "f32" else 16 - drop), []
+    while top > 0:
+        shift = max(top - ROW_DIGIT_BITS, 0)
+        digits.append((shift, top - shift))
+        top = shift
+    return RowPlan(-(-n // ROW_TILE), items, vector, tuple(digits),
+                   k <= ROW_RANK_SORT_MAX)
 
 
 class SlabPlan(NamedTuple):

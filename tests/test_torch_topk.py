@@ -37,6 +37,7 @@ from retinanet_torch.export.serving import build_serving_fn  # noqa: E402
 from retinanet_torch.models.retinanet import build_model  # noqa: E402
 from retinanet_torch.ops import postprocess as torch_pp  # noqa: E402
 from retinanet_torch.ops import topk  # noqa: E402
+from retinanet_torch.ops import topk_kernel as tk  # noqa: E402
 
 from test_torch_postprocess import _JaxStub, _TorchStub  # noqa: E402
 from test_torch_serving import _variables  # noqa: E402
@@ -236,44 +237,165 @@ def test_select_top_k_refuses():
 # ----------------------------------------- the kernel's algorithm, walked
 
 
-def _kernel_walk(keys, k, key_bits, threads=64):
-    """A numpy walk of csrc/topk.cu over one row of value keys: radix
-    select 8 bits a pass from the top, the ordered compaction in chunks of
-    `threads`, then the descending sort of the 64-bit keys."""
-    prefix, mask, need = 0, 0, k
-    for shift in range(key_bits - 8, -1, -8):
-        take = (keys & mask) == prefix
-        hist = np.bincount((keys[take] >> shift) & 255, minlength=256)
-        above = 0
-        for digit in range(255, -1, -1):
-            if above + hist[digit] >= need:
-                need -= above
-                break
-            above += hist[digit]
+def _row_layout(n, c, mode):
+    """The row design's layout of a row of n keys (element stride c), as
+    csrc/topk.cu:row_select_kernel lays it out on its one CTA: its tiles,
+    each a (first index, count) of every thread's run of consecutive keys,
+    and whether a run comes by 16-byte loads."""
+    plan = tk.row_plan(n, 1, mode)
+    v, per = plan.vector, plan.items
+    assert per <= tk.ROW_ITEMS
+    tiles = []
+    for t in range(plan.tiles):
+        lo = t * tk.ROW_TILE + np.arange(tk.ROW_THREADS) * per
+        hi = min(n, (t + 1) * tk.ROW_TILE)
+        tiles.append((lo, np.clip(hi - lo, 0, per)))
+    # every key of the row once, in index order; 16-byte loads start on
+    # whole vectors (C = 1)
+    held = np.concatenate([np.arange(lo, lo + m) for los, cnts in tiles
+                           for lo, m in zip(los, cnts)])
+    assert np.array_equal(held, np.arange(n))
+    assert c != 1 or all(lo % v == 0 for los, _ in tiles for lo in los)
+    return tiles
+
+
+def _select(merged, need):
+    """A pass's choice: each thread's bins from the top, the scan of the
+    threads' sums (in its warp, then over the warps' totals), and the one
+    thread whose bins reach `need` picks the bin. Returns (digit, count in
+    the digit's bin, need within it)."""
+    per = len(merged) // tk.ROW_THREADS
+    v = merged[::-1].reshape(tk.ROW_THREADS, per)   # thread t, from the top
+    own = v.sum(1)
+    inc = np.cumsum(own.reshape(-1, 32), axis=1)
+    lower = np.cumsum(inc[:, -1]) - inc[:, -1]
+    above = (lower[:, None] + inc).reshape(-1) - own
+    pick = np.flatnonzero((above < need) & (need <= above + own))
+    assert len(pick) == 1
+    t = int(pick[0])
+    acc = above[t]
+    for q in range(per):
+        if acc < need <= acc + v[t, q]:
+            return (len(merged) - 1 - per * t - q, int(v[t, q]),
+                    int(need - acc))
+        acc += v[t, q]
+    raise AssertionError("no bin reaches need")
+
+
+def _rank_sort_desc(keys):
+    """csrc/topk.cu's sort for k <= ROW_RANK_SORT_MAX: winner i goes to the
+    place that counts the winners above it (the keys are unique), counted
+    by ROW_RANK_LANES lanes, each over every ROW_RANK_LANES-th winner."""
+    out = np.zeros_like(keys)
+    lanes = tk.ROW_RANK_LANES
+    for key in keys:
+        pos = sum(int(np.sum(keys[sub::lanes] > key)) for sub in range(lanes))
+        assert out[pos] == 0
+        out[pos] = key
+    return out
+
+
+def _block_sort_desc(keys):
+    """csrc/topk.cu:bitonic_sort_desc over keys padded with 0."""
+    p = 1
+    while p < len(keys):
+        p *= 2
+    v = np.zeros(p, np.uint64)
+    v[:len(keys)] = keys
+    t = np.arange(p // 2)
+    size = 2
+    while size <= p:
+        stride = size // 2
+        while stride:
+            lo = 2 * t - (t & (stride - 1))
+            hi = lo + stride
+            swap = (v[lo] < v[hi]) == ((lo & size) == 0)
+            v[lo], v[hi] = (np.where(swap, v[hi], v[lo]),
+                            np.where(swap, v[lo], v[hi]))
+            stride //= 2
+        size *= 2
+    return v[:len(keys)]
+
+
+def _kernel_walk(keys, k, mode, c=1):
+    """A numpy walk of csrc/topk.cu's row design over one row of value
+    keys, step for step from the wrapper's numbers: the row in its CTA's
+    threads, radix passes of ROW_DIGIT_BITS (the histogram, the one
+    thread's choice, the early stop), the winners into their slots (by the
+    scan over the tiles and the threads), then the sort (each winner's
+    place by counting up to ROW_RANK_SORT_MAX, the CTA's bitonic network
+    above). Returns the k value keys and indices in order."""
+    n = len(keys)
+    plan = tk.row_plan(n, k, mode)
+    tiles = _row_layout(n, c, mode)
+    bins = 1 << tk.ROW_DIGIT_BITS
+
+    prefix = pmask = 0
+    need, count = k, 0
+    for shift, width in plan.digits:
+        take = keys[(keys & pmask) == prefix]
+        hist = np.bincount((take >> shift) & ((1 << width) - 1),
+                           minlength=bins)
+        digit, count, need = _select(hist, need)
         prefix |= digit << shift
-        mask |= 255 << shift
-    kth, above_count = prefix, k - need
-    out = np.zeros(k, np.uint64)
-    gt_base = eq_base = 0
-    for i0 in range(0, len(keys), threads):
-        chunk = keys[i0:i0 + threads]
-        i = np.arange(i0, i0 + len(chunk))
-        packed = (chunk.astype(np.uint64) << np.uint64(32)) | (
-            np.uint64(0xFFFFFFFF) - i.astype(np.uint64))
-        gt, eq = chunk > kth, chunk == kth
-        slots = gt_base + np.cumsum(gt) - 1
-        out[slots[gt]] = packed[gt]
-        eslots = eq_base + np.cumsum(eq) - 1
-        keep = eq & (eslots < need)
-        out[above_count + eslots[keep]] = packed[keep]
-        gt_base += gt.sum()
-        eq_base += eq.sum()
-        if gt_base == above_count and eq_base >= need:
+        pmask |= ((1 << width) - 1) << shift
+        if count == need:
             break
-    out = np.sort(out)[::-1]
-    return (out >> np.uint64(32)).astype(np.int64), (
-        np.uint64(0xFFFFFFFF) - (out & np.uint64(0xFFFFFFFF))).astype(
+    ordered = count != need
+    above = k - need
+    out = np.full(k, -1, np.int64)      # the slot's element
+    gt_base = eq_base = 0
+    for los, cnts in tiles:
+        ng = np.zeros(tk.ROW_THREADS, np.int64)
+        ne = np.zeros(tk.ROW_THREADS, np.int64)
+        runs = [np.arange(lo, lo + m) for lo, m in zip(los, cnts)]
+        for tid, idx in enumerate(runs):
+            kp = keys[idx] & pmask
+            ng[tid] = np.sum((kp > prefix) | ((kp == prefix)
+                                              & (not ordered)))
+            ne[tid] = np.sum((kp == prefix) & ordered)
+        # one scan of both counts in index order, after the tiles before
+        gslot = gt_base + np.cumsum(ng) - ng
+        eslot = eq_base + np.cumsum(ne) - ne
+        gt_base += int(ng.sum())
+        eq_base += int(ne.sum())
+        for tid, idx in enumerate(runs):
+            g, e = gslot[tid], eslot[tid]
+            for i in idx:
+                kp = keys[i] & pmask
+                if kp > prefix or (kp == prefix and not ordered):
+                    assert out[g] == -1
+                    out[g] = i
+                    g += 1
+                elif kp == prefix:
+                    if e < need:
+                        assert out[above + e] == -1
+                        out[above + e] = i
+                    e += 1
+    assert gt_base == (above if ordered else k) and np.all(out >= 0)
+    e = (keys[out].astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - out.astype(np.uint64))
+    if plan.rank_sort:
+        e = _rank_sort_desc(e)
+    else:
+        e = _block_sort_desc(e)
+    return (e >> np.uint64(32)).astype(np.int64), (
+        np.uint64(0xFFFFFFFF) - (e & np.uint64(0xFFFFFFFF))).astype(
             np.int64)
+
+
+def _walk_equals_plain(t, k, mode):
+    """Every row of t (B, N, C) walked against the plain version."""
+    b, n, c = t.shape
+    values, idx = topk.top_k_rows_plain(t, k, mode)
+    keys = topk.value_key(t.transpose(1, 2), mode, n).numpy()
+    for r in range(b):
+        for col in range(c):
+            wk, wi = _kernel_walk(keys[r, col], k, mode, c)
+            assert np.array_equal(wi, idx[r, col].numpy())
+            assert np.array_equal(
+                _bits(topk.key_value(torch.from_numpy(wk), mode, n)),
+                _bits(values[r, col]))
 
 
 @pytest.mark.parametrize("mode,n,k,kind", [
@@ -289,14 +411,67 @@ def test_kernel_walk_equals_plain(mode, n, k, kind):
     t = torch.from_numpy(x)
     if mode != "f32":
         t = t.to(torch.bfloat16)
-    values, idx = topk.top_k_rows_plain(t, k, mode)
-    keys = topk.value_key(t[..., 0], mode, n).numpy()
-    for r in range(2):
-        wk, wi = _kernel_walk(keys[r], k, 32 if mode == "f32" else 16)
-        assert np.array_equal(wi, idx[r, 0].numpy())
-        assert np.array_equal(
-            _bits(topk.key_value(torch.from_numpy(wk), mode, n)),
-            _bits(values[r, 0]))
+    _walk_equals_plain(t, k, mode)
+
+
+def _survivors(rng, batch, kind, n=8000, c=1, md=100):
+    """Rows like the per-class NMS's output flattened for the final top-k
+    (`ops/postprocess.py:_per_class_nms`): each class's md slots, its kept
+    scores in descending order, then -1.0 fill."""
+    if kind == "trained":       # a trained head: a few kept a class
+        x = np.full((batch, n, c), -1.0)
+        for b in range(batch):
+            for col in range(c):
+                for start in range(0, n, md):
+                    kept = rng.integers(0, 9)
+                    x[b, start:start + kept, col] = np.sort(
+                        rng.uniform(0.05, 1.0, kept))[::-1]
+        assert np.mean(x == -1.0) >= 0.95
+    elif kind == "steps":       # chip_smoke.py phase 16's seeded rows
+        x = np.where(rng.uniform(size=(batch, n, c)) < 0.3, -1.0,
+                     np.round(rng.uniform(0.05, 1.0, (batch, n, c)) * 64)
+                     / 64)
+    else:                       # nothing kept: all -1.0, ties to index
+        x = np.full((batch, n, c), -1.0)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("batch,kind,n,c", [
+    (1, "trained", 8000, 1), (8, "trained", 8000, 1), (1, "steps", 8000, 1),
+    (8, "steps", 8000, 1), (1, "fill", 8000, 1), (8, "fill", 8000, 1),
+    (2, "steps", 16383, 1), (2, "trained", 8000, 3)])
+def test_kernel_walk_on_survivors(batch, kind, n, c):
+    """The top-k over the NMS survivors (k = max_detections = 100): rows
+    mostly of -1.0, rows of 1/64 steps, rows all -1.0, the longest row on
+    one CTA, and rows read in place at stride C = 3."""
+    rng = np.random.default_rng(batch * 7 + n + c)
+    x = torch.from_numpy(_survivors(rng, batch, kind, n, c))
+    assert tk.row_plan(n, 100, "f32").tiles == 1
+    _walk_equals_plain(x, 100, "f32")
+
+
+@pytest.mark.parametrize("kind", ["trained", "steps", "fill"])
+def test_survivors_plain_equals_lax_top_k(kind):
+    x = _survivors(np.random.default_rng(17), 8, kind)[..., 0]
+    jv, ji = jax.lax.top_k(jnp.asarray(x), 100)
+    tv, ti = topk.top_k_rows_plain(torch.from_numpy(x)[..., None], 100,
+                                   "f32")
+    assert np.array_equal(ti[:, 0].numpy(), np.asarray(ji))
+    assert np.array_equal(_bits(tv[:, 0]), _bits(jv))
+
+
+def test_row_plan():
+    """The row design's numbers for the survivors and the longest rows."""
+    plan = tk.row_plan(8000, 100, "f32")
+    assert (plan.tiles, plan.items, plan.vector) == (1, 8, 4)
+    assert plan.digits == ((21, 11), (10, 11), (0, 10)) and plan.rank_sort
+    assert tk.row_plan(16384, 129, "bf16").digits == ((5, 11), (0, 5))
+    assert not tk.row_plan(16384, 129, "bf16").rank_sort
+    assert tk.row_plan(76725, 256, "packed").digits == ((4, 11), (0, 4))
+    assert [tk.row_plan(n, 100, "f32").tiles
+            for n in (16383, 16384, 16385, 76725, 10 ** 6)] == [
+        1, 1, 2, 5, 62]
+    assert tk.row_plan(76725, 100, "f32").items == tk.ROW_ITEMS
 
 
 # ----------------------------------------------------- filter_top_k lanes

@@ -9,7 +9,11 @@ prior, on quarter-step logits and rows of one value (heavy ties), on signed
 zeros, at k from 1 to 8192 and on rows laid out in place ((B, N, C), stride
 C) and as one long row ((B, N, 1), the global lane); the slab design also
 with a candidate buffer of k keys, so that rows overflow it and read the
-slab again."""
+slab again; the row design on the NMS survivors' rows (mostly or all -1.0)
+at batch 1 and 8, k on both sides of its counting sort's limit; the row
+design's constants in csrc/topk.cu against the wrapper's."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -18,8 +22,11 @@ torch = pytest.importorskip("torch")
 
 from retinanet_torch.ops.topk import (  # noqa: E402
     select_top_k, top_k_rows_plain)
+from retinanet_torch.ops import topk_kernel as tk  # noqa: E402
 from retinanet_torch.ops.topk_kernel import (  # noqa: E402
     kernel, launch, slab_trace, topk_design)
+from retinanet_torch.tools.topk_experiments import (  # noqa: E402
+    trained_like_survivors)
 
 _CASES = [
     # mode, batch, n, classes, k, kind
@@ -99,6 +106,38 @@ def test_slab_rows_that_overflow_read_the_slab_again(case):
     trace = slab_trace(x, k, mode, capacity=k)
     if kind in ("one", "quarter", "zeros"):
         assert trace["levels"] > 2, trace
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("kind", ["trained", "fill"])
+@pytest.mark.parametrize("n,k", [(8000, 1), (8000, 100), (8000, 128),
+                                 (8000, 129), (16383, 8192)])
+def test_row_design_on_survivors(n, k, kind, batch):
+    """The row design on the survivors' rows (trained-like: a few kept
+    scores a class, >= 95% -1.0 fill; or all fill), on both sides of the
+    counting sort's limit (k = 128) and at the largest k."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the top-k kernel has no CPU mode")
+    x = (trained_like_survivors(batch, n) if kind == "trained" else
+         torch.full((batch, n, 1), -1.0, device="cuda"))
+    assert topk_design(batch, n, 1, k) == "row"
+    got_v, got_i = launch(x, k, "f32", design="row")
+    _check(x, k, "f32", got_v, got_i)
+
+
+@pytest.mark.cuda
+def test_row_constants_match_the_wrapper():
+    """The row design's constants in csrc/topk.cu are the wrapper's, from
+    which the CPU walk of the design is made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel builds only there")
+    fn = kernel.build().topk_row_constants
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    got = np.zeros(5, np.int32)
+    fn(got.ctypes.data)
+    assert got.tolist() == [tk.ROW_THREADS, tk.ROW_ITEMS, tk.ROW_DIGIT_BITS,
+                            tk.ROW_RANK_SORT_MAX, tk.ROW_RANK_LANES]
 
 
 @pytest.mark.cuda

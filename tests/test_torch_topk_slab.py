@@ -399,10 +399,14 @@ def test_slab_walk_equals_lax_top_k(kind):
 
 
 def test_experiment_edits_apply():
-    """Every one-edit variant of `tools/topk_experiments.py` still applies
-    to csrc/topk.cu exactly once."""
+    """Every one-edit variant of `tools/topk_experiments.py` (the slab
+    design's, the row design's cuts and its launch floor) still applies to
+    csrc/topk.cu exactly once."""
     from retinanet_torch.tools import topk_experiments
     from retinanet_torch.tools.kernel_variants import variant_source
-    for name, edits in topk_experiments.VARIANTS.items():
+    for name, edits in {**topk_experiments.VARIANTS,
+                        **topk_experiments.ROW_CUTS,
+                        "launch floor": topk_experiments.LAUNCH_FLOOR
+                        }.items():
         assert variant_source(tk.kernel, name, edits) != \
             tk.kernel.source.read_text()
