@@ -8,13 +8,13 @@
 // intrinsic), expf (not __expf) for the soft decay, and the same -1e10
 // suppression constant.
 //
-// Two designs, both kernels of this file; the wrapper
+// Three designs, all kernels of this file; the wrapper
 // (ops/nms_kernel.py:nms_design) picks one from the mode and the shape.
 //
 // Bound on an H100 at the flagship shape (L = 640 lanes, k = 256, 100
 // rounds): about 3.8 MB moved (1.1 us at 3.35 TB/s) and about 20 f32
 // operations per candidate per round, 3.3e8 in all (4.9 us at 67 TFLOP/s).
-// What limits either design is the chain of dependent rounds, so each
+// What limits every design is the chain of dependent rounds, so each
 // makes a round as short as it can.
 //
 // nms_sweep_kernel: hard mode, k <= 1024, score_threshold >= -1e10. Greedy
@@ -46,11 +46,59 @@
 // and without those that n leaves empty. A lane ends after max_det picks or
 // with no bit alive.
 //
-// nms_lanes_kernel: the round kernel, for the soft modes (scores decay, so
-// the order changes from round to round), k up to 8192, and hard mode with
-// a threshold under -1e10 (there the plain version goes on picking
-// suppressed candidates). One CTA per lane; the k candidates stay in
-// shared memory as five planes (20 B a candidate); each thread owns the
+// nms_decay_kernel: the soft modes, k <= 1024, score_threshold >= 0. It
+// replaces the soft branch of _nms_kernel (retinanet_tpu/ops/pallas/
+// nms_kernel.py:74-80): each round picks the first-index arg-max, and every
+// candidate's score takes scale = exp(-IoU^2 / (2 sigma)) (zero past the IoU
+// threshold), or with sigma = 0 is kept only while IoU <= threshold. Every
+// scale lies in [0, 1], so with a threshold >= 0 a score that is not above
+// the threshold never rises above it again: it leaves the lane for good.
+// Its bound at the flagship's soft shape (L = 640, k = 256, 100 rounds): the
+// same 3.8 MB (1.1 us at 3.35 TB/s); per (alive candidate, round) the IoU,
+// 20 f32 operations (at most 3.3e8, 4.9 us at 67 TFLOP/s); for each such
+// pair whose boxes intersect, two IEEE divisions and an exp, three MUFU
+// operations (rcp, rcp, ex2), at 16 a clock on each of 132 SMs at 1.98 GHz
+// (4.18e12/s: at most 4.9e7, 11.8 us, if every pair intersected). What
+// limits it is again the chain of up to 100 dependent rounds: a warp's
+// arg-max, a broadcast, and a decay whose divisions and exp each take a few
+// dozen cycles on one thread's path. One warp owns a lane and is a CTA
+// (four lanes a CTA measured no faster), so nothing crosses a warp:
+//   1. the candidates above the threshold are staged, in index order, at
+//      positions 0 .. n-1 (a ballot and a popcount each 32), as four
+//      corner planes, an area plane, the scores and their indices; thread t
+//      owns positions t, t + 32, ..., their scores in registers (up to 32)
+//      and, for k <= 256, their boxes too; a candidate that leaves has its
+//      score set to +0.0;
+//   2. alive scores are > 0, so their bits order as the floats do: a
+//      thread's key is the bits of its largest score (the first position
+//      among equals: strict >), `__reduce_max_sync` finds the best,
+//      `__reduce_min_sync` the lowest position holding it, which is the
+//      lowest index: the tie-break of torch.argmax and of the Pallas kernel;
+//   3. the pick's box is one broadcast read; each thread takes the IoU
+//      terms of its own positions. A pair with no intersection keeps its
+//      score (its scale is exactly 1), and so does nothing of a candidate
+//      gone; the other pairs, a few in ten on random boxes, go to a queue
+//      in shared memory (a ballot a slot; a pair not queued is written to
+//      the thread's spare slot, so that no store branches), and the warp
+//      computes their scales 32 at a time, so that a round's divisions and
+//      exps are one or two dependent chains and not one a slot (each
+//      thread's own pairs in turn measured 1.5-2x slower). The scale is
+//      the round kernel's arithmetic (`__fdiv_rn`, `expf`, `__fmul_rn`, no
+//      contraction), so both designs give the same bits. With sigma = 0
+//      only `over_threshold` is needed. The pick's score becomes +0.0.
+// A lane ends after max_det picks or when no key is above 0. The slots are
+// unrolled as few as n allows, as in the sweep (on an H100 with about
+// five candidates a lane, 5.3 us at L = 640 against 7.2 with every slot;
+// at par at full width). At k = 256 a round takes
+// ~0.64 us with one lane: one warp's ~380 instructions, most of them the
+// IoU terms and the queue's places of eight slots, at about one
+// instruction in three cycles (tools/nms_experiments.py --soft, its cuts).
+//
+// nms_lanes_kernel: the round kernel, for k up to 8192, the soft modes with
+// a negative threshold (a decayed negative score rises towards 0), and hard
+// mode with a threshold under -1e10 (there the plain version goes on
+// picking suppressed candidates). One CTA per lane; the k candidates stay
+// in shared memory as five planes (20 B a candidate); each thread owns the
 // candidates j = tid, tid + blockDim, ... Each round:
 //   1. every thread takes the first-index argmax of its own candidates;
 //   2. a warp-shuffle argmax (ties to the lower index), then lane 0 of each
@@ -80,6 +128,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoRank = 0xffffffffu;
 constexpr int kSweepMaxCandidates = 1024;  // 32 alive bits a thread
 constexpr int kSweepPlanes = 7;  // scores, order, four corners, area
+constexpr int kDecayMaxCandidates = 1024;  // 32 scores a thread
 
 enum Mode { kHard = 0, kSoftGaussian = 1, kSoftHard = 2 };
 
@@ -422,6 +471,271 @@ cudaError_t launch_sweep(const float* boxes, const float* scores, int lanes,
   return cudaGetLastError();
 }
 
+// What a warp holds of its lane in shared memory, by position (the
+// candidates above the threshold in index order).
+struct DecayLane {
+  float* qi;  // the staged scores; then each round's queue: intersections,
+              // then the scales computed from them
+  float* qu;  // each round's queue: unions
+  const int* order;  // position -> candidate
+  const float *x1, *y1, *x2, *y2, *area;
+};
+
+// A lane's shared memory, for CPT candidates a thread.
+template <int CPT>
+struct DecayCta {
+  // A queue holds up to 32 * CPT pairs and, past them, a slot for each
+  // thread that a pair it does not queue is written to, so that no store
+  // branches.
+  static constexpr int kQueue = 32 * CPT + 32;
+  // A lane's floats: the two queue planes (the first holds the staged
+  // scores until the rounds start), then the indices, the four corners and
+  // the area, by position.
+  static constexpr int kLaneFloats = 2 * kQueue + 6 * 32 * CPT;
+};
+
+// The Gaussian scale of a pair: the round kernel's arithmetic, bit for bit.
+__device__ __forceinline__ float gaussian_scale(float inter, float uni,
+                                                float iou_thr,
+                                                float two_sigma) {
+  const float q = __fdiv_rn(inter, uni);  // the round kernel's IoU
+  const float scale = expf(__fdiv_rn(-__fmul_rn(q, q), two_sigma));
+  return q > iou_thr ? 0.0f : scale;
+}
+
+// A decayed score, or +0.0 once it is not above the threshold: gone for
+// good.
+__device__ __forceinline__ float still_above(float v, float score_thr) {
+  return v > score_thr ? v : 0.0f;
+}
+
+// The rounds of a lane whose n candidates lie in the first WIDTH slots of 32
+// positions; returns the number of picks. A slot of a position at or past n
+// holds the score +0.0 and whatever its planes hold: a score of 0 stays 0.
+template <int CPT, int WIDTH, bool GAUSSIAN>
+__device__ __forceinline__ int decay_rounds(
+    const DecayLane& l, int n, int wl, int max_det, float iou_thr,
+    float score_thr, float two_sigma, float margin, int* idx_row,
+    float* score_row) {
+  constexpr bool in_regs = CPT <= 8;  // the boxes too, else read by position
+  // without an intersection the IoU is 0 and the scale exactly 1, unless 0
+  // is past the IoU threshold: then every pair needs its scale
+  const float no_overlap = iou_thr >= 0.0f ? 0.0f : -1.0f;
+  const unsigned below = (1u << wl) - 1u;
+  const int spare = 32 * CPT + wl;  // this thread's slot past the queue
+  float s[WIDTH], rx1[WIDTH], ry1[WIDTH], rx2[WIDTH], ry2[WIDTH],
+      rarea[WIDTH];
+#pragma unroll
+  for (int i = 0; i < WIDTH; ++i) {
+    const int p = 32 * i + wl;
+    s[i] = p < n ? l.qi[p] : 0.0f;
+    if (in_regs) {
+      const int q = p < n ? p : 0;
+      rx1[i] = l.x1[q];
+      ry1[i] = l.y1[q];
+      rx2[i] = l.x2[q];
+      ry2[i] = l.y2[q];
+      rarea[i] = l.area[q];
+    }
+  }
+  int picks = 0;
+  for (; picks < max_det; ++picks) {
+    float best = 0.0f;
+    int slot = 0;
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) {
+      if (s[i] > best) {  // strict: the lower position among equals
+        best = s[i];
+        slot = i;
+      }
+    }
+    // alive scores are > 0, so their bits order as the floats do
+    const unsigned key = __float_as_uint(best);
+    const unsigned top = __reduce_max_sync(kFull, key);
+    if (top == 0u) break;  // no candidate alive
+    const unsigned pick = __reduce_min_sync(
+        kFull, key == top ? static_cast<unsigned>((slot << 5) + wl) : kNoRank);
+    if (wl == 0) {
+      idx_row[picks] = l.order[pick];
+      score_row[picks] = __uint_as_float(top);
+    }
+    const float bx1 = l.x1[pick], by1 = l.y1[pick], bx2 = l.x2[pick],
+                by2 = l.y2[pick], barea = l.area[pick];
+    __syncwarp();  // the last queue is read before this one is written
+    unsigned need = 0;  // slots whose pair needs the divisions and the exp
+    int queued = 0;
+    int at[WIDTH];  // a slot's place in the queue
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) {
+      const int p = 32 * i + wl;
+      const float cx1 = in_regs ? rx1[i] : l.x1[p];
+      const float cy1 = in_regs ? ry1[i] : l.y1[p];
+      const float cx2 = in_regs ? rx2[i] : l.x2[p];
+      const float cy2 = in_regs ? ry2[i] : l.y2[p];
+      const float carea = in_regs ? rarea[i] : l.area[p];
+      const float iw =
+          fmaxf(__fsub_rn(fminf(bx2, cx2), fmaxf(bx1, cx1)), 0.0f);
+      const float ih =
+          fmaxf(__fsub_rn(fminf(by2, cy2), fmaxf(by1, cy1)), 0.0f);
+      const float inter = __fmul_rn(iw, ih);
+      const float uni =
+          fmaxf(__fsub_rn(__fadd_rn(barea, carea), inter), 1e-8f);
+      if (p == static_cast<int>(pick)) s[i] = 0.0f;
+      if (GAUSSIAN) {
+        // queued, so that the warp shares out the divisions and exps
+        const bool needed = s[i] > 0.0f && inter > no_overlap;
+        const unsigned ballot = __ballot_sync(kFull, needed);
+        at[i] = needed ? queued + __popc(ballot & below) : spare;
+        l.qi[at[i]] = inter;
+        l.qu[at[i]] = uni;
+        queued += __popc(ballot);
+        need |= needed ? 1u << i : 0u;
+      } else if (over_threshold(inter, uni, iou_thr, margin)) {
+        s[i] = 0.0f;
+      }
+    }
+    if (GAUSSIAN && queued > 0) {
+      __syncwarp();
+      for (int q = wl; q < queued; q += 32) {
+        l.qi[q] = gaussian_scale(l.qi[q], l.qu[q], iou_thr, two_sigma);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < WIDTH; ++i) {
+        const float v = still_above(__fmul_rn(s[i], l.qi[at[i]]), score_thr);
+        s[i] = need >> i & 1u ? v : s[i];
+      }
+    }
+  }
+  return picks;
+}
+
+template <int CPT, bool GAUSSIAN>
+__device__ __forceinline__ int decay_lane(const DecayLane& l, int n, int wl,
+                                          int max_det, float iou_thr,
+                                          float score_thr, float two_sigma,
+                                          float margin, int* idx_row,
+                                          float* score_row) {
+  // the unrolled slots as few as n allows: a trained model's scores leave
+  // few candidates above the threshold
+  const int width = (n + 31) / 32;
+  if (8 * width <= CPT) {
+    return decay_rounds<CPT, CPT / 8, GAUSSIAN>(l, n, wl, max_det, iou_thr,
+                                                score_thr, two_sigma, margin,
+                                                idx_row, score_row);
+  }
+  if (4 * width <= CPT) {
+    return decay_rounds<CPT, CPT / 4, GAUSSIAN>(l, n, wl, max_det, iou_thr,
+                                                score_thr, two_sigma, margin,
+                                                idx_row, score_row);
+  }
+  if (2 * width <= CPT) {
+    return decay_rounds<CPT, CPT / 2, GAUSSIAN>(l, n, wl, max_det, iou_thr,
+                                                score_thr, two_sigma, margin,
+                                                idx_row, score_row);
+  }
+  return decay_rounds<CPT, CPT, GAUSSIAN>(l, n, wl, max_det, iou_thr,
+                                          score_thr, two_sigma, margin,
+                                          idx_row, score_row);
+}
+
+// CPT candidates a thread, so a lane holds up to 32 * CPT. A CTA is one
+// warp and one lane.
+template <int CPT>
+__global__ void __launch_bounds__(32)
+    nms_decay_kernel(const float* __restrict__ boxes,
+                     const float* __restrict__ scores, int k,
+                     int max_det, float iou_thr, float score_thr,
+                     float two_sigma, int mode, int* __restrict__ out_idx,
+                     float* __restrict__ out_scores,
+                     int* __restrict__ out_valid) {
+  constexpr int kCap = 32 * CPT;
+  constexpr int kChunk = 8;  // slots whose loads are in flight together
+  extern __shared__ float sc[];
+
+  const int wl = threadIdx.x;
+  const int lane = blockIdx.x;
+
+  float* qu = sc + DecayCta<CPT>::kQueue;
+  int* order = reinterpret_cast<int*>(qu + DecayCta<CPT>::kQueue);
+  float* x1 = reinterpret_cast<float*>(order + kCap);
+  float* y1 = x1 + kCap;
+  float* x2 = y1 + kCap;
+  float* y2 = x2 + kCap;
+  float* area = y2 + kCap;
+  const DecayLane l{sc, qu, order, x1, y1, x2, y2, area};
+
+  // every score and box read once; those above the threshold staged in
+  // index order
+  const float* ls = scores + static_cast<size_t>(lane) * k;
+  const float4* lb =
+      reinterpret_cast<const float4*>(boxes) + static_cast<size_t>(lane) * k;
+  const unsigned below = (1u << wl) - 1u;
+  int n = 0;
+  bool tame = true;  // every area under 1e30, so every union under 2^126
+#pragma unroll
+  for (int c = 0; c < CPT; c += kChunk) {
+    float cs[kChunk];
+    float4 cb[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int j = 32 * (c + u) + wl;
+      cs[u] = j < k ? ls[j] : 0.0f;
+      cb[u] = j < k ? lb[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int j = 32 * (c + u) + wl;
+      const bool above = j < k && cs[u] > score_thr;
+      const unsigned ballot = __ballot_sync(kFull, above);
+      if (above) {
+        const int p = n + __popc(ballot & below);
+        sc[p] = cs[u];
+        order[p] = j;
+        x1[p] = cb[u].x;
+        y1[p] = cb[u].y;
+        x2[p] = cb[u].z;
+        y2[p] = cb[u].w;
+        area[p] = box_area(cb[u].x, cb[u].y, cb[u].z, cb[u].w);
+        tame = tame && area[p] < 1e30f;
+      }
+      n += __popc(ballot);
+    }
+  }
+  tame = __all_sync(kFull, tame);
+  __syncwarp();  // the vote orders no memory
+
+  int* idx_row = out_idx + static_cast<size_t>(lane) * max_det;
+  float* score_row = out_scores + static_cast<size_t>(lane) * max_det;
+  const float margin =
+      tame ? __fadd_rn(__fmul_rn(1e-5f, fabsf(iou_thr)), 1e-30f) : NAN;
+  const int picks =
+      mode == kSoftGaussian
+          ? decay_lane<CPT, true>(l, n, wl, max_det, iou_thr, score_thr,
+                                  two_sigma, margin, idx_row, score_row)
+          : decay_lane<CPT, false>(l, n, wl, max_det, iou_thr, score_thr,
+                                   two_sigma, margin, idx_row, score_row);
+
+  for (int r = picks + wl; r < max_det; r += 32) {
+    idx_row[r] = 0;
+    score_row[r] = -1.0f;
+  }
+  if (wl == 0) out_valid[lane] = picks;
+}
+
+template <int CPT>
+cudaError_t launch_decay(const float* boxes, const float* scores, int lanes,
+                         int k, int max_det, float iou_thr, float score_thr,
+                         float two_sigma, int mode, int* out_idx,
+                         float* out_scores, int* out_valid,
+                         cudaStream_t stream) {
+  const size_t smem = DecayCta<CPT>::kLaneFloats * sizeof(float);
+  nms_decay_kernel<CPT><<<lanes, 32, smem, stream>>>(
+      boxes, scores, k, max_det, iou_thr, score_thr, two_sigma, mode, out_idx,
+      out_scores, out_valid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -469,6 +783,36 @@ int nms_sweep_launch(const float* boxes, const float* scores, int lanes,
   } else {
     err = launch_sweep<32>(boxes, scores, lanes, k, max_det, iou_thr,
                            score_thr, out_idx, out_scores, out_valid, s);
+  }
+  return static_cast<int>(err);
+}
+
+// `boxes` must be aligned to 16 bytes; k above 1024, a threshold under 0
+// (or NaN) and hard mode are refused.
+int nms_decay_launch(const float* boxes, const float* scores, int lanes,
+                     int k, int max_det, float iou_thr, float score_thr,
+                     float two_sigma, int mode, int* out_idx,
+                     float* out_scores, int* out_valid, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k > kDecayMaxCandidates || !(score_thr >= 0.0f) ||
+      (mode != kSoftGaussian && mode != kSoftHard)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 256) {
+    err = launch_decay<8>(boxes, scores, lanes, k, max_det, iou_thr,
+                          score_thr, two_sigma, mode, out_idx, out_scores,
+                          out_valid, s);
+  } else if (k <= 512) {
+    err = launch_decay<16>(boxes, scores, lanes, k, max_det, iou_thr,
+                           score_thr, two_sigma, mode, out_idx, out_scores,
+                           out_valid, s);
+  } else {
+    err = launch_decay<32>(boxes, scores, lanes, k, max_det, iou_thr,
+                           score_thr, two_sigma, mode, out_idx, out_scores,
+                           out_valid, s);
   }
   return static_cast<int>(err);
 }

@@ -15,13 +15,17 @@ and finally sets the pick itself to -1e10. The box area is
 max(x2-x1, 0) * max(y2-y1, 0) and the union is clamped at 1e-8.
 
 `sweep_nms_plain` is hard mode again as the sweep kernel of `csrc/nms.cu`
-computes it: one stable sort, then one pass over the ranks. The CPU tests
-hold it against `batched_nms`; nothing on a main path calls it.
+computes it: one stable sort, then one pass over the ranks.
+`decay_nms_plain` is the soft modes as the decay kernel computes them: the
+candidates above the threshold staged in index order over a warp's 32
+threads, a candidate that falls to the threshold gone for good, and each
+round's pick by (largest score bits, lowest position). The CPU tests hold
+both against `batched_nms`; nothing on a main path calls them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -146,6 +150,104 @@ def sweep_nms_plain(boxes: torch.Tensor,
         alive[:, s] &= ~hit
     return (out_idx[:, :max_detections].to(torch.int32),
             out_scores[:, :max_detections], count.to(torch.int32))
+
+
+def decay_nms_plain(boxes: torch.Tensor,
+                    scores: torch.Tensor,
+                    max_detections: int,
+                    iou_threshold: float = 1.0,
+                    score_threshold: float = 0.05,
+                    soft_nms_sigma: float = 0.0,
+                    work: Optional[dict] = None) -> Tuple[torch.Tensor,
+                                                          torch.Tensor,
+                                                          torch.Tensor]:
+    """Soft greedy NMS as the decay kernel computes it; the results of
+    `batched_nms(..., soft=True)`.
+
+    Every scale lies in [0, 1], so with `score_threshold >= 0` (else this
+    raises) a score that is not above the threshold never rises above it
+    again: it is set to +0.0 and leaves the lane. The candidates above the
+    threshold are staged in index order at positions 0 .. n-1; thread
+    t = p % 32 of the lane's warp holds position p in its slot p // 32. A
+    round takes each thread's largest score (the first slot among equals),
+    the largest of those by its bits (alive scores are > 0), and the lowest
+    position holding it, which is the lowest index. The decay is
+    `batched_nms`'s arithmetic on the same (L, k) tensors; a candidate whose
+    pair with the pick has no intersection keeps its score (its scale is
+    exactly 1 unless 0 is past the IoU threshold), as the kernel skips its
+    divisions and exp. `work`, if given, gains the candidates staged (above
+    the threshold) under "staged", the (alive candidate, round) pairs under
+    "alive" and those the kernel decays under "decayed"."""
+    if not score_threshold >= 0.0:
+        raise ValueError(f"the decay design needs score_threshold >= 0, "
+                         f"got {score_threshold}")
+    boxes = boxes.to(torch.float32)
+    scores = scores.to(torch.float32)
+    lanes, k = scores.shape
+    device = scores.device
+    x1, y1, x2, y2 = boxes.unbind(-1)                          # (L, k)
+    area = (torch.clamp_min(x2 - x1, 0.0) * torch.clamp_min(y2 - y1, 0.0))
+    two_sigma = device_constant((2.0 * soft_nms_sigma,), torch.float32,
+                                device)
+    zero_hits = not iou_threshold >= 0.0
+    above = scores > score_threshold
+    n = above.sum(dim=1, keepdim=True)                         # (L, 1)
+    width = 32 * max(1, -(-k // 32))                           # positions
+    # position -> candidate: the ones above the threshold in index order
+    order = torch.sort((~above).to(torch.int8), dim=1, stable=True).indices
+    order = torch.cat([order, order.new_zeros((lanes, width - k))], 1)
+    staged = torch.arange(width, device=device)[None] < n      # (L, width)
+    if work is not None:
+        work["staged"] = work.get("staged", 0) + int(n.sum())
+    position = torch.arange(width, device=device).view(width // 32, 32)
+    cur = torch.where(above, scores, 0.0)   # the kernel's scores, by index
+    out_idx, out_scores = [], []
+    for _ in range(max_detections):
+        held = torch.where(staged, torch.gather(cur, 1, order), 0.0)
+        held = held.view(lanes, width // 32, 32)               # [slot, t]
+        slot = torch.argmax(held, dim=1, keepdim=True)         # first slot
+        key = torch.gather(held, 1, slot)[:, 0].view(torch.int32)  # (L, 32)
+        top = key.max(dim=1, keepdim=True).values              # (L, 1)
+        pos = torch.where(key == top, slot[:, 0] * 32 + position[0],
+                          width).min(dim=1, keepdim=True).values
+        ok = top > 0
+        pos = torch.where(ok, pos, 0)
+        idx = torch.gather(order, 1, pos)                      # (L, 1)
+        best = top.view(torch.float32)
+        sel = torch.gather(boxes, 1, idx[..., None].expand(lanes, 1, 4))
+        sx1, sy1, sx2, sy2 = sel.unbind(-1)                    # (L, 1)
+        sarea = (torch.clamp_min(sx2 - sx1, 0.0)
+                 * torch.clamp_min(sy2 - sy1, 0.0))
+        iw = torch.clamp_min(torch.minimum(sx2, x2) - torch.maximum(sx1, x1),
+                             0.0)
+        ih = torch.clamp_min(torch.minimum(sy2, y2) - torch.maximum(sy1, y1),
+                             0.0)
+        inter = iw * ih
+        union = torch.clamp_min(sarea + area - inter, 1e-8)
+        iou = inter / union
+        alive = cur > 0
+        if soft_nms_sigma > 0.0:
+            scale = torch.exp(-(iou * iou) / two_sigma)
+            scale = torch.where(iou > iou_threshold, 0.0, scale)
+            decayed = cur * scale
+            decayed = torch.where(decayed > score_threshold, decayed, 0.0)
+            needed = alive & ((inter > 0) | zero_hits)
+            new = torch.where(needed, decayed, cur)
+        else:
+            needed = alive
+            new = torch.where(iou > iou_threshold, 0.0, cur)
+        new = new.scatter(1, idx, 0.0)
+        cur = torch.where(ok, new, cur)
+        out_idx.append(torch.where(ok, idx, -1))
+        out_scores.append(torch.where(ok, best, -1.0))
+        if work is not None:
+            work["alive"] = work.get("alive", 0) + int((alive & ok).sum())
+            work["decayed"] = (work.get("decayed", 0)
+                               + int((needed & ok).sum()))
+    indices = torch.cat(out_idx, dim=1).to(torch.int32)
+    valid = (indices >= 0).sum(dim=1, dtype=torch.int32)
+    return (torch.clamp_min(indices, 0), torch.cat(out_scores, dim=1),
+            valid)
 
 
 def nms_select(boxes: torch.Tensor,

@@ -10,8 +10,8 @@ Bound on an H100 at the flagship shape (PerClassHardNMS, batch 8: L = 640
 lanes, k = 256 candidates, 100 rounds): ~3.8 MB in and out, 1.1 us at
 3.35 TB/s; ~20 f32 operations per candidate per round, 3.3e8, 4.9 us at
 67 TFLOP/s. So the work is compute-bound at about 5 us, but what limits a
-kernel is the chain of 100 dependent rounds. Two hand-written designs make
-a round short, and `nms_design` picks one from the mode and the shape:
+kernel is the chain of 100 dependent rounds. Three hand-written designs
+make a round short, and `nms_design` picks one from the mode and the shape:
 
 * "sweep" (`nms_sweep_kernel`): hard mode, k <= 1024 and
   score_threshold >= -1e10. One warp a lane; the candidates are ordered
@@ -19,14 +19,26 @@ a round short, and `nms_design` picks one from the mode and the shape:
   bit per candidate, and a round is one warp reduction and the IoU of the
   pick against the later candidates still alive: no arg-max, no barrier.
   `ops/nms.py:sweep_nms_plain` is the same algorithm in plain PyTorch.
-* "rounds" (`nms_lanes_kernel`): everything else. Soft modes, because
-  decayed scores change the order from round to round; k up to 8192 (the
-  global modes pass pre_nms_top_k = 5000); and hard mode with a threshold
-  under -1e10, where the plain version goes on picking suppressed
-  candidates. One CTA a lane, candidates in shared memory, an arg-max
-  across the CTA and one barrier a round.
+* "decay" (`nms_decay_kernel`): the soft modes, k <= 1024 and
+  score_threshold >= 0. Decayed scores change the order from round to
+  round, so each round takes an arg-max, but every scale lies in [0, 1]:
+  a score not above the threshold never rises above it again and leaves
+  for good. One warp a lane; the candidates above the threshold are staged
+  once in index order, thread t owns positions t, t + 32, ... (scores in
+  registers), and a round is two warp reductions (the largest score's bits,
+  then the lowest position holding it), a broadcast read of the pick's box
+  and the decay of the thread's own positions: no barrier. It computes the
+  round kernel's arithmetic, so the two give the same bits.
+  `ops/nms.py:decay_nms_plain` is the same algorithm in plain PyTorch.
+* "rounds" (`nms_lanes_kernel`): everything else. k up to 8192 (the
+  exact-parity override `nms_top_k` up to pre_nms_top_k = 5000); soft
+  modes with a negative threshold, where a decayed negative score rises
+  towards 0; and hard mode with a threshold under -1e10, where the plain
+  version goes on picking suppressed candidates. One CTA a lane,
+  candidates in shared memory, an arg-max across the CTA and one barrier a
+  round.
 
-This is a choice between two kernels, not a fallback: nothing is caught.
+This is a choice among three kernels, not a fallback: nothing is caught.
 `kernel.launches` counts every launch, `kernel.launches_by[design]` those of
 one design.
 
@@ -54,6 +66,7 @@ from retinanet_torch.ops.nms import SUPPRESSED, batched_nms
 
 MAX_CANDIDATES = 8192  # rounds: five f32 planes, 160 KB of shared memory
 SWEEP_MAX_CANDIDATES = 1024  # sweep: 32 alive bits a thread
+DECAY_MAX_CANDIDATES = 1024  # decay: 32 scores a thread
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -68,6 +81,8 @@ def declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.nms_sweep_launch.restype = ctypes.c_int
+    lib.nms_decay_launch.argtypes = lib.nms_rounds_launch.argtypes
+    lib.nms_decay_launch.restype = ctypes.c_int
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
 
@@ -85,13 +100,19 @@ def _mode(soft: bool, soft_nms_sigma: float) -> int:
 
 
 def nms_design(soft: bool, k: int, score_threshold: float) -> str:
-    """Which kernel `nms_lanes` launches on the card: "sweep" or "rounds".
+    """Which kernel `nms_lanes` launches on the card: "sweep", "decay" or
+    "rounds".
 
     The sweep assumes that a suppressed candidate (score -1e10) can never be
-    picked, which holds exactly when the threshold is at or above -1e10."""
+    picked, which holds exactly when the threshold is at or above -1e10.
+    The decay design assumes that a score at or under the threshold never
+    rises above it, which holds exactly when the threshold is at or above
+    0 (every scale lies in [0, 1])."""
     if (not soft and k <= SWEEP_MAX_CANDIDATES
             and score_threshold >= SUPPRESSED):
         return "sweep"
+    if soft and k <= DECAY_MAX_CANDIDATES and score_threshold >= 0.0:
+        return "decay"
     return "rounds"
 
 
@@ -103,8 +124,9 @@ def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launches one design on checked CUDA tensors. `nms_lanes` is the
     public entry; measurements call this to time "rounds" on inputs that
-    `nms_design` gives to "sweep", or another build of `csrc/nms.cu`
-    (`library`). The sweep computes hard mode only."""
+    `nms_design` gives to "sweep" or "decay", or another build of
+    `csrc/nms.cu` (`library`). The sweep computes hard mode only, the
+    decay design soft modes with a threshold >= 0 only."""
     library = library or kernel
     lanes, k = scores.shape
     idx = torch.empty((lanes, max_detections), dtype=torch.int32,
@@ -118,17 +140,25 @@ def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     outputs = (idx.data_ptr(), out_scores.data_ptr(), valid.data_ptr(),
                device_index(boxes.device), stream)
+    if design == "sweep" and (soft or k > SWEEP_MAX_CANDIDATES):
+        raise ValueError(f"the sweep takes hard mode and k <= "
+                         f"{SWEEP_MAX_CANDIDATES}, got soft={soft}, k={k}")
+    if design == "decay" and not (soft and k <= DECAY_MAX_CANDIDATES
+                                  and score_threshold >= 0.0):
+        raise ValueError(f"the decay design takes soft modes, k <= "
+                         f"{DECAY_MAX_CANDIDATES} and score_threshold >= 0, "
+                         f"got soft={soft}, k={k}, "
+                         f"score_threshold={score_threshold}")
+    if design in ("sweep", "decay") and boxes.data_ptr() % 16:
+        boxes = boxes.clone()  # the kernels load a box as one float4
     if design == "sweep":
-        if soft or k > SWEEP_MAX_CANDIDATES:
-            raise ValueError(f"the sweep takes hard mode and k <= "
-                             f"{SWEEP_MAX_CANDIDATES}, got soft={soft}, k={k}")
-        if boxes.data_ptr() % 16:
-            boxes = boxes.clone()  # the kernel loads a box as one float4
         err = lib.nms_sweep_launch(
             boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
             float(iou_threshold), float(score_threshold), *outputs)
-    elif design == "rounds":
-        err = lib.nms_rounds_launch(
+    elif design in ("decay", "rounds"):
+        launch = (lib.nms_decay_launch if design == "decay"
+                  else lib.nms_rounds_launch)
+        err = launch(
             boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
             float(iou_threshold), float(score_threshold),
             float(2.0 * soft_nms_sigma), _mode(soft, soft_nms_sigma),

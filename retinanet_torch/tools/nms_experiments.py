@@ -1,21 +1,35 @@
 """NMS kernel experiments on the card: what a round of the round kernel
-spends its time on, the sweep kernel's own choices, and the sweep against a
-suppression bit matrix.
+spends its time on, the sweep kernel's own choices, the sweep against a
+suppression bit matrix, and the soft modes' kernels.
 
     python -m retinanet_torch.tools.nms_experiments [--batch 8]
+    python -m retinanet_torch.tools.nms_experiments --soft
 
-The inputs are the ones the flagship serving path hands to `nms_lanes`
-(PerClassHardNMS: batch x 80 lanes of 256 candidates, seeded random
-weights with the class-head prediction bias at 0, so every lane runs all
-100 rounds), and a "trained-like" copy of them in which few scores clear the
-threshold. It runs on the card only and prints device times
-(`utils/benchmark.py:device_time_ms`) beside the card's name and power
-limit.
+The hard-mode inputs are the ones the flagship serving path hands to
+`nms_lanes` (PerClassHardNMS: batch x 80 lanes of 256 candidates, seeded
+random weights with the class-head prediction bias at 0, so every lane runs
+all 100 rounds), and a "trained-like" copy of them in which few scores
+clear the threshold.
+
+`--soft` times every design that takes the soft modes (Gaussian decay,
+sigma 0.25 after the halving, IoU threshold 1.0, score threshold 0.05,
+k = 256, 100 detections) on the seeded lanes of `chip_smoke.py`'s NMS
+phase cut to L = 640, 80, 8 and 1, on the real inputs of a zero-bias
+flagship request in PerClassSoftNMS (batch 8 and 1: L = 640 and 80) and
+in GlobalSoftNMS with `filter_per_class` false (L = 8 and 1), and on a
+trained-like copy of the PerClassSoftNMS batch-8 inputs. The designs are
+timed in turns (decay, rounds, rounds, decay).
+
+It runs on the card only and prints device times
+(`utils/benchmark.py:device_time_ms`, L2 warm) beside the card's name and
+power limit.
 
 Each variant of `csrc/nms.cu` is the source with one edit, written into the
 build directory and compiled beside the others; the package's own build is
 the first row. A variant's answer is compared with `batched_nms` and
-reported, not required: a fast reciprocal may flip an IoU at the threshold.
+reported, not required: a fast reciprocal may flip an IoU at the threshold,
+and a "cut" stops the decay design after a step (the differences of the
+cuts' times are the steps' times).
 `tools/nms_bitmatrix.cu` is the alternative design; the package never calls
 it.
 """
@@ -42,6 +56,13 @@ from retinanet_torch.utils.benchmark import device_time_ms
 _REPO = Path(__file__).resolve().parents[2]
 FLAGSHIP = (_REPO / "configs" / "v3-8"
             / "mscoco-retinanet-resnet50-640x640-30x-64.json")
+
+# the soft modes: the designs that take them, the lanes of the seeded
+# loads, the modes and batches whose real inputs are captured
+SOFT_DESIGNS = ("decay", "rounds")
+SOFT_LANES = (640, 80, 8, 1)
+SOFT_MODES = ("PerClassSoftNMS", "GlobalSoftNMS")
+SOFT_BATCHES = (8, 1)
 
 # name -> (design it changes, [(text in csrc/nms.cu, its replacement)])
 VARIANTS: Dict[str, Tuple[str, Edits]] = {
@@ -84,6 +105,21 @@ VARIANTS: Dict[str, Tuple[str, Edits]] = {
     "sweep: 16 candidates a thread at k <= 256": ("sweep", [
         ("  if (k <= 256) {\n    err = launch_sweep<8>(",
          "  if (k <= 256) {\n    err = launch_sweep<16>(")]),
+    "decay: every slot whatever n": ("decay", [
+        ("  const int width = (n + 31) / 32;", "  const int width = CPT;")]),
+    # cuts: each computes something else and is timed only; the differences
+    # are the steps' times
+    "decay cut: no scales (the queue's pairs keep their scores)": ("decay", [
+        ("        l.qi[q] = gaussian_scale(l.qi[q], l.qu[q], iou_thr, "
+         "two_sigma);", "        l.qi[q] = 1.0f;")]),
+    "decay cut: no queue (only the pick leaves)": ("decay", [
+        ("    if (GAUSSIAN && queued > 0) {",
+         "    if (false) {")]),
+    "decay cut: the arg-max and the pick alone": ("decay", [
+        ("#pragma unroll\n    for (int i = 0; i < WIDTH; ++i) {\n"
+         "      const int p = 32 * i + wl;\n      const float cx1",
+         "#pragma unroll\n    for (int i = 0; i < 0; ++i) {\n"
+         "      const int p = 32 * i + wl;\n      const float cx1")]),
 }
 
 
@@ -120,51 +156,159 @@ def nms_bitmatrix(boxes, scores, max_detections, iou_threshold,
     return idx, out_scores, valid
 
 
-def serving_nms_inputs(batch: int):
-    """What the flagship serving path gives `nms_lanes` for `batch` seeded
-    random images: (boxes, scores, max_det, iou_thr, score_thr)."""
+def flagship_params(mode: str = "PerClassHardNMS"):
+    """The flagship config with `inference.mode` set; a global mode needs
+    `filter_per_class` false."""
     from retinanet_torch.core.config import Config
+    params = Config(str(FLAGSHIP)).params
+    params.inference.mode = mode
+    if mode.startswith("Global"):
+        params.inference.filter_per_class = False
+    return params
+
+
+def serving_nms_inputs(batches, mode: str = "PerClassHardNMS") -> dict:
+    """What the flagship serving path in `mode` gives `nms_lanes` for
+    seeded random images, one model for all `batches`: batch ->
+    (boxes, scores, max_det, iou_thr, score_thr, sigma, soft)."""
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops import postprocess
-    params = Config(str(FLAGSHIP)).params
+    from retinanet_torch.profile_serving import zero_class_prior
+    params = flagship_params(mode)
     model = build_model(params, device="cuda", seed=0)
-    with torch.no_grad():
-        model.class_head.prediction.conv.bias.zero_()
+    zero_class_prior(model)
     fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
                                 model=model)
     post = postprocess.make_postprocess_fn(params, from_params(params),
                                            "cuda")
     h, w = params.input.input_shape
-    images = torch.from_numpy(np.random.default_rng(0).integers(
-        0, 256, (batch, h, w, 3)).astype(np.uint8))
-    captured = []
+    rng = np.random.default_rng(0)
+    captured = {}
+    for batch in batches:
+        images = torch.from_numpy(rng.integers(
+            0, 256, (batch, h, w, 3)).astype(np.uint8))
+        calls = []
 
-    def recording(*args):
-        captured.append(args)
-        return nms_kernel.nms_lanes(*args)
+        def recording(*args):
+            calls.append(args)
+            return nms_kernel.nms_lanes(*args)
 
-    postprocess.nms_lanes = recording
-    try:
-        with torch.inference_mode():
-            post(fused_fn(images))
-    finally:
-        postprocess.nms_lanes = nms_kernel.nms_lanes
-    boxes, scores, md, iou_thr, thr, sigma, soft = captured[0]
-    if soft or sigma:
-        raise RuntimeError("the flagship serving path is hard NMS")
-    return boxes.clone(), scores.clone(), md, iou_thr, thr
+        postprocess.nms_lanes = recording
+        try:
+            with torch.inference_mode():
+                post(fused_fn(images))
+        finally:
+            postprocess.nms_lanes = nms_kernel.nms_lanes
+        boxes, scores, *rest = calls[0]
+        captured[batch] = (boxes.clone(), scores.clone(), *rest)
+    return captured
+
+
+def seeded_lanes(n: int, k: int):
+    """`chip_smoke.py:lanes` on the NMS phase's generator (seed 0)."""
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 0.8, (n, k, 2))
+    wh = rng.uniform(0.02, 0.3, (n, k, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32).clip(0, 1)
+    scores = rng.uniform(0, 1, (n, k)).astype(np.float32)
+    return (torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda())
 
 
 def _equal(got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _soft_equal(got, want) -> bool:
+    """Indices and valid counts exact, scores to rtol 1e-5, atol 1e-6."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-6))
+
+
+def soft_loads() -> dict:
+    """name -> (boxes, scores, max_det, iou_thr, score_thr, sigma)."""
+    loads = {}
+    boxes, scores = seeded_lanes(640, 256)
+    for n in SOFT_LANES:
+        loads[f"seeded L={n}"] = (boxes[:n].contiguous(),
+                                  scores[:n].contiguous(), 100, 1.0, 0.05,
+                                  0.25)
+    for mode in SOFT_MODES:
+        for batch, args in serving_nms_inputs(SOFT_BATCHES, mode).items():
+            b, s, md, iou_thr, thr, sigma, soft = args
+            if not soft:
+                raise RuntimeError(f"{mode} did not call soft NMS")
+            loads[f"{mode} batch {batch} L={b.shape[0]}"] = (
+                b, s, md, iou_thr, thr, sigma)
+            if mode == SOFT_MODES[0] and batch == SOFT_BATCHES[0]:
+                # five candidates a lane clear the threshold (the sixth
+                # sits on it)
+                ranked = torch.sort(s, dim=1, descending=True).values
+                trained = (s * (thr / ranked[:, 5:6])).contiguous()
+                loads[f"trained-like L={b.shape[0]}"] = (
+                    b, trained, md, iou_thr, thr, sigma)
+    return loads
+
+
+def main_soft(args, card: str) -> int:
+    libraries = {name: (design, variant_library(
+        nms_kernel.kernel, nms_kernel.declare, name, edits))
+        for name, (design, edits) in VARIANTS.items()
+        if design in SOFT_DESIGNS}
+    build_all([nms_kernel.kernel] + [lib for _, lib in libraries.values()])
+    for line in nms_kernel.kernel.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"[build] nms: {line.strip()}")
+
+    failed = 0
+    for load, (b, s, md, iou_thr, thr, sigma) in soft_loads().items():
+        kw = dict(iou_threshold=iou_thr, score_threshold=thr,
+                  soft_nms_sigma=sigma, soft=True)
+        want = batched_nms(b, s, md, **kw)
+        rounds = torch.clamp(want[2].long() + 1, max=md).sum().item()
+        print(f"[load] {load}: L={b.shape[0]} k={b.shape[1]} md={md} "
+              f"sigma={sigma} iou_threshold={iou_thr} score_threshold={thr} "
+              f"rounds {rounds}, valid {want[2].sum().item()}")
+        rest = (md, iou_thr, thr, sigma, True)
+        runs = {d: (lambda d=d: nms_kernel.launch_design(d, b, s, *rest))
+                for d in SOFT_DESIGNS}
+        reference = runs["rounds"]()
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same = _equal(got, reference)
+            ok = _soft_equal(got, want)
+            failed += not (same and ok)
+            print(f"[check] {load} | {name}: equal to plain {ok}, bit-equal "
+                  f"to rounds {same}")
+        times = {name: [] for name in runs}
+        for name in [*runs, *reversed(runs)]:
+            times[name].append(device_time_ms(runs[name], reps=args.reps))
+        for name, ms in times.items():
+            print(f"[time] {load} | {name}: "
+                  + " / ".join(f"{t:.4f}" for t in ms) + " ms")
+        for name, (design, lib) in libraries.items():
+            fn = lambda d=design, lib=lib: nms_kernel.launch_design(  # noqa
+                d, b, s, *rest, library=lib)
+            got = fn()
+            torch.cuda.synchronize()
+            ms = device_time_ms(fn, reps=args.reps)
+            print(f"[time] {load} | {name}: {ms:.4f} ms, equal to plain: "
+                  f"{_soft_equal(got, want)}, bit-equal to rounds: "
+                  f"{_equal(got, reference)}")
+        ms = device_time_ms(lambda: batched_nms(b, s, md, **kw), reps=3)
+        print(f"[time] {load} | plain: {ms:.4f} ms")
+    print(f"[card] {card}")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--reps", type=int, default=50)
+    parser.add_argument("--soft", action="store_true",
+                        help="the soft modes' designs and loads")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("nms_experiments: no CUDA device; this tool runs on the card "
@@ -172,6 +316,8 @@ def main(argv=None) -> int:
         return 1
     card = card_line()
     print(f"[card] {card}")
+    if args.soft:
+        return main_soft(args, card)
 
     libraries = {name: (design, variant_library(
         nms_kernel.kernel, nms_kernel.declare, name, edits))
@@ -183,7 +329,8 @@ def main(argv=None) -> int:
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {lib.name}: {line.strip()}")
 
-    boxes, scores, md, iou_thr, thr = serving_nms_inputs(args.batch)
+    boxes, scores, md, iou_thr, thr, _, _ = serving_nms_inputs(
+        [args.batch])[args.batch]
     # five candidates a lane clear the threshold (the sixth sits on it)
     trained = (scores * (thr / scores[:, 5:6])).contiguous()
     unsorted = torch.argsort(torch.rand_like(scores), dim=1)

@@ -3,7 +3,9 @@
 Imports nothing of JAX, so that it runs on a machine with a card and no
 JAX: `python -m pytest --noconftest -m cuda tests/test_torch_nms_cuda.py`.
 Indices and valid counts exact; scores to rtol 1e-5, atol 1e-6 through the
-round kernel (soft decay) and exactly equal through the sweep."""
+soft designs (the card's `expf` against torch's `exp`) and exactly equal
+through the sweep. The decay design equals the round kernel bit for bit on
+the same tensors."""
 
 import numpy as np
 import pytest
@@ -169,3 +171,103 @@ def test_sweep_takes_unaligned_boxes_and_no_lanes():
         assert torch.equal(g, w)
     idx, sc, valid = nms_lanes(b[:0], s[:0], 20, 0.5, 0.1)
     assert idx.shape == (0, 20) and sc.shape == (0, 20) and valid.shape == (0,)
+
+
+def _soft_case(name):
+    """(boxes, scores, max_det, iou_thr, score_thr, sigma)."""
+    rng = np.random.default_rng(11)
+    if name.startswith("L="):
+        return (*_lanes(rng, int(name[2:]), 256), 100, 1.0, 0.05, 0.25)
+    if name.startswith("k="):
+        return (*_lanes(rng, 3, int(name[2:])), 100, 1.0, 0.05, 0.25)
+    boxes, scores = _lanes(rng, 37, 256)
+    md, iou_thr, thr, sigma = 100, 1.0, 0.05, 0.25
+    if name == "sigma=0":
+        iou_thr, sigma = 0.5, 0.0
+    elif name == "sigma=0 k=1000":
+        boxes, scores = _lanes(rng, 4, 1000)
+        iou_thr, sigma = 0.5, 0.0
+    elif name == "ties":
+        scores = np.round(scores * 8) / 8          # nine levels, zeros too
+    elif name == "every box the same":
+        boxes[:] = boxes[:, :1]
+    elif name == "all below threshold":
+        thr = 1.5
+    elif name == "at_threshold":
+        scores = np.round(scores * 10) / 10
+        thr = float(np.float32(0.3))               # equal is not picked
+    elif name == "threshold 0, zero scores":
+        scores[:, ::2] = 0.0
+        scores[:, 1::4] = -0.0
+        thr = 0.0
+    elif name == "trained_like":
+        scores = (scores * 0.06).astype(np.float32)  # few clear 0.05
+    elif name == "negative_iou_threshold":
+        iou_thr = -0.5                             # IoU 0 zeroes too
+    elif name == "iou_at_threshold":
+        xy = rng.integers(0, 6, (37, 256, 2)) / 8
+        wh = rng.integers(1, 4, (37, 256, 2)) / 8
+        boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        iou_thr, sigma = 0.5, 0.0
+    elif name == "max_det_above_k":
+        boxes, scores, md = boxes[:, :50], scores[:, :50], 80
+    elif name != "unsorted":
+        raise ValueError(name)
+    return (np.ascontiguousarray(boxes), np.ascontiguousarray(scores), md,
+            iou_thr, thr, sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "L=640", "L=80", "L=8", "L=1", "unsorted", "sigma=0", "sigma=0 k=1000",
+    "ties", "every box the same", "all below threshold", "at_threshold",
+    "threshold 0, zero scores", "trained_like", "negative_iou_threshold",
+    "iou_at_threshold", "max_det_above_k", "k=1", "k=31", "k=33", "k=300",
+    "k=512", "k=1024"])
+def test_decay_equals_rounds_and_plain(name):
+    """The soft modes through `nms_lanes` launch the decay design once,
+    bit-equal to the round kernel on the same tensors and equal to plain
+    (indices and valid counts exact)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the NMS kernels have no CPU mode")
+    boxes, scores, md, iou_thr, thr, sigma = _soft_case(name)
+    b = torch.from_numpy(boxes).cuda()
+    s = torch.from_numpy(scores).cuda()
+    kw = dict(iou_threshold=iou_thr, score_threshold=thr,
+              soft_nms_sigma=sigma, soft=True)
+    assert nms_design(True, b.shape[1], thr) == "decay"
+    before = kernel.launches, kernel.launches_by["decay"]
+    got = nms_lanes(b, s, md, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_by["decay"]) == (
+        before[0] + 1, before[1] + 1)
+    rounds = launch_design("rounds", b, s, md, iou_thr, thr, sigma, True)
+    torch.cuda.synchronize()
+    for label, g, r in zip(("indices", "scores", "valid"), got, rounds):
+        assert torch.equal(g, r), label
+    w_idx, w_sc, w_valid = batched_nms(b, s, md, **kw)
+    assert torch.equal(got[2], w_valid) and torch.equal(got[0], w_idx)
+    torch.testing.assert_close(got[1], w_sc, rtol=1e-5, atol=1e-6)
+    if name == "all below threshold":
+        assert got[2].sum().item() == 0
+    if name == "at_threshold":
+        assert (got[1][got[1] > -0.5] > thr).all()
+
+
+@pytest.mark.cuda
+def test_soft_routes_to_rounds_under_a_negative_threshold():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the NMS kernels have no CPU mode")
+    boxes, scores = _lanes(np.random.default_rng(3), 5, 256)
+    b = torch.from_numpy(boxes).cuda()
+    s = torch.from_numpy(scores - 0.5).cuda()
+    for thr in (float("-inf"), -0.25):
+        assert nms_design(True, 256, thr) == "rounds"
+        before = kernel.launches_by["rounds"]
+        got = nms_lanes(b, s, 100, 1.0, thr, 0.25, True)
+        torch.cuda.synchronize()
+        assert kernel.launches_by["rounds"] == before + 1
+        want = batched_nms(b, s, 100, 1.0, thr, 0.25, True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    with pytest.raises(ValueError, match="decay"):
+        launch_design("decay", b, s, 100, 1.0, -0.25, 0.25, True)

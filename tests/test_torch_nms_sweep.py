@@ -1,7 +1,7 @@
 """The sorted-sweep form of hard NMS (`ops/nms.py:sweep_nms_plain`, the plain
 model of the sweep kernel in `csrc/nms.cu`) against the round form
 (`batched_nms`) and against the JAX package, on the CPU; and the wrapper's
-choice between the two kernels as a pure function.
+choice among the three kernels as a pure function.
 
 Indices, valid counts and scores are compared exactly against `batched_nms`
 (both read the same float32 scores and do the same IoU arithmetic); against
@@ -19,7 +19,7 @@ from hypothesis import strategies as st  # noqa: E402
 from retinanet_tpu.ops.nms import nms_select as jax_nms_select  # noqa: E402
 from retinanet_torch.ops.nms import batched_nms, sweep_nms_plain  # noqa: E402
 from retinanet_torch.ops.nms_kernel import (  # noqa: E402
-    SWEEP_MAX_CANDIDATES, kernel, nms_design, nms_lanes)
+    DECAY_MAX_CANDIDATES, SWEEP_MAX_CANDIDATES, kernel, nms_design, nms_lanes)
 from retinanet_torch.tools import nms_experiments  # noqa: E402
 from retinanet_torch.tools.kernel_variants import variant_source  # noqa: E402
 
@@ -165,8 +165,16 @@ def test_sweep_refuses_a_threshold_under_the_suppression_score():
     (False, 5000, 0.05, "rounds"),            # the global modes
     (False, 256, float("-inf"), "rounds"),    # suppressed ones get picked
     (False, 256, -2e10, "rounds"),
-    (True, 256, 0.05, "rounds"),              # soft: the order changes
-    (True, 64, -1.0, "rounds"),
+    (True, 256, 0.05, "decay"),               # PerClassSoftNMS, GlobalSoftNMS
+    (True, 1, 0.0, "decay"),                  # exactly 0: +0.0 is not above
+    (True, 256, -0.0, "decay"),
+    (True, DECAY_MAX_CANDIDATES, 0.05, "decay"),
+    (True, DECAY_MAX_CANDIDATES + 1, 0.05, "rounds"),
+    (True, 5000, 0.05, "rounds"),             # nms_top_k up to 5,000
+    (True, 64, -1.0, "rounds"),               # negative scores rise to 0
+    (True, 256, float("-inf"), "rounds"),
+    (True, 256, -1e-30, "rounds"),
+    (True, 256, float("nan"), "rounds"),
 ], ids=str)
 def test_design_choice(soft, k, thr, want):
     assert nms_design(soft, k, thr) == want
