@@ -8,11 +8,14 @@ JAX. Phases, each fatal on failure:
   1. card: name, power limit; TF32 off for the float32 comparisons;
   2. build: every kernel of retinanet_torch/csrc/ with nvcc, one compiler
      per source, all started together;
-  3. the three NMS kernels against the plain PyTorch version on the card:
+  3. the five NMS kernels against the plain PyTorch version on the card:
      hard mode through the sweep kernel (the flagship shape, sorted and
      unsorted input, tied and all-equal scores, duplicated boxes, IoUs
      exactly at the threshold, k = 300 and 1000, more slots than
-     survivors, a trained-like load), soft mode through the decay kernel
+     survivors, a trained-like load) and past 1,024 candidates through the
+     scan kernel (k = 1025, 2048, 5000, 8192, and soft mode there through
+     the compact kernel, both bit-equal to the round kernel), soft mode
+     through the decay kernel
      (sigma 0.25 on the flagship's seeded lanes at L = 640, 80, 8 and 1 and
      a trained-like copy, each timed in turns with the round kernel beside
      plain and its bound; sigma 0 at k = 1000), and a threshold of -inf
@@ -228,14 +231,33 @@ JAX. Phases, each fatal on failure:
      request gave `nms_lanes` (L = 640, 80, 8, 1) the decay kernel
      bit-equal to the round kernel, both timed in turns beside plain and
      the bound (f32 operations of each alive pair, MUFU operations of each
-     intersecting one, counted by `ops/nms.py:decay_nms_plain`).
+     intersecting one, counted by `ops/nms.py:decay_nms_plain`);
+ 18. the exact-parity lane, `inference.nms_top_k` 5000 (every config's
+     pre_nms_top_k): the flagship served in PerClassHardNMS,
+     GlobalHardNMS, PerClassSoftNMS and GlobalSoftNMS at batch 8 and 1 on
+     the zero-bias weights of phase 5, as the main path: one launch a
+     request of the scan design (hard) or the compact design (soft) and
+     none of the round kernel (the counts at 0 just before), the
+     detections through the kernel equal to those through the plain NMS,
+     one `nms_scan_kernel` or `nms_compact_kernel` and no other NMS kernel
+     in a request's trace; on the inputs each request gave `nms_lanes` (L
+     = 640, 80, 8, 1; k = 5,000), on a trained-like copy of each (five
+     candidates a lane clear the threshold) and on seeded lanes at the
+     same L and k, the design bit-equal to the round kernel and
+     index-exact to plain, both timed in turns beside plain and the bound
+     (hard: the scores, the boxes visited and 20 f32 operations of each
+     IoU that decides a candidate, `ops/nms.py:scan_nms_plain`'s count,
+     with row 1's 20 a candidate a round beside it; soft: as in 17, from
+     `ops/nms.py:compact_nms_plain`).
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
 describing each kernel (launches on its main-path run, on the executor's
 paths and on the zoo's, error, times, bound, and the zoo shapes' times;
 NMS's soft design at the PerClassSoftNMS batch-8 inputs, its launches on
-the soft paths and every soft case of phases 3 and 17; the
+the soft paths and every soft case of phases 3 and 17; the scan and
+compact designs at the exact-parity lane's PerClass batch-8 inputs, their
+launches on phase 18's paths and every case of phase 18; the
 int8 conv's per design and model: launches, kernel, bound and cuDNN bf16
 ms), the card's line again, and {"ok": true, "device": {...}} as the last
 line.
@@ -271,6 +293,10 @@ NMS_MUFU_OPS_PER_DECAY = 3
 MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 # the soft cases' times, by phase 3 (seeded) and phase 17 (real inputs)
 SOFT_NMS_SHAPES = []
+# phase 18: the exact-parity lane's cases (real, trained-like, seeded)
+LONG_NMS_SHAPES = []
+LONG_BATCHES = {8: 2, 1: 2}     # batch size -> requests a mode
+LONG_LANES = (640, 80, 8, 1)    # the seeded cases
 MATCH_OPS_PER_PAIR = 25         # f32 operations per (anchor, valid box)
 BATCHES = {8: 4, 1: 3}          # batch size -> requests on the serving run
 TRAIN_BATCH = 8                 # what one core of the config's v3-8 gets
@@ -564,8 +590,8 @@ def nms_bound_ms(boxes, md, valid, work=None) -> tuple:
 
 def compare_nms(args, kw, design):
     """`nms_lanes` against plain on the same card tensors; it must launch
-    `design`, and the decay design must equal the round kernel bit for bit.
-    Returns max |score err| and the valid counts."""
+    `design`, and the decay, scan and compact designs must equal the round
+    kernel bit for bit. Returns max |score err| and the valid counts."""
     from retinanet_torch.ops.nms import batched_nms
     from retinanet_torch.ops.nms_kernel import (kernel, launch_design,
                                                 nms_lanes)
@@ -574,18 +600,19 @@ def compare_nms(args, kw, design):
     check(kernel.launches_by[design] == before + 1,
           f"nms_lanes did not launch the {design} kernel")
     w_idx, w_sc, w_valid = batched_nms(*args, **kw)
-    if design == "decay":
+    if design in ("decay", "scan", "compact"):
         rounds = launch_design("rounds", *args, kw["iou_threshold"],
-                               kw["score_threshold"], kw["soft_nms_sigma"],
-                               True)
+                               kw["score_threshold"],
+                               kw.get("soft_nms_sigma", 0.0),
+                               kw.get("soft", False))
         check(all(torch.equal(g, r) for g, r in zip((idx, sc, valid),
                                                     rounds)),
-              "the decay design differs from the round kernel")
+              f"the {design} design differs from the round kernel")
     torch.cuda.synchronize()
     check(torch.equal(valid, w_valid), "valid counts differ")
     check(torch.equal(idx, w_idx), "indices differ")
-    if design == "sweep":
-        check(torch.equal(sc, w_sc), "sweep scores differ")
+    if design in ("sweep", "scan"):
+        check(torch.equal(sc, w_sc), f"{design} scores differ")
     else:
         check(torch.allclose(sc, w_sc, rtol=1e-5, atol=1e-6),
               "scores differ")
@@ -593,9 +620,9 @@ def compare_nms(args, kw, design):
 
 
 def time_nms(args, kw) -> dict:
-    """Device ms of the design `nms_design` picks (the sweep in hard mode,
-    decay in soft mode), of the round kernel on the same tensors, in turns,
-    and of plain."""
+    """Device ms of the design `nms_design` picks (the sweep or the scan in
+    hard mode, decay or compact in soft mode), of the round kernel on the
+    same tensors, in turns, and of plain."""
     from retinanet_torch.ops.nms import batched_nms
     from retinanet_torch.ops.nms_kernel import launch_design, nms_design
     boxes, scores, md = args
@@ -694,7 +721,17 @@ def nms_cases(rng):
     yield "global L=8 k=256", *lanes(rng, 8, 256), 100, hard, "sweep"
     yield "k=300 L=80", *lanes(rng, 80, 300), 100, hard, "sweep"
     yield "k=1000 L=16", *lanes(rng, 16, 1000), 100, hard, "sweep"
-    yield "k=5000 L=2", *lanes(rng, 2, 5000), 100, hard, "rounds"
+    yield "k=5000 L=2", *lanes(rng, 2, 5000), 100, hard, "scan"
+    for n, k in ((4, 1025), (4, 2048), (2, 8192)):
+        yield f"k={k} L={n}", *lanes(rng, n, k), 100, hard, "scan"
+        yield (f"k={k} L={n}, in top-k order", *in_order(*lanes(rng, n, k)),
+               100, hard, "scan")
+    for n, k in ((4, 1025), (4, 2048), (2, 5000), (2, 8192)):
+        yield f"soft sigma=0.25 k={k} L={n}", *lanes(rng, n, k), 100, soft, \
+            "compact"
+    yield ("soft sigma=0 L=4 k=2048", *lanes(rng, 4, 2048), 100,
+           dict(iou_threshold=0.5, score_threshold=0.05, soft=True,
+                soft_nms_sigma=0.0), "compact")
     yield ("soft sigma=0 L=16 k=1000", *lanes(rng, 16, 1000), 100,
            dict(iou_threshold=0.5, score_threshold=0.05, soft=True,
                 soft_nms_sigma=0.0), "decay")
@@ -952,6 +989,159 @@ def phase_soft_nms() -> dict:
         print(f"[soft] {mode}: a batch-1 request's trace holds one "
               f"nms_decay_kernel ({len(names)} device events)")
     record.update(max_abs_err=worst, launches_on_soft_paths=launches)
+    return record
+
+
+def scan_bound_ms(boxes, md, valid, work) -> tuple:
+    """Least time for a hard-mode call past 1,024 candidates, from
+    `ops/nms.py:scan_nms_plain`'s `work`: every score read once (the order
+    needs them all), the boxes of the candidates the lane decides, the
+    outputs; against 20 f32 operations of each IoU that decides a
+    candidate. Also row 1's count (20 operations a candidate a round, and
+    every score and box) for comparison: (ms, by, row-1 ms)."""
+    lanes_, k = boxes.shape[0], boxes.shape[1]
+    t_bytes = (lanes_ * k * 4 + work["visited"] * 16 + lanes_ * md * 8
+               + lanes_ * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (NMS_OPS_PER_CANDIDATE_ROUND * work["pairs"] / F32_FLOP_PER_S
+             * 1e3)
+    row1, _ = nms_bound_ms(boxes, md, valid)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", row1)
+
+
+def long_nms_shape(label: str, args, kw, valid) -> dict:
+    """Phase 18's cases: the scan or compact design and the round kernel
+    timed in turns on the same tensors, plain, the bound from this run's
+    work, as a row of LONG_NMS_SHAPES."""
+    from retinanet_torch.ops.nms import compact_nms_plain, scan_nms_plain
+    from retinanet_torch.ops.nms_kernel import (COMPACT_WARPS, SCAN_WARPS,
+                                                nms_design)
+    boxes, scores, md = args
+    soft = kw.get("soft", False)
+    design = nms_design(soft, scores.shape[1], kw["score_threshold"])
+    ms = time_nms(args, kw)
+    work = {}
+    if soft:
+        compact_nms_plain(boxes, scores, md, kw["iou_threshold"],
+                          kw["score_threshold"], kw["soft_nms_sigma"],
+                          threads=32 * COMPACT_WARPS, work=work)
+        bound, by = nms_bound_ms(boxes, md, valid, work)
+        row1 = None
+    else:
+        scan_nms_plain(boxes, scores, md, kw["iou_threshold"],
+                       kw["score_threshold"], chunk=32 * SCAN_WARPS,
+                       work=work)
+        bound, by, row1 = scan_bound_ms(boxes, md, valid, work)
+    row = {"case": label, "design": design, "lanes": boxes.shape[0],
+           "k": boxes.shape[1], "max_det": md,
+           "valid": int(valid.sum().item()), "ms": ms[design],
+           "rounds_ms": ms["rounds"], "plain_ms": ms["plain"],
+           "bound_ms": bound, "bound_by": by, "row1_bound_ms": row1,
+           "work": work}
+    LONG_NMS_SHAPES.append(row)
+    print(f"[kernel] {label} (L={row['lanes']}, k={row['k']}, valid "
+          f"{row['valid']}): {design} {ms[design]:.4f} ms, round kernel "
+          f"{ms['rounds']:.4f} ms, plain {ms['plain']:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}; {work}"
+          + ("" if row1 is None else f"; row 1's count {row1:.5f} ms")
+          + ")")
+    return row
+
+
+def phase_long_nms() -> dict:
+    """Phase 18: the flagship served with `inference.nms_top_k` 5000 in the
+    four NMS modes at batch 8 and 1 as the main path, on the zero-bias
+    weights: one scan (hard) or compact (soft) launch a request and no
+    round-kernel launch, the detections through the kernel equal to the
+    plain lane's, the design's kernel alone in a request's trace, and the
+    design, the round kernel and plain timed on the captured inputs, on
+    trained-like copies and on seeded lanes."""
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops.nms_kernel import kernel
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.tools.nms_experiments import (LONG_K, LONG_MODES,
+                                                       flagship_params,
+                                                       trained_like)
+
+    model = build_model(flagship_params(LONG_MODES[0], LONG_K),
+                        device="cuda", seed=0)
+    zero_class_prior(model)
+    rng = np.random.default_rng(0)
+    launches, worst, record = {}, 0.0, {}
+    names = {"scan": "nms_scan_kernel", "compact": "nms_compact_kernel"}
+    for mode in LONG_MODES:
+        params = flagship_params(mode, LONG_K)
+        design = "compact" if "Soft" in mode else "scan"
+        serve = build_serving_fn(params, device="cuda", model=model)
+        h, w = params.input.input_shape
+        requests = [(bs, torch.from_numpy(rng.integers(
+            0, 256, (bs, h, w, 3)).astype(np.uint8)))
+            for bs, count in LONG_BATCHES.items() for _ in range(count)]
+        md = int(params.inference.max_detections)
+        # the main path: the counts at 0 just before, read just after
+        kernel.reset_counts()
+        for bs, images in requests:
+            det = serve(images)
+            torch.cuda.synchronize()
+            check_detections(det, bs, md)
+        launches[mode] = dict(kernel.launches_by)
+        check(launches[mode] == {design: len(requests)},
+              f"{mode} at nms_top_k {LONG_K}: NMS launches by design "
+              f"{launches[mode]} for {len(requests)} requests (one {design} "
+              "launch a request, no round kernel)")
+        print(f"[long] {mode}, nms_top_k {LONG_K}: {len(requests)} "
+              f"requests, NMS launches by design {launches[mode]}")
+        dets, captured = nms_lanes_agree(
+            params, model, [requests[0][1], requests[LONG_BATCHES[8]][1]])
+        print(f"[long] {mode}: detections through the kernel equal those "
+              "through the plain NMS at batch 8 and 1 (valid at 8: "
+              f"{dets[0]['valid_detections'].tolist()})")
+        per_image = (int(params.architecture.head.num_classes)
+                     if mode.startswith("PerClass") else 1)
+        for n, args in sorted(captured.items(), reverse=True):
+            kw = dict(zip(("iou_threshold", "score_threshold",
+                           "soft_nms_sigma", "soft"), args[3:]))
+            check(args[0].shape[1] == LONG_K and kw["soft"] == (
+                design == "compact"), f"{mode} called NMS with k "
+                f"{args[0].shape[1]}, soft {kw['soft']}")
+            label = f"{mode} batch {n // per_image}"
+            trained = (args[0], trained_like(args[1],
+                                             kw["score_threshold"]), args[2])
+            with torch.inference_mode():
+                for name, case in ((f"real {label}", args[:3]),
+                                   (f"trained-like {label}", trained)):
+                    err, valid = compare_nms(case, kw, design)
+                    row = long_nms_shape(name, case, kw, valid)
+                    worst = max(worst, err)
+            if mode.startswith("PerClass") and n == 8 * per_image:
+                record.update({f"{design}_ms": row["ms"],
+                               f"{design}_rounds_ms": row["rounds_ms"],
+                               f"{design}_plain_ms": row["plain_ms"],
+                               f"{design}_bound_ms": row["bound_ms"],
+                               f"{design}_bound_by": row["bound_by"]})
+        with torch.inference_mode():
+            traced = kernels_on_card(
+                "nms_lanes", lambda: serve(requests[LONG_BATCHES[8]][1]))
+        nms_names = [name for name in traced if "nms_" in name]
+        check(len(nms_names) == 1 and names[design] in nms_names[0],
+              f"{mode}: a request ran {nms_names} of the NMS kernels")
+        print(f"[long] {mode}: a batch-1 request's trace holds one "
+              f"{names[design]} ({len(traced)} device events)")
+    boxes, scores = lanes(rng, max(LONG_LANES), LONG_K)
+    for n in LONG_LANES:
+        for soft in (False, True):
+            kw = (dict(iou_threshold=1.0, score_threshold=0.05,
+                       soft_nms_sigma=0.25, soft=True) if soft
+                  else dict(iou_threshold=0.5, score_threshold=0.05))
+            case = (boxes[:n].contiguous(), scores[:n].contiguous(), 100)
+            with torch.inference_mode():
+                err, valid = compare_nms(
+                    case, kw, "compact" if soft else "scan")
+                long_nms_shape(f"seeded {'soft' if soft else 'hard'} L={n}",
+                               case, kw, valid)
+            worst = max(worst, err)
+    record.update(max_abs_err=worst, launches_on_long_paths=launches)
     return record
 
 
@@ -4479,10 +4669,16 @@ def main() -> int:
     start = time.perf_counter()
     soft = phase_soft_nms()
     print(f"[phase 17] took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    long = phase_long_nms()
+    print(f"[phase 18] took {time.perf_counter() - start:.1f} s")
     serve_record["max_abs_err"] = max(serve_record["max_abs_err"],
-                                      soft.pop("max_abs_err"))
+                                      soft.pop("max_abs_err"),
+                                      long.pop("max_abs_err"))
     serve_record.update(soft, soft_design="decay",
                         soft_shapes=SOFT_NMS_SHAPES)
+    serve_record.update(long, long_designs=["scan", "compact"],
+                        long_shapes=LONG_NMS_SHAPES)
     for record in records:
         record["launches_on_executor_paths"] = paths.get(record["name"], {})
         record["profiler_retries"] = PROFILER_RETRIES.get(record["name"], 0)

@@ -8,7 +8,7 @@
 // intrinsic), expf (not __expf) for the soft decay, and the same -1e10
 // suppression constant.
 //
-// Three designs, all kernels of this file; the wrapper
+// Five designs, all kernels of this file; the wrapper
 // (ops/nms_kernel.py:nms_design) picks one from the mode and the shape.
 //
 // Bound on an H100 at the flagship shape (L = 640 lanes, k = 256, 100
@@ -94,7 +94,66 @@
 // IoU terms and the queue's places of eight slots, at about one
 // instruction in three cycles (tools/nms_experiments.py --soft, its cuts).
 //
-// nms_lanes_kernel: the round kernel, for k up to 8192, the soft modes with
+// nms_scan_kernel: hard mode, k > 1024 (the exact-parity lane, nms_top_k
+// up to every config's pre_nms_top_k of 5000, and any k past it),
+// score_threshold >= -1e10. It takes the round kernel's hard lanes past
+// 1,024 candidates, and through it that part of _nms_kernel. As in the
+// sweep, a candidate is kept iff no pick before it in the fixed order has
+// IoU > threshold, so a lane needs only the IoUs of the candidates it
+// visits against its picks, and stops after max_det picks: at k = 5000 a
+// zero-bias request's lane decides ~130 candidates, not 100 rounds of
+// 5000. What bounds it is then the scores' one read (the order needs every
+// one: 12.8 MB at L = 640, 3.8 us) and a chain of picks. A CTA of kScanWarps
+// warps a lane, nothing staged but the picks:
+//   1. one vote over the scores: in (score desc, index asc) order already
+//      (top-k's output: every PerClassHardNMS lane), and n, the candidates
+//      above the threshold (in order, the first n);
+//   2. a lane not in order (a global lane, whose score is the best of its
+//      classes) sorts its n candidates' 64-bit keys (score desc, -0.0 as
+//      0.0, then index) by a bitonic network over the CTA, in a scratch of
+//      the wrapper's; the passes of stride under kSortBlock run in shared
+//      memory, a block of keys at a time;
+//   3. chunks of 32 * kScanWarps ranks: each thread tests its candidate,
+//      read from device memory, against the picks made before the chunk
+//      (in shared memory; the warp stops once every candidate of it is
+//      suppressed), then warp 0 resolves the chunk in order: each warp's
+//      survivors against the chunk's earlier picks, then leader by leader
+//      (the lowest survivor by a ballot is the next pick and suppresses
+//      the later ones). `over_threshold` decides every pair exactly, its
+//      margin dropped for a pair with an area of 1e30 or more.
+// Two barriers a chunk; a lane ends after max_det picks or its n ranks.
+//
+// nms_compact_kernel: the soft modes, 1024 < k <= 8192, score_threshold >=
+// 0. It takes the round kernel's soft lanes past 1,024 candidates (the
+// exact-parity lane in PerClassSoftNMS and GlobalSoftNMS), and through it
+// that part of _nms_kernel's soft branch. The decay design's reasoning
+// with the candidates past a warp's registers: its bound is the same count
+// (20 f32 operations an alive pair, 3 MUFU operations an intersecting one;
+// at L = 640, k = 5000 ~3.2e8 alive pairs, 96 us), and what limits it is
+// the chain of up to 100 rounds over ~5,000 candidates each. A CTA of
+// kCompactWarps warps a lane, one barrier a round:
+//   1. the candidates above the threshold are staged in index order in
+//      shared memory, position p in slot p / T of thread p % T (T the
+//      CTA's threads): a box, an area, a score, a 16-bit index (26 B a
+//      candidate, 130 KB at k = 5000);
+//   2. a round's pick: each thread's best slot (the first among equal
+//      scores), each warp's (largest score bits, lowest index) by two
+//      `redux` to double-buffered partials with its box, one barrier, and
+//      every warp reduces the partials itself;
+//   3. each thread takes the IoU terms of its own slots against the pick's
+//      box; each warp queues its intersecting pairs and computes their
+//      scales 32 at a time (the round kernel's arithmetic, so the two
+//      designs give the same bits), flushing the queue before it could
+//      overflow; with sigma = 0 only `over_threshold`;
+//   4. a candidate at or under the threshold is +0.0; the thread finds
+//      its next best in a pass without stores, and once a quarter of its
+//      slots are gone they leave (the others keep their order), so a round
+//      touches the candidates still alive and at most a third as many
+//      gone. (Compacting after every death cost ~1 us a round: the pick's
+//      thread shifted its later slots each round.)
+// A lane ends after max_det picks or when no score is above 0.
+//
+// nms_lanes_kernel: the round kernel, for k up to 8192: the soft modes with
 // a negative threshold (a decayed negative score rises towards 0), and hard
 // mode with a threshold under -1e10 (there the plain version goes on
 // picking suppressed candidates). One CTA per lane; the k candidates stay
@@ -129,6 +188,10 @@ constexpr unsigned kNoRank = 0xffffffffu;
 constexpr int kSweepMaxCandidates = 1024;  // 32 alive bits a thread
 constexpr int kSweepPlanes = 7;  // scores, order, four corners, area
 constexpr int kDecayMaxCandidates = 1024;  // 32 scores a thread
+constexpr int kScanWarps = 4;      // a scan lane's CTA: 128 threads
+constexpr int kSortBlock = 2048;   // keys a scan lane sorts on chip at once
+constexpr int kCompactWarps = 16;  // a compact lane's CTA: 512 threads
+constexpr int kCompactMaxCandidates = 8192;  // 26 B a candidate on chip
 
 enum Mode { kHard = 0, kSoftGaussian = 1, kSoftHard = 2 };
 
@@ -736,6 +799,583 @@ cudaError_t launch_decay(const float* boxes, const float* scores, int lanes,
   return cudaGetLastError();
 }
 
+// IoU(p, c) > thr for a pick p and a candidate c, with their areas: the
+// round kernel's terms (IoU is symmetric bit for bit) and the sweep's exact
+// test.
+__device__ __forceinline__ bool suppresses(float4 p, float pa, float4 c,
+                                           float ca, float iou_thr,
+                                           float margin) {
+  const float iw = fmaxf(__fsub_rn(fminf(p.z, c.z), fmaxf(p.x, c.x)), 0.0f);
+  const float ih = fmaxf(__fsub_rn(fminf(p.w, c.w), fmaxf(p.y, c.y)), 0.0f);
+  const float inter = __fmul_rn(iw, ih);
+  const float uni = fmaxf(__fsub_rn(__fadd_rn(pa, ca), inter), 1e-8f);
+  return over_threshold(inter, uni, iou_thr, margin);
+}
+
+// A candidate's sort key in the scan: ascending keys are scores descending
+// (-0.0 as 0.0, which the arg-max ties with it), then lower index first.
+__device__ __forceinline__ unsigned long long scan_key(float s, int j) {
+  unsigned u = __float_as_uint(__fadd_rn(s, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);  // ascends with the float
+  return static_cast<unsigned long long>(~u) << 32 | static_cast<unsigned>(j);
+}
+
+// One CTA of WARPS warps a lane; a block of kSortBlock sort keys in shared
+// memory, then `cap` = min(max_det, k) picks, then a chunk of 32 * WARPS
+// candidates: boxes, areas, scores and indices.
+template <int WARPS>
+struct ScanCta {
+  static constexpr int kThreads = 32 * WARPS;
+  static size_t bytes(int cap) {
+    return static_cast<size_t>(kSortBlock) * 8 +
+           static_cast<size_t>(cap) * 20 + static_cast<size_t>(kThreads) * 28;
+  }
+};
+
+// Bitonic compare-exchanges of the keys `k` (an ascending sort overall) at
+// one stride, for the sequence's size `size`; `base` is k[0]'s place in the
+// lane.
+template <int THREADS>
+__device__ __forceinline__ void bitonic_pass(unsigned long long* k, int n,
+                                             int base, int size, int stride) {
+  for (int i = threadIdx.x; i < n / 2; i += THREADS) {
+    const int lo = 2 * i - (i & (stride - 1));
+    const unsigned long long a = k[lo], b = k[lo + stride];
+    if ((a > b) == (((base + lo) & size) == 0)) {
+      k[lo] = b;
+      k[lo + stride] = a;
+    }
+  }
+  __syncthreads();
+}
+
+// The same pass over a whole block of kSortBlock keys in shared memory:
+// every key a thread exchanges is read before any is written (a pass
+// touches each key once), so the loads of its exchanges overlap.
+template <int THREADS>
+__device__ __forceinline__ void bitonic_block_pass(unsigned long long* k,
+                                                   int base, int size,
+                                                   int stride) {
+  constexpr int kPer = kSortBlock / 2 / THREADS;
+  unsigned long long a[kPer], b[kPer];
+  int lo[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    lo[u] = 2 * i - (i & (stride - 1));
+    a[u] = k[lo[u]];
+    b[u] = k[lo[u] + stride];
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    if ((a[u] > b[u]) == (((base + lo[u]) & size) == 0)) {
+      k[lo[u]] = b[u];
+      k[lo[u] + stride] = a[u];
+    }
+  }
+  __syncthreads();
+}
+
+// The passes of the sizes `first` .. `last` whose strides are under
+// `block`, done block by block in shared memory (`sk`).
+template <int THREADS>
+__device__ void bitonic_blocks(unsigned long long* lk, unsigned long long* sk,
+                               int width, int block, int first, int last) {
+  for (int base = 0; base < width; base += block) {
+    for (int p = threadIdx.x; p < block; p += THREADS) sk[p] = lk[base + p];
+    __syncthreads();
+    for (int size = first; size <= last; size <<= 1) {
+      for (int stride = (size < block ? size : block) >> 1; stride > 0;
+           stride >>= 1) {
+        if (block == kSortBlock) {
+          bitonic_block_pass<THREADS>(sk, base, size, stride);
+        } else {
+          bitonic_pass<THREADS>(sk, block, base, size, stride);
+        }
+      }
+    }
+    for (int p = threadIdx.x; p < block; p += THREADS) lk[base + p] = sk[p];
+    __syncthreads();
+  }
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+    nms_scan_kernel(const float* __restrict__ boxes,
+                    const float* __restrict__ scores, int k, int max_det,
+                    int cap, float iou_thr, float score_thr, int sort_cap,
+                    unsigned long long* __restrict__ keys,
+                    int* __restrict__ out_idx,
+                    float* __restrict__ out_scores,
+                    int* __restrict__ out_valid) {
+  constexpr int kThreads = 32 * WARPS;
+  extern __shared__ float4 scan_smem[];
+  unsigned long long* sk = reinterpret_cast<unsigned long long*>(scan_smem);
+  float4* pbox = scan_smem + kSortBlock / 2;  // the picks, in the order made
+  float4* cbox = pbox + cap;          // this chunk's candidates, by rank
+  float* parea = reinterpret_cast<float*>(cbox + kThreads);
+  float* carea = parea + cap;
+  float* cscore = carea + kThreads;
+  int* cidx = reinterpret_cast<int*>(cscore + kThreads);
+  __shared__ unsigned survivors[WARPS];
+  __shared__ int warp_above[WARPS];
+  __shared__ int staged, shared_picks, shared_tame;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  const int lane = blockIdx.x;
+  const float* ls = scores + static_cast<size_t>(lane) * k;
+  const float4* lb =
+      reinterpret_cast<const float4*>(boxes) + static_cast<size_t>(lane) * k;
+
+  // 1. one vote: in (score desc, index asc) order already? And n, the
+  //    candidates above the threshold (in order: the first n)
+  bool in_order = true;
+  int above = 0;
+  for (int j = tid; j < k; j += kThreads) {
+    const float s = ls[j];
+    if (j + 1 < k && !(s >= ls[j + 1])) in_order = false;
+    above += s > score_thr ? 1 : 0;
+  }
+  above = __reduce_add_sync(kFull, above);
+  if (wl == 0) warp_above[warp] = above;
+  in_order = __syncthreads_and(in_order);
+  int n = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) n += warp_above[w];
+
+  // 2. else the n candidates' keys into this lane's scratch, and a bitonic
+  //    sort of them over the CTA: the passes whose stride is under
+  //    kSortBlock in shared memory, a block of keys at a time, the others
+  //    through the scratch
+  unsigned long long* lk = keys + static_cast<size_t>(lane) * sort_cap;
+  if (!in_order) {
+    if (tid == 0) staged = 0;
+    __syncthreads();
+    const unsigned below = (1u << wl) - 1u;
+    for (int j0 = 32 * warp; j0 < k; j0 += kThreads) {
+      const int j = j0 + wl;
+      const float s = j < k ? ls[j] : 0.0f;
+      const bool take = j < k && s > score_thr;
+      const unsigned ballot = __ballot_sync(kFull, take);
+      int at = 0;
+      if (wl == 0 && ballot != 0u) at = atomicAdd(&staged, __popc(ballot));
+      at = __shfl_sync(kFull, at, 0);
+      if (take) lk[at + __popc(ballot & below)] = scan_key(s, j);
+    }
+    int width = 1;
+    while (width < n) width <<= 1;
+    for (int p = n + tid; p < width; p += kThreads) lk[p] = ~0ull;
+    __syncthreads();
+    const int block = width < kSortBlock ? width : kSortBlock;
+    bitonic_blocks<kThreads>(lk, sk, width, block, 2, block);
+    for (int size = 2 * block; size <= width; size <<= 1) {
+      for (int stride = size >> 1; stride >= block; stride >>= 1) {
+        bitonic_pass<kThreads>(lk, width, 0, size, stride);
+      }
+      bitonic_blocks<kThreads>(lk, sk, width, block, size, size);
+    }
+  }
+
+  // 3. the scan: chunk after chunk of ranks, each candidate tested against
+  //    the picks made before its chunk by its own thread, then the chunk's
+  //    survivors resolved in order by warp 0
+  int* idx_row = out_idx + static_cast<size_t>(lane) * max_det;
+  float* score_row = out_scores + static_cast<size_t>(lane) * max_det;
+  const float margin = __fadd_rn(__fmul_rn(1e-5f, fabsf(iou_thr)), 1e-30f);
+  int picks = 0;
+  bool tame = true;  // every pick's area under 1e30 (see over_threshold)
+  for (int base = 0; base < n && picks < max_det; base += kThreads) {
+    const int r = base + tid;
+    int c = 0;
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float s = 0.0f;
+    if (r < n) {
+      c = in_order ? r : static_cast<int>(lk[r] & 0xffffffffull);
+      b = lb[c];
+      s = ls[c];
+    }
+    const float area = box_area(b.x, b.y, b.z, b.w);
+    bool alive = r < n;
+    const float m = tame && area < 1e30f ? margin : NAN;
+    for (int p = 0; p < picks; p += 4) {
+      if (!__any_sync(kFull, alive)) break;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (p + u < picks &&
+            suppresses(pbox[p + u], parea[p + u], b, area, iou_thr, m)) {
+          alive = false;
+        }
+      }
+    }
+    cbox[tid] = b;
+    carea[tid] = area;
+    cscore[tid] = s;
+    cidx[tid] = c;
+    const unsigned ballot = __ballot_sync(kFull, alive);
+    if (wl == 0) survivors[warp] = ballot;
+    __syncthreads();
+    if (warp == 0) {
+      const int first = picks;  // the picks made before this chunk
+      for (int w = 0; w < WARPS && picks < max_det; ++w) {
+        if (survivors[w] == 0u) continue;
+        const int q = 32 * w + wl;
+        const float4 cb = cbox[q];
+        const float ca = carea[q];
+        bool al = survivors[w] >> wl & 1u;
+        const float cm = tame && ca < 1e30f ? margin : NAN;
+        for (int p = first; p < picks; ++p) {
+          if (al && suppresses(pbox[p], parea[p], cb, ca, iou_thr, cm)) {
+            al = false;
+          }
+        }
+        unsigned left = __ballot_sync(kFull, al);
+        while (left != 0u && picks < max_det) {
+          const int lead = 32 * w + __ffs(left) - 1;  // the next pick
+          const float4 kb = cbox[lead];
+          const float ka = carea[lead];
+          if (wl == 0) {
+            pbox[picks] = kb;
+            parea[picks] = ka;
+            idx_row[picks] = cidx[lead];
+            score_row[picks] = cscore[lead];
+          }
+          ++picks;
+          tame = tame && ka < 1e30f;
+          if (q == lead) al = false;
+          const float pm = ka < 1e30f && ca < 1e30f ? margin : NAN;
+          if (al && suppresses(kb, ka, cb, ca, iou_thr, pm)) al = false;
+          left = __ballot_sync(kFull, al);
+        }
+        __syncwarp();  // this sub-chunk's picks are read by the next
+      }
+      if (wl == 0) {
+        shared_picks = picks;
+        shared_tame = tame;
+      }
+    }
+    __syncthreads();
+    picks = shared_picks;
+    tame = shared_tame != 0;
+  }
+
+  for (int r = picks + tid; r < max_det; r += kThreads) {
+    idx_row[r] = 0;
+    score_row[r] = -1.0f;
+  }
+  if (tid == 0) out_valid[lane] = picks;
+}
+
+template <int WARPS>
+cudaError_t launch_scan(const float* boxes, const float* scores, int lanes,
+                        int k, int max_det, float iou_thr, float score_thr,
+                        int sort_cap, unsigned long long* keys, int* out_idx,
+                        float* out_scores, int* out_valid,
+                        cudaStream_t stream) {
+  const int cap = max_det < k ? max_det : k;
+  const size_t smem = ScanCta<WARPS>::bytes(cap);
+  cudaError_t err = cudaFuncSetAttribute(
+      nms_scan_kernel<WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  nms_scan_kernel<WARPS><<<lanes, 32 * WARPS, smem, stream>>>(
+      boxes, scores, k, max_det, cap, iou_thr, score_thr, sort_cap, keys,
+      out_idx, out_scores, out_valid);
+  return cudaGetLastError();
+}
+
+// One CTA of WARPS warps a lane. Thread t owns the slots at t, t + T, ...
+// (T = 32 * WARPS); `slots` a thread, so the lane holds slots * T
+// candidates: boxes, areas, scores, then each warp's queue (intersections,
+// unions, slots), then the candidates' indices (16 bits: k <= 8192).
+template <int WARPS>
+struct CompactCta {
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kQueue = 64;  // pairs a warp queues before scaling
+  static constexpr int kQueueSlots = kQueue + 32;  // and a spare a thread
+  static size_t bytes(int slots) {
+    const size_t cap = static_cast<size_t>(slots) * kThreads;
+    return cap * 26 + static_cast<size_t>(WARPS) * kQueueSlots * 10;
+  }
+};
+
+// Each warp's best of a round (double-buffered by the round's parity):
+// score bits, index, box and area.
+template <int WARPS>
+struct CompactParts {
+  unsigned key[2][WARPS], idx[2][WARPS];
+  float4 box[2][WARPS];
+  float area[2][WARPS];
+};
+
+// The rounds of a lane whose thread holds `m` slots; returns the picks.
+template <int WARPS, bool GAUSSIAN>
+__device__ __forceinline__ int compact_rounds(
+    CompactParts<WARPS>& parts, float4* box, float* area, float* sc,
+    unsigned short* idx, float* qi, float* qu, unsigned short* qa, int m,
+    int max_det, float iou_thr, float score_thr, float two_sigma,
+    float margin, int* idx_row, float* score_row) {
+  constexpr int kThreads = CompactCta<WARPS>::kThreads;
+  constexpr int kQueue = CompactCta<WARPS>::kQueue;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  const unsigned below = (1u << wl) - 1u;
+  // without an intersection the IoU is 0 and the scale exactly 1, unless 0
+  // is past the IoU threshold: then every pair needs its scale
+  const float no_overlap = iou_thr >= 0.0f ? 0.0f : -1.0f;
+
+  // this thread's best slot: its slots hold ascending indices, so the
+  // first among equal scores is the lowest index
+  float best = 0.0f;
+  int best_at = tid;
+  for (int i = 0; i < m; ++i) {
+    const int a = i * kThreads + tid;
+    if (sc[a] > best) {
+      best = sc[a];
+      best_at = a;
+    }
+  }
+  int picks = 0;
+  for (; picks < max_det; ++picks) {
+    // the pick: the largest score's bits (alive scores are > 0), then the
+    // lowest index holding it; each warp's best to the partials
+    const int buf = picks & 1;
+    const unsigned key = __float_as_uint(best);
+    const unsigned wtop = __reduce_max_sync(kFull, key);
+    const unsigned mine =
+        key == wtop && key != 0u ? static_cast<unsigned>(idx[best_at])
+                                 : kNoRank;
+    const unsigned widx = __reduce_min_sync(kFull, mine);
+    const bool holder = mine == widx && mine != kNoRank;
+    if (wl == 0) {
+      parts.key[buf][warp] = wtop;
+      parts.idx[buf][warp] = widx;
+    }
+    if (holder) {
+      parts.box[buf][warp] = box[best_at];
+      parts.area[buf][warp] = area[best_at];
+    }
+    if (WARPS > 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+    const unsigned pk = wl < WARPS ? parts.key[buf][wl] : 0u;
+    const unsigned pi = wl < WARPS ? parts.idx[buf][wl] : kNoRank;
+    const unsigned top = __reduce_max_sync(kFull, pk);
+    if (top == 0u) break;  // no candidate alive
+    const unsigned pick = __reduce_min_sync(kFull, pk == top ? pi : kNoRank);
+    const int from = __ffs(__ballot_sync(kFull, wl < WARPS && pk == top &&
+                                                    pi == pick)) - 1;
+    if (tid == 0) {
+      idx_row[picks] = static_cast<int>(pick);
+      score_row[picks] = __uint_as_float(top);
+    }
+    const float4 pb = parts.box[buf][from];
+    const float pa = parts.area[buf][from];
+    if (holder && warp == from) sc[best_at] = 0.0f;  // the pick leaves
+
+    // the decay of this thread's slots; the warp's intersecting pairs are
+    // queued and their scales computed 32 at a time
+    const int width = __reduce_max_sync(kFull, static_cast<unsigned>(m));
+    int queued = 0;
+    for (int i = 0; i < width; ++i) {
+      if (GAUSSIAN && queued > kQueue - 32) {
+        __syncwarp();
+        for (int q = wl; q < queued; q += 32) {
+          const int a = qa[q];
+          sc[a] = still_above(
+              __fmul_rn(sc[a], gaussian_scale(qi[q], qu[q], iou_thr,
+                                              two_sigma)),
+              score_thr);
+        }
+        __syncwarp();
+        queued = 0;
+      }
+      const int a = i * kThreads + tid;  // past m: a stale slot, not used
+      const float s = sc[a];
+      const float4 c = box[a];
+      const float ca = area[a];
+      const float iw =
+          fmaxf(__fsub_rn(fminf(pb.z, c.z), fmaxf(pb.x, c.x)), 0.0f);
+      const float ih =
+          fmaxf(__fsub_rn(fminf(pb.w, c.w), fmaxf(pb.y, c.y)), 0.0f);
+      const float inter = __fmul_rn(iw, ih);
+      const float uni = fmaxf(__fsub_rn(__fadd_rn(pa, ca), inter), 1e-8f);
+      if (GAUSSIAN) {
+        const bool needed = i < m && s > 0.0f && inter > no_overlap;
+        const unsigned ballot = __ballot_sync(kFull, needed);
+        if (ballot != 0u) {
+          const int at =
+              needed ? queued + __popc(ballot & below) : kQueue + wl;
+          qi[at] = inter;
+          qu[at] = uni;
+          qa[at] = static_cast<unsigned short>(a);
+          queued += __popc(ballot);
+        }
+      } else if (i < m && s > 0.0f &&
+                 over_threshold(inter, uni, iou_thr, margin)) {
+        sc[a] = 0.0f;
+      }
+    }
+    if (GAUSSIAN && queued != 0) {
+      __syncwarp();
+      for (int q = wl; q < queued; q += 32) {
+        const int a = qa[q];
+        sc[a] = still_above(
+            __fmul_rn(sc[a],
+                      gaussian_scale(qi[q], qu[q], iou_thr, two_sigma)),
+            score_thr);
+      }
+    }
+    __syncwarp();
+
+    // the thread's next best (a pass without stores, so that its loads
+    // overlap); once a quarter of its slots are gone, the candidates gone
+    // leave them and the others keep their order
+    best = 0.0f;
+    best_at = tid;
+    int gone = 0;
+    for (int i = 0; i < m; ++i) {
+      const int a = i * kThreads + tid;
+      const float s = sc[a];
+      gone += s > 0.0f ? 0 : 1;
+      if (s > best) {
+        best = s;
+        best_at = a;
+      }
+    }
+    if (4 * gone > m) {
+      int kept = 0;
+      for (int i = 0; i < m; ++i) {
+        const int a = i * kThreads + tid;
+        const float s = sc[a];
+        if (s > 0.0f) {
+          const int to = kept * kThreads + tid;
+          if (to != a) {
+            box[to] = box[a];
+            area[to] = area[a];
+            sc[to] = s;
+            idx[to] = idx[a];
+          }
+          if (a == best_at) best_at = to;
+          ++kept;
+        }
+      }
+      m = kept;
+    }
+  }
+  return picks;
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+    nms_compact_kernel(const float* __restrict__ boxes,
+                       const float* __restrict__ scores, int k, int slots,
+                       int max_det, float iou_thr, float score_thr,
+                       float two_sigma, int mode, int* __restrict__ out_idx,
+                       float* __restrict__ out_scores,
+                       int* __restrict__ out_valid) {
+  constexpr int kThreads = CompactCta<WARPS>::kThreads;
+  constexpr int kQueueSlots = CompactCta<WARPS>::kQueueSlots;
+  extern __shared__ float4 compact_smem[];
+  __shared__ int warp_n[WARPS];
+  __shared__ CompactParts<WARPS> parts;
+  const int cap = slots * kThreads;
+  const int lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  float4* box = compact_smem;
+  float* area = reinterpret_cast<float*>(box + cap);
+  float* sc = area + cap;
+  float* qi = sc + cap + warp * kQueueSlots;
+  float* qu = sc + cap + (WARPS + warp) * kQueueSlots;
+  unsigned short* qa = reinterpret_cast<unsigned short*>(
+                           sc + cap + 2 * WARPS * kQueueSlots) +
+                       warp * kQueueSlots;
+  unsigned short* idx = reinterpret_cast<unsigned short*>(
+                            sc + cap + 2 * WARPS * kQueueSlots) +
+                        WARPS * kQueueSlots;
+
+  // the candidates above the threshold staged in index order: position p
+  // is slot p / T of thread p % T
+  const float* ls = scores + static_cast<size_t>(lane) * k;
+  const float4* lb = reinterpret_cast<const float4*>(boxes) +
+                     static_cast<size_t>(lane) * k;
+  const unsigned below = (1u << wl) - 1u;
+  int n = 0;
+  bool tame = true;  // every area under 1e30, so every union under 2^126
+  for (int j0 = 0; j0 < k; j0 += kThreads) {
+    const int j = j0 + tid;
+    const float s = j < k ? ls[j] : 0.0f;
+    const bool take = j < k && s > score_thr;
+    const unsigned ballot = __ballot_sync(kFull, take);
+    if (wl == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int at = n, total = n;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      at += w < warp ? warp_n[w] : 0;
+      total += warp_n[w];
+    }
+    if (take) {
+      const int p = at + __popc(ballot & below);
+      const float4 b = lb[j];
+      box[p] = b;
+      area[p] = box_area(b.x, b.y, b.z, b.w);
+      sc[p] = s;
+      idx[p] = static_cast<unsigned short>(j);
+      tame = tame && area[p] < 1e30f;
+    }
+    n = total;
+    __syncthreads();  // warp_n is written again
+  }
+  tame = __syncthreads_and(tame);
+
+  int* idx_row = out_idx + static_cast<size_t>(lane) * max_det;
+  float* score_row = out_scores + static_cast<size_t>(lane) * max_det;
+  const float margin =
+      tame ? __fadd_rn(__fmul_rn(1e-5f, fabsf(iou_thr)), 1e-30f) : NAN;
+  const int m = n > tid ? (n - tid + kThreads - 1) / kThreads : 0;
+  const int picks =
+      mode == kSoftGaussian
+          ? compact_rounds<WARPS, true>(parts, box, area, sc, idx, qi, qu, qa,
+                                        m, max_det, iou_thr, score_thr,
+                                        two_sigma, margin, idx_row, score_row)
+          : compact_rounds<WARPS, false>(parts, box, area, sc, idx, qi, qu,
+                                         qa, m, max_det, iou_thr, score_thr,
+                                         two_sigma, margin, idx_row,
+                                         score_row);
+
+  for (int r = picks + tid; r < max_det; r += kThreads) {
+    idx_row[r] = 0;
+    score_row[r] = -1.0f;
+  }
+  if (tid == 0) out_valid[lane] = picks;
+}
+
+template <int WARPS>
+cudaError_t launch_compact(const float* boxes, const float* scores,
+                           int lanes, int k, int max_det, float iou_thr,
+                           float score_thr, float two_sigma, int mode,
+                           int* out_idx, float* out_scores, int* out_valid,
+                           cudaStream_t stream) {
+  const int slots = (k + CompactCta<WARPS>::kThreads - 1) /
+                    CompactCta<WARPS>::kThreads;
+  const size_t smem = CompactCta<WARPS>::bytes(slots);
+  cudaError_t err = cudaFuncSetAttribute(
+      nms_compact_kernel<WARPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  nms_compact_kernel<WARPS><<<lanes, 32 * WARPS, smem, stream>>>(
+      boxes, scores, k, slots, max_det, iou_thr, score_thr, two_sigma, mode,
+      out_idx, out_scores, out_valid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -814,6 +1454,46 @@ int nms_decay_launch(const float* boxes, const float* scores, int lanes,
                            score_thr, two_sigma, mode, out_idx, out_scores,
                            out_valid, s);
   }
+  return static_cast<int>(err);
+}
+
+// `boxes` must be aligned to 16 bytes; `keys` holds `sort_cap` 64-bit words
+// a lane, sort_cap >= k. A threshold under -1e10 is refused (the scan is
+// hard mode's), and so is a lane whose picks, min(max_det, k), do not fit in
+// shared memory.
+int nms_scan_launch(const float* boxes, const float* scores, int lanes,
+                    int k, int max_det, float iou_thr, float score_thr,
+                    int sort_cap, void* keys, int* out_idx,
+                    float* out_scores, int* out_valid, int device,
+                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!(score_thr >= kNegInf) || sort_cap < k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = launch_scan<kScanWarps>(
+      boxes, scores, lanes, k, max_det, iou_thr, score_thr, sort_cap,
+      static_cast<unsigned long long*>(keys), out_idx, out_scores, out_valid,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// `boxes` must be aligned to 16 bytes; k above 8192, a threshold under 0
+// (or NaN) and hard mode are refused.
+int nms_compact_launch(const float* boxes, const float* scores, int lanes,
+                       int k, int max_det, float iou_thr, float score_thr,
+                       float two_sigma, int mode, int* out_idx,
+                       float* out_scores, int* out_valid, int device,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k > kCompactMaxCandidates || !(score_thr >= 0.0f) ||
+      (mode != kSoftGaussian && mode != kSoftHard)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = launch_compact<kCompactWarps>(
+      boxes, scores, lanes, k, max_det, iou_thr, score_thr, two_sigma, mode,
+      out_idx, out_scores, out_valid, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

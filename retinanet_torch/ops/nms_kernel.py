@@ -10,7 +10,7 @@ Bound on an H100 at the flagship shape (PerClassHardNMS, batch 8: L = 640
 lanes, k = 256 candidates, 100 rounds): ~3.8 MB in and out, 1.1 us at
 3.35 TB/s; ~20 f32 operations per candidate per round, 3.3e8, 4.9 us at
 67 TFLOP/s. So the work is compute-bound at about 5 us, but what limits a
-kernel is the chain of 100 dependent rounds. Three hand-written designs
+kernel is the chain of 100 dependent rounds. Five hand-written designs
 make a round short, and `nms_design` picks one from the mode and the shape:
 
 * "sweep" (`nms_sweep_kernel`): hard mode, k <= 1024 and
@@ -30,15 +30,34 @@ make a round short, and `nms_design` picks one from the mode and the shape:
   and the decay of the thread's own positions: no barrier. It computes the
   round kernel's arithmetic, so the two give the same bits.
   `ops/nms.py:decay_nms_plain` is the same algorithm in plain PyTorch.
-* "rounds" (`nms_lanes_kernel`): everything else. k up to 8192 (the
-  exact-parity override `nms_top_k` up to pre_nms_top_k = 5000); soft
+* "scan" (`nms_scan_kernel`): hard mode, k > 1024 (the exact-parity
+  override `nms_top_k` up to pre_nms_top_k = 5000, and any k past it) and
+  score_threshold >= -1e10. Hard NMS keeps a candidate iff no pick before
+  it in the fixed order has IoU > threshold, so a lane needs only the IoUs
+  of the candidates it visits against its picks, and stops after max_det
+  picks. A CTA of `SCAN_WARPS` warps a lane: one vote finds the lane in
+  order (top-k's output), else a bitonic sort of the candidates above the
+  threshold ranks it in scratch; then chunks of 32 * SCAN_WARPS ranks, each
+  candidate tested by its own thread against the picks in shared memory,
+  the chunk's survivors resolved in order by warp 0 with ballots.
+  `ops/nms.py:scan_nms_plain` is the same algorithm in plain PyTorch.
+* "compact" (`nms_compact_kernel`): the soft modes, 1024 < k <= 8192 and
+  score_threshold >= 0. The decay design's reasoning over a CTA of
+  `COMPACT_WARPS` warps a lane, each thread's slots in shared memory: a
+  candidate at or under the threshold is gone, and once a quarter of a
+  thread's slots are gone they leave (the rest keep their order); the
+  pick is the (largest score bits, lowest index) over the warps' partials
+  with one barrier a round, and each warp's intersecting pairs are queued
+  and scaled 32 at a time, bit-equal to the round kernel.
+  `ops/nms.py:compact_nms_plain` is the same algorithm in plain PyTorch.
+* "rounds" (`nms_lanes_kernel`): everything else, k up to 8192: soft
   modes with a negative threshold, where a decayed negative score rises
   towards 0; and hard mode with a threshold under -1e10, where the plain
   version goes on picking suppressed candidates. One CTA a lane,
   candidates in shared memory, an arg-max across the CTA and one barrier a
   round.
 
-This is a choice among three kernels, not a fallback: nothing is caught.
+This is a choice among five kernels, not a fallback: nothing is caught.
 `kernel.launches` counts every launch, `kernel.launches_by[design]` those of
 one design.
 
@@ -67,6 +86,11 @@ from retinanet_torch.ops.nms import SUPPRESSED, batched_nms
 MAX_CANDIDATES = 8192  # rounds: five f32 planes, 160 KB of shared memory
 SWEEP_MAX_CANDIDATES = 1024  # sweep: 32 alive bits a thread
 DECAY_MAX_CANDIDATES = 1024  # decay: 32 scores a thread
+COMPACT_MAX_CANDIDATES = 8192  # compact: 26 B a candidate on chip
+# csrc/nms.cu's kScanWarps, kCompactWarps and CompactCta::kQueue
+SCAN_WARPS = 4  # a scan chunk: 32 * SCAN_WARPS ranks
+COMPACT_WARPS = 16  # a compact lane's threads: 32 * COMPACT_WARPS
+COMPACT_QUEUE = 64  # pairs a compact warp queues before it scales them
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -83,6 +107,14 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.nms_sweep_launch.restype = ctypes.c_int
     lib.nms_decay_launch.argtypes = lib.nms_rounds_launch.argtypes
     lib.nms_decay_launch.restype = ctypes.c_int
+    lib.nms_compact_launch.argtypes = lib.nms_rounds_launch.argtypes
+    lib.nms_compact_launch.restype = ctypes.c_int
+    lib.nms_scan_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.nms_scan_launch.restype = ctypes.c_int
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
 
@@ -100,20 +132,33 @@ def _mode(soft: bool, soft_nms_sigma: float) -> int:
 
 
 def nms_design(soft: bool, k: int, score_threshold: float) -> str:
-    """Which kernel `nms_lanes` launches on the card: "sweep", "decay" or
-    "rounds".
+    """Which kernel `nms_lanes` launches on the card: "sweep", "scan",
+    "decay", "compact" or "rounds".
 
-    The sweep assumes that a suppressed candidate (score -1e10) can never be
-    picked, which holds exactly when the threshold is at or above -1e10.
-    The decay design assumes that a score at or under the threshold never
-    rises above it, which holds exactly when the threshold is at or above
-    0 (every scale lies in [0, 1])."""
-    if (not soft and k <= SWEEP_MAX_CANDIDATES
-            and score_threshold >= SUPPRESSED):
-        return "sweep"
-    if soft and k <= DECAY_MAX_CANDIDATES and score_threshold >= 0.0:
-        return "decay"
+    The sweep and the scan assume that a suppressed candidate (score -1e10)
+    can never be picked, which holds exactly when the threshold is at or
+    above -1e10. The decay and compact designs assume that a score at or
+    under the threshold never rises above it, which holds exactly when the
+    threshold is at or above 0 (every scale lies in [0, 1])."""
+    if not soft and score_threshold >= SUPPRESSED:
+        return "sweep" if k <= SWEEP_MAX_CANDIDATES else "scan"
+    if soft and score_threshold >= 0.0:
+        if k <= DECAY_MAX_CANDIDATES:
+            return "decay"
+        if k <= COMPACT_MAX_CANDIDATES:
+            return "compact"
     return "rounds"
+
+
+# design -> (takes the soft modes, takes hard mode, most k, least
+# score_threshold); None: no limit
+_DOMAINS = {
+    "sweep": (False, True, SWEEP_MAX_CANDIDATES, SUPPRESSED),
+    "scan": (False, True, None, SUPPRESSED),
+    "decay": (True, False, DECAY_MAX_CANDIDATES, 0.0),
+    "compact": (True, False, COMPACT_MAX_CANDIDATES, 0.0),
+    "rounds": (True, True, MAX_CANDIDATES, None),
+}
 
 
 def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
@@ -124,11 +169,21 @@ def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launches one design on checked CUDA tensors. `nms_lanes` is the
     public entry; measurements call this to time "rounds" on inputs that
-    `nms_design` gives to "sweep" or "decay", or another build of
-    `csrc/nms.cu` (`library`). The sweep computes hard mode only, the
-    decay design soft modes with a threshold >= 0 only."""
+    `nms_design` gives to another design, a design on any k it takes
+    (the scan and compact designs below 1025 too), or another build of
+    `csrc/nms.cu` (`library`). Each design takes the modes, k and
+    thresholds of `_DOMAINS`, and raises on others."""
+    if design not in _DOMAINS:
+        raise ValueError(f"no NMS design {design!r}")
     library = library or kernel
     lanes, k = scores.shape
+    takes_soft, takes_hard, most_k, least_thr = _DOMAINS[design]
+    if not ((takes_soft if soft else takes_hard)
+            and (most_k is None or k <= most_k)
+            and (least_thr is None or score_threshold >= least_thr)):
+        raise ValueError(
+            f"the {design} design does not take soft={soft}, k={k}, "
+            f"score_threshold={score_threshold}")
     idx = torch.empty((lanes, max_detections), dtype=torch.int32,
                       device=boxes.device)
     out_scores = torch.empty((lanes, max_detections), dtype=torch.float32,
@@ -140,31 +195,30 @@ def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     outputs = (idx.data_ptr(), out_scores.data_ptr(), valid.data_ptr(),
                device_index(boxes.device), stream)
-    if design == "sweep" and (soft or k > SWEEP_MAX_CANDIDATES):
-        raise ValueError(f"the sweep takes hard mode and k <= "
-                         f"{SWEEP_MAX_CANDIDATES}, got soft={soft}, k={k}")
-    if design == "decay" and not (soft and k <= DECAY_MAX_CANDIDATES
-                                  and score_threshold >= 0.0):
-        raise ValueError(f"the decay design takes soft modes, k <= "
-                         f"{DECAY_MAX_CANDIDATES} and score_threshold >= 0, "
-                         f"got soft={soft}, k={k}, "
-                         f"score_threshold={score_threshold}")
-    if design in ("sweep", "decay") and boxes.data_ptr() % 16:
+    if design != "rounds" and boxes.data_ptr() % 16:
         boxes = boxes.clone()  # the kernels load a box as one float4
     if design == "sweep":
         err = lib.nms_sweep_launch(
             boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
             float(iou_threshold), float(score_threshold), *outputs)
-    elif design in ("decay", "rounds"):
-        launch = (lib.nms_decay_launch if design == "decay"
-                  else lib.nms_rounds_launch)
+    elif design == "scan":
+        # a lane's sort keys, read only where the lane is not in order
+        sort_cap = 1 << (k - 1).bit_length()
+        keys = torch.empty((lanes, sort_cap), dtype=torch.int64,
+                           device=boxes.device)
+        err = lib.nms_scan_launch(
+            boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
+            float(iou_threshold), float(score_threshold), sort_cap,
+            keys.data_ptr(), *outputs)
+    else:
+        launch = {"decay": lib.nms_decay_launch,
+                  "compact": lib.nms_compact_launch,
+                  "rounds": lib.nms_rounds_launch}[design]
         err = launch(
             boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
             float(iou_threshold), float(score_threshold),
             float(2.0 * soft_nms_sigma), _mode(soft, soft_nms_sigma),
             *outputs)
-    else:
-        raise ValueError(f"no NMS design {design!r}")
     if err != 0:
         raise RuntimeError(f"NMS kernel ({design}) launch failed: "
                            + lib.nms_error_string(err).decode())
@@ -205,8 +259,11 @@ def nms_lanes(boxes: torch.Tensor, scores: torch.Tensor,
                          f"max_detections={max_detections}")
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS kernel for device {boxes.device}")
-    if boxes.device.type == "cuda" and k > MAX_CANDIDATES:
-        raise ValueError(f"k={k} exceeds the kernel's {MAX_CANDIDATES}")
+    if (boxes.device.type == "cuda" and k > MAX_CANDIDATES
+            and nms_design(soft, k, score_threshold) != "scan"):
+        raise ValueError(f"k={k} exceeds the kernel's {MAX_CANDIDATES} "
+                         "(only hard mode at a threshold >= -1e10 takes "
+                         "more)")
     return torch.ops.retinanet_torch.nms_lanes(
         boxes, scores, int(max_detections), float(iou_threshold),
         float(score_threshold), float(soft_nms_sigma), bool(soft))

@@ -1,9 +1,11 @@
 """NMS kernel experiments on the card: what a round of the round kernel
 spends its time on, the sweep kernel's own choices, the sweep against a
-suppression bit matrix, and the soft modes' kernels.
+suppression bit matrix, the soft modes' kernels, and the designs past
+1,024 candidates.
 
     python -m retinanet_torch.tools.nms_experiments [--batch 8]
     python -m retinanet_torch.tools.nms_experiments --soft
+    python -m retinanet_torch.tools.nms_experiments --long
 
 The hard-mode inputs are the ones the flagship serving path hands to
 `nms_lanes` (PerClassHardNMS: batch x 80 lanes of 256 candidates, seeded
@@ -19,6 +21,16 @@ flagship request in PerClassSoftNMS (batch 8 and 1: L = 640 and 80) and
 in GlobalSoftNMS with `filter_per_class` false (L = 8 and 1), and on a
 trained-like copy of the PerClassSoftNMS batch-8 inputs. The designs are
 timed in turns (decay, rounds, rounds, decay).
+
+`--long` times the exact-parity lane (`inference.nms_top_k` 5000, every
+config's pre_nms_top_k): the scan (hard) and compact (soft) designs beside
+the round kernel in turns (new, rounds, rounds, new) and plain, on the
+real inputs of a zero-bias flagship request in PerClassHardNMS,
+GlobalHardNMS, PerClassSoftNMS and GlobalSoftNMS at batch 8 and 1 (L =
+640, 80, 8, 1; k = 5,000), on seeded lanes at the same L and k (not in
+order: the scan ranks them), and on a trained-like copy of each real
+input (five candidates a lane clear the threshold); then the scan and
+compact variants and cuts on the batch-8 and batch-1 inputs.
 
 It runs on the card only and prints device times
 (`utils/benchmark.py:device_time_ms`, L2 warm) beside the card's name and
@@ -40,7 +52,7 @@ import argparse
 import ctypes
 import sys
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +75,11 @@ SOFT_DESIGNS = ("decay", "rounds")
 SOFT_LANES = (640, 80, 8, 1)
 SOFT_MODES = ("PerClassSoftNMS", "GlobalSoftNMS")
 SOFT_BATCHES = (8, 1)
+# the exact-parity lane: `inference.nms_top_k` at every config's
+# pre_nms_top_k, in the four NMS modes of a serving request
+LONG_K = 5000
+LONG_MODES = ("PerClassHardNMS", "GlobalHardNMS", "PerClassSoftNMS",
+              "GlobalSoftNMS")
 
 # name -> (design it changes, [(text in csrc/nms.cu, its replacement)])
 VARIANTS: Dict[str, Tuple[str, Edits]] = {
@@ -107,6 +124,27 @@ VARIANTS: Dict[str, Tuple[str, Edits]] = {
          "  if (k <= 256) {\n    err = launch_sweep<16>(")]),
     "decay: every slot whatever n": ("decay", [
         ("  const int width = (n + 31) / 32;", "  const int width = CPT;")]),
+    "scan: one warp a lane": ("scan", [
+        ("constexpr int kScanWarps = 4;", "constexpr int kScanWarps = 1;")]),
+    "scan: two warps a lane": ("scan", [
+        ("constexpr int kScanWarps = 4;", "constexpr int kScanWarps = 2;")]),
+    "scan: eight warps a lane": ("scan", [
+        ("constexpr int kScanWarps = 4;", "constexpr int kScanWarps = 8;")]),
+    "compact: one warp a lane, no barrier": ("compact", [
+        ("constexpr int kCompactWarps = 16;",
+         "constexpr int kCompactWarps = 1;")]),
+    "compact: four warps a lane": ("compact", [
+        ("constexpr int kCompactWarps = 16;",
+         "constexpr int kCompactWarps = 4;")]),
+    "compact: eight warps a lane": ("compact", [
+        ("constexpr int kCompactWarps = 16;",
+         "constexpr int kCompactWarps = 8;")]),
+    "compact: 32 warps a lane (k <= 7,000 fits)": ("compact", [
+        ("constexpr int kCompactWarps = 16;",
+         "constexpr int kCompactWarps = 32;")]),
+    "compact: a queue of 128 pairs": ("compact", [
+        ("static constexpr int kQueue = 64;",
+         "static constexpr int kQueue = 128;")]),
     # cuts: each computes something else and is timed only; the differences
     # are the steps' times
     "decay cut: no scales (the queue's pairs keep their scores)": ("decay", [
@@ -120,6 +158,43 @@ VARIANTS: Dict[str, Tuple[str, Edits]] = {
          "      const int p = 32 * i + wl;\n      const float cx1",
          "#pragma unroll\n    for (int i = 0; i < 0; ++i) {\n"
          "      const int p = 32 * i + wl;\n      const float cx1")]),
+    "scan cut: every lane sorted": ("scan", [
+        ("  in_order = __syncthreads_and(in_order);",
+         "  in_order = __syncthreads_and(false);")]),
+    "scan cut: the vote and the sort alone": ("scan", [
+        ("  for (int base = 0; base < n && picks < max_det; "
+         "base += kThreads) {",
+         "  for (int base = 0; base < 0; base += kThreads) {")]),
+    "compact cut: the staging and the first best alone": ("compact", [
+        ("  for (; picks < max_det; ++picks) {\n    // the pick: the largest",
+         "  for (; picks < 0; ++picks) {\n    // the pick: the largest")]),
+    "compact cut: no scales (the queue's pairs keep their scores)": (
+        "compact", [
+            ("              __fmul_rn(sc[a], gaussian_scale(qi[q], qu[q], "
+             "iou_thr,\n                                              "
+             "two_sigma)),",
+             "              sc[a],"),
+            ("            __fmul_rn(sc[a],\n                      "
+             "gaussian_scale(qi[q], qu[q], iou_thr, two_sigma)),",
+             "            sc[a],")]),
+    "compact cut: the arg-max and the pick alone": ("compact", [
+        ("    const int width = __reduce_max_sync(kFull, "
+         "static_cast<unsigned>(m));",
+         "    const int width = 0;")]),
+    "compact cut: no best pass (each round the same best)": ("compact", [
+        ("    best = 0.0f;\n    best_at = tid;\n    int gone = 0;\n"
+         "    for (int i = 0; i < m; ++i) {",
+         "    int gone = 0;\n    for (int i = 0; i < 0; ++i) {")]),
+    "compact cut: the reductions and the barrier alone": ("compact", [
+        ("    const int width = __reduce_max_sync(kFull, "
+         "static_cast<unsigned>(m));",
+         "    const int width = 0;"),
+        ("    best = 0.0f;\n    best_at = tid;\n    int gone = 0;\n"
+         "    for (int i = 0; i < m; ++i) {",
+         "    int gone = 0;\n    for (int i = 0; i < 0; ++i) {")]),
+    "compact: each area from its box": ("compact", [
+        ("      const float ca = area[a];",
+         "      const float ca = box_area(c.x, c.y, c.z, c.w);")]),
 }
 
 
@@ -156,27 +231,32 @@ def nms_bitmatrix(boxes, scores, max_detections, iou_threshold,
     return idx, out_scores, valid
 
 
-def flagship_params(mode: str = "PerClassHardNMS"):
-    """The flagship config with `inference.mode` set; a global mode needs
-    `filter_per_class` false."""
+def flagship_params(mode: str = "PerClassHardNMS",
+                    nms_top_k: Optional[int] = None):
+    """The flagship config with `inference.mode` set (a global mode needs
+    `filter_per_class` false) and, if given, `inference.nms_top_k`."""
     from retinanet_torch.core.config import Config
     params = Config(str(FLAGSHIP)).params
     params.inference.mode = mode
     if mode.startswith("Global"):
         params.inference.filter_per_class = False
+    if nms_top_k is not None:
+        params.inference.nms_top_k = nms_top_k
     return params
 
 
-def serving_nms_inputs(batches, mode: str = "PerClassHardNMS") -> dict:
-    """What the flagship serving path in `mode` gives `nms_lanes` for
-    seeded random images, one model for all `batches`: batch ->
-    (boxes, scores, max_det, iou_thr, score_thr, sigma, soft)."""
+def serving_nms_inputs(batches, mode: str = "PerClassHardNMS",
+                       nms_top_k: Optional[int] = None) -> dict:
+    """What the flagship serving path in `mode` (with `nms_top_k`, if
+    given) gives `nms_lanes` for seeded random images, one model for all
+    `batches`: batch -> (boxes, scores, max_det, iou_thr, score_thr,
+    sigma, soft)."""
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops import postprocess
     from retinanet_torch.profile_serving import zero_class_prior
-    params = flagship_params(mode)
+    params = flagship_params(mode, nms_top_k)
     model = build_model(params, device="cuda", seed=0)
     zero_class_prior(model)
     fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
@@ -303,12 +383,98 @@ def main_soft(args, card: str) -> int:
     return 1 if failed else 0
 
 
+def trained_like(scores: torch.Tensor, threshold: float) -> torch.Tensor:
+    """The scores scaled so that five candidates a lane clear the threshold
+    (the sixth sits on it)."""
+    ranked = torch.sort(scores, dim=1, descending=True).values
+    return (scores * (threshold / ranked[:, 5:6])).contiguous()
+
+
+def long_loads() -> dict:
+    """The exact-parity lane's loads: name -> (boxes, scores, max_det,
+    iou_thr, score_thr, sigma, soft)."""
+    loads = {}
+    for mode in LONG_MODES:
+        for batch, args in serving_nms_inputs(SOFT_BATCHES, mode,
+                                              LONG_K).items():
+            b, s, md, iou_thr, thr, sigma, soft = args
+            name = f"{mode} batch {batch} L={b.shape[0]}"
+            loads[f"real {name}"] = args
+            loads[f"trained-like {name}"] = (b, trained_like(s, thr), md,
+                                             iou_thr, thr, sigma, soft)
+    boxes, scores = seeded_lanes(max(SOFT_LANES), LONG_K)
+    for n in SOFT_LANES:
+        b, s = boxes[:n].contiguous(), scores[:n].contiguous()
+        loads[f"seeded hard L={n}"] = (b, s, 100, 0.5, 0.05, 0.0, False)
+        loads[f"seeded soft L={n}"] = (b, s, 100, 1.0, 0.05, 0.25, True)
+    return loads
+
+
+def main_long(args, card: str) -> int:
+    libraries = {name: (design, variant_library(
+        nms_kernel.kernel, nms_kernel.declare, name, edits))
+        for name, (design, edits) in VARIANTS.items()
+        if design in ("scan", "compact")}
+    build_all([nms_kernel.kernel] + [lib for _, lib in libraries.values()])
+    for line in nms_kernel.kernel.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"[build] nms: {line.strip()}")
+
+    failed = 0
+    for load, (b, s, md, iou_thr, thr, sigma, soft) in long_loads().items():
+        kw = dict(iou_threshold=iou_thr, score_threshold=thr,
+                  soft_nms_sigma=sigma, soft=soft)
+        design = nms_kernel.nms_design(soft, b.shape[1], thr)
+        want = batched_nms(b, s, md, **kw)
+        print(f"[load] {load}: L={b.shape[0]} k={b.shape[1]} md={md} "
+              f"soft={soft} sigma={sigma} iou_threshold={iou_thr} "
+              f"score_threshold={thr}, lanes in order "
+              f"{int((s[:, :-1] >= s[:, 1:]).all(dim=1).sum())}, valid "
+              f"{want[2].sum().item()}, design {design}")
+        rest = (md, iou_thr, thr, sigma, soft)
+        runs = {d: (lambda d=d: nms_kernel.launch_design(d, b, s, *rest))
+                for d in (design, "rounds")}
+        reference = runs["rounds"]()
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same = _equal(got, reference)
+            ok = _soft_equal(got, want) if soft else _equal(got, want)
+            failed += not (same and ok)
+            print(f"[check] {load} | {name}: equal to plain {ok}, bit-equal "
+                  f"to rounds {same}")
+        times = {name: [] for name in runs}
+        for name in [*runs, *reversed(runs)]:
+            times[name].append(device_time_ms(runs[name], reps=args.reps))
+        for name, ms in times.items():
+            print(f"[time] {load} | {name}: "
+                  + " / ".join(f"{t:.4f}" for t in ms) + " ms")
+        if load.startswith("real") and "batch" in load:
+            for name, (d, lib) in libraries.items():
+                if d != design:
+                    continue
+                fn = lambda d=d, lib=lib: nms_kernel.launch_design(  # noqa
+                    d, b, s, *rest, library=lib)
+                got = fn()
+                torch.cuda.synchronize()
+                ms = device_time_ms(fn, reps=args.reps)
+                print(f"[time] {load} | {name}: {ms:.4f} ms, bit-equal to "
+                      f"rounds: {_equal(got, reference)}")
+        ms = device_time_ms(lambda: batched_nms(b, s, md, **kw), reps=3)
+        print(f"[time] {load} | plain: {ms:.4f} ms")
+    print(f"[card] {card}")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--reps", type=int, default=50)
     parser.add_argument("--soft", action="store_true",
                         help="the soft modes' designs and loads")
+    parser.add_argument("--long", action="store_true",
+                        help="the designs past 1,024 candidates on the "
+                        "exact-parity lane's loads")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("nms_experiments: no CUDA device; this tool runs on the card "
@@ -318,10 +484,13 @@ def main(argv=None) -> int:
     print(f"[card] {card}")
     if args.soft:
         return main_soft(args, card)
+    if args.long:
+        return main_long(args, card)
 
     libraries = {name: (design, variant_library(
         nms_kernel.kernel, nms_kernel.declare, name, edits))
-        for name, (design, edits) in VARIANTS.items()}
+        for name, (design, edits) in VARIANTS.items()
+        if design in ("rounds", "sweep")}
     build_all([nms_kernel.kernel, bitmatrix]
               + [lib for _, lib in libraries.values()])
     for lib in (nms_kernel.kernel, bitmatrix):

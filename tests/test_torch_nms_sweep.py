@@ -1,7 +1,7 @@
 """The sorted-sweep form of hard NMS (`ops/nms.py:sweep_nms_plain`, the plain
 model of the sweep kernel in `csrc/nms.cu`) against the round form
 (`batched_nms`) and against the JAX package, on the CPU; and the wrapper's
-choice among the three kernels as a pure function.
+choice among the five kernels as a pure function.
 
 Indices, valid counts and scores are compared exactly against `batched_nms`
 (both read the same float32 scores and do the same IoU arithmetic); against
@@ -161,16 +161,20 @@ def test_sweep_refuses_a_threshold_under_the_suppression_score():
     (False, 1, 0.0, "sweep"),
     (False, SWEEP_MAX_CANDIDATES, 0.05, "sweep"),
     (False, 256, -1e10, "sweep"),             # at the suppression score
-    (False, SWEEP_MAX_CANDIDATES + 1, 0.05, "rounds"),
-    (False, 5000, 0.05, "rounds"),            # the global modes
+    (False, SWEEP_MAX_CANDIDATES + 1, 0.05, "scan"),
+    (False, 5000, 0.05, "scan"),              # nms_top_k up to 5,000
+    (False, 8192, 0.05, "scan"),
+    (False, 8193, 0.05, "scan"),              # hard mode has no cap
     (False, 256, float("-inf"), "rounds"),    # suppressed ones get picked
     (False, 256, -2e10, "rounds"),
     (True, 256, 0.05, "decay"),               # PerClassSoftNMS, GlobalSoftNMS
     (True, 1, 0.0, "decay"),                  # exactly 0: +0.0 is not above
     (True, 256, -0.0, "decay"),
     (True, DECAY_MAX_CANDIDATES, 0.05, "decay"),
-    (True, DECAY_MAX_CANDIDATES + 1, 0.05, "rounds"),
-    (True, 5000, 0.05, "rounds"),             # nms_top_k up to 5,000
+    (True, DECAY_MAX_CANDIDATES + 1, 0.05, "compact"),
+    (True, 5000, 0.05, "compact"),            # nms_top_k up to 5,000
+    (True, 8192, 0.05, "compact"),
+    (True, 8193, 0.05, "rounds"),             # past compact's 8,192
     (True, 64, -1.0, "rounds"),               # negative scores rise to 0
     (True, 256, float("-inf"), "rounds"),
     (True, 256, -1e-30, "rounds"),
