@@ -8,7 +8,7 @@ JAX. Phases, each fatal on failure:
   1. card: name, power limit; TF32 off for the float32 comparisons;
   2. build: every kernel of retinanet_torch/csrc/ with nvcc, one compiler
      per source, all started together;
-  3. the five NMS kernels against the plain PyTorch version on the card:
+  3. the six NMS kernels against the plain PyTorch version on the card:
      hard mode through the sweep kernel (the flagship shape, sorted and
      unsorted input, tied and all-equal scores, duplicated boxes, IoUs
      exactly at the threshold, k = 300 and 1000, more slots than
@@ -18,11 +18,19 @@ JAX. Phases, each fatal on failure:
      through the decay kernel
      (sigma 0.25 on the flagship's seeded lanes at L = 640, 80, 8 and 1 and
      a trained-like copy, each timed in turns with the round kernel beside
-     plain and its bound; sigma 0 at k = 1000), and a threshold of -inf
-     through the round kernel (hard, and soft on negative scores); indices
-     and valid counts equal, the sweep's scores exactly equal, the soft
-     designs' to rtol 1e-5 / atol 1e-6 (the card's exp against torch's),
-     and the decay kernel bit-equal to the round kernel;
+     plain and its bound; sigma 0 at k = 1000); the lanes the round
+     kernel alone took before, now on no path: soft past 8,192 candidates
+     through the cluster kernel (k = 8,193, 16,384 and 76,725 at L = 1, 8
+     and 80, sigma 0 at L = 8), soft under a negative threshold (-0.5, and
+     -inf with sigma 0; k = 256, 5,000, 8,192, 16,384) through the cluster
+     kernel, hard under -1e10 (-inf and -3e10; k = 77 with max_det 100,
+     256, 5,000, 8,192, 16,384; every box twice, scores of -1e10 and
+     below) through the scan and its tail, each timed beside plain, the
+     round kernel where it takes the lane, and its bound; indices and valid
+     counts equal, the sweep's and the scan's scores exactly equal, the
+     soft designs' to rtol 1e-5 / atol 1e-6 (the card's exp against
+     torch's), and every design but the sweep bit-equal to the round
+     kernel wherever that takes the lane (k <= 8,192);
   4. matching kernel against its plain version on the card, all four
      outputs bit-equal: the flagship anchors with 8 images of 100 boxes
      (0, 1, 7 and 100 valid, a mask that is no prefix, duplicated boxes and
@@ -204,7 +212,10 @@ JAX. Phases, each fatal on failure:
      k = 256), the exact lane ("f32", k = 256), the skip_nms lane ("f32",
      k = 5,000) and the global lane ((B, A·C) rows, "bf16" and "f32"); on
      the zoo's anchor counts at batch 8 (37,485 and 49,104: drop 0;
-     110,484: drop 1; 150,381 and 306,900: "bf16"); on rows of one value
+     110,484: drop 1; 150,381 and 306,900: "bf16"); past 8,192 winners
+     (k = 8,193, 16,384 and 76,725 = every anchor, in "packed", "bf16"
+     and "f32", both designs; past 16,384 the winners are sorted in global
+     scratch) and rows of one value at k = 16,384; on rows of one value
      and on the top-k over the NMS survivors: seeded rows, the real
      survivors of a zero-bias request (`_per_class_nms`'s input to
      `top_k`) and trained-like rows (>= 95% -1.0) at batch 8 and 1; each
@@ -248,7 +259,18 @@ JAX. Phases, each fatal on failure:
      (hard: the scores, the boxes visited and 20 f32 operations of each
      IoU that decides a candidate, `ops/nms.py:scan_nms_plain`'s count,
      with row 1's 20 a candidate a round beside it; soft: as in 17, from
-     `ops/nms.py:compact_nms_plain`).
+     `ops/nms.py:compact_nms_plain`);
+ 19. pre_nms_top_k = nms_top_k = 10,000 (a user who doubles the
+     reference's 5,000): the flagship served in the four NMS modes at
+     batch 8 and 1 on the zero-bias weights, as the main path: one launch a
+     request of the scan (hard) or the cluster design (soft) and none of
+     the round kernel, one slab selection of 10,000 a request (the counts
+     at 0 just before); the detections through the kernels equal to those
+     through the plain NMS and to those through the plain top-k and plain
+     NMS together; one `nms_scan_kernel` or `nms_cluster_kernel` and no
+     other NMS kernel in a request's trace; the design on the batch-8
+     inputs timed beside plain and its bound; then the skip_nms lane at
+     10,000 a class, equal to the plain top-k's.
 Phase 8 also prints where the pipeline's threads spend their time, by
 stage (read, parse, decode, preprocess, collate).
 The output ends with a JSON line of the zoo's numbers, one JSON object
@@ -257,7 +279,9 @@ paths and on the zoo's, error, times, bound, and the zoo shapes' times;
 NMS's soft design at the PerClassSoftNMS batch-8 inputs, its launches on
 the soft paths and every soft case of phases 3 and 17; the scan and
 compact designs at the exact-parity lane's PerClass batch-8 inputs, their
-launches on phase 18's paths and every case of phase 18; the
+launches on phase 18's paths and every case of phase 18; the cluster
+design at phase 19's PerClassSoftNMS batch-8 inputs, its launches there
+and every wide case of phases 3 and 19; the top-k's wide cases; the
 int8 conv's per design and model: launches, kernel, bound and cuDNN bf16
 ms), the card's line again, and {"ok": true, "device": {...}} as the last
 line.
@@ -297,6 +321,21 @@ SOFT_NMS_SHAPES = []
 LONG_NMS_SHAPES = []
 LONG_BATCHES = {8: 2, 1: 2}     # batch size -> requests a mode
 LONG_LANES = (640, 80, 8, 1)    # the seeded cases
+# the lanes past the round kernel's domain: phase 3's wide cases and phase
+# 19's serving cases (the cluster design, the scan's tail), one row each
+WIDE_NMS_SHAPES = []
+WIDE_SOFT_KS = (8193, 16384, 76725)        # soft lanes past 8,192
+WIDE_SOFT_LANES = (1, 8, 80)
+WIDE_NEGATIVE_KS = (256, 5000, 8192, 16384)  # soft under a negative thr
+WIDE_TAIL_KS = ((77, 100), (256, 100), (5000, 100), (8192, 100),
+                (16384, 100))              # hard under -1e10: (k, max_det)
+WIDE_NMS_REPS = 10
+# phase 16: top-k past the on-chip sort's cap, on the flagship's logits
+WIDE_TOPK_KS = (8193, 16384, 76725)
+WIDE_TOPK_REPS = 3
+# phase 19: the flagship served with pre_nms_top_k = nms_top_k = WIDE_K
+WIDE_K = 10000
+WIDE_BATCHES = {8: 1, 1: 1}     # batch size -> requests a mode
 MATCH_OPS_PER_PAIR = 25         # f32 operations per (anchor, valid box)
 BATCHES = {8: 4, 1: 3}          # batch size -> requests on the serving run
 TRAIN_BATCH = 8                 # what one core of the config's v3-8 gets
@@ -590,17 +629,18 @@ def nms_bound_ms(boxes, md, valid, work=None) -> tuple:
 
 def compare_nms(args, kw, design):
     """`nms_lanes` against plain on the same card tensors; it must launch
-    `design`, and the decay, scan and compact designs must equal the round
-    kernel bit for bit. Returns max |score err| and the valid counts."""
+    `design`, and every design but the sweep must equal the round kernel
+    bit for bit where that takes the lane (k <= 8,192). Returns max |score
+    err| and the valid counts."""
     from retinanet_torch.ops.nms import batched_nms
-    from retinanet_torch.ops.nms_kernel import (kernel, launch_design,
-                                                nms_lanes)
+    from retinanet_torch.ops.nms_kernel import (MAX_CANDIDATES, kernel,
+                                                launch_design, nms_lanes)
     before = kernel.launches_by[design]
     idx, sc, valid = nms_lanes(*args, **kw)
     check(kernel.launches_by[design] == before + 1,
           f"nms_lanes did not launch the {design} kernel")
     w_idx, w_sc, w_valid = batched_nms(*args, **kw)
-    if design in ("decay", "scan", "compact"):
+    if design != "sweep" and args[1].shape[1] <= MAX_CANDIDATES:
         rounds = launch_design("rounds", *args, kw["iou_threshold"],
                                kw["score_threshold"],
                                kw.get("soft_nms_sigma", 0.0),
@@ -619,34 +659,39 @@ def compare_nms(args, kw, design):
     return (sc - w_sc).abs().max().item(), valid
 
 
-def time_nms(args, kw) -> dict:
-    """Device ms of the design `nms_design` picks (the sweep or the scan in
-    hard mode, decay or compact in soft mode), of the round kernel on the
-    same tensors, in turns, and of plain."""
+def time_nms(args, kw, reps: int = 50) -> dict:
+    """Device ms of the design `nms_design` picks, of the round kernel on
+    the same tensors where it takes the lane (k <= 8,192; else its ms is
+    None), in turns, and of plain."""
     from retinanet_torch.ops.nms import batched_nms
-    from retinanet_torch.ops.nms_kernel import launch_design, nms_design
+    from retinanet_torch.ops.nms_kernel import (MAX_CANDIDATES,
+                                                launch_design, nms_design)
     boxes, scores, md = args
     soft = kw.get("soft", False)
     design = nms_design(soft, scores.shape[1], kw["score_threshold"])
     rest = (md, kw["iou_threshold"], kw["score_threshold"],
             kw.get("soft_nms_sigma", 0.0), soft)
     want = batched_nms(*args, **kw)
-    got = {d: launch_design(d, boxes, scores, *rest)
-           for d in (design, "rounds")}
+    yardstick = scores.shape[1] <= MAX_CANDIDATES
+    designs = (design, "rounds") if yardstick else (design,)
+    got = {d: launch_design(d, boxes, scores, *rest) for d in designs}
+    ref = got.get("rounds", got[design])
     for d, out in got.items():
         if soft:
-            check(all(torch.equal(g, r) for g, r in zip(out, got["rounds"]))
+            check(all(torch.equal(g, r) for g, r in zip(out, ref))
                   and torch.equal(out[0], want[0])
                   and torch.equal(out[2], want[2]),
                   f"{d} kernel differs from the round kernel or plain")
         else:
             check(all(torch.equal(g, w) for g, w in zip(out, want)),
                   f"{d} kernel differs from plain")
-    times = {design: [], "rounds": []}
+    times = {d: [] for d in designs}
     for d in (design, "rounds", "rounds", design):
-        times[d].append(time_ms(
-            lambda: launch_design(d, boxes, scores, *rest), reps=50))
+        if d in times:
+            times[d].append(time_ms(
+                lambda: launch_design(d, boxes, scores, *rest), reps=reps))
     out = {d: statistics.mean(t) for d, t in times.items()}
+    out.setdefault("rounds", None)
     out["plain"] = time_ms(lambda: batched_nms(*args, **kw), reps=5)
     return out
 
@@ -700,9 +745,9 @@ def nms_cases(rng):
     yield ("soft sigma=0.25, trained-like (few clear 0.05)", boxes,
            scores * 0.052, 100, soft, "decay")
     yield ("soft, threshold -inf", boxes[:64], scores[:64] - 0.5, 100,
-           dict(soft, score_threshold=float("-inf")), "rounds")
+           dict(soft, score_threshold=float("-inf")), "cluster")
     yield ("hard, threshold -inf", boxes[:64], scores[:64], 100,
-           dict(iou_threshold=0.5, score_threshold=float("-inf")), "rounds")
+           dict(iou_threshold=0.5, score_threshold=float("-inf")), "scan")
     yield ("tied scores (nine levels)", boxes[:64],
            torch.round(scores[:64] * 8) / 8, 100, hard, "sweep")
     yield ("all scores equal", boxes[:64], torch.full_like(scores[:64], 0.5),
@@ -739,13 +784,91 @@ def nms_cases(rng):
            dict(iou_threshold=0.5, score_threshold=0.2), "sweep")
     yield ("all below threshold", *lanes(rng, 2, 64), 5,
            dict(iou_threshold=0.5, score_threshold=1.5), "sweep")
+    yield from wide_nms_cases(rng)
+
+
+def wide_nms_cases(rng):
+    """Phase 3's lanes past the round kernel's domain, as `nms_cases`
+    yields them, with a label that starts with "wide"; the scan's tail on
+    `tools/nms_experiments.py:tail_lanes`."""
+    from retinanet_torch.tools.nms_experiments import tail_lanes
+    soft = dict(iou_threshold=1.0, score_threshold=0.05, soft_nms_sigma=0.25,
+                soft=True)
+    for k in WIDE_SOFT_KS:
+        boxes, scores = lanes(rng, max(WIDE_SOFT_LANES), k)
+        for n in WIDE_SOFT_LANES:
+            yield (f"wide soft sigma=0.25 k={k} L={n}", boxes[:n],
+                   scores[:n], 100, soft, "cluster")
+        yield (f"wide soft sigma=0 k={k} L=8", boxes[:8], scores[:8], 100,
+               dict(iou_threshold=0.5, score_threshold=0.05, soft=True,
+                    soft_nms_sigma=0.0), "cluster")
+        del boxes, scores
+    for k in WIDE_NEGATIVE_KS:
+        boxes, scores = lanes(rng, 8, k)
+        yield (f"wide soft threshold -0.5 k={k} L=8", boxes, scores - 0.6,
+               100, dict(soft, score_threshold=-0.5), "cluster")
+        yield (f"wide soft sigma=0 threshold -inf k={k} L=8", boxes,
+               scores - 0.6, 100, dict(iou_threshold=0.5,
+                                       score_threshold=float("-inf"),
+                                       soft=True, soft_nms_sigma=0.0),
+               "cluster")
+    for k, md in WIDE_TAIL_KS:
+        boxes, scores = tail_lanes(8, k)
+        for thr in (float("-inf"), -3e10):
+            yield (f"wide hard threshold {thr:g} k={k} md={md} L=8", boxes,
+                   scores, md, dict(iou_threshold=0.5, score_threshold=thr),
+                   "scan")
+
+
+def wide_nms_shape(label: str, args, kw, valid) -> dict:
+    """A wide case: its design and the round kernel (where that takes the
+    lane) timed in turns on the same tensors, plain, the bound from this
+    run's work (the cluster design's from `ops/nms.py:cluster_nms_plain`,
+    the scan's from `scan_nms_plain`, its tail's pairs included), as a row
+    of WIDE_NMS_SHAPES."""
+    from retinanet_torch.ops.nms import cluster_nms_plain, scan_nms_plain
+    from retinanet_torch.ops.nms_kernel import (SCAN_WARPS, cluster_plan,
+                                                nms_design)
+    boxes, scores, md = args
+    soft = kw.get("soft", False)
+    design = nms_design(soft, scores.shape[1], kw["score_threshold"])
+    ms = time_nms(args, kw, reps=WIDE_NMS_REPS)
+    work = {}
+    if soft:
+        cluster_nms_plain(boxes, scores, md, kw["iou_threshold"],
+                          kw["score_threshold"], kw["soft_nms_sigma"],
+                          work=work)
+        bound, by = nms_bound_ms(boxes, md, valid, work)
+    else:
+        scan_nms_plain(boxes, scores, md, kw["iou_threshold"],
+                       kw["score_threshold"], chunk=32 * SCAN_WARPS,
+                       work=work)
+        bound, by, _ = scan_bound_ms(boxes, md, valid, work)
+    row = {"case": label, "design": design, "lanes": boxes.shape[0],
+           "k": boxes.shape[1], "max_det": md,
+           "score_threshold": kw["score_threshold"],
+           "valid": int(valid.sum().item()), "ms": ms[design],
+           "rounds_ms": ms["rounds"], "plain_ms": ms["plain"],
+           "bound_ms": bound, "bound_by": by, "work": work}
+    if design == "cluster":
+        row["plan"] = cluster_plan(boxes.shape[1])._asdict()
+    WIDE_NMS_SHAPES.append(row)
+    rounds = ("" if ms["rounds"] is None
+              else f", round kernel {ms['rounds']:.4f} ms")
+    print(f"[kernel] {label} (valid {row['valid']}): {design} "
+          f"{ms[design]:.4f} ms{rounds}, plain {ms['plain']:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}; {work})")
+    return row
 
 
 def phase_nms_kernel() -> float:
     from retinanet_torch.ops.nms_kernel import nms_lanes
     rng = np.random.default_rng(0)
     worst = 0.0
+    traced = None
     for name, boxes, scores, md, kw, design in nms_cases(rng):
+        if traced is None:
+            traced = (boxes, scores, md, kw)
         err, valid = compare_nms((boxes, scores, md), kw, design)
         worst = max(worst, err)
         print(f"[kernel] {name}: {design} kernel, equal indices and valid "
@@ -763,6 +886,9 @@ def phase_nms_kernel() -> float:
                   f"ms, bound {bound:.5f} ms ({by})")
         if design == "decay" and kw["soft_nms_sigma"] > 0.0:
             soft_nms_shape(f"seeded: {name}", (boxes, scores, md), kw, valid)
+        if name.startswith("wide"):
+            wide_nms_shape(name, (boxes, scores, md), kw, valid)
+    boxes, scores, md, kw = traced
     names = kernels_on_card("nms_lanes",
                             lambda: nms_lanes(boxes, scores, md, **kw))
     check(len(names) == 1 and "nms_sweep_kernel" in names[0],
@@ -997,13 +1123,14 @@ def scan_bound_ms(boxes, md, valid, work) -> tuple:
     `ops/nms.py:scan_nms_plain`'s `work`: every score read once (the order
     needs them all), the boxes of the candidates the lane decides, the
     outputs; against 20 f32 operations of each IoU that decides a
-    candidate. Also row 1's count (20 operations a candidate a round, and
-    every score and box) for comparison: (ms, by, row-1 ms)."""
+    candidate, and of each IoU the tail takes under a threshold below
+    -1e10 ("tail"). Also row 1's count (20 operations a candidate a round,
+    and every score and box) for comparison: (ms, by, row-1 ms)."""
     lanes_, k = boxes.shape[0], boxes.shape[1]
     t_bytes = (lanes_ * k * 4 + work["visited"] * 16 + lanes_ * md * 8
                + lanes_ * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = (NMS_OPS_PER_CANDIDATE_ROUND * work["pairs"] / F32_FLOP_PER_S
-             * 1e3)
+    t_ops = (NMS_OPS_PER_CANDIDATE_ROUND
+             * (work["pairs"] + work.get("tail", 0)) / F32_FLOP_PER_S * 1e3)
     row1, _ = nms_bound_ms(boxes, md, valid)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", row1)
@@ -1142,6 +1269,161 @@ def phase_long_nms() -> dict:
                                case, kw, valid)
             worst = max(worst, err)
     record.update(max_abs_err=worst, launches_on_long_paths=launches)
+    return record
+
+
+def plain_select_top_k(x, k, mode, dim=-1):
+    """`ops/topk.py:select_top_k` on the plain version: the lane the
+    kernel's selections are held to in phase 19."""
+    from retinanet_torch.ops.topk import top_k_rows_plain
+    ndim = x.dim()
+    dim = dim + ndim if dim < 0 else dim
+    if dim == ndim - 1:
+        values, idx = top_k_rows_plain(x.reshape(-1, x.shape[-1], 1), k,
+                                       mode)
+        shape = tuple(x.shape[:-1]) + (k,)
+        return values.reshape(shape), idx.reshape(shape)
+    return top_k_rows_plain(x, k, mode)
+
+
+def wide_params(mode: str):
+    """The flagship with pre_nms_top_k = nms_top_k = WIDE_K (a user who
+    doubles the reference's 5,000) in NMS mode `mode`."""
+    from retinanet_torch.tools.nms_experiments import flagship_params
+    return flagship_params(mode, WIDE_K, WIDE_K)
+
+
+def phase_wide_serving() -> dict:
+    """Phase 19: the flagship served with pre_nms_top_k = nms_top_k =
+    WIDE_K in the four NMS modes at batch 8 and 1 on the zero-bias weights,
+    as the main path: one launch a request of the scan (hard) or the
+    cluster design (soft), none of the round kernel, the top-k's
+    selections of 10,000 on its kernels (the counts at 0 just before); the
+    detections through the kernels equal to those through the plain NMS,
+    and to those through the plain top-k and the plain NMS; the design
+    alone among the NMS kernels in a request's trace; the design timed
+    beside plain on the batch-8 inputs; then the skip_nms lane at WIDE_K,
+    equal to the same lane on the plain top-k. Returns the cluster
+    design's record."""
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.models.retinanet import build_model
+    from retinanet_torch.ops import postprocess, topk_kernel
+    from retinanet_torch.ops.nms import batched_nms
+    from retinanet_torch.ops.nms_kernel import kernel
+    from retinanet_torch.profile_serving import zero_class_prior
+    from retinanet_torch.tools.nms_experiments import LONG_MODES
+
+    kernel_select, kernel_nms = postprocess.select_top_k, postprocess.nms_lanes
+    model = build_model(wide_params(LONG_MODES[0]), device="cuda", seed=0)
+    zero_class_prior(model)
+    rng = np.random.default_rng(19)
+    h, w = wide_params(LONG_MODES[0]).input.input_shape
+    images = {bs: torch.from_numpy(rng.integers(
+        0, 256, (bs, h, w, 3)).astype(np.uint8)) for bs in WIDE_BATCHES}
+    requests = [(bs, images[bs]) for bs, count in WIDE_BATCHES.items()
+                for _ in range(count)]
+    launches, topk_launches, record, worst = {}, {}, {}, 0.0
+    names = {"scan": "nms_scan_kernel", "cluster": "nms_cluster_kernel"}
+    cluster_launches = 0
+    for mode in LONG_MODES:
+        params = wide_params(mode)
+        design = "cluster" if "Soft" in mode else "scan"
+        serve = build_serving_fn(params, device="cuda", model=model)
+        md = int(params.inference.max_detections)
+        # the main path: the counts at 0 just before, read just after
+        kernel.reset_counts()
+        topk_kernel.kernel.reset_counts()
+        served = []
+        for bs, batch in requests:
+            start = time.perf_counter()
+            det = serve(batch)
+            torch.cuda.synchronize()
+            served.append((bs, det, (time.perf_counter() - start) * 1e3))
+            check_detections(det, bs, md)
+        launches[mode] = dict(kernel.launches_by)
+        topk_launches[mode] = dict(topk_kernel.kernel.launches_by_design)
+        check(launches[mode] == {design: len(requests)},
+              f"{mode} at pre_nms_top_k = nms_top_k = {WIDE_K}: NMS "
+              f"launches by design {launches[mode]} for {len(requests)} "
+              f"requests (one {design} launch a request, no round kernel)")
+        check(topk_launches[mode].get("slab", 0) == len(requests),
+              f"{mode}: top-k launches by design {topk_launches[mode]} "
+              f"(one slab selection of {WIDE_K} a request)")
+        if design == "cluster":
+            cluster_launches += kernel.launches_by["cluster"]
+        print(f"[wide] {mode}, pre_nms_top_k = nms_top_k = {WIDE_K}: "
+              f"{len(requests)} requests ("
+              + ", ".join(f"batch {bs} {ms:.1f} ms" for bs, _, ms in served)
+              + f"), NMS launches by design {launches[mode]}, top-k by "
+              f"design {topk_launches[mode]}")
+        dets, captured = nms_lanes_agree(params, model,
+                                         [images[8], images[1]])
+        # the kernel lane against plain top-k and plain NMS together
+        try:
+            postprocess.select_top_k = plain_select_top_k
+            postprocess.nms_lanes = batched_nms
+            for bs, det, _ in served:
+                plain = serve(images[bs])
+                check(all(torch.equal(plain[key], det[key]) for key in det),
+                      f"{mode} batch {bs}: detections differ from the "
+                      "plain top-k and plain NMS lane's")
+        finally:
+            postprocess.select_top_k = kernel_select
+            postprocess.nms_lanes = kernel_nms
+        print(f"[wide] {mode}: detections through the kernels equal those "
+              "through the plain NMS and through the plain top-k and NMS "
+              f"at batch 8 and 1 (valid at 8: "
+              f"{dets[0]['valid_detections'].tolist()})")
+        per_image = (int(params.architecture.head.num_classes)
+                     if mode.startswith("PerClass") else 1)
+        args = captured[8 * per_image]
+        kw = dict(zip(("iou_threshold", "score_threshold", "soft_nms_sigma",
+                       "soft"), args[3:]))
+        check(args[0].shape[1] == WIDE_K, f"{mode} called NMS with k "
+              f"{args[0].shape[1]}")
+        with torch.inference_mode():
+            err, valid = compare_nms(args[:3], kw, design)
+            row = wide_nms_shape(f"real {mode} batch 8, k={WIDE_K}",
+                                 args[:3], kw, valid)
+        worst = max(worst, err)
+        if mode == "PerClassSoftNMS":
+            record = {"ms": row["ms"], "plain_ms": row["plain_ms"],
+                      "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"]}
+        with torch.inference_mode():
+            traced = kernels_on_card("nms_lanes",
+                                     lambda: serve(images[1]))
+        nms_names = [name for name in traced if "nms_" in name]
+        check(len(nms_names) == 1 and names[design] in nms_names[0],
+              f"{mode}: a request ran {nms_names} of the NMS kernels")
+        print(f"[wide] {mode}: a batch-1 request's trace holds one "
+              f"{names[design]} ({len(traced)} device events)")
+
+    # the skip_nms export lane selects pre_nms_top_k = WIDE_K a class
+    params = wide_params("PerClassHardNMS")
+    lane = build_serving_fn(params, mode="tf_tensorrt", device="cuda",
+                            model=model)
+    topk_kernel.kernel.reset_counts()
+    out = {bs: lane(images[bs]) for bs in WIDE_BATCHES}
+    skip_launches = dict(topk_kernel.kernel.launches_by_design)
+    check(skip_launches == {"slab": len(WIDE_BATCHES)},
+          f"skip_nms lane: top-k launches by design {skip_launches}")
+    try:
+        postprocess.select_top_k = plain_select_top_k
+        for bs, got in out.items():
+            want = lane(images[bs])
+            check(tuple(got["scores"].shape) == (bs, WIDE_K, 80),
+                  f"skip_nms scores {tuple(got['scores'].shape)}")
+            check(all(torch.equal(got[key], want[key]) for key in got),
+                  f"skip_nms lane batch {bs} differs from the plain top-k's")
+    finally:
+        postprocess.select_top_k = kernel_select
+    print(f"[wide] skip_nms lane at pre_nms_top_k {WIDE_K}: batch 8 and 1 "
+          f"equal to the plain top-k's, top-k launches {skip_launches}")
+    launches["skip_nms"] = skip_launches
+    record.update(launches=cluster_launches, max_abs_err=worst,
+                  launches_on_wide_paths=launches,
+                  topk_launches_on_wide_paths=topk_launches)
     return record
 
 
@@ -4482,6 +4764,20 @@ def phase_topk(floor_library) -> list:
             "rows of one value", torch.zeros(
                 (TOPK_BATCH, TOPK_ZOO_ANCHORS[0][0], c),
                 dtype=torch.bfloat16, device="cuda"), k, "packed"))
+        # past 8,192 winners, in the three modes on the flagship's fused
+        # logits: the on-chip sort's first k past the old cap, its last
+        # (16,384) and every anchor (the sort in global scratch)
+        wide = []
+        for kw in WIDE_TOPK_KS:
+            for mode, rows in (("packed", bf), ("bf16", bf),
+                               ("f32", logits)):
+                wide.append(hold_topk(f"flagship wide k={kw}", rows, kw,
+                                      mode, reps=WIDE_TOPK_REPS))
+        wide.append(hold_topk(
+            "rows of one value, wide", torch.zeros(
+                (TOPK_BATCH, a, c), dtype=torch.bfloat16, device="cuda"),
+            16384, "packed", reps=WIDE_TOPK_REPS))
+        cases.extend(wide)
         for anchors, label in TOPK_ZOO_ANCHORS:
             zoo = torch.from_numpy(rng.normal(
                 TOPK_PRIOR, 1.5, (TOPK_BATCH, anchors, c)).astype(
@@ -4565,7 +4861,7 @@ def phase_topk(floor_library) -> list:
          "work": f"the default lane's selection of a batch-8 flagship "
                  f"request ({main['shape']}, k={main['k']})",
          "launches_by": launches_by, "launches_by_design": by_design,
-         "cases": cases, "request": request,
+         "cases": cases, "wide_cases": wide, "request": request,
          "launches_on_paths": dict(TOPK_PATHS)},
         {"name": "top_k_rows", **common,
          "replaces": "retinanet_tpu/ops/postprocess.py:326",
@@ -4672,6 +4968,29 @@ def main() -> int:
     start = time.perf_counter()
     long = phase_long_nms()
     print(f"[phase 18] took {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    wide = phase_wide_serving()
+    print(f"[phase 19] took {time.perf_counter() - start:.1f} s")
+    phase3_cluster = next(row for row in WIDE_NMS_SHAPES
+                          if row["design"] == "cluster")
+    records.append({
+        "name": "nms_cluster", "route": "cuda",
+        "source": "retinanet_torch/csrc/nms.cu",
+        "replaces": "retinanet_tpu/ops/pallas/nms_kernel.py:36",
+        "replaces_note": "the soft lanes of _nms_kernel past 8,192 "
+                         "candidates and under a negative threshold",
+        "launches": wide.pop("launches"),
+        "max_abs_err": max(wide.pop("max_abs_err"),
+                           serve_record["max_abs_err"]),
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": None,
+        "work": f"PerClassSoftNMS lanes of a batch-8 flagship request at "
+                f"pre_nms_top_k = nms_top_k = {WIDE_K}",
+        "first_seeded_case": phase3_cluster["case"],
+        "launches_on_wide_paths": wide["launches_on_wide_paths"],
+        "topk_launches_on_wide_paths": wide["topk_launches_on_wide_paths"],
+        "wide_shapes": WIDE_NMS_SHAPES})
     serve_record["max_abs_err"] = max(serve_record["max_abs_err"],
                                       soft.pop("max_abs_err"),
                                       long.pop("max_abs_err"))

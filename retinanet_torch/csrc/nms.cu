@@ -8,8 +8,10 @@
 // intrinsic), expf (not __expf) for the soft decay, and the same -1e10
 // suppression constant.
 //
-// Five designs, all kernels of this file; the wrapper
-// (ops/nms_kernel.py:nms_design) picks one from the mode and the shape.
+// Five designs on the paths and the round kernel as their yardstick, all
+// kernels of this file; the wrapper (ops/nms_kernel.py:nms_design) picks one
+// from the mode, the shape and the threshold, and every (mode, k, threshold)
+// has one: no cap on k.
 //
 // Bound on an H100 at the flagship shape (L = 640 lanes, k = 256, 100
 // rounds): about 3.8 MB moved (1.1 us at 3.35 TB/s) and about 20 f32
@@ -95,9 +97,10 @@
 // instruction in three cycles (tools/nms_experiments.py --soft, its cuts).
 //
 // nms_scan_kernel: hard mode, k > 1024 (the exact-parity lane, nms_top_k
-// up to every config's pre_nms_top_k of 5000, and any k past it),
-// score_threshold >= -1e10. It takes the round kernel's hard lanes past
-// 1,024 candidates, and through it that part of _nms_kernel. As in the
+// up to pre_nms_top_k, and any k past it), and at any k under a threshold
+// below -1e10. It takes the round kernel's hard lanes past 1,024
+// candidates and under -1e10, and through it that part of _nms_kernel. As
+// in the
 // sweep, a candidate is kept iff no pick before it in the fixed order has
 // IoU > threshold, so a lane needs only the IoUs of the candidates it
 // visits against its picks, and stops after max_det picks: at k = 5000 a
@@ -120,7 +123,15 @@
 //      survivors against the chunk's earlier picks, then leader by leader
 //      (the lowest survivor by a ballot is the next pick and suppresses
 //      the later ones). `over_threshold` decides every pair exactly, its
-//      margin dropped for a pair with an area of 1e30 or more.
+//      margin dropped for a pair with an area of 1e30 or more;
+//   4. under a threshold below -1e10 the ordered pass takes the candidates
+//      above -1e10, and a lane with picks left goes on as the plain
+//      version does: every candidate at or above -1e10, and every one
+//      under it that a pick suppressed, sits at -1e10, above the threshold;
+//      the pick is the lowest index among them, and each pick's
+//      suppression lifts the lower indices it overlaps to -1e10: so the
+//      next pick is the lowest j < p with IoU(p, j) > threshold, else p
+//      again for good (a chunk of indices at a time, one barrier each).
 // Two barriers a chunk; a lane ends after max_det picks or its n ranks.
 //
 // nms_compact_kernel: the soft modes, 1024 < k <= 8192, score_threshold >=
@@ -153,10 +164,35 @@
 //      thread shifted its later slots each round.)
 // A lane ends after max_det picks or when no score is above 0.
 //
-// nms_lanes_kernel: the round kernel, for k up to 8192: the soft modes with
-// a negative threshold (a decayed negative score rises towards 0), and hard
-// mode with a threshold under -1e10 (there the plain version goes on
-// picking suppressed candidates). One CTA per lane; the k candidates stay
+// nms_cluster_kernel: the soft modes everywhere decay and compact do not
+// go: k > 8192 at a threshold >= 0, and every k under a negative threshold,
+// where a decayed negative score rises towards 0 and a picked candidate's
+// -1e10, scaled like any score, may be picked again. So every candidate
+// stays in the lane (under a threshold >= 0 one at or under it is passed
+// over: it can never be picked), and a round is the round kernel's: the
+// pick by (largest score, lowest index), the decay of every score, the
+// pick set to -1e10. A lane on a thread-block cluster of C CTAs (1 to
+// kClusterMaxCtas, cluster_plan in the wrapper), CTA r holding a range of
+// the lane's candidates in shared memory (20 B a candidate; past
+// kClusterCtaMax a CTA, the scores in the wrapper's scratch and the boxes
+// read from the input):
+//   1. each thread's best slot by an orderable key (-0.0 as 0.0), each
+//      warp's (largest key, lowest index) and the holder's score bits and
+//      box to double-buffered partials;
+//   2. one cluster barrier a round; every warp reads the C x 16 partials
+//      through distributed shared memory and reduces them itself;
+//   3. each thread's slots decayed: with sigma > 0 each warp's
+//      intersecting pairs queued (kClusterQueue) and scaled 32 at a time,
+//      with sigma 0 the pairs over the threshold times 0.0 (the round
+//      kernel's arithmetic, so the two give the same bits); the pick set
+//      to -1e10; then each thread's next best.
+// A lane ends after max_det picks or when its best is not above the
+// threshold; a last cluster barrier keeps every CTA's partials alive until
+// no CTA reads them.
+//
+// nms_lanes_kernel: the round kernel (PR 1), for k up to 8192, on no path:
+// nms_design never names it; it stays the yardstick every design is held to
+// bit for bit. One CTA per lane; the k candidates stay
 // in shared memory as five planes (20 B a candidate); each thread owns the
 // candidates j = tid, tid + blockDim, ... Each round:
 //   1. every thread takes the first-index argmax of its own candidates;
@@ -173,12 +209,15 @@
 // must be finite: outside that, neither design promises the plain
 // version's answer.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
@@ -192,6 +231,11 @@ constexpr int kScanWarps = 4;      // a scan lane's CTA: 128 threads
 constexpr int kSortBlock = 2048;   // keys a scan lane sorts on chip at once
 constexpr int kCompactWarps = 16;  // a compact lane's CTA: 512 threads
 constexpr int kCompactMaxCandidates = 8192;  // 26 B a candidate on chip
+constexpr int kClusterWarps = 16;    // a cluster lane's CTA: 512 threads
+constexpr int kClusterMaxCtas = 8;   // the portable cluster size
+constexpr int kClusterCtaTarget = 8192;  // candidates a CTA the plan aims at
+constexpr int kClusterCtaMax = 10240;    // on chip: 20 B a candidate, 200 KB
+constexpr int kClusterQueue = 64;  // pairs a cluster warp queues
 
 enum Mode { kHard = 0, kSoftGaussian = 1, kSoftHard = 2 };
 
@@ -921,6 +965,10 @@ __global__ void __launch_bounds__(32 * WARPS)
   __shared__ int warp_above[WARPS];
   __shared__ int staged, shared_picks, shared_tame;
 
+  __shared__ unsigned tail_first[WARPS];
+  __shared__ unsigned long long tail_best[WARPS];
+  __shared__ unsigned tail_next;
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wl = tid & 31;
@@ -928,6 +976,11 @@ __global__ void __launch_bounds__(32 * WARPS)
   const float* ls = scores + static_cast<size_t>(lane) * k;
   const float4* lb =
       reinterpret_cast<const float4*>(boxes) + static_cast<size_t>(lane) * k;
+  // under -1e10 the ordered pass takes the candidates above -1e10 and the
+  // tail follows; a NaN threshold picks nothing
+  const bool tail = !(score_thr >= kNegInf);
+  const bool none = score_thr != score_thr;
+  const float order_thr = tail ? kNegInf : score_thr;
 
   // 1. one vote: in (score desc, index asc) order already? And n, the
   //    candidates above the threshold (in order: the first n)
@@ -936,7 +989,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   for (int j = tid; j < k; j += kThreads) {
     const float s = ls[j];
     if (j + 1 < k && !(s >= ls[j + 1])) in_order = false;
-    above += s > score_thr ? 1 : 0;
+    above += s > order_thr ? 1 : 0;
   }
   above = __reduce_add_sync(kFull, above);
   if (wl == 0) warp_above[warp] = above;
@@ -944,6 +997,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   int n = 0;
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) n += warp_above[w];
+  if (none) n = 0;
 
   // 2. else the n candidates' keys into this lane's scratch, and a bitonic
   //    sort of them over the CTA: the passes whose stride is under
@@ -957,7 +1011,7 @@ __global__ void __launch_bounds__(32 * WARPS)
     for (int j0 = 32 * warp; j0 < k; j0 += kThreads) {
       const int j = j0 + wl;
       const float s = j < k ? ls[j] : 0.0f;
-      const bool take = j < k && s > score_thr;
+      const bool take = j < k && s > order_thr;
       const unsigned ballot = __ballot_sync(kFull, take);
       int at = 0;
       if (wl == 0 && ballot != 0u) at = atomicAdd(&staged, __popc(ballot));
@@ -1058,6 +1112,110 @@ __global__ void __launch_bounds__(32 * WARPS)
     __syncthreads();
     picks = shared_picks;
     tame = shared_tame != 0;
+  }
+
+  // 4. the tail, under a threshold below -1e10, once every candidate above
+  //    -1e10 is decided: they, the candidates at -1e10 and those under it
+  //    that an ordered pick suppressed all sit at -1e10, above the
+  //    threshold, so the pick is the lowest index p among them;
+  //    its suppression lifts the candidates under -1e10 with IoU > threshold
+  //    to -1e10 and leaves p there. So the next pick is the lowest j < p
+  //    with IoU(p, j) > threshold, else p again, for good. A lane with no
+  //    candidate at or above -1e10 first picks its arg-max at its own score.
+  if (tail && !none && picks < max_det) {
+    unsigned first = kNoRank;
+    unsigned long long best = 0ull;  // orderable score << 32 | ~index
+    for (int j = tid; j < k; j += kThreads) {
+      const float s = ls[j];
+      if (s >= kNegInf && first == kNoRank) first = j;
+      unsigned u = __float_as_uint(__fadd_rn(s, 0.0f));
+      u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+      const unsigned long long key = static_cast<unsigned long long>(u) << 32 |
+                                     (0xffffffffu - static_cast<unsigned>(j));
+      best = key > best ? key : best;
+    }
+    first = __reduce_min_sync(kFull, first);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(kFull, best, off);
+      best = o > best ? o : best;
+    }
+    if (wl == 0) {
+      tail_first[warp] = first;
+      tail_best[warp] = best;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      first = tail_first[w] < first ? tail_first[w] : first;
+      best = tail_best[w] > best ? tail_best[w] : best;
+    }
+    unsigned p = first;
+    float ps = kNegInf;
+    if (picks > 0) {
+      // a candidate under -1e10 that an ordered pick suppressed was lifted
+      // to -1e10: the lowest of them under `first`, a chunk at a time
+      __syncthreads();  // tail_first and tail_best are read
+      if (tid == 0) tail_next = kNoRank;
+      __syncthreads();
+      for (unsigned j0 = 0; j0 < first; j0 += kThreads) {
+        const unsigned j = j0 + tid;
+        bool hit = false;
+        if (j < first) {
+          const float4 c = lb[j];
+          const float ca = box_area(c.x, c.y, c.z, c.w);
+          for (int q = 0; q < picks && !hit; ++q) {
+            const float m = parea[q] < 1e30f && ca < 1e30f ? margin : NAN;
+            hit = suppresses(pbox[q], parea[q], c, ca, iou_thr, m);
+          }
+        }
+        if (hit) atomicMin(&tail_next, j);
+        if (__syncthreads_or(hit)) break;
+      }
+      p = tail_next < first ? tail_next : first;
+    } else if (first == kNoRank) {
+      p = 0xffffffffu - static_cast<unsigned>(best & 0xffffffffull);
+      ps = ls[p];
+    }
+    if (ps > score_thr) {
+      for (;;) {
+        if (tid == 0) {
+          idx_row[picks] = static_cast<int>(p);
+          score_row[picks] = ps;
+        }
+        ++picks;
+        ps = kNegInf;
+        if (picks >= max_det) break;
+        // the lowest j < p that p suppresses, a chunk of ranks at a time
+        const float4 pb = lb[p];
+        const float pa = box_area(pb.x, pb.y, pb.z, pb.w);
+        __syncthreads();  // tail_next is read by the last step
+        if (tid == 0) tail_next = kNoRank;
+        __syncthreads();
+        for (unsigned j0 = 0; j0 < p; j0 += kThreads) {
+          const unsigned j = j0 + tid;
+          bool hit = false;
+          if (j < p) {
+            const float4 c = lb[j];
+            const float ca = box_area(c.x, c.y, c.z, c.w);
+            const float m = pa < 1e30f && ca < 1e30f ? margin : NAN;
+            hit = suppresses(pb, pa, c, ca, iou_thr, m);
+          }
+          if (hit) atomicMin(&tail_next, j);
+          if (__syncthreads_or(hit)) break;
+        }
+        const unsigned q = tail_next;
+        if (q == kNoRank) {  // p in every slot left
+          for (int r = picks + tid; r < max_det; r += kThreads) {
+            idx_row[r] = static_cast<int>(p);
+            score_row[r] = kNegInf;
+          }
+          picks = max_det;
+          break;
+        }
+        p = q;
+      }
+    }
   }
 
   for (int r = picks + tid; r < max_det; r += kThreads) {
@@ -1376,6 +1534,275 @@ cudaError_t launch_compact(const float* boxes, const float* scores,
   return cudaGetLastError();
 }
 
+// A warp's best of a cluster round, double-buffered by the round's parity:
+// (orderable score, index, score bits) and the candidate's box.
+struct ClusterPart {
+  uint4 head;
+  float4 box;
+};
+
+// float -> an unsigned key that orders as the floats do, -0.0 as 0.0 (the
+// arg-max ties them); 0 only for a NaN with every bit set.
+__device__ __forceinline__ unsigned order_key(float s) {
+  const unsigned u = __float_as_uint(__fadd_rn(s, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A thread's best of its m slots (t, t + T, ...): the largest key of a
+// candidate that can still be picked, bslot -1 if none. Its slots hold
+// ascending indices, so the first slot among equal keys is the lowest index.
+__device__ __forceinline__ void cluster_best(const float* sc, int m, int tid,
+                                             bool keep_all, float score_thr,
+                                             unsigned& bkey, int& bslot) {
+  bkey = 0u;
+  bslot = -1;
+  for (int i = 0; i < m; ++i) {
+    const int a = i * 32 * kClusterWarps + tid;
+    const float s = sc[a];
+    const unsigned key = order_key(s);
+    if ((keep_all || s > score_thr) && key > bkey) {
+      bkey = key;
+      bslot = a;
+    }
+  }
+}
+
+// The scales of a warp's `queued` pairs, 32 at a time: the round kernel's
+// arithmetic, so both give the same bits.
+__device__ __forceinline__ void cluster_flush(float* sc, const float* qi,
+                                              const float* qu, const int* qa,
+                                              int queued, float iou_thr,
+                                              float two_sigma, int wl) {
+  __syncwarp();
+  for (int q = wl; q < queued; q += 32) {
+    const int a = qa[q];
+    sc[a] = __fmul_rn(sc[a], gaussian_scale(qi[q], qu[q], iou_thr,
+                                            two_sigma));
+  }
+  __syncwarp();
+}
+
+// A lane on a cluster of C CTAs (C = gridDim.x / lanes, the cluster's
+// size): CTA r holds the candidates r * per_cta .. (r + 1) * per_cta - 1,
+// thread t of it the slots t, t + T, ... (T = 32 * kClusterWarps). ON_CHIP:
+// each slot's box and score in shared memory (20 B a candidate), else the
+// boxes read from the input and the scores in `spill`, the lane's (L, k)
+// row of the wrapper's scratch.
+template <bool GAUSSIAN, bool ON_CHIP>
+__global__ void __launch_bounds__(32 * kClusterWarps, 2)
+    nms_cluster_kernel(const float* __restrict__ boxes,
+                       const float* __restrict__ scores, int k, int per_cta,
+                       int max_det, float iou_thr, float score_thr,
+                       float two_sigma, float* __restrict__ spill,
+                       int* __restrict__ out_idx,
+                       float* __restrict__ out_scores,
+                       int* __restrict__ out_valid) {
+  constexpr int kThreads = 32 * kClusterWarps;
+  extern __shared__ float4 cluster_smem[];
+  __shared__ ClusterPart parts[2][kClusterWarps];
+  // each warp's queue of intersecting pairs (sigma > 0): intersections,
+  // unions, slots
+  constexpr int kQ = GAUSSIAN ? kClusterQueue : 1;
+  __shared__ float queue_i[kClusterWarps][kQ];
+  __shared__ float queue_u[kClusterWarps][kQ];
+  __shared__ int queue_a[kClusterWarps][kQ];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = blockIdx.x / ctas;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  const unsigned below = (1u << wl) - 1u;
+  float* qi = queue_i[warp];
+  float* qu = queue_u[warp];
+  int* qa = queue_a[warp];
+  const int base = rank * per_cta;
+  int count = k - base;
+  count = count < 0 ? 0 : (count > per_cta ? per_cta : count);
+  const int m = count > tid ? (count - tid + kThreads - 1) / kThreads : 0;
+  const float* ls = scores + static_cast<size_t>(lane) * k;
+  const float4* lb =
+      reinterpret_cast<const float4*>(boxes) + static_cast<size_t>(lane) * k;
+
+  // the CTA's candidates staged (ON_CHIP) or their scores copied to spill
+  const float4* box;
+  float* sc;
+  if (ON_CHIP) {
+    float4* sbox = cluster_smem;
+    float* ssc = reinterpret_cast<float*>(sbox + per_cta);
+    for (int i = 0; i < m; ++i) {
+      const int a = i * kThreads + tid;
+      sbox[a] = lb[base + a];
+      ssc[a] = ls[base + a];
+    }
+    box = sbox;
+    sc = ssc;
+  } else {
+    box = lb + base;
+    sc = spill + static_cast<size_t>(lane) * k + base;
+    for (int i = 0; i < m; ++i) {
+      const int a = i * kThreads + tid;
+      sc[a] = ls[base + a];
+    }
+  }
+
+  // under a threshold >= 0 a score at or under it is never picked again
+  // (every scale lies in [0, 1]) and is passed over; under a negative one
+  // every candidate is decayed in every round, picked ones too
+  const bool keep_all = !(score_thr >= 0.0f);
+  // without an intersection the IoU is 0 and the scale exactly 1, unless 0
+  // is past the IoU threshold: then every pair needs its scale
+  const float no_overlap = iou_thr >= 0.0f ? 0.0f : -1.0f;
+  const float margin = __fadd_rn(__fmul_rn(1e-5f, fabsf(iou_thr)), 1e-30f);
+  unsigned bkey;
+  int bslot;
+  cluster_best(sc, m, tid, keep_all, score_thr, bkey, bslot);
+
+  int* idx_row = out_idx + static_cast<size_t>(lane) * max_det;
+  float* score_row = out_scores + static_cast<size_t>(lane) * max_det;
+  int picks = 0;
+  for (; picks < max_det; ++picks) {
+    // each warp's best (largest key, lowest index) to the partials
+    const int buf = picks & 1;
+    const unsigned wtop = __reduce_max_sync(kFull, bkey);
+    const unsigned mine = bkey == wtop && bslot >= 0
+                              ? static_cast<unsigned>(base + bslot)
+                              : kNoRank;
+    const unsigned widx = __reduce_min_sync(kFull, mine);
+    if (mine == widx && mine != kNoRank) {
+      parts[buf][warp].head =
+          make_uint4(wtop, widx, __float_as_uint(sc[bslot]), 0u);
+      parts[buf][warp].box = box[bslot];
+    } else if (widx == kNoRank && wl == 0) {
+      parts[buf][warp].head = make_uint4(0u, kNoRank, 0u, 0u);
+    }
+    cluster.sync();
+    // every warp reduces the cluster's partials itself: no second barrier
+    unsigned tkey = 0u, tidx = kNoRank, traw = 0u;
+    float4 tbox = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e = wl; e < ctas * kClusterWarps; e += 32) {
+      const ClusterPart* p = cluster.map_shared_rank(
+          &parts[buf][e % kClusterWarps], e / kClusterWarps);
+      const uint4 h = p->head;
+      const float4 b = p->box;
+      if (h.x > tkey || (h.x == tkey && h.y < tidx)) {
+        tkey = h.x;
+        tidx = h.y;
+        traw = h.z;
+        tbox = b;
+      }
+    }
+    const unsigned top = __reduce_max_sync(kFull, tkey);
+    if (top == 0u) break;  // no candidate left
+    const unsigned pick =
+        __reduce_min_sync(kFull, tkey == top ? tidx : kNoRank);
+    const int from =
+        __ffs(__ballot_sync(kFull, tkey == top && tidx == pick)) - 1;
+    const float raw = __uint_as_float(__shfl_sync(kFull, traw, from));
+    if (!(raw > score_thr)) break;  // the same in every CTA
+    float4 pb;
+    pb.x = __shfl_sync(kFull, tbox.x, from);
+    pb.y = __shfl_sync(kFull, tbox.y, from);
+    pb.z = __shfl_sync(kFull, tbox.z, from);
+    pb.w = __shfl_sync(kFull, tbox.w, from);
+    if (rank == 0 && tid == 0) {
+      idx_row[picks] = static_cast<int>(pick);
+      score_row[picks] = raw;
+    }
+    const float pa = box_area(pb.x, pb.y, pb.z, pb.w);
+
+    // the decay of this thread's slots: with sigma > 0 each warp queues
+    // its intersecting pairs and computes their scales 32 at a time (a
+    // pair's divisions and exp inline held every warp that met one),
+    // flushing the queue before it could overflow
+    const int width = static_cast<int>(
+        __reduce_max_sync(kFull, static_cast<unsigned>(m)));
+    int queued = 0;
+    for (int i = 0; i < width; ++i) {
+      if (GAUSSIAN && queued > kClusterQueue - 32) {
+        cluster_flush(sc, qi, qu, qa, queued, iou_thr, two_sigma, wl);
+        queued = 0;
+      }
+      const int a = i * kThreads + tid;  // past m: not read
+      const float s = i < m ? sc[a] : 0.0f;
+      const bool live = i < m && (keep_all || s > score_thr);
+      const float4 c = live ? box[a] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float iw =
+          fmaxf(__fsub_rn(fminf(pb.z, c.z), fmaxf(pb.x, c.x)), 0.0f);
+      const float ih =
+          fmaxf(__fsub_rn(fminf(pb.w, c.w), fmaxf(pb.y, c.y)), 0.0f);
+      const float inter = __fmul_rn(iw, ih);
+      const float ca = box_area(c.x, c.y, c.z, c.w);
+      const float uni = fmaxf(__fsub_rn(__fadd_rn(pa, ca), inter), 1e-8f);
+      if (GAUSSIAN) {
+        const bool needed = live && inter > no_overlap;
+        const unsigned ballot = __ballot_sync(kFull, needed);
+        if (needed) {
+          const int at = queued + __popc(ballot & below);
+          qi[at] = inter;
+          qu[at] = uni;
+          qa[at] = a;
+        }
+        queued += __popc(ballot);
+      } else if (live) {
+        const float pm = pa < 1e30f && ca < 1e30f ? margin : NAN;
+        if (over_threshold(inter, uni, iou_thr, pm)) {
+          sc[a] = __fmul_rn(s, 0.0f);
+        }
+      }
+    }
+    if (GAUSSIAN && queued != 0) {
+      cluster_flush(sc, qi, qu, qa, queued, iou_thr, two_sigma, wl);
+    }
+    __syncwarp();  // the flushes wrote this thread's slots
+    const int ps = static_cast<int>(pick) - base;  // the pick leaves
+    if (ps >= 0 && ps < count && ps % kThreads == tid) sc[ps] = kNegInf;
+    cluster_best(sc, m, tid, keep_all, score_thr, bkey, bslot);
+  }
+  cluster.sync();  // no CTA leaves while another may read its partials
+
+  if (rank == 0) {
+    for (int r = picks + tid; r < max_det; r += kThreads) {
+      idx_row[r] = 0;
+      score_row[r] = -1.0f;
+    }
+    if (tid == 0) out_valid[lane] = picks;
+  }
+}
+
+template <bool GAUSSIAN, bool ON_CHIP>
+cudaError_t launch_cluster(const float* boxes, const float* scores,
+                           int lanes, int k, int max_det, float iou_thr,
+                           float score_thr, float two_sigma, int ctas,
+                           int per_cta, float* spill, int* out_idx,
+                           float* out_scores, int* out_valid,
+                           cudaStream_t stream) {
+  const auto kernel = nms_cluster_kernel<GAUSSIAN, ON_CHIP>;
+  const size_t smem = ON_CHIP ? static_cast<size_t>(per_cta) * 20 : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(lanes) * ctas);
+  cfg.blockDim = dim3(32 * kClusterWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(ctas);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, boxes, scores, k, per_cta, max_det,
+                           iou_thr, score_thr, two_sigma, spill, out_idx,
+                           out_scores, out_valid);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1458,9 +1885,8 @@ int nms_decay_launch(const float* boxes, const float* scores, int lanes,
 }
 
 // `boxes` must be aligned to 16 bytes; `keys` holds `sort_cap` 64-bit words
-// a lane, sort_cap >= k. A threshold under -1e10 is refused (the scan is
-// hard mode's), and so is a lane whose picks, min(max_det, k), do not fit in
-// shared memory.
+// a lane, sort_cap >= k. A lane whose picks, min(max_det, k), do not fit in
+// shared memory is refused. Hard mode only, at any threshold.
 int nms_scan_launch(const float* boxes, const float* scores, int lanes,
                     int k, int max_det, float iou_thr, float score_thr,
                     int sort_cap, void* keys, int* out_idx,
@@ -1468,9 +1894,7 @@ int nms_scan_launch(const float* boxes, const float* scores, int lanes,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!(score_thr >= kNegInf) || sort_cap < k) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (sort_cap < k) return static_cast<int>(cudaErrorInvalidValue);
   err = launch_scan<kScanWarps>(
       boxes, scores, lanes, k, max_det, iou_thr, score_thr, sort_cap,
       static_cast<unsigned long long*>(keys), out_idx, out_scores, out_valid,
@@ -1495,6 +1919,63 @@ int nms_compact_launch(const float* boxes, const float* scores, int lanes,
       boxes, scores, lanes, k, max_det, iou_thr, score_thr, two_sigma, mode,
       out_idx, out_scores, out_valid, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
+}
+
+// `boxes` must be aligned to 16 bytes. The soft modes only, at any k and
+// any threshold, on clusters of `ctas` CTAs (1 to kClusterMaxCtas) of
+// `per_cta` candidates each (a multiple of the CTA's threads, ctas *
+// per_cta >= k); up to kClusterCtaMax a CTA on chip, else `spill` holds
+// lanes * k floats.
+int nms_cluster_launch(const float* boxes, const float* scores, int lanes,
+                       int k, int max_det, float iou_thr, float score_thr,
+                       float two_sigma, int mode, int ctas, int per_cta,
+                       float* spill, int* out_idx, float* out_scores,
+                       int* out_valid, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool on_chip = per_cta <= kClusterCtaMax;
+  if ((mode != kSoftGaussian && mode != kSoftHard) || ctas < 1 ||
+      ctas > kClusterMaxCtas || per_cta < 1 ||
+      per_cta % (32 * kClusterWarps) != 0 ||
+      static_cast<long long>(ctas) * per_cta < k ||
+      static_cast<long long>(lanes) * ctas >= (1ll << 31) ||
+      (!on_chip && spill == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool gaussian = mode == kSoftGaussian;
+  if (on_chip) {
+    err = gaussian
+              ? launch_cluster<true, true>(boxes, scores, lanes, k, max_det,
+                                           iou_thr, score_thr, two_sigma,
+                                           ctas, per_cta, spill, out_idx,
+                                           out_scores, out_valid, s)
+              : launch_cluster<false, true>(boxes, scores, lanes, k, max_det,
+                                            iou_thr, score_thr, two_sigma,
+                                            ctas, per_cta, spill, out_idx,
+                                            out_scores, out_valid, s);
+  } else {
+    err = gaussian
+              ? launch_cluster<true, false>(boxes, scores, lanes, k, max_det,
+                                            iou_thr, score_thr, two_sigma,
+                                            ctas, per_cta, spill, out_idx,
+                                            out_scores, out_valid, s)
+              : launch_cluster<false, false>(boxes, scores, lanes, k,
+                                             max_det, iou_thr, score_thr,
+                                             two_sigma, ctas, per_cta, spill,
+                                             out_idx, out_scores, out_valid,
+                                             s);
+  }
+  return static_cast<int>(err);
+}
+
+// The cluster design's constants, for the wrapper's copy of them:
+// kClusterWarps, kClusterMaxCtas, kClusterCtaTarget, kClusterCtaMax.
+void nms_cluster_constants(int* out) {
+  out[0] = kClusterWarps;
+  out[1] = kClusterMaxCtas;
+  out[2] = kClusterCtaTarget;
+  out[3] = kClusterCtaMax;
 }
 
 const char* nms_error_string(int code) {

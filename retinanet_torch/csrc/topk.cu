@@ -91,7 +91,12 @@
 // held by the per-element work of bf16 (a shared atomic an element in the
 // histogram level) and by the candidates' staging, and the final kernel
 // and the barriers add ~0.1 ms.
-// k is at most 8192 (64 KB of shared memory).
+// Both designs take any k <= N. The k winners are sorted in shared memory
+// up to kSortOnChipMax keys (the next power of two >= k, 8 B each: 128 KB);
+// past it (the "wide" launches) they are sorted in a scratch of the
+// wrapper's, (rows, next power of two >= k) 64-bit keys, by the same
+// bitonic network: the passes of stride under kSortBlock a block of keys at
+// a time in shared memory, the others through global memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -103,7 +108,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxK = 8192;
+constexpr int kSortOnChipMax = 16384;  // winners sorted in shared memory
+constexpr int kSortBlock = 16384;      // a wide sort's block: 128 KB
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t orderable16(uint32_t bits) {
@@ -165,6 +171,8 @@ struct SlabArgs {
   // rows deep or ready after each level's choice, then rows still deep
   uint32_t* active;             // 2 x kSlabMaxLevels
   unsigned long long* stamps;   // %globaltimer at each phase's end
+  unsigned long long* sort_keys;  // rows x sort_cap, k > kSortOnChipMax
+  int sort_cap;                 // the next power of two >= k
 };
 
 // What every active row of a level shares: the bits resolved (done) and
@@ -206,13 +214,18 @@ __device__ __forceinline__ uint32_t scalar_of(const void* x, long long f) {
              : __ldg(static_cast<const unsigned short*>(x) + f);
 }
 
+__host__ __device__ __forceinline__ int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  return p;
+}
+
 // Sorts keys[0..k) descending in shared memory, padded with 0 (below every
 // real key) to the next power of two: all nthreads threads of the CTA, a
 // barrier a stage.
 __device__ void bitonic_sort_desc(unsigned long long* keys, int k, int tid,
                                   int nthreads) {
-  int p = 1;
-  while (p < k) p <<= 1;
+  const int p = pow2_at_least(k);
   for (int i = k + tid; i < p; i += nthreads) keys[i] = 0ull;
   __syncthreads();
   for (int size = 2; size <= p; size <<= 1) {
@@ -229,6 +242,64 @@ __device__ void bitonic_sort_desc(unsigned long long* keys, int k, int tid,
       }
       __syncthreads();
     }
+  }
+}
+
+// The passes of sizes first .. last whose strides are under kSortBlock,
+// over keys[0..p) (p a multiple of kSortBlock) in global memory, a block at
+// a time in shared memory (sk); descending overall, as bitonic_sort_desc.
+__device__ void wide_sort_blocks(unsigned long long* keys,
+                                 unsigned long long* sk, int p, int first,
+                                 int last, int tid, int nthreads) {
+  for (int base = 0; base < p; base += kSortBlock) {
+    for (int i = tid; i < kSortBlock; i += nthreads) sk[i] = keys[base + i];
+    __syncthreads();
+    for (int size = first; size <= last; size <<= 1) {
+      for (int stride = (size < kSortBlock ? size : kSortBlock) >> 1;
+           stride > 0; stride >>= 1) {
+        for (int t = tid; t < kSortBlock / 2; t += nthreads) {
+          const int lo = 2 * t - (t & (stride - 1));
+          const int hi = lo + stride;
+          const bool descending = ((base + lo) & size) == 0;
+          const unsigned long long x0 = sk[lo], x1 = sk[hi];
+          if ((x0 < x1) == descending) {
+            sk[lo] = x1;
+            sk[hi] = x0;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int i = tid; i < kSortBlock; i += nthreads) keys[base + i] = sk[i];
+    __syncthreads();
+  }
+}
+
+// bitonic_sort_desc for k > kSortOnChipMax: keys[0..k) in global memory
+// (room for the next power of two p), sk kSortBlock keys of shared memory.
+// The network is the same; only where each pass runs differs.
+__device__ void bitonic_sort_desc_wide(unsigned long long* keys,
+                                       unsigned long long* sk, int k,
+                                       int tid, int nthreads) {
+  const int p = pow2_at_least(k);
+  for (int i = k + tid; i < p; i += nthreads) keys[i] = 0ull;
+  __syncthreads();
+  wide_sort_blocks(keys, sk, p, 2, kSortBlock, tid, nthreads);
+  for (int size = 2 * kSortBlock; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride >= kSortBlock; stride >>= 1) {
+      for (int t = tid; t < p / 2; t += nthreads) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const bool descending = (lo & size) == 0;
+        const unsigned long long x0 = keys[lo], x1 = keys[hi];
+        if ((x0 < x1) == descending) {
+          keys[lo] = x1;
+          keys[hi] = x0;
+        }
+      }
+      __syncthreads();
+    }
+    wide_sort_blocks(keys, sk, p, size, size, tid, nthreads);
   }
 }
 
@@ -1029,10 +1100,15 @@ __device__ void block_pick(const uint32_t* hist, int nb, uint32_t need,
   __syncthreads();  // out and warp_sums are written again by the next call
 }
 
-template <bool F32>
+// WIDE: the winners sorted in a.sort_keys (k > kSortOnChipMax), the
+// shared memory a block of the sort.
+template <bool F32, bool WIDE>
 __global__ void slab_final_kernel(SlabArgs a, void* __restrict__ out_vals,
                                   int* __restrict__ out_idx) {
-  extern __shared__ unsigned long long keys[];  // next power of two >= k
+  extern __shared__ unsigned long long final_smem[];
+  unsigned long long* keys =
+      WIDE ? a.sort_keys + static_cast<long long>(blockIdx.x) * a.sort_cap
+           : final_smem;  // next power of two >= k
   __shared__ uint32_t hist[kFinalBins];
   __shared__ uint32_t warp_sums[32];
   __shared__ uint32_t picked[3];
@@ -1114,7 +1190,12 @@ __global__ void slab_final_kernel(SlabArgs a, void* __restrict__ out_vals,
   }
 
   // 3. bitonic sort, descending
-  bitonic_sort_desc(keys, k, tid, nthreads);
+  if (WIDE) {
+    __syncthreads();  // the winners' global stores are read by the sort
+    bitonic_sort_desc_wide(keys, final_smem, k, tid, nthreads);
+  } else {
+    bitonic_sort_desc(keys, k, tid, nthreads);
+  }
 
   const long long out = static_cast<long long>(r) * k;
   const uint32_t imask = (1u << a.ibits) - 1u;
@@ -1162,9 +1243,15 @@ cudaError_t run_slab(SlabArgs a, int device, void* out_vals, int* out_idx,
       slab_select_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSlabSmemMax);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(slab_final_kernel<F32>,
+  const bool wide = a.k > kSortOnChipMax;
+  const int p = pow2_at_least(a.k);
+  const size_t final_smem =
+      static_cast<size_t>(wide ? kSortBlock : p) * sizeof(unsigned long long);
+  const auto final_kernel =
+      wide ? slab_final_kernel<F32, true> : slab_final_kernel<F32, false>;
+  err = cudaFuncSetAttribute(final_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxK * 8);
+                             static_cast<int>(final_smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1184,13 +1271,10 @@ cudaError_t run_slab(SlabArgs a, int device, void* out_vals, int* out_idx,
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  int p = 1;
-  while (p < a.k) p <<= 1;
   int threads = p / 2;
   threads = threads < 256 ? 256 : (threads > 1024 ? 1024 : threads);
-  slab_final_kernel<F32><<<static_cast<unsigned>(a.batch * a.c), threads,
-                           static_cast<size_t>(p) * 8, stream>>>(
-      a, out_vals, out_idx);
+  final_kernel<<<static_cast<unsigned>(a.batch * a.c), threads, final_smem,
+                 stream>>>(a, out_vals, out_idx);
   return cudaGetLastError();
 }
 
@@ -1259,12 +1343,18 @@ __device__ __forceinline__ void row_write(unsigned long long e, long long at,
 // up to ITEMS consecutive keys a thread. A thread keeps two masks over its
 // keys: `live`, those that share the prefix resolved so far, and `win`,
 // those above it.
-template <bool F32, int ITEMS>
+// WIDE: the winners in sort_keys (the row's next power of two >= k of
+// them, k > kSortOnChipMax), the shared memory a block of their sort.
+template <bool F32, int ITEMS, bool WIDE>
 __global__ void __launch_bounds__(kRowThreads, 1)
     row_select_kernel(const void* __restrict__ x, int n, int c, int k,
                       int drop, void* __restrict__ out_vals,
-                      int* __restrict__ out_idx) {
-  extern __shared__ unsigned long long keys[];  // the k winners
+                      int* __restrict__ out_idx,
+                      unsigned long long* __restrict__ sort_keys) {
+  extern __shared__ unsigned long long row_smem[];
+  unsigned long long* keys =
+      WIDE ? sort_keys + static_cast<long long>(blockIdx.x) * pow2_at_least(k)
+           : row_smem;  // the k winners
   __shared__ uint4 hist_words[kRowBins / 4];
   __shared__ uint32_t wtot[kRowWarps];          // a warp's bins
   __shared__ uint32_t etot[2][kRowWarps];       // a warp's ties, by tile
@@ -1464,7 +1554,11 @@ __global__ void __launch_bounds__(kRowThreads, 1)
     }
     return;
   }
-  bitonic_sort_desc(keys, k, tid, kRowThreads);
+  if (WIDE) {
+    bitonic_sort_desc_wide(keys, row_smem, k, tid, kRowThreads);
+  } else {
+    bitonic_sort_desc(keys, k, tid, kRowThreads);
+  }
   for (int j = tid; j < k; j += kRowThreads) {
     row_write<F32>(keys[j], out + j, drop, out_vals, out_idx);
   }
@@ -1473,18 +1567,20 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 template <bool F32, int ITEMS>
 cudaError_t launch_row(const void* x, long long rows, int n, int c, int k,
                        int drop, void* out_vals, int* out_idx,
-                       cudaStream_t stream) {
-  int p = 1;
-  while (p < k) p <<= 1;
-  const size_t smem = static_cast<size_t>(p) * sizeof(unsigned long long);
-  const auto kernel = row_select_kernel<F32, ITEMS>;
+                       unsigned long long* sort_keys, cudaStream_t stream) {
+  const int p = pow2_at_least(k);
+  const bool wide = sort_keys != nullptr;
+  const size_t smem = static_cast<size_t>(wide ? kSortBlock : p) *
+                      sizeof(unsigned long long);
+  const auto kernel = wide ? row_select_kernel<F32, ITEMS, true>
+                           : row_select_kernel<F32, ITEMS, false>;
   // on the current device, every launch (a process may use several cards)
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(rows), kRowThreads, smem, stream>>>(
-      x, n, c, k, drop, out_vals, out_idx);
+      x, n, c, k, drop, out_vals, out_idx, sort_keys);
   return cudaGetLastError();
 }
 
@@ -1493,33 +1589,28 @@ cudaError_t launch_row(const void* x, long long rows, int n, int c, int k,
 template <bool F32>
 cudaError_t run_row(const void* x, long long rows, int n, int c, int k,
                     int drop, void* out_vals, int* out_idx,
-                    cudaStream_t stream) {
+                    unsigned long long* sort_keys, cudaStream_t stream) {
   constexpr int V = F32 ? 4 : 8;
   const long long first = n < kRowTile ? n : kRowTile;
   const long long per = ((first + kRowThreads - 1) / kRowThreads + V - 1) /
                         V * V;
   return per <= kRowItems / 2
              ? launch_row<F32, kRowItems / 2>(x, rows, n, c, k, drop,
-                                              out_vals, out_idx, stream)
+                                              out_vals, out_idx, sort_keys,
+                                              stream)
              : launch_row<F32, kRowItems>(x, rows, n, c, k, drop, out_vals,
-                                          out_idx, stream);
+                                          out_idx, sort_keys, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// The row design: one launch on `stream` (a cudaStream_t); returns
-// cudaGetLastError(), or the error of the set-up calls; the caller raises
-// when it is not 0.
-// mode: 0 packed, 1 bf16, 2 f32. x is (batch, n, c), contiguous; out_vals
-// and out_idx are (batch, c, k).
-int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
-                     int drop, void* out_vals, int* out_idx, int device,
-                     void* stream) {
+// The row design with its winners sorted in sort_keys (null: in shared
+// memory, k <= kSortOnChipMax).
+int rows_launch(const void* x, int batch, int n, int c, int k, int mode,
+                int drop, void* out_vals, int* out_idx, void* sort_keys,
+                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (k < 1 || k > kMaxK || k > n || mode < 0 || mode > 2) {
+  if (k < 1 || k > n || mode < 0 || mode > 2 ||
+      (sort_keys == nullptr) != (k <= kSortOnChipMax)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = static_cast<long long>(batch) * c;
@@ -1527,47 +1618,30 @@ int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = mode == 2
-            ? run_row<true>(x, rows, n, c, k, drop, out_vals, out_idx, s)
-            : run_row<false>(x, rows, n, c, k, drop, out_vals, out_idx, s);
+  auto* keys = static_cast<unsigned long long*>(sort_keys);
+  err = mode == 2 ? run_row<true>(x, rows, n, c, k, drop, out_vals, out_idx,
+                                  keys, s)
+                  : run_row<false>(x, rows, n, c, k, drop, out_vals, out_idx,
+                                   keys, s);
   return static_cast<int>(err);
 }
 
-// The row design's constants, for the wrapper's copy of them: kRowThreads,
-// kRowItems, kRowDigitBits, kRankSortMax, kRankLanes.
-void topk_row_constants(int* out) {
-  out[0] = kRowThreads;
-  out[1] = kRowItems;
-  out[2] = kRowDigitBits;
-  out[3] = kRankSortMax;
-  out[4] = kRankLanes;
-}
-
-// Bytes of the slab design's scratch for these rows (the wrapper allocates
-// them with one torch.empty; the kernel zeroes what it needs).
-long long topk_slab_scratch_bytes(int batch, int c, int hbits, int capr) {
-  return static_cast<long long>(
-      slab_layout(static_cast<long long>(batch) * c, hbits, capr).total);
-}
-
-// The slab design: two launches on `stream`, as topk_rows_launch.
-// hbits: D, the bits of a pass's digit; capr: a row's candidate buffer
-// (min(capacity, n), at least k); levels: the most reads of the slab.
-int topk_slab_launch(const void* x, int batch, int n, int c, int k, int mode,
-                     int drop, int hbits, int capr, int levels,
-                     void* scratch, long long scratch_bytes, void* out_vals,
-                     int* out_idx, int device, void* stream) {
+int slab_launch(const void* x, int batch, int n, int c, int k, int mode,
+                int drop, int hbits, int capr, int levels, void* scratch,
+                long long scratch_bytes, void* out_vals, int* out_idx,
+                void* sort_keys, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(batch) * c;
   const SlabLayout l = slab_layout(rows, hbits, capr);
-  if (k < 1 || k > kMaxK || k > n || mode < 0 || mode > 2 || c < 1 ||
+  if (k < 1 || k > n || mode < 0 || mode > 2 || c < 1 ||
       c > kSlabMaxClasses || hbits < 1 || hbits > 16 || capr < k ||
       capr > n || levels < 1 || levels > kSlabMaxLevels ||
       (static_cast<long long>(c) << hbits) * 2 > kSlabHistBytes ||
       static_cast<long long>(n) * c >= (1ll << 31) || rows >= (1ll << 31) ||
       scratch_bytes < static_cast<long long>(l.total) ||
-      (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0) {
+      (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0 ||
+      (sort_keys == nullptr) != (k <= kSortOnChipMax)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int ibits = 1;
@@ -1592,10 +1666,85 @@ int topk_slab_launch(const void* x, int batch, int n, int c, int k, int mode,
   a.rs = reinterpret_cast<RowState*>(base + l.rs);
   a.active = reinterpret_cast<uint32_t*>(base + l.active);
   a.stamps = reinterpret_cast<unsigned long long*>(base + l.stamps);
+  a.sort_keys = static_cast<unsigned long long*>(sort_keys);
+  a.sort_cap = pow2_at_least(k);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = mode == 2 ? run_slab<true>(a, device, out_vals, out_idx, s)
                   : run_slab<false>(a, device, out_vals, out_idx, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The row design: one launch on `stream` (a cudaStream_t); returns
+// cudaGetLastError(), or the error of the set-up calls; the caller raises
+// when it is not 0.
+// mode: 0 packed, 1 bf16, 2 f32. x is (batch, n, c), contiguous; out_vals
+// and out_idx are (batch, c, k). k <= kSortOnChipMax.
+int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
+                     int drop, void* out_vals, int* out_idx, int device,
+                     void* stream) {
+  return rows_launch(x, batch, n, c, k, mode, drop, out_vals, out_idx,
+                     nullptr, device, stream);
+}
+
+// The same for k > kSortOnChipMax: sort_keys holds batch * c times the next
+// power of two >= k 64-bit keys.
+int topk_rows_wide_launch(const void* x, int batch, int n, int c, int k,
+                          int mode, int drop, void* out_vals, int* out_idx,
+                          void* sort_keys, int device, void* stream) {
+  return rows_launch(x, batch, n, c, k, mode, drop, out_vals, out_idx,
+                     sort_keys, device, stream);
+}
+
+// The row design's constants, for the wrapper's copy of them: kRowThreads,
+// kRowItems, kRowDigitBits, kRankSortMax, kRankLanes.
+void topk_row_constants(int* out) {
+  out[0] = kRowThreads;
+  out[1] = kRowItems;
+  out[2] = kRowDigitBits;
+  out[3] = kRankSortMax;
+  out[4] = kRankLanes;
+}
+
+// The final sort's constants: kSortOnChipMax, kSortBlock.
+void topk_sort_constants(int* out) {
+  out[0] = kSortOnChipMax;
+  out[1] = kSortBlock;
+}
+
+// Bytes of the slab design's scratch for these rows (the wrapper allocates
+// them with one torch.empty; the kernel zeroes what it needs).
+long long topk_slab_scratch_bytes(int batch, int c, int hbits, int capr) {
+  return static_cast<long long>(
+      slab_layout(static_cast<long long>(batch) * c, hbits, capr).total);
+}
+
+// The slab design: two launches on `stream`, as topk_rows_launch.
+// hbits: D, the bits of a pass's digit; capr: a row's candidate buffer
+// (min(capacity, n), at least k); levels: the most reads of the slab.
+// k <= kSortOnChipMax.
+int topk_slab_launch(const void* x, int batch, int n, int c, int k, int mode,
+                     int drop, int hbits, int capr, int levels,
+                     void* scratch, long long scratch_bytes, void* out_vals,
+                     int* out_idx, int device, void* stream) {
+  return slab_launch(x, batch, n, c, k, mode, drop, hbits, capr, levels,
+                     scratch, scratch_bytes, out_vals, out_idx, nullptr,
+                     device, stream);
+}
+
+// The same for k > kSortOnChipMax, with sort_keys as in
+// topk_rows_wide_launch.
+int topk_slab_wide_launch(const void* x, int batch, int n, int c, int k,
+                          int mode, int drop, int hbits, int capr,
+                          int levels, void* scratch, long long scratch_bytes,
+                          void* out_vals, int* out_idx, void* sort_keys,
+                          int device, void* stream) {
+  return slab_launch(x, batch, n, c, k, mode, drop, hbits, capr, levels,
+                     scratch, scratch_bytes, out_vals, out_idx, sort_keys,
+                     device, stream);
 }
 
 const char* topk_error_string(int err) {

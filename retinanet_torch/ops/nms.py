@@ -22,10 +22,15 @@ threads, a candidate that falls to the threshold gone for good, and each
 round's pick by (largest score bits, lowest position).
 `scan_nms_plain` is hard mode as the scan kernel computes it past 1,024
 candidates: the order, then chunks of ranks tested against the picks made
-before them and resolved in order. `compact_nms_plain` is the soft modes as
-the compact kernel computes them: each thread's slots, a candidate gone
-leaving them, the pick by (largest score bits, lowest index). The CPU tests
-hold all four against `batched_nms`; nothing on a main path calls them.
+before them and resolved in order, and under a threshold below -1e10 the
+tail of picks at -1e10 that follows. `compact_nms_plain` is the soft modes
+as the compact kernel computes them: each thread's slots, a candidate gone
+leaving them, the pick by (largest score bits, lowest index).
+`cluster_nms_plain` is the soft modes as the cluster kernel computes them
+at any k and any threshold: every candidate decayed in every round (only
+those above a threshold >= 0 where the threshold is >= 0), the pick by
+(largest orderable score, lowest index). The CPU tests hold all five
+against `batched_nms`; nothing on a main path calls them.
 """
 
 from __future__ import annotations
@@ -355,6 +360,94 @@ def compact_nms_plain(boxes: torch.Tensor,
             valid)
 
 
+def _orderable(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 codes that order as the floats do, -0.0 as 0.0:
+    the cluster kernel's pick key."""
+    bits = (x + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits < 0x80000000, bits | 0x80000000,
+                       bits ^ 0xFFFFFFFF)
+
+
+def cluster_nms_plain(boxes: torch.Tensor,
+                      scores: torch.Tensor,
+                      max_detections: int,
+                      iou_threshold: float = 1.0,
+                      score_threshold: float = 0.05,
+                      soft_nms_sigma: float = 0.0,
+                      work: Optional[dict] = None) -> Tuple[torch.Tensor,
+                                                            torch.Tensor,
+                                                            torch.Tensor]:
+    """Soft greedy NMS as the cluster kernel computes it, at any k and any
+    threshold; the results of `batched_nms(..., soft=True)`.
+
+    Every candidate stays in the lane, picked ones too (their -1e10 is
+    scaled towards 0 like any score), so a negative threshold sees the
+    scores `batched_nms` sees. A round's pick is the largest orderable
+    score (`_orderable`: -0.0 ties with 0.0) and the lowest index holding
+    it, which is `torch.argmax`'s. The decay is `batched_nms`'s arithmetic,
+    applied only where it can change a score: with sigma > 0 to the pairs
+    that intersect (the scale of any other is exactly 1, unless 0 is past
+    the IoU threshold), with sigma = 0 to the pairs over the threshold
+    (times 0.0). Under a threshold >= 0 a score at or under it is never
+    picked again (every scale lies in [0, 1]), and the kernel leaves it as
+    it is. `work` gains "staged" (every candidate's box is read once),
+    "alive" (the (candidate, round) pairs the kernel decays or passes) and
+    "decayed" (those whose scale it computes)."""
+    boxes = boxes.to(torch.float32)
+    cur = scores.to(torch.float32).clone()
+    lanes, k = cur.shape
+    device = cur.device
+    area = _areas(boxes)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    two_sigma = device_constant((2.0 * soft_nms_sigma,), torch.float32,
+                                device)
+    keep_all = not score_threshold >= 0.0
+    no_overlap = 0.0 if iou_threshold >= 0.0 else -1.0
+    index = torch.arange(k, device=device)
+    rows = torch.arange(lanes, device=device)
+    if work is not None:
+        work["staged"] = work.get("staged", 0) + lanes * k
+    out_idx, out_scores = [], []
+    for _ in range(max_detections):
+        key = _orderable(cur)
+        top = key.max(dim=1, keepdim=True).values
+        idx = torch.where(key == top, index, k).min(dim=1,
+                                                     keepdim=True).values
+        best = cur[rows, idx[:, 0]][:, None]
+        ok = best > score_threshold
+        sel = torch.gather(boxes, 1, idx[..., None].expand(lanes, 1, 4))
+        sx1, sy1, sx2, sy2 = sel.unbind(-1)
+        iw = torch.clamp_min(torch.minimum(sx2, x2) - torch.maximum(sx1, x1),
+                             0.0)
+        ih = torch.clamp_min(torch.minimum(sy2, y2) - torch.maximum(sy1, y1),
+                             0.0)
+        inter = iw * ih
+        union = torch.clamp_min(_areas(sel) + area - inter, 1e-8)
+        iou = inter / union
+        live = (torch.ones_like(cur, dtype=torch.bool) if keep_all
+                else cur > score_threshold)
+        if soft_nms_sigma > 0.0:
+            needed = live & (inter > no_overlap)
+            scale = torch.exp(-(iou * iou) / two_sigma)
+            scale = torch.where(iou > iou_threshold, 0.0, scale)
+            new = torch.where(needed, cur * scale, cur)
+        else:
+            needed = live & (iou > iou_threshold)
+            new = torch.where(needed, cur * 0.0, cur)
+        new = new.scatter(1, idx, SUPPRESSED)
+        cur = torch.where(ok, new, cur)
+        out_idx.append(torch.where(ok, idx, -1))
+        out_scores.append(torch.where(ok, best, -1.0))
+        if work is not None:
+            work["alive"] = work.get("alive", 0) + int((live & ok).sum())
+            work["decayed"] = (work.get("decayed", 0)
+                               + int((needed & ok).sum()))
+    indices = torch.cat(out_idx, dim=1).to(torch.int32)
+    valid = (indices >= 0).sum(dim=1, dtype=torch.int32)
+    return (torch.clamp_min(indices, 0), torch.cat(out_scores, dim=1),
+            valid)
+
+
 def _over(pbox, parea, cbox, carea, iou_threshold) -> torch.Tensor:
     """IoU > threshold of every (candidate, pick) pair, (L, C, P), from the
     picks (L, P, 4), (L, P) and the candidates (L, C, 4), (L, C):
@@ -384,20 +477,30 @@ def scan_nms_plain(boxes: torch.Tensor,
     `chunk` ranks (`ops/nms_kernel.py:SCAN_WARPS` * 32); the results of
     `batched_nms`.
 
-    As in `sweep_nms_plain` (and with the same `score_threshold >= -1e10`,
-    else this raises) the candidates above the threshold are visited in one
-    fixed order, and a candidate is kept iff no pick before it has IoU >
-    `iou_threshold` with it. Chunk after chunk of ranks, each candidate is
-    tested against the picks made before its chunk, then the chunk's
-    survivors are taken in order, each suppressing the later ones of the
-    chunk. A lane stops after `max_detections` picks. `work`, if given,
-    gains what the function needs: "visited", the candidates decided
+    As in `sweep_nms_plain` the candidates above the threshold are visited
+    in one fixed order, and a candidate is kept iff no pick before it has
+    IoU > `iou_threshold` with it. Chunk after chunk of ranks, each
+    candidate is tested against the picks made before its chunk, then the
+    chunk's survivors are taken in order, each suppressing the later ones
+    of the chunk. A lane stops after `max_detections` picks. `work`, if
+    given, gains what the function needs: "visited", the candidates decided
     before a lane's last pick, and "pairs", the (candidate, pick) IoUs
     that decide them: a kept candidate against every pick before it, a
-    suppressed one up to the first pick that suppresses it."""
-    if not score_threshold >= SUPPRESSED:
-        raise ValueError(f"the scan needs score_threshold >= {SUPPRESSED}, "
-                         f"got {score_threshold}")
+    suppressed one up to the first pick that suppresses it.
+
+    Under a threshold below -1e10 the ordered pass takes the candidates
+    above -1e10, and a lane with picks left goes on as `_scan_tail` says;
+    a NaN threshold picks nothing."""
+    if score_threshold != score_threshold:
+        lanes, _ = scores.shape
+        return (torch.zeros((lanes, max_detections), dtype=torch.int32,
+                            device=scores.device),
+                torch.full((lanes, max_detections), -1.0,
+                           device=scores.device),
+                torch.zeros((lanes,), dtype=torch.int32,
+                            device=scores.device))
+    tail = not score_threshold >= SUPPRESSED
+    threshold = SUPPRESSED if tail else score_threshold
     boxes = boxes.to(torch.float32)
     scores = scores.to(torch.float32)
     lanes, k = scores.shape
@@ -409,7 +512,7 @@ def scan_nms_plain(boxes: torch.Tensor,
     ranked = torch.gather(scores, 1, order)
     rbox = torch.gather(boxes, 1, order[..., None].expand(lanes, k, 4))
     rarea = _areas(rbox)
-    n = (ranked > score_threshold).sum(dim=1)                  # (L,)
+    n = (ranked > threshold).sum(dim=1)                        # (L,)
     rows = torch.arange(lanes, device=device)
     count = torch.zeros((lanes,), dtype=torch.int64, device=device)
     # one spare slot past max_detections for the lanes that do not pick
@@ -463,8 +566,92 @@ def scan_nms_plain(boxes: torch.Tensor,
             work["visited"] = work.get("visited", 0) + int(decided.sum())
             work["pairs"] = (work.get("pairs", 0)
                              + int(torch.where(decided, tests, 0).sum()))
+    if tail:
+        # a candidate under -1e10 that an ordered pick suppressed was
+        # lifted to -1e10
+        p = int(count.max())
+        lifted = torch.zeros_like(scores, dtype=torch.bool)
+        if p:
+            hit = _over(pbox[:, :p], parea[:, :p], boxes, _areas(boxes),
+                        iou_threshold)
+            hit &= (torch.arange(p, device=device)[None] < count[:, None]
+                    )[:, None, :]
+            lifted = hit.any(dim=2)
+        _scan_tail(boxes, scores, md, iou_threshold, score_threshold,
+                   lifted, out_idx, out_scores, count, work)
     return (out_idx[:, :md].to(torch.int32), out_scores[:, :md],
             count.to(torch.int32))
+
+
+def _scan_tail(boxes, scores, md, iou_threshold, score_threshold, lifted,
+               out_idx, out_scores, count, work) -> None:
+    """The picks of hard mode under a threshold below -1e10 once the
+    ordered pass has decided every candidate above -1e10 (in place, on
+    the scan's outputs, for the lanes with picks left).
+
+    Then every candidate at or above -1e10 sits at -1e10 (picked,
+    suppressed, or there from the start), and so does every one under it
+    that an ordered pick suppressed (`lifted`); -1e10 is above the
+    threshold: the arg-max picks the lowest index at -1e10, p, whose
+    suppression lifts the candidates under -1e10 with IoU > threshold up to
+    -1e10 and leaves p there. So the next pick is the lowest index j < p
+    with IoU(p, j) > threshold, else p again, for good. A lane with no
+    candidate at or above -1e10 first picks its arg-max (first index) at
+    its own score if that is above the threshold. `work` gains "tail", the
+    (pick, candidate) IoUs these steps take."""
+    lanes, k = scores.shape
+    device = scores.device
+    rows = torch.arange(lanes, device=device)
+    index = torch.arange(k, device=device)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = _areas(boxes)
+    at = (scores >= SUPPRESSED) | lifted
+    first = torch.where(at, index, k).min(dim=1).values        # (L,)
+    best = torch.argmax(scores, dim=1)
+    going = count < md
+    lone = going & (first == k)            # no candidate at or above -1e10
+    take = lone & (scores[rows, best] > score_threshold)
+    slot = torch.where(take, count, md)
+    out_idx[rows, slot] = best
+    out_scores[rows, slot] = scores[rows, best]
+    count += take
+    going &= ~lone | take
+    pick = torch.where(lone, best, first)
+    pending = going & ~lone                # p not yet recorded
+    tests = 0
+    while bool(going.any()):
+        record = pending & (count < md)
+        slot = torch.where(record, count, md)
+        out_idx[rows, slot] = pick
+        out_scores[rows, slot] = SUPPRESSED
+        count += record
+        going &= count < md
+        if not bool(going.any()):
+            break
+        sx1, sy1, sx2, sy2 = (t[rows, pick][:, None] for t in (x1, y1, x2,
+                                                              y2))
+        iw = torch.clamp_min(torch.minimum(sx2, x2) - torch.maximum(sx1, x1),
+                             0.0)
+        ih = torch.clamp_min(torch.minimum(sy2, y2) - torch.maximum(sy1, y1),
+                             0.0)
+        inter = iw * ih
+        union = torch.clamp_min(area[rows, pick][:, None] + area - inter,
+                                1e-8)
+        hit = (inter / union > iou_threshold) & (index[None] < pick[:, None])
+        tests += int(torch.where(going, pick, 0).sum())
+        nxt = torch.where(hit, index, k).min(dim=1).values
+        fixed = going & (nxt == k)
+        # p again in every slot left
+        left = torch.arange(md + 1, device=device)[None]
+        fill = fixed[:, None] & (left >= count[:, None]) & (left < md)
+        out_idx[fill] = pick[:, None].expand(-1, md + 1)[fill]
+        out_scores[fill] = SUPPRESSED
+        count[fixed] = md
+        going &= ~fixed
+        pick = torch.where(going, nxt, pick)
+        pending = going
+    if work is not None:
+        work["tail"] = work.get("tail", 0) + tests
 
 
 def nms_select(boxes: torch.Tensor,

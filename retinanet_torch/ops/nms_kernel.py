@@ -11,7 +11,8 @@ lanes, k = 256 candidates, 100 rounds): ~3.8 MB in and out, 1.1 us at
 3.35 TB/s; ~20 f32 operations per candidate per round, 3.3e8, 4.9 us at
 67 TFLOP/s. So the work is compute-bound at about 5 us, but what limits a
 kernel is the chain of 100 dependent rounds. Five hand-written designs
-make a round short, and `nms_design` picks one from the mode and the shape:
+make a round short, and `nms_design` picks one from the mode, the shape
+and the threshold; every (mode, k, threshold) has one, and k no cap:
 
 * "sweep" (`nms_sweep_kernel`): hard mode, k <= 1024 and
   score_threshold >= -1e10. One warp a lane; the candidates are ordered
@@ -31,15 +32,19 @@ make a round short, and `nms_design` picks one from the mode and the shape:
   round kernel's arithmetic, so the two give the same bits.
   `ops/nms.py:decay_nms_plain` is the same algorithm in plain PyTorch.
 * "scan" (`nms_scan_kernel`): hard mode, k > 1024 (the exact-parity
-  override `nms_top_k` up to pre_nms_top_k = 5000, and any k past it) and
-  score_threshold >= -1e10. Hard NMS keeps a candidate iff no pick before
-  it in the fixed order has IoU > threshold, so a lane needs only the IoUs
-  of the candidates it visits against its picks, and stops after max_det
-  picks. A CTA of `SCAN_WARPS` warps a lane: one vote finds the lane in
-  order (top-k's output), else a bitonic sort of the candidates above the
-  threshold ranks it in scratch; then chunks of 32 * SCAN_WARPS ranks, each
-  candidate tested by its own thread against the picks in shared memory,
-  the chunk's survivors resolved in order by warp 0 with ballots.
+  override `nms_top_k` up to pre_nms_top_k = 5000, and any k past it), and
+  hard mode at every k under a threshold below -1e10. Hard NMS keeps a
+  candidate iff no pick before it in the fixed order has IoU > threshold,
+  so a lane needs only the IoUs of the candidates it visits against its
+  picks, and stops after max_det picks. A CTA of `SCAN_WARPS` warps a
+  lane: one vote finds the lane in order (top-k's output), else a bitonic
+  sort of the candidates above the threshold ranks it in scratch; then
+  chunks of 32 * SCAN_WARPS ranks, each candidate tested by its own thread
+  against the picks in shared memory, the chunk's survivors resolved in
+  order by warp 0 with ballots. Under a threshold below -1e10 the ordered
+  pass takes the candidates above -1e10 and a tail follows: the lowest
+  index at -1e10, then while a lower index is suppressed by the last pick
+  (and so lifted to -1e10) that one, else the last pick again.
   `ops/nms.py:scan_nms_plain` is the same algorithm in plain PyTorch.
 * "compact" (`nms_compact_kernel`): the soft modes, 1024 < k <= 8192 and
   score_threshold >= 0. The decay design's reasoning over a CTA of
@@ -50,12 +55,25 @@ make a round short, and `nms_design` picks one from the mode and the shape:
   with one barrier a round, and each warp's intersecting pairs are queued
   and scaled 32 at a time, bit-equal to the round kernel.
   `ops/nms.py:compact_nms_plain` is the same algorithm in plain PyTorch.
-* "rounds" (`nms_lanes_kernel`): everything else, k up to 8192: soft
-  modes with a negative threshold, where a decayed negative score rises
-  towards 0; and hard mode with a threshold under -1e10, where the plain
-  version goes on picking suppressed candidates. One CTA a lane,
-  candidates in shared memory, an arg-max across the CTA and one barrier a
-  round.
+* "cluster" (`nms_cluster_kernel`): the soft modes everywhere else: k >
+  8192, and every k under a negative threshold, where a decayed negative
+  score (a picked -1e10 too) rises towards 0 and may be picked again. A
+  lane on a thread-block cluster of up to `CLUSTER_MAX_CTAS` CTAs of
+  `CLUSTER_WARPS` warps (`cluster_plan`), its candidates spread over the
+  CTAs' shared memory (20 B a candidate), or past `CLUSTER_CTA_MAX` a CTA
+  their scores in a scratch of the wrapper's and their boxes read from the
+  input. A round: each warp's (largest orderable score, lowest index) and
+  its box to double-buffered partials, one cluster barrier, every warp
+  reducing the cluster's partials through distributed shared memory, then
+  each thread decaying its slots (a candidate at or under a threshold >= 0
+  passed over; each warp's intersecting pairs queued and scaled 32 at a
+  time, `CLUSTER_QUEUE`) and finding its next best.
+  `ops/nms.py:cluster_nms_plain` is the same algorithm in plain PyTorch.
+
+PR 1's round kernel (`nms_lanes_kernel`, one CTA a lane, k up to
+`MAX_CANDIDATES`, any mode and threshold) is on no path: `nms_design` never
+names it. It stays the yardstick the designs are held to bit for bit,
+reached only through `launch_design("rounds", ...)`.
 
 This is a choice among five kernels, not a fallback: nothing is caught.
 `kernel.launches` counts every launch, `kernel.launches_by[design]` those of
@@ -76,7 +94,7 @@ which loading such a graph needs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,10 +105,15 @@ MAX_CANDIDATES = 8192  # rounds: five f32 planes, 160 KB of shared memory
 SWEEP_MAX_CANDIDATES = 1024  # sweep: 32 alive bits a thread
 DECAY_MAX_CANDIDATES = 1024  # decay: 32 scores a thread
 COMPACT_MAX_CANDIDATES = 8192  # compact: 26 B a candidate on chip
-# csrc/nms.cu's kScanWarps, kCompactWarps and CompactCta::kQueue
+# csrc/nms.cu's kScanWarps, kCompactWarps, CompactCta::kQueue and kCluster*
 SCAN_WARPS = 4  # a scan chunk: 32 * SCAN_WARPS ranks
 COMPACT_WARPS = 16  # a compact lane's threads: 32 * COMPACT_WARPS
 COMPACT_QUEUE = 64  # pairs a compact warp queues before it scales them
+CLUSTER_WARPS = 16  # a cluster CTA's threads: 32 * CLUSTER_WARPS
+CLUSTER_MAX_CTAS = 8  # the portable cluster size
+CLUSTER_CTA_TARGET = 8192  # candidates a CTA `cluster_plan` aims at
+CLUSTER_CTA_MAX = 10240  # a CTA's candidates on chip, 20 B each: 200 KB
+CLUSTER_QUEUE = 64  # pairs a cluster warp queues before it scales them
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -115,6 +138,15 @@ def declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p]
     lib.nms_scan_launch.restype = ctypes.c_int
+    lib.nms_cluster_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.nms_cluster_launch.restype = ctypes.c_int
+    lib.nms_cluster_constants.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nms_cluster_constants.restype = None
     lib.nms_error_string.argtypes = [ctypes.c_int]
     lib.nms_error_string.restype = ctypes.c_char_p
 
@@ -133,54 +165,93 @@ def _mode(soft: bool, soft_nms_sigma: float) -> int:
 
 def nms_design(soft: bool, k: int, score_threshold: float) -> str:
     """Which kernel `nms_lanes` launches on the card: "sweep", "scan",
-    "decay", "compact" or "rounds".
+    "decay", "compact" or "cluster"; never "rounds".
 
-    The sweep and the scan assume that a suppressed candidate (score -1e10)
-    can never be picked, which holds exactly when the threshold is at or
-    above -1e10. The decay and compact designs assume that a score at or
-    under the threshold never rises above it, which holds exactly when the
-    threshold is at or above 0 (every scale lies in [0, 1])."""
-    if not soft and score_threshold >= SUPPRESSED:
-        return "sweep" if k <= SWEEP_MAX_CANDIDATES else "scan"
-    if soft and score_threshold >= 0.0:
+    The sweep assumes that a suppressed candidate (score -1e10) can never
+    be picked, which holds exactly when the threshold is at or above
+    -1e10; the scan takes every other hard lane (its tail picks the
+    candidates at -1e10). The decay and compact designs assume that a
+    score at or under the threshold never rises above it, which holds
+    exactly when the threshold is at or above 0 (every scale lies in
+    [0, 1]); the cluster design takes every other soft lane."""
+    if not soft:
+        if score_threshold >= SUPPRESSED and k <= SWEEP_MAX_CANDIDATES:
+            return "sweep"
+        return "scan"
+    if score_threshold >= 0.0:
         if k <= DECAY_MAX_CANDIDATES:
             return "decay"
         if k <= COMPACT_MAX_CANDIDATES:
             return "compact"
-    return "rounds"
+    return "cluster"
+
+
+class ClusterPlan(NamedTuple):
+    ctas: int      # a lane's cluster
+    per_cta: int   # candidates a CTA, a multiple of its threads
+    on_chip: bool  # each CTA's candidates in shared memory, else spilled
+
+
+def cluster_plan(k: int, ctas: Optional[int] = None) -> ClusterPlan:
+    """The cluster design's numbers for lanes of k candidates: by default
+    the fewest CTAs, a power of two up to CLUSTER_MAX_CTAS, that hold at
+    most CLUSTER_CTA_TARGET candidates each, and two for a lane of more
+    than half that (one CTA's round over its 10 to 16 slots a thread
+    measured slower than two CTAs' barrier); `ctas` forces the cluster's
+    size (the experiment tool's variants)."""
+    threads = 32 * CLUSTER_WARPS
+    if ctas is None:
+        ctas = 1 if 2 * k <= CLUSTER_CTA_TARGET else 2
+        while ctas < CLUSTER_MAX_CTAS and ctas * CLUSTER_CTA_TARGET < k:
+            ctas *= 2
+    if not 1 <= ctas <= CLUSTER_MAX_CTAS:
+        raise ValueError(f"a cluster holds 1 to {CLUSTER_MAX_CTAS} CTAs, "
+                         f"got {ctas}")
+    per_cta = -(-(-(-k // ctas)) // threads) * threads
+    return ClusterPlan(ctas, per_cta, per_cta <= CLUSTER_CTA_MAX)
 
 
 # design -> (takes the soft modes, takes hard mode, most k, least
 # score_threshold); None: no limit
 _DOMAINS = {
     "sweep": (False, True, SWEEP_MAX_CANDIDATES, SUPPRESSED),
-    "scan": (False, True, None, SUPPRESSED),
+    "scan": (False, True, None, None),
     "decay": (True, False, DECAY_MAX_CANDIDATES, 0.0),
     "compact": (True, False, COMPACT_MAX_CANDIDATES, 0.0),
+    "cluster": (True, False, None, None),
     "rounds": (True, True, MAX_CANDIDATES, None),
 }
+
+
+def design_takes(design: str, soft: bool, k: int,
+                 score_threshold: float) -> bool:
+    """Whether `design` takes lanes of k candidates in this mode at this
+    threshold (`_DOMAINS`); raises for a name that is no design."""
+    if design not in _DOMAINS:
+        raise ValueError(f"no NMS design {design!r}")
+    takes_soft, takes_hard, most_k, least_thr = _DOMAINS[design]
+    return bool((takes_soft if soft else takes_hard)
+                and (most_k is None or k <= most_k)
+                and (least_thr is None or score_threshold >= least_thr))
 
 
 def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
                   max_detections: int, iou_threshold: float,
                   score_threshold: float, soft_nms_sigma: float = 0.0,
                   soft: bool = False,
-                  library: Optional[CudaLibrary] = None
+                  library: Optional[CudaLibrary] = None,
+                  ctas: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launches one design on checked CUDA tensors. `nms_lanes` is the
-    public entry; measurements call this to time "rounds" on inputs that
-    `nms_design` gives to another design, a design on any k it takes
-    (the scan and compact designs below 1025 too), or another build of
-    `csrc/nms.cu` (`library`). Each design takes the modes, k and
-    thresholds of `_DOMAINS`, and raises on others."""
-    if design not in _DOMAINS:
-        raise ValueError(f"no NMS design {design!r}")
+    public entry; measurements call this to time "rounds" (the yardstick,
+    on no path) on inputs that `nms_design` gives to another design, a
+    design on any k it takes (the scan, compact and cluster designs below
+    their routes' k too), another build of `csrc/nms.cu` (`library`), or
+    the cluster design on clusters of `ctas` CTAs. Each design takes the
+    modes, k and thresholds of `_DOMAINS`, and raises on others."""
     library = library or kernel
     lanes, k = scores.shape
-    takes_soft, takes_hard, most_k, least_thr = _DOMAINS[design]
-    if not ((takes_soft if soft else takes_hard)
-            and (most_k is None or k <= most_k)
-            and (least_thr is None or score_threshold >= least_thr)):
+    if not design_takes(design, soft, k, score_threshold):
         raise ValueError(
             f"the {design} design does not take soft={soft}, k={k}, "
             f"score_threshold={score_threshold}")
@@ -210,6 +281,18 @@ def launch_design(design: str, boxes: torch.Tensor, scores: torch.Tensor,
             boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
             float(iou_threshold), float(score_threshold), sort_cap,
             keys.data_ptr(), *outputs)
+    elif design == "cluster":
+        plan = cluster_plan(k, ctas)
+        # the scores of lanes past what the CTAs hold on chip
+        spill = (None if plan.on_chip else
+                 torch.empty((lanes, k), dtype=torch.float32,
+                             device=boxes.device))
+        err = lib.nms_cluster_launch(
+            boxes.data_ptr(), scores.data_ptr(), lanes, k, max_detections,
+            float(iou_threshold), float(score_threshold),
+            float(2.0 * soft_nms_sigma), _mode(soft, soft_nms_sigma),
+            plan.ctas, plan.per_cta,
+            None if spill is None else spill.data_ptr(), *outputs)
     else:
         launch = {"decay": lib.nms_decay_launch,
                   "compact": lib.nms_compact_launch,
@@ -259,11 +342,6 @@ def nms_lanes(boxes: torch.Tensor, scores: torch.Tensor,
                          f"max_detections={max_detections}")
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS kernel for device {boxes.device}")
-    if (boxes.device.type == "cuda" and k > MAX_CANDIDATES
-            and nms_design(soft, k, score_threshold) != "scan"):
-        raise ValueError(f"k={k} exceeds the kernel's {MAX_CANDIDATES} "
-                         "(only hard mode at a threshold >= -1e10 takes "
-                         "more)")
     return torch.ops.retinanet_torch.nms_lanes(
         boxes, scores, int(max_detections), float(iou_threshold),
         float(score_threshold), float(soft_nms_sigma), bool(soft))

@@ -41,6 +41,12 @@ Two designs, picked by `topk_design` from the shape alone, both exact:
   `slab_plan` gives the numbers; `tests/test_torch_topk_slab.py` walks the
   design in numpy from them.
 
+Both designs take every k <= N, in every mode: the k winners are sorted by
+the CTA's bitonic network in shared memory up to SORT_ON_CHIP_MAX of them,
+and past it in a scratch of the wrapper's (`sort_width(k)` 64-bit keys a
+row), the network's passes of stride under SORT_BLOCK a block of keys at a
+time in shared memory and the others through global memory.
+
 A failed build or launch raises; neither design gives way to the other or
 to the plain version.
 
@@ -67,7 +73,13 @@ from retinanet_torch.ops.cuda_build import CudaLibrary, device_index
 from retinanet_torch.ops.topk import check_rows, packed_layout, \
     top_k_rows_plain
 
-MAX_K = 8192    # the final sort's keys in shared memory, 8 bytes each
+# csrc/topk.cu's kSortOnChipMax and kSortBlock, as `topk_sort_constants`
+# returns them: up to SORT_ON_CHIP_MAX winners are sorted in shared memory
+# (the next power of two of them, 8 bytes each); past it, in a scratch of
+# (rows, next power of two >= k) keys, SORT_BLOCK keys of it at a time on
+# chip
+SORT_ON_CHIP_MAX = 16384
+SORT_BLOCK = 16384
 _MODE_CODE = {"packed": 0, "bf16": 1, "f32": 2}
 DESIGNS = ("row", "slab")
 
@@ -92,6 +104,12 @@ SLAB_ROW_STATE_BYTES = 32
 SLAB_STAMPS = 4 + 2 * SLAB_MAX_LEVELS
 SLAB_CHUNK_ANCHORS = 65528  # a chunk's anchors: 16-bit counters suffice
 SLAB_THREADS = 512          # the cooperative kernel's CTA
+
+
+def sort_width(k: int) -> int:
+    """The keys the final sort of k winners runs over: the next power of
+    two >= k."""
+    return 1 << max(0, int(k - 1).bit_length())
 
 
 def topk_design(b: int, n: int, c: int, k: int) -> str:
@@ -175,6 +193,11 @@ def declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.topk_rows_launch.restype = ctypes.c_int
+    lib.topk_rows_wide_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_rows_wide_launch.restype = ctypes.c_int
     lib.topk_slab_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.topk_slab_scratch_bytes.restype = ctypes.c_longlong
     lib.topk_slab_launch.argtypes = [
@@ -182,6 +205,11 @@ def declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.topk_slab_launch.restype = ctypes.c_int
+    lib.topk_slab_wide_launch.argtypes = [
+        ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_slab_wide_launch.restype = ctypes.c_int
     lib.topk_error_string.argtypes = [ctypes.c_int]
     lib.topk_error_string.restype = ctypes.c_char_p
 
@@ -256,8 +284,6 @@ def _launch(x, k, mode, design, capacity, library):
     check_rows(x, k, mode)
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous CUDA tensor")
-    if k > MAX_K:
-        raise ValueError(f"k={k} exceeds the kernel's {MAX_K}")
     b, n, c = x.shape
     if n >= 2 ** 31 or b * c >= 2 ** 31:
         raise ValueError(f"too many rows or too long a row for the kernel: "
@@ -273,11 +299,20 @@ def _launch(x, k, mode, design, capacity, library):
     lib = library.build()
     drop = packed_layout(n)[1] if mode == "packed" else 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if design == "row":
+    # past SORT_ON_CHIP_MAX winners the final sort runs in this scratch
+    sort_keys = (torch.empty((b * c, sort_width(k)), dtype=torch.int64,
+                             device=x.device)
+                 if k > SORT_ON_CHIP_MAX else None)
+    if design == "row" and sort_keys is None:
         err = lib.topk_rows_launch(
             x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
             values.data_ptr(), idx.data_ptr(), device_index(x.device),
             stream)
+    elif design == "row":
+        err = lib.topk_rows_wide_launch(
+            x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
+            values.data_ptr(), idx.data_ptr(), sort_keys.data_ptr(),
+            device_index(x.device), stream)
     else:
         if n * c >= 2 ** 31:
             raise ValueError(f"an image of {n} x {c} elements is too large "
@@ -285,11 +320,14 @@ def _launch(x, k, mode, design, capacity, library):
         plan = slab_plan(b, n, c, k, mode, capacity)
         scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                               device=x.device)
-        err = lib.topk_slab_launch(
-            x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
-            plan.hist_bits, plan.capacity, plan.levels, scratch.data_ptr(),
-            plan.scratch_bytes, values.data_ptr(), idx.data_ptr(),
-            device_index(x.device), stream)
+        common = (x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
+                  plan.hist_bits, plan.capacity, plan.levels,
+                  scratch.data_ptr(), plan.scratch_bytes, values.data_ptr(),
+                  idx.data_ptr())
+        err = (lib.topk_slab_launch(*common, device_index(x.device), stream)
+               if sort_keys is None else lib.topk_slab_wide_launch(
+                   *common, sort_keys.data_ptr(), device_index(x.device),
+                   stream))
     if err != 0:
         raise RuntimeError(f"top-k kernel ({design}, {mode}) launch failed: "
                            + lib.topk_error_string(err).decode())

@@ -6,6 +6,7 @@ suppression bit matrix, the soft modes' kernels, and the designs past
     python -m retinanet_torch.tools.nms_experiments [--batch 8]
     python -m retinanet_torch.tools.nms_experiments --soft
     python -m retinanet_torch.tools.nms_experiments --long
+    python -m retinanet_torch.tools.nms_experiments --wide
 
 The hard-mode inputs are the ones the flagship serving path hands to
 `nms_lanes` (PerClassHardNMS: batch x 80 lanes of 256 candidates, seeded
@@ -31,6 +32,21 @@ GlobalHardNMS, PerClassSoftNMS and GlobalSoftNMS at batch 8 and 1 (L =
 order: the scan ranks them), and on a trained-like copy of each real
 input (five candidates a lane clear the threshold); then the scan and
 compact variants and cuts on the batch-8 and batch-1 inputs.
+
+`--wide` times the lanes past the round kernel's domain: the cluster
+design (soft past 8,192 candidates and under a negative threshold) at
+every cluster size (1, 2, 4 and 8 CTAs a lane, `launch_design(...,
+ctas=)`; the default is `ops/nms_kernel.py:cluster_plan`'s) in turns (1,
+2, 4, 8, 8, 4, 2, 1), beside the round kernel where it takes the lane and
+plain, on seeded lanes (k = 8,193, 16,384 and 76,725 at L = 1, 8 and 80;
+k = 5,000 at a threshold of -0.5) and on the real inputs of a zero-bias
+flagship request at pre_nms_top_k = nms_top_k = 10,000 in PerClassSoftNMS
+and GlobalSoftNMS at batch 8 and 1; then the scan with its tail (hard
+under -1e10) beside the round kernel and plain. Streaming the soft lanes
+in top-k's order (each candidate taking the picks' scales lazily) is not
+built: under a negative threshold, where the picks' scores reach 0 and
+below, it has to visit every candidate each round, which the cluster
+design does already.
 
 It runs on the card only and prints device times
 (`utils/benchmark.py:device_time_ms`, L2 warm) beside the card's name and
@@ -80,6 +96,12 @@ SOFT_BATCHES = (8, 1)
 LONG_K = 5000
 LONG_MODES = ("PerClassHardNMS", "GlobalHardNMS", "PerClassSoftNMS",
               "GlobalSoftNMS")
+# past the round kernel's domain: pre_nms_top_k = nms_top_k = WIDE_K, the
+# seeded soft lanes' k and L, the cluster sizes timed
+WIDE_K = 10000
+WIDE_SOFT_KS = (8193, 16384, 76725)
+WIDE_LANES = (1, 8, 80)
+WIDE_CTAS = (1, 2, 4, 8)
 
 # name -> (design it changes, [(text in csrc/nms.cu, its replacement)])
 VARIANTS: Dict[str, Tuple[str, Edits]] = {
@@ -232,9 +254,11 @@ def nms_bitmatrix(boxes, scores, max_detections, iou_threshold,
 
 
 def flagship_params(mode: str = "PerClassHardNMS",
-                    nms_top_k: Optional[int] = None):
+                    nms_top_k: Optional[int] = None,
+                    pre_nms_top_k: Optional[int] = None):
     """The flagship config with `inference.mode` set (a global mode needs
-    `filter_per_class` false) and, if given, `inference.nms_top_k`."""
+    `filter_per_class` false) and, if given, `inference.nms_top_k` and
+    `inference.pre_nms_top_k`."""
     from retinanet_torch.core.config import Config
     params = Config(str(FLAGSHIP)).params
     params.inference.mode = mode
@@ -242,21 +266,24 @@ def flagship_params(mode: str = "PerClassHardNMS",
         params.inference.filter_per_class = False
     if nms_top_k is not None:
         params.inference.nms_top_k = nms_top_k
+    if pre_nms_top_k is not None:
+        params.inference.pre_nms_top_k = pre_nms_top_k
     return params
 
 
 def serving_nms_inputs(batches, mode: str = "PerClassHardNMS",
-                       nms_top_k: Optional[int] = None) -> dict:
-    """What the flagship serving path in `mode` (with `nms_top_k`, if
-    given) gives `nms_lanes` for seeded random images, one model for all
-    `batches`: batch -> (boxes, scores, max_det, iou_thr, score_thr,
-    sigma, soft)."""
+                       nms_top_k: Optional[int] = None,
+                       pre_nms_top_k: Optional[int] = None) -> dict:
+    """What the flagship serving path in `mode` (with `nms_top_k` and
+    `pre_nms_top_k`, if given) gives `nms_lanes` for seeded random images,
+    one model for all `batches`: batch -> (boxes, scores, max_det,
+    iou_thr, score_thr, sigma, soft)."""
     from retinanet_torch.data.anchors import from_params
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
     from retinanet_torch.ops import postprocess
     from retinanet_torch.profile_serving import zero_class_prior
-    params = flagship_params(mode, nms_top_k)
+    params = flagship_params(mode, nms_top_k, pre_nms_top_k)
     model = build_model(params, device="cuda", seed=0)
     zero_class_prior(model)
     fused_fn = build_serving_fn(params, mode="onnx", device="cuda",
@@ -466,6 +493,93 @@ def main_long(args, card: str) -> int:
     return 1 if failed else 0
 
 
+def tail_lanes(n: int, k: int):
+    """Seeded hard lanes for the scan's tail: every box twice (the second
+    half repeats the first), about 40 scores above -1e10 a lane, all in the
+    second half, so that each ordered pick lifts its twin in the first half
+    to -1e10 and the tail starts there; the last score exactly -1e10, the
+    others below it."""
+    boxes, scores = seeded_lanes(n, k)
+    half = k // 2
+    boxes[:, half:2 * half] = boxes[:, :half]
+    rng = np.random.default_rng(k)
+    low = (-1e10 - 2e10 * rng.uniform(0, 1, (n, k))).astype(np.float32)
+    low[:, -1] = -1e10
+    j = torch.arange(k, device="cuda")
+    keep = (j >= half) & (j % max(1, half // 40) == 0)
+    return (boxes.contiguous(), torch.where(
+        keep, scores, torch.from_numpy(low).cuda()).contiguous())
+
+
+def wide_loads() -> dict:
+    """The lanes past the round kernel's domain: name -> (boxes, scores,
+    max_det, iou_thr, score_thr, sigma, soft)."""
+    loads = {}
+    for k in WIDE_SOFT_KS:
+        boxes, scores = seeded_lanes(max(WIDE_LANES), k)
+        for n in WIDE_LANES:
+            loads[f"seeded soft k={k} L={n}"] = (
+                boxes[:n].contiguous(), scores[:n].contiguous(), 100, 1.0,
+                0.05, 0.25, True)
+    boxes, scores = seeded_lanes(8, 5000)
+    loads["seeded soft threshold -0.5 k=5000 L=8"] = (
+        boxes, (scores - 0.6).contiguous(), 100, 1.0, -0.5, 0.25, True)
+    for mode in ("PerClassSoftNMS", "GlobalSoftNMS"):
+        for batch, args in serving_nms_inputs(SOFT_BATCHES, mode, WIDE_K,
+                                              WIDE_K).items():
+            loads[f"real {mode} batch {batch} L={args[0].shape[0]}"] = args
+    for k in (5000, 16384):
+        boxes, scores = tail_lanes(8, k)
+        loads[f"seeded hard threshold -inf k={k} L=8"] = (
+            boxes, scores, 100, 0.5, float("-inf"), 0.0, False)
+    return loads
+
+
+def main_wide(args, card: str) -> int:
+    nms_kernel.kernel.build()
+    failed = 0
+    for load, (b, s, md, iou_thr, thr, sigma, soft) in wide_loads().items():
+        kw = dict(iou_threshold=iou_thr, score_threshold=thr,
+                  soft_nms_sigma=sigma, soft=soft)
+        k = b.shape[1]
+        design = nms_kernel.nms_design(soft, k, thr)
+        want = batched_nms(b, s, md, **kw)
+        print(f"[load] {load}: L={b.shape[0]} k={k} md={md} soft={soft} "
+              f"score_threshold={thr}, valid {want[2].sum().item()}, "
+              f"design {design}"
+              + (f", plan {tuple(nms_kernel.cluster_plan(k))}"
+                 if design == "cluster" else ""), flush=True)
+        rest = (md, iou_thr, thr, sigma, soft)
+        runs = {}
+        if design == "cluster":
+            for ctas in WIDE_CTAS:
+                runs[f"cluster ctas={ctas}"] = (
+                    lambda c=ctas: nms_kernel.launch_design(
+                        "cluster", b, s, *rest, ctas=c))
+        else:
+            runs[design] = lambda: nms_kernel.launch_design(design, b, s,
+                                                            *rest)
+        if k <= nms_kernel.MAX_CANDIDATES:
+            runs["rounds"] = lambda: nms_kernel.launch_design("rounds", b, s,
+                                                              *rest)
+        for name, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            ok = _soft_equal(got, want) if soft else _equal(got, want)
+            failed += not ok
+            print(f"[check] {load} | {name}: equal to plain {ok}")
+        times = {name: [] for name in runs}
+        for name in [*runs, *reversed(runs)]:
+            times[name].append(device_time_ms(runs[name], reps=args.reps))
+        for name, ms in times.items():
+            print(f"[time] {load} | {name}: "
+                  + " / ".join(f"{t:.4f}" for t in ms) + " ms")
+        ms = device_time_ms(lambda: batched_nms(b, s, md, **kw), reps=3)
+        print(f"[time] {load} | plain: {ms:.4f} ms", flush=True)
+    print(f"[card] {card}")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=8)
@@ -475,6 +589,9 @@ def main(argv=None) -> int:
     parser.add_argument("--long", action="store_true",
                         help="the designs past 1,024 candidates on the "
                         "exact-parity lane's loads")
+    parser.add_argument("--wide", action="store_true",
+                        help="the cluster design's sizes and the scan's "
+                        "tail past the round kernel's domain")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("nms_experiments: no CUDA device; this tool runs on the card "
@@ -486,6 +603,8 @@ def main(argv=None) -> int:
         return main_soft(args, card)
     if args.long:
         return main_long(args, card)
+    if args.wide:
+        return main_wide(args, card)
 
     libraries = {name: (design, variant_library(
         nms_kernel.kernel, nms_kernel.declare, name, edits))

@@ -22,11 +22,19 @@ version, the bytes bound, and with `--parent DIR` the row design of
 another tree's `csrc/topk.cu` (the same C interface), each timed twice in
 turns.
 
+`--design wide`: k past 8,192 winners on the flagship's batch-8 fused
+logits (k = 8,193, 10,000, 16,384 = the on-chip sort's last, 16,385 = the
+first sorted in global scratch, and 76,725 = every anchor) in "packed"
+and "f32": the row and slab designs (past 16,384 also the slab design
+with the wide sort's block of 4,096 and 8,192 keys) timed in turns
+beside `torch.topk` along the anchors, the plain version and the bytes
+bound; the slab design's phases from its stamps.
+
 A variant whose name starts with "cut:" computes something else and is
 timed only; every other one must equal the plain version, or the tool
 exits 1.
 
-    python -m retinanet_torch.tools.topk_experiments [--design row] \\
+    python -m retinanet_torch.tools.topk_experiments [--design row|wide] \\
         [--parent DIR] [--out chiprun_out/topk_experiments.jsonl]
 """
 
@@ -99,6 +107,14 @@ LAUNCH_FLOOR = [
      "  const unsigned row = blockIdx.x;\n")]
 PRIOR = -4.59511985
 SURVIVORS_K = 100
+WIDE_KS = (8193, 10000, 16384, 16385, 76725)
+# the wide sort's block of keys on chip (k > 16,384 only)
+WIDE_VARIANTS = {
+    "sort block 4096": [("constexpr int kSortBlock = 16384;",
+                         "constexpr int kSortBlock = 4096;")],
+    "sort block 8192": [("constexpr int kSortBlock = 16384;",
+                         "constexpr int kSortBlock = 8192;")],
+}
 
 
 def launch_floor_library():
@@ -295,9 +311,75 @@ def measure(x: torch.Tensor, k: int, mode: str, capacity=None,
                          for name, ns in trace["phase_ns"].items()}}
 
 
+def wide_main(args, card: str) -> int:
+    from retinanet_torch.ops.topk import top_k_rows_plain
+    from retinanet_torch.utils.benchmark import device_time_ms
+    variants = {name: variant_library(tk.kernel, tk.declare, name, edits)
+                for name, edits in WIDE_VARIANTS.items()}
+    build_all([tk.kernel, *variants.values()])
+    logits = flagship_logits(8)
+    results, failed = [], False
+    for mode, x in (("packed", logits.to(torch.bfloat16)), ("f32", logits)):
+        nbytes = x.numel() * x.element_size()
+        for k in WIDE_KS:
+            want = top_k_rows_plain(x, k, mode)
+            view = torch.int32 if mode == "f32" else torch.int16
+            runs = {d: (lambda d=d: tk.launch(x, k, mode, design=d))
+                    for d in tk.DESIGNS}
+            if k > tk.SORT_ON_CHIP_MAX:
+                for name, lib in variants.items():
+                    runs[f"slab, {name}"] = (
+                        lambda lib=lib: tk.launch(x, k, mode, design="slab",
+                                                  library=lib))
+            res = {"mode": mode, "shape": list(x.shape), "k": k,
+                   "card": card, "sort_in_scratch":
+                   k > tk.SORT_ON_CHIP_MAX}
+            for name, fn in runs.items():
+                got = fn()
+                torch.cuda.synchronize()
+                exact = (torch.equal(got[1], want[1]) and torch.equal(
+                    got[0].view(view), want[0].view(view)))
+                failed |= not exact
+                res[f"{name}_exact"] = exact
+            times = {name: [] for name in runs}
+            for name in [*runs, *reversed(runs)]:
+                times[name].append(device_time_ms(runs[name], reps=5))
+            for name, ms in times.items():
+                res[f"{name}_ms"] = ms
+            res["torch_topk_ms"] = device_time_ms(
+                lambda: torch.topk(x, k, dim=1), reps=5)
+            res["plain_ms"] = device_time_ms(
+                lambda: top_k_rows_plain(x, k, mode), reps=2)
+            b, _, c = x.shape
+            res["bound_ms"] = (nbytes + b * c * k * (x.element_size() + 4)
+                               ) / 3.35e12 * 1e3
+            trace = tk.slab_trace(x, k, mode)
+            res["slab_phase_ms"] = {p: ns / 1e6
+                                    for p, ns in trace["phase_ns"].items()}
+            results.append(res)
+            print(f"[wide] {mode} k={k}: "
+                  + ", ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ms)
+                              for name, ms in times.items())
+                  + f" ms, torch.topk {res['torch_topk_ms']:.4f}, plain "
+                  f"{res['plain_ms']:.3f}, bound {res['bound_ms']:.5f}; "
+                  "exact: " + ", ".join(
+                      f"{name} {res[f'{name}_exact']}" for name in runs)
+                  + "; "
+                  "slab phases "
+                  + ", ".join(f"{p} {v:.4f}"
+                              for p, v in res["slab_phase_ms"].items()),
+                  flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            for res in results:
+                f.write(json.dumps(res) + "\n")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--design", choices=("slab", "row"), default="slab")
+    parser.add_argument("--design", choices=("slab", "row", "wide"),
+                        default="slab")
     parser.add_argument("--parent", default=None,
                         help="a tree whose csrc/topk.cu's row design is "
                              "timed beside this one's (--design row)")
@@ -310,6 +392,8 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     if args.design == "row":
         return row_main(args, card)
+    if args.design == "wide":
+        return wide_main(args, card)
     variants = {name: variant_library(tk.kernel, tk.declare, name, edits)
                 for name, edits in VARIANTS.items()}
     build_all([tk.kernel, *variants.values()])

@@ -7,6 +7,8 @@ soft designs (the card's `expf` against torch's `exp`) and exactly equal
 through the sweep and the scan. The decay and compact designs, and the
 scan, equal the round kernel bit for bit on the same tensors."""
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -116,7 +118,7 @@ def _sweep_case(name):
         boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
         iou_thr = 0.5 if rng.integers(2) else float(np.float32(1 / 3))
     elif name == "threshold_-inf":
-        thr, design = float("-inf"), "rounds"
+        thr, design = float("-inf"), "scan"   # with its tail
     elif name == "max_det_above_k":
         boxes, scores, md = boxes[:, :50], scores[:, :50], 80
     elif name != "unsorted":
@@ -256,19 +258,24 @@ def test_decay_equals_rounds_and_plain(name):
 
 @pytest.mark.cuda
 def test_soft_routes_to_rounds_under_a_negative_threshold():
+    """Under a negative threshold the soft modes go to the cluster design
+    (no longer to the round kernel), bit-equal to the round kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the NMS kernels have no CPU mode")
     boxes, scores = _lanes(np.random.default_rng(3), 5, 256)
     b = torch.from_numpy(boxes).cuda()
     s = torch.from_numpy(scores - 0.5).cuda()
     for thr in (float("-inf"), -0.25):
-        assert nms_design(True, 256, thr) == "rounds"
-        before = kernel.launches_by["rounds"]
+        assert nms_design(True, 256, thr) == "cluster"
+        before = kernel.launches_by["cluster"], kernel.launches_by["rounds"]
         got = nms_lanes(b, s, 100, 1.0, thr, 0.25, True)
         torch.cuda.synchronize()
-        assert kernel.launches_by["rounds"] == before + 1
+        assert (kernel.launches_by["cluster"],
+                kernel.launches_by["rounds"]) == (before[0] + 1, before[1])
         want = batched_nms(b, s, 100, 1.0, thr, 0.25, True)
         assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        rounds = launch_design("rounds", b, s, 100, 1.0, thr, 0.25, True)
+        assert all(torch.equal(g, r) for g, r in zip(got, rounds))
     with pytest.raises(ValueError, match="decay"):
         launch_design("decay", b, s, 100, 1.0, -0.25, 0.25, True)
 
@@ -429,3 +436,58 @@ def test_long_designs_take_unaligned_boxes():
                "scan")
     _hold_long(b, s, 50, dict(iou_threshold=1.0, score_threshold=0.1,
                               soft_nms_sigma=0.25, soft=True), "compact")
+
+
+_CLUSTER_CASES = [
+    # lanes, k, score_threshold: past 8,192 at any threshold, and under 0
+    # at any k
+    (lanes, k, thr) for lanes, k in ((1, 300), (8, 8192), (8, 8193),
+                                     (2, 20000), (1, 100000))
+    for thr in (0.05, -0.5, float("-inf")) if k > 8192 or thr < 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.25, 0.0], ids=str)
+@pytest.mark.parametrize("lanes,k,thr", _CLUSTER_CASES, ids=str)
+def test_cluster_design_equals_rounds_and_plain(lanes, k, thr, sigma):
+    """The soft lanes past 8,192 candidates and under a negative threshold
+    launch the cluster design (its scores spilled past 81,920 candidates),
+    bit-equal to the round kernel where that takes k."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the NMS kernels have no CPU mode")
+    b, s, _ = _long_case(lanes, k, False, True, seed=3)
+    if thr < 0:
+        s = (s - 0.6).contiguous()
+    kw = dict(iou_threshold=1.0 if sigma > 0 else 0.5, score_threshold=thr,
+              soft_nms_sigma=sigma, soft=True)
+    _hold_long(b, s, 100, kw, "cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [float("-inf"), -3e10], ids=str)
+@pytest.mark.parametrize("k,md", [(77, 100), (256, 300), (5000, 100),
+                                  (16384, 100)], ids=str)
+def test_scan_tail_equals_rounds_and_plain(k, md, thr):
+    """Hard mode under -1e10 on the scan with its tail: every box twice,
+    scores of -1e10 and below, more rounds than candidates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the NMS kernels have no CPU mode")
+    from retinanet_torch.tools.nms_experiments import tail_lanes
+    b, s = tail_lanes(4, k)
+    _hold_long(b, s, md, dict(iou_threshold=0.5, score_threshold=thr),
+               "scan")
+
+
+@pytest.mark.cuda
+def test_cluster_constants_match_the_wrapper():
+    """The cluster design's constants in csrc/nms.cu, as the built library
+    returns them, are the wrapper's, from which `cluster_plan` and the CPU
+    walk of the design are made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel builds only there")
+    from retinanet_torch.ops import nms_kernel
+    got = (ctypes.c_int * 4)()
+    kernel.build().nms_cluster_constants(got)
+    assert list(got) == [nms_kernel.CLUSTER_WARPS, nms_kernel.CLUSTER_MAX_CTAS,
+                         nms_kernel.CLUSTER_CTA_TARGET,
+                         nms_kernel.CLUSTER_CTA_MAX]

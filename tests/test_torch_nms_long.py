@@ -157,11 +157,13 @@ def test_compact_equals_rounds(name, mode):
 
 
 def test_plain_models_refuse_their_thresholds():
+    """The compact model refuses a threshold under 0; the scan's takes
+    every threshold (under -1e10 its tail, tests/test_torch_nms_wide.py)."""
     boxes, scores = (torch.from_numpy(x) for x in
                      _lanes(np.random.default_rng(1), 1, 8))
     for thr in (float("-inf"), -2e10, float("nan")):
-        with pytest.raises(ValueError, match="score_threshold"):
-            scan_nms_plain(boxes, scores, 4, 0.5, thr)
+        _equal(scan_nms_plain(boxes, scores, 4, 0.5, thr),
+               batched_nms(boxes, scores, 4, 0.5, thr))
     for thr in (float("-inf"), -1e-30, float("nan")):
         with pytest.raises(ValueError, match="score_threshold"):
             compact_nms_plain(boxes, scores, 4, 1.0, thr, 0.25)
@@ -441,14 +443,14 @@ def test_wrapper_constants_are_the_kernels():
     (False, 5000, 0.05, "scan"),             # every config's pre_nms_top_k
     (False, 5000, -1e10, "scan"),            # at the suppression score
     (False, 76725, 0.05, "scan"),            # no cap in hard mode
-    (False, 5000, -2e10, "rounds"),          # suppressed ones get picked
+    (False, 5000, -2e10, "scan"),            # its tail picks at -1e10
     (True, 1025, 0.05, "compact"),
     (True, 5000, 0.0, "compact"),            # exactly 0: +0.0 is not above
     (True, 5000, -0.0, "compact"),
     (True, COMPACT_MAX_CANDIDATES, 0.05, "compact"),
-    (True, COMPACT_MAX_CANDIDATES + 1, 0.05, "rounds"),
-    (True, 5000, -1e-30, "rounds"),          # negative scores rise to 0
-    (True, 5000, float("nan"), "rounds"),
+    (True, COMPACT_MAX_CANDIDATES + 1, 0.05, "cluster"),
+    (True, 5000, -1e-30, "cluster"),         # negative scores rise to 0
+    (True, 5000, float("nan"), "cluster"),
 ], ids=str)
 def test_long_routes(soft, k, thr, want):
     assert nms_design(soft, k, thr) == want
@@ -456,7 +458,7 @@ def test_long_routes(soft, k, thr, want):
 
 @pytest.mark.parametrize("design,soft,k,thr", [
     ("scan", True, 2000, 0.05),
-    ("scan", False, 2000, -2e10),
+    ("cluster", False, 2000, -2e10),
     ("compact", False, 2000, 0.05),
     ("compact", True, COMPACT_MAX_CANDIDATES + 1, 0.05),
     ("compact", True, 2000, -0.5),
@@ -472,9 +474,8 @@ def test_launch_design_refuses_what_a_design_does_not_take(design, soft, k,
 
 
 def test_cpu_lanes_past_the_card_cap_take_plain():
-    """On the CPU `nms_lanes` is `batched_nms` at any k; the card's cap of
-    8,192 holds only where the round kernel or the compact design would
-    take the lane."""
+    """On the CPU `nms_lanes` is `batched_nms` at any k (on the card every
+    k has a design too)."""
     boxes, scores = _lanes(np.random.default_rng(29), 1, 9000)
     b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
     before = nms_kernel.kernel.launches

@@ -165,8 +165,8 @@ def test_sweep_refuses_a_threshold_under_the_suppression_score():
     (False, 5000, 0.05, "scan"),              # nms_top_k up to 5,000
     (False, 8192, 0.05, "scan"),
     (False, 8193, 0.05, "scan"),              # hard mode has no cap
-    (False, 256, float("-inf"), "rounds"),    # suppressed ones get picked
-    (False, 256, -2e10, "rounds"),
+    (False, 256, float("-inf"), "scan"),      # its tail picks at -1e10
+    (False, 256, -2e10, "scan"),
     (True, 256, 0.05, "decay"),               # PerClassSoftNMS, GlobalSoftNMS
     (True, 1, 0.0, "decay"),                  # exactly 0: +0.0 is not above
     (True, 256, -0.0, "decay"),
@@ -174,11 +174,11 @@ def test_sweep_refuses_a_threshold_under_the_suppression_score():
     (True, DECAY_MAX_CANDIDATES + 1, 0.05, "compact"),
     (True, 5000, 0.05, "compact"),            # nms_top_k up to 5,000
     (True, 8192, 0.05, "compact"),
-    (True, 8193, 0.05, "rounds"),             # past compact's 8,192
-    (True, 64, -1.0, "rounds"),               # negative scores rise to 0
-    (True, 256, float("-inf"), "rounds"),
-    (True, 256, -1e-30, "rounds"),
-    (True, 256, float("nan"), "rounds"),
+    (True, 8193, 0.05, "cluster"),            # past compact's 8,192
+    (True, 64, -1.0, "cluster"),              # negative scores rise to 0
+    (True, 256, float("-inf"), "cluster"),
+    (True, 256, -1e-30, "cluster"),
+    (True, 256, float("nan"), "cluster"),
 ], ids=str)
 def test_design_choice(soft, k, thr, want):
     assert nms_design(soft, k, thr) == want

@@ -6,7 +6,8 @@ Both designs ("row" and "slab", forced through `launch(design=...)`) on
 every case: indices and value bits exactly equal in every mode ("packed"
 with drop 0 and 1, "bf16", "f32"), on normal logits around the class
 prior, on quarter-step logits and rows of one value (heavy ties), on signed
-zeros, at k from 1 to 8192 and on rows laid out in place ((B, N, C), stride
+zeros, at k from 1 to N (past 16,384 winners the sort runs in global
+scratch) and on rows laid out in place ((B, N, C), stride
 C) and as one long row ((B, N, 1), the global lane); the slab design also
 with a candidate buffer of k keys, so that rows overflow it and read the
 slab again; the row design on the NMS survivors' rows (mostly or all -1.0)
@@ -47,8 +48,15 @@ _CASES = [
     ("f32", 2, 76725, 8, 5000, "quarter"),      # the skip_nms lane
     ("f32", 2, 76725, 80, 8192, "quarter"),
     ("f32", 8, 8000, 1, 100, "zeros"),          # the NMS survivors
-    ("f32", 1, 20000, 3, 8192, "one"),          # the largest k
+    ("f32", 1, 20000, 3, 8192, "one"),          # the old cap
     ("f32", 2, 70001, 3, 300, "zeros"),         # odd rows: unaligned images
+    # past 8,192 winners: the on-chip sort up to 16,384, then in scratch
+    ("packed", 2, 76725, 8, 8193, "quarter"),
+    ("packed", 2, 76725, 8, 16384, "one"),
+    ("f32", 2, 20000, 1, 16385, "zeros"),
+    ("f32", 1, 20000, 3, 20000, "one"),         # k = N in scratch
+    ("bf16", 1, 76725, 4, 76725, "normal"),
+    ("bf16", 1, 300000, 1, 40000, "quarter"),   # a long row, k = 40,000
 ]
 
 
