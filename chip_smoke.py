@@ -21,7 +21,8 @@ JAX. Phases, each fatal on failure:
      plain and its bound; sigma 0 at k = 1000); the lanes the round
      kernel alone took before, now on no path: soft past 8,192 candidates
      through the cluster kernel (k = 8,193, 16,384 and 76,725 at L = 1, 8
-     and 80, sigma 0 at L = 8), soft under a negative threshold (-0.5, and
+     and 80, sigma 0 at L = 8; 100,000 at L = 1, its scores spilled past
+     the 81,920 the CTAs hold), soft under a negative threshold (-0.5, and
      -inf with sigma 0; k = 256, 5,000, 8,192, 16,384) through the cluster
      kernel, hard under -1e10 (-inf and -3e10; k = 77 with max_det 100,
      256, 5,000, 8,192, 16,384; every box twice, scores of -1e10 and
@@ -212,10 +213,14 @@ JAX. Phases, each fatal on failure:
      k = 256), the exact lane ("f32", k = 256), the skip_nms lane ("f32",
      k = 5,000) and the global lane ((B, A·C) rows, "bf16" and "f32"); on
      the zoo's anchor counts at batch 8 (37,485 and 49,104: drop 0;
-     110,484: drop 1; 150,381 and 306,900: "bf16"); past 8,192 winners
-     (k = 8,193, 16,384 and 76,725 = every anchor, in "packed", "bf16"
-     and "f32", both designs; past 16,384 the winners are sorted in global
-     scratch) and rows of one value at k = 16,384; on rows of one value
+     110,484: drop 1; 150,381 and 306,900: "bf16"); at k = 8,192 (the
+     on-chip sort's last) and past it on the radix sort (k = 8,193,
+     16,384, 16,385, 24,576, 32,768, 49,152 and 76,725 = every anchor, in
+     "packed", "bf16" and "f32", both designs, and the global lane at
+     batch 8 and 1, k = 16,385 and 76,725; each radix case beside the
+     bitonic network it replaced, `torch.topk`, the select launch alone
+     and the sort's own floor, in turns) and rows of one value at k =
+     16,384 and 50,000; on rows of one value
      and on the top-k over the NMS survivors: seeded rows, the real
      survivors of a zero-bias request (`_per_class_nms`'s input to
      `top_k`) and trained-like rows (>= 95% -1.0) at batch 8 and 1; each
@@ -230,9 +235,14 @@ JAX. Phases, each fatal on failure:
      main path (host ms, device busy ms; the kernel's counts at 0 just
      before, by mode and by design), and in a request's trace
      slab_select_kernel, slab_final_kernel and row_select_kernel once each
-     by name, no sort kernel in the default lane. The kernel's launches on
-     the serving (5), evaluation (8), export and int8 (12) and spatial
-     (15) paths are counted there and reported here;
+     by name, no sort kernel in the default lane; then the radix sort's
+     main path: the skip_nms export lane at pre_nms_top_k = every anchor
+     (76,725 a class), batch 8 and 1, one radix sort a request (the counts
+     at 0 just before), its prepare and scatter kernels by name in a
+     request's trace, the outputs equal to the same lane on the plain
+     top-k. The kernel's launches on the serving (5), evaluation (8),
+     export and int8 (12) and spatial (15) paths are counted there and
+     reported here;
  17. the soft modes: the flagship served in PerClassSoftNMS and in
      GlobalSoftNMS (`filter_per_class` false) at batch 8 and 1 on the
      zero-bias weights of phase 5, as the main path: one decay launch a
@@ -264,8 +274,9 @@ JAX. Phases, each fatal on failure:
      reference's 5,000): the flagship served in the four NMS modes at
      batch 8 and 1 on the zero-bias weights, as the main path: one launch a
      request of the scan (hard) or the cluster design (soft) and none of
-     the round kernel, one slab selection of 10,000 a request (the counts
-     at 0 just before); the detections through the kernels equal to those
+     the round kernel, one slab selection of 10,000 a request and its
+     radix sort (the counts at 0 just before); the detections through the
+     kernels equal to those
      through the plain NMS and to those through the plain top-k and plain
      NMS together; one `nms_scan_kernel` or `nms_cluster_kernel` and no
      other NMS kernel in a request's trace; the design on the batch-8
@@ -330,9 +341,17 @@ WIDE_NEGATIVE_KS = (256, 5000, 8192, 16384)  # soft under a negative thr
 WIDE_TAIL_KS = ((77, 100), (256, 100), (5000, 100), (8192, 100),
                 (16384, 100))              # hard under -1e10: (k, max_det)
 WIDE_NMS_REPS = 10
-# phase 16: top-k past the on-chip sort's cap, on the flagship's logits
-WIDE_TOPK_KS = (8193, 16384, 76725)
+# phase 16: top-k on the flagship's logits at the on-chip sort's last k
+# (8,192), then past it the radix sort's up to every anchor; the global
+# lane at batch 8 and 1
+WIDE_TOPK_KS = (8192, 8193, 16384, 16385, 24576, 32768, 49152, 76725)
+WIDE_TOPK_GLOBAL_KS = (16385, 76725)
 WIDE_TOPK_REPS = 3
+# phase 16: the radix sort's main path, the skip_nms export lane handing
+# every anchor of every class to a downstream NMS
+SKIP_NMS_ALL_K = 76725
+# phase 3: a soft lane past the 81,920 candidates the cluster's CTAs hold
+WIDE_SPILL_K = 100000
 # phase 19: the flagship served with pre_nms_top_k = nms_top_k = WIDE_K
 WIDE_K = 10000
 WIDE_BATCHES = {8: 1, 1: 1}     # batch size -> requests a mode
@@ -818,6 +837,10 @@ def wide_nms_cases(rng):
             yield (f"wide hard threshold {thr:g} k={k} md={md} L=8", boxes,
                    scores, md, dict(iou_threshold=0.5, score_threshold=thr),
                    "scan")
+    # past the 81,920 candidates the cluster's CTAs hold: the scores spill
+    boxes, scores = lanes(rng, 1, WIDE_SPILL_K)
+    yield (f"wide soft sigma=0.25 k={WIDE_SPILL_K} L=1 (scores spilled)",
+           boxes, scores, 100, soft, "cluster")
 
 
 def wide_nms_shape(label: str, args, kw, valid) -> dict:
@@ -1323,6 +1346,7 @@ def phase_wide_serving() -> dict:
     requests = [(bs, images[bs]) for bs, count in WIDE_BATCHES.items()
                 for _ in range(count)]
     launches, topk_launches, record, worst = {}, {}, {}, 0.0
+    sort_launches = {}
     names = {"scan": "nms_scan_kernel", "cluster": "nms_cluster_kernel"}
     cluster_launches = 0
     for mode in LONG_MODES:
@@ -1342,6 +1366,11 @@ def phase_wide_serving() -> dict:
             check_detections(det, bs, md)
         launches[mode] = dict(kernel.launches_by)
         topk_launches[mode] = dict(topk_kernel.kernel.launches_by_design)
+        sort_launches[mode] = dict(topk_kernel.kernel.launches_by_sort)
+        check(sort_launches[mode] == {"radix": len(requests)},
+              f"{mode}: top-k launches by sort {sort_launches[mode]} (the "
+              f"selection of {WIDE_K} a request past the on-chip sort's "
+              f"{topk_kernel.SORT_ON_CHIP_MAX}: one radix sort)")
         check(launches[mode] == {design: len(requests)},
               f"{mode} at pre_nms_top_k = nms_top_k = {WIDE_K}: NMS "
               f"launches by design {launches[mode]} for {len(requests)} "
@@ -1408,6 +1437,10 @@ def phase_wide_serving() -> dict:
     skip_launches = dict(topk_kernel.kernel.launches_by_design)
     check(skip_launches == {"slab": len(WIDE_BATCHES)},
           f"skip_nms lane: top-k launches by design {skip_launches}")
+    sort_launches["skip_nms"] = dict(topk_kernel.kernel.launches_by_sort)
+    check(sort_launches["skip_nms"] == {"radix": len(WIDE_BATCHES)},
+          f"skip_nms lane: top-k launches by sort "
+          f"{sort_launches['skip_nms']}")
     try:
         postprocess.select_top_k = plain_select_top_k
         for bs, got in out.items():
@@ -1423,7 +1456,8 @@ def phase_wide_serving() -> dict:
     launches["skip_nms"] = skip_launches
     record.update(launches=cluster_launches, max_abs_err=worst,
                   launches_on_wide_paths=launches,
-                  topk_launches_on_wide_paths=topk_launches)
+                  topk_launches_on_wide_paths=topk_launches,
+                  topk_sort_launches_on_wide_paths=sort_launches)
     return record
 
 
@@ -4671,6 +4705,107 @@ def hold_topk(label: str, rows: torch.Tensor, k: int, mode: str,
     return out
 
 
+def hold_wide_topk(label: str, rows: torch.Tensor, k: int, mode: str,
+                   select_alone) -> dict:
+    """k past SORT_ON_CHIP_MAX (`tools/topk_experiments.py:wide_case`):
+    both designs (their winners sorted by the radix sort) and the bitonic
+    network through global memory that it replaced (on no path) against
+    the plain version on the card, indices and value bits equal; timed in
+    turns with `torch.topk` along N and the select launch alone
+    (`select_alone`, a build whose radix sort returns at once: the
+    difference is the sort's ms); beside the plain version, the
+    function's bound (one read, the outputs) and the radix sort's own
+    floor (`radix_floor_ms`)."""
+    from retinanet_torch.tools.topk_experiments import wide_case
+    res = wide_case(rows, k, mode, {"cut: the select alone": select_alone},
+                    card_line(), sweep=False, reps=WIDE_TOPK_REPS)
+    check(all(res["exact"].values()),
+          f"top-k {label}: differs from plain: {res['exact']}")
+    ms = {name: statistics.mean(t) for name, t in res["ms"].items()}
+    other = "row" if res["design"] == "slab" else "slab"
+    out = {"case": label, "mode": mode, "shape": res["shape"], "k": k,
+           "design": res["design"], "sort": "radix", "ms": ms["radix"],
+           f"{res['design']}_ms": ms["radix"],
+           f"{other}_ms": ms[f"radix, {other}"],
+           "bitonic_ms": ms["bitonic"],
+           "select_ms": ms["radix, cut: the select alone"],
+           "sort_ms": ms["radix"] - ms["radix, cut: the select alone"],
+           "torch_topk_ms": ms["torch.topk"], "plain_ms": res["plain_ms"],
+           "bound_ms": res["bound_ms"], "sort_floor_ms": res["sort_floor_ms"],
+           "plan": {"passes": len(res["plan"]["digits"]),
+                    "key_bytes": res["plan"]["key_bytes"],
+                    "ctas_a_row": res["plan"]["segments"]}}
+    b, n, c = res["shape"]
+    print(f"[topk] {label} ({mode}, {b}x{n}x{c}, k={k}, {out['design']}, "
+          f"radix sort: {out['plan']['passes']} passes of "
+          f"{out['plan']['key_bytes']}-byte keys, "
+          f"{out['plan']['ctas_a_row']} CTAs a row): slab "
+          f"{out['slab_ms']:.4f} ms, row {out['row_ms']:.4f}, bitonic "
+          f"{out['bitonic_ms']:.4f}, torch.topk {out['torch_topk_ms']:.4f} "
+          f"({'under' if out['ms'] < out['torch_topk_ms'] else 'OVER'} it); "
+          f"select alone {out['select_ms']:.4f}, so the sort "
+          f"{out['sort_ms']:.4f} (floor {out['sort_floor_ms']:.5f}); bound "
+          f"{out['bound_ms']:.5f}, plain {out['plain_ms']:.3f}; both "
+          "designs and the bitonic network index- and value-exact")
+    return out
+
+
+def phase_radix_path(model, images: dict) -> dict:
+    """Phase 16's main path of the radix sort: the skip_nms export lane
+    with pre_nms_top_k = SKIP_NMS_ALL_K (every anchor of every class handed
+    to a downstream NMS) at batch 8 and 1, the counts at 0 just before:
+    one slab selection and one radix sort a request; the radix sort's
+    kernels by name in a request's trace; the outputs equal to the same
+    lane on the plain top-k."""
+    from retinanet_torch.export.serving import build_serving_fn
+    from retinanet_torch.ops import postprocess
+    from retinanet_torch.ops.topk_kernel import kernel
+    from retinanet_torch.tools.nms_experiments import flagship_params
+    params = flagship_params("PerClassHardNMS", SKIP_NMS_ALL_K,
+                             SKIP_NMS_ALL_K)
+    lane = build_serving_fn(params, mode="tf_tensorrt", device="cuda",
+                            model=model)
+    kernel.reset_counts()
+    with torch.inference_mode():
+        out = {bs: lane(images[bs]) for bs in (8, 1)}
+    torch.cuda.synchronize()
+    by_sort = dict(kernel.launches_by_sort)
+    by_design = dict(kernel.launches_by_design)
+    check(by_sort == {"radix": 2} and by_design == {"slab": 2},
+          f"skip_nms lane at pre_nms_top_k {SKIP_NMS_ALL_K}: top-k "
+          f"launches by sort {by_sort}, by design {by_design} for 2 "
+          "requests")
+    kernel_select = postprocess.select_top_k
+    try:
+        postprocess.select_top_k = plain_select_top_k
+        with torch.inference_mode():
+            for bs, got in out.items():
+                want = lane(images[bs])
+                check(tuple(got["scores"].shape) == (bs, SKIP_NMS_ALL_K, 80),
+                      f"skip_nms scores {tuple(got['scores'].shape)}")
+                check(all(torch.equal(got[key], want[key]) for key in got),
+                      f"skip_nms lane at {SKIP_NMS_ALL_K}, batch {bs}: "
+                      "differs from the plain top-k's")
+    finally:
+        postprocess.select_top_k = kernel_select
+    del out
+    with torch.inference_mode():
+        names = kernels_on_card("top_k_radix_sort",
+                                lambda: lane(images[1]))
+    counts = {t: sum(t in n for n in names)
+              for t in ("radix_prepare_kernel", "radix_scatter_kernel",
+                        "radix_count_kernel", "bitonic")}
+    check(counts["radix_prepare_kernel"] == 1
+          and counts["radix_scatter_kernel"] >= 1 and not counts["bitonic"],
+          f"skip_nms lane at {SKIP_NMS_ALL_K}: radix kernels {counts} in a "
+          "request's trace")
+    print(f"[topk] skip_nms lane at pre_nms_top_k {SKIP_NMS_ALL_K}: batch 8 "
+          f"and 1 equal to the plain top-k's; top-k by sort {by_sort}, by "
+          f"design {by_design}; a batch-1 request's trace: {counts}")
+    return {"launches_by_sort": by_sort, "launches_by_design": by_design,
+            "trace": counts}
+
+
 def hold_survivors(label: str, rows: torch.Tensor, k: int,
                    floor_library) -> dict:
     """The top-k over the NMS survivors (rows (B, C * max_detections, 1)
@@ -4697,10 +4832,11 @@ def sort_kernels(names) -> list:
                    and not any(t in n for t in TOPK_KERNEL_NAMES)})
 
 
-def phase_topk(floor_library) -> list:
-    """Phase 16. Returns the records of the top-k kernel's two designs.
-    `floor_library`: `csrc/topk.cu` with the row design's kernel returning
-    at once, built beside the kernels."""
+def phase_topk(floor_library, select_alone) -> list:
+    """Phase 16. Returns the records of the top-k kernel's two designs
+    and of its radix sort. `floor_library`: `csrc/topk.cu` with the row
+    design's kernel returning at once; `select_alone`: with the radix sort
+    returning at once; both built beside the kernels."""
     from retinanet_torch.core.config import Config, from_dict
     from retinanet_torch.export.serving import build_serving_fn
     from retinanet_torch.models.retinanet import build_model
@@ -4764,19 +4900,38 @@ def phase_topk(floor_library) -> list:
             "rows of one value", torch.zeros(
                 (TOPK_BATCH, TOPK_ZOO_ANCHORS[0][0], c),
                 dtype=torch.bfloat16, device="cuda"), k, "packed"))
-        # past 8,192 winners, in the three modes on the flagship's fused
-        # logits: the on-chip sort's first k past the old cap, its last
-        # (16,384) and every anchor (the sort in global scratch)
+        # in the three modes on the flagship's fused logits: the on-chip
+        # sort's last k (8,192), then the radix sort's up to every anchor
         wide = []
         for kw in WIDE_TOPK_KS:
             for mode, rows in (("packed", bf), ("bf16", bf),
                                ("f32", logits)):
-                wide.append(hold_topk(f"flagship wide k={kw}", rows, kw,
-                                      mode, reps=WIDE_TOPK_REPS))
-        wide.append(hold_topk(
-            "rows of one value, wide", torch.zeros(
-                (TOPK_BATCH, a, c), dtype=torch.bfloat16, device="cuda"),
-            16384, "packed", reps=WIDE_TOPK_REPS))
+                wide.append(
+                    hold_topk(f"flagship wide k={kw}", rows, kw, mode,
+                              reps=WIDE_TOPK_REPS)
+                    if kw <= topk_kernel.SORT_ON_CHIP_MAX else
+                    hold_wide_topk(f"flagship wide k={kw}", rows, kw, mode,
+                                   select_alone))
+        ones = torch.zeros((TOPK_BATCH, a, c), dtype=torch.bfloat16,
+                           device="cuda")
+        wide.append(hold_topk("rows of one value, wide", ones, 16384,
+                              "packed", reps=WIDE_TOPK_REPS))
+        wide.append(hold_wide_topk("rows of one value, radix", ones, 50000,
+                                   "packed", select_alone))
+        del ones
+        # the radix sort's record: the skip_nms lane's selection of every
+        # anchor, on its own input (the scores)
+        radix = hold_wide_topk("flagship skip_nms lane, every anchor",
+                               torch.sigmoid(logits), a, "f32",
+                               select_alone)
+        wide.append(radix)
+        for batch in (8, 1):
+            for kw in WIDE_TOPK_GLOBAL_KS:
+                for mode, rows in (("bf16", bf), ("f32", logits)):
+                    wide.append(hold_wide_topk(
+                        f"global lane batch {batch} k={kw}",
+                        rows[:batch].reshape(batch, a * c, 1), kw, mode,
+                        select_alone))
         cases.extend(wide)
         for anchors, label in TOPK_ZOO_ANCHORS:
             zoo = torch.from_numpy(rng.normal(
@@ -4840,6 +4995,7 @@ def phase_topk(floor_library) -> list:
           f"{traces['exact']}")
     for path, count in TOPK_PATHS.items():
         check(count > 0, f"top-k kernel launched no time on {path}")
+    radix_path = phase_radix_path(model, images)
     # the row design's record on the seeded survivors, the rows its earlier
     # records were timed on; the real and trained-like ones beside them
     main = cases[0]
@@ -4875,7 +5031,32 @@ def phase_topk(floor_library) -> list:
          "work": f"the top-k over a batch-8 request's NMS survivors, "
                  f"seeded ({tail['shape']}, k={tail['k']}); "
                  f"survivor_cases: the real ones of a zero-bias request "
-                 f"and trained-like rows at batch 8 and 1"}]
+                 f"and trained-like rows at batch 8 and 1"},
+        {"name": "top_k_radix_sort", **common,
+         "replaces": "retinanet_tpu/ops/postprocess.py:326",
+         "replaces_note": "the order of lax.top_k's k past 8,192 "
+                          "winners, an XLA path (no Pallas kernel); "
+                          "before, the on-chip sort up to 16,384 and the "
+                          "bitonic network through global memory past "
+                          "it (bitonic_ms)",
+         "launches": radix_path["launches_by_sort"]["radix"],
+         "ms": radix["ms"], "sort_ms": radix["sort_ms"],
+         "select_ms": radix["select_ms"], "bitonic_ms": radix["bitonic_ms"],
+         "plain_ms": radix["plain_ms"], "bound_ms": radix["bound_ms"],
+         "sort_floor_ms": radix["sort_floor_ms"],
+         "library_ms": radix["torch_topk_ms"],
+         "work": f"the selection of every anchor of each class of a batch-8 "
+                 f"flagship request in the skip_nms lane ({radix['shape']}, "
+                 f"f32, k={radix['k']}): ms the slab selection with its "
+                 "radix sort, sort_ms the sort's share (the selection less "
+                 "the select launch alone), bound the function's (one "
+                 "read, the outputs), sort_floor_ms the radix sort's "
+                 "passes' bytes",
+         "main_path": radix_path,
+         "under_torch_topk": [
+             {"case": w["case"], "mode": w["mode"], "k": w["k"],
+              "ms": w["ms"], "torch_topk_ms": w["torch_topk_ms"]}
+             for w in wide if w.get("sort") == "radix"]}]
 
 
 def main() -> int:
@@ -4897,16 +5078,19 @@ def main() -> int:
     print(f"[card] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    from retinanet_torch.tools.topk_experiments import launch_floor_library
+    from retinanet_torch.tools.topk_experiments import (
+        launch_floor_library, select_alone_library)
     kernels = (nms_kernel.kernel, match_kernel.kernel,
                int8_conv_kernel.kernel, topk_kernel.kernel)
     topk_floor = launch_floor_library()
+    topk_select_alone = select_alone_library()
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
-        for future in [pool.submit(k.build) for k in (*kernels, topk_floor)]:
+    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 2) as pool:
+        for future in [pool.submit(k.build)
+                       for k in (*kernels, topk_floor, topk_select_alone)]:
             future.result()
-    print(f"[build] {len(kernels)} kernels and the top-k launch floor built "
-          "side by side in "
+    print(f"[build] {len(kernels)} kernels, the top-k launch floor and its "
+          "select launch alone built side by side in "
           f"{time.perf_counter() - start:.2f} s")
     for k in kernels:
         print(f"[build] {k.source.name} built in {k.build_seconds:.2f} s")
@@ -4960,7 +5144,7 @@ def main() -> int:
             Path(tmp) / "spatial")
         print(f"[phase 15] took {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
-    records.extend(phase_topk(topk_floor))
+    records.extend(phase_topk(topk_floor, topk_select_alone))
     print(f"[phase 16] took {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     soft = phase_soft_nms()
@@ -4991,6 +5175,9 @@ def main() -> int:
         "launches_on_wide_paths": wide["launches_on_wide_paths"],
         "topk_launches_on_wide_paths": wide["topk_launches_on_wide_paths"],
         "wide_shapes": WIDE_NMS_SHAPES})
+    next(r for r in records if r["name"] == "top_k_radix_sort")[
+        "launches_on_wide_paths"] = wide.pop(
+            "topk_sort_launches_on_wide_paths")
     serve_record["max_abs_err"] = max(serve_record["max_abs_err"],
                                       soft.pop("max_abs_err"),
                                       long.pop("max_abs_err"))

@@ -92,11 +92,19 @@
 // histogram level) and by the candidates' staging, and the final kernel
 // and the barriers add ~0.1 ms.
 // Both designs take any k <= N. The k winners are sorted in shared memory
-// up to kSortOnChipMax keys (the next power of two >= k, 8 B each: 128 KB);
-// past it (the "wide" launches) they are sorted in a scratch of the
-// wrapper's, (rows, next power of two >= k) 64-bit keys, by the same
-// bitonic network: the passes of stride under kSortBlock a block of keys at
-// a time in shared memory, the others through global memory.
+// up to kSortOnChipMax keys (the next power of two >= k, 8 B each: 64 KB;
+// above 8,192 the radix sort measured faster in every mode on the
+// flagship's 640 rows, PERF.md).
+// Past it (the "wide" launches) the select kernels write the k winners
+// unsorted into a scratch of the wrapper's, (rows, k) 64-bit keys, and the
+// radix sort below (topk_radix_sort_launch) sorts them and writes the
+// outputs: an LSD sort of the V + I bits the keys hold, 8-bit digits, one
+// read of the winners for every digit's histogram, then a stable scatter a
+// pass (see "radix"). The bitonic network run through global memory
+// (bitonic_sort_desc_wide: the passes of stride under kSortBlock a block of
+// keys at a time in shared memory, the others through global memory, in a
+// scratch of (rows, next power of two >= k) keys) is on no path: the
+// wrapper reaches it only when asked (sort="bitonic"), as the yardstick.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -108,9 +116,12 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kSortOnChipMax = 16384;  // winners sorted in shared memory
+constexpr int kSortOnChipMax = 8192;   // winners sorted in shared memory
 constexpr int kSortBlock = 16384;      // a wide sort's block: 128 KB
 constexpr unsigned kFull = 0xffffffffu;
+// where the k winners are sorted: in shared memory (k <= kSortOnChipMax),
+// by the radix sort's launches, or by the bitonic network in global scratch
+enum : int { kSortShared = 0, kSortRadix = 1, kSortBitonic = 2 };
 
 __device__ __forceinline__ uint32_t orderable16(uint32_t bits) {
   return (bits & 0x8000u) ? (~bits & 0xFFFFu) : (bits | 0x8000u);
@@ -171,8 +182,9 @@ struct SlabArgs {
   // rows deep or ready after each level's choice, then rows still deep
   uint32_t* active;             // 2 x kSlabMaxLevels
   unsigned long long* stamps;   // %globaltimer at each phase's end
-  unsigned long long* sort_keys;  // rows x sort_cap, k > kSortOnChipMax
-  int sort_cap;                 // the next power of two >= k
+  unsigned long long* sort_keys;  // rows x sort_cap (kSortRadix, kSortBitonic)
+  int sort_cap;                 // k (radix), the next power of two >= k
+  int sort;                     // kSortShared, kSortRadix or kSortBitonic
 };
 
 // What every active row of a level shares: the bits resolved (done) and
@@ -1100,15 +1112,18 @@ __device__ void block_pick(const uint32_t* hist, int nb, uint32_t need,
   __syncthreads();  // out and warp_sums are written again by the next call
 }
 
-// WIDE: the winners sorted in a.sort_keys (k > kSortOnChipMax), the
-// shared memory a block of the sort.
-template <bool F32, bool WIDE>
+// SORT: kSortShared, the winners sorted in shared memory; kSortRadix, the
+// winners written unsorted to a.sort_keys for the radix sort's launches;
+// kSortBitonic, sorted in a.sort_keys, the shared memory a block of the
+// sort.
+template <bool F32, int SORT>
 __global__ void slab_final_kernel(SlabArgs a, void* __restrict__ out_vals,
                                   int* __restrict__ out_idx) {
   extern __shared__ unsigned long long final_smem[];
   unsigned long long* keys =
-      WIDE ? a.sort_keys + static_cast<long long>(blockIdx.x) * a.sort_cap
-           : final_smem;  // next power of two >= k
+      SORT != kSortShared
+          ? a.sort_keys + static_cast<long long>(blockIdx.x) * a.sort_cap
+          : final_smem;  // next power of two >= k
   __shared__ uint32_t hist[kFinalBins];
   __shared__ uint32_t warp_sums[32];
   __shared__ uint32_t picked[3];
@@ -1189,25 +1204,29 @@ __global__ void slab_final_kernel(SlabArgs a, void* __restrict__ out_vals,
     }
   }
 
-  // 3. bitonic sort, descending
-  if (WIDE) {
-    __syncthreads();  // the winners' global stores are read by the sort
-    bitonic_sort_desc_wide(keys, final_smem, k, tid, nthreads);
-  } else {
-    bitonic_sort_desc(keys, k, tid, nthreads);
-  }
-
-  const long long out = static_cast<long long>(r) * k;
-  const uint32_t imask = (1u << a.ibits) - 1u;
-  for (int j = tid; j < k; j += nthreads) {
-    const unsigned long long e = keys[j];
-    const uint32_t key = static_cast<uint32_t>(e >> a.ibits);
-    out_idx[out + j] = static_cast<int>(imask - static_cast<uint32_t>(e & imask));
-    if (F32) {
-      static_cast<unsigned int*>(out_vals)[out + j] = unorderable32(key);
+  // 3. bitonic sort, descending (the radix sort's launches sort and write
+  // the winners of kSortRadix)
+  if (SORT != kSortRadix) {
+    if (SORT == kSortBitonic) {
+      __syncthreads();  // the winners' global stores are read by the sort
+      bitonic_sort_desc_wide(keys, final_smem, k, tid, nthreads);
     } else {
-      static_cast<unsigned short*>(out_vals)[out + j] =
-          static_cast<unsigned short>(unorderable16(key << a.drop));
+      bitonic_sort_desc(keys, k, tid, nthreads);
+    }
+
+    const long long out = static_cast<long long>(r) * k;
+    const uint32_t imask = (1u << a.ibits) - 1u;
+    for (int j = tid; j < k; j += nthreads) {
+      const unsigned long long e = keys[j];
+      const uint32_t key = static_cast<uint32_t>(e >> a.ibits);
+      out_idx[out + j] =
+          static_cast<int>(imask - static_cast<uint32_t>(e & imask));
+      if (F32) {
+        static_cast<unsigned int*>(out_vals)[out + j] = unorderable32(key);
+      } else {
+        static_cast<unsigned short*>(out_vals)[out + j] =
+            static_cast<unsigned short>(unorderable16(key << a.drop));
+      }
     }
   }
   __syncthreads();
@@ -1243,12 +1262,17 @@ cudaError_t run_slab(SlabArgs a, int device, void* out_vals, int* out_idx,
       slab_select_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSlabSmemMax);
   if (err != cudaSuccess) return err;
-  const bool wide = a.k > kSortOnChipMax;
   const int p = pow2_at_least(a.k);
   const size_t final_smem =
-      static_cast<size_t>(wide ? kSortBlock : p) * sizeof(unsigned long long);
-  const auto final_kernel =
-      wide ? slab_final_kernel<F32, true> : slab_final_kernel<F32, false>;
+      static_cast<size_t>(a.sort == kSortShared    ? p
+                          : a.sort == kSortBitonic ? kSortBlock
+                                                   : 0) *
+      sizeof(unsigned long long);
+  const auto final_kernel = a.sort == kSortShared
+                                ? slab_final_kernel<F32, kSortShared>
+                            : a.sort == kSortBitonic
+                                ? slab_final_kernel<F32, kSortBitonic>
+                                : slab_final_kernel<F32, kSortRadix>;
   err = cudaFuncSetAttribute(final_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(final_smem));
@@ -1343,9 +1367,12 @@ __device__ __forceinline__ void row_write(unsigned long long e, long long at,
 // up to ITEMS consecutive keys a thread. A thread keeps two masks over its
 // keys: `live`, those that share the prefix resolved so far, and `win`,
 // those above it.
-// WIDE: the winners in sort_keys (the row's next power of two >= k of
-// them, k > kSortOnChipMax), the shared memory a block of their sort.
-template <bool F32, int ITEMS, bool WIDE>
+// SORT: kSortShared, the winners sorted in shared memory; kSortRadix, the
+// winners written unsorted to sort_keys (k of them a row) for the radix
+// sort's launches; kSortBitonic, sorted in sort_keys (the row's next power
+// of two >= k of them, k > kSortOnChipMax), the shared memory a block of
+// their sort.
+template <bool F32, int ITEMS, int SORT>
 __global__ void __launch_bounds__(kRowThreads, 1)
     row_select_kernel(const void* __restrict__ x, int n, int c, int k,
                       int drop, void* __restrict__ out_vals,
@@ -1353,8 +1380,11 @@ __global__ void __launch_bounds__(kRowThreads, 1)
                       unsigned long long* __restrict__ sort_keys) {
   extern __shared__ unsigned long long row_smem[];
   unsigned long long* keys =
-      WIDE ? sort_keys + static_cast<long long>(blockIdx.x) * pow2_at_least(k)
-           : row_smem;  // the k winners
+      SORT == kSortShared ? row_smem  // the k winners
+                          : sort_keys + static_cast<long long>(blockIdx.x) *
+                                            (SORT == kSortRadix
+                                                 ? k
+                                                 : pow2_at_least(k));
   __shared__ uint4 hist_words[kRowBins / 4];
   __shared__ uint32_t wtot[kRowWarps];          // a warp's bins
   __shared__ uint32_t etot[2][kRowWarps];       // a warp's ties, by tile
@@ -1535,7 +1565,9 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   }
   __syncthreads();
 
-  // 3. the k winners sorted, descending, and written
+  // 3. the k winners sorted, descending, and written (by the radix sort's
+  // launches for kSortRadix)
+  if (SORT == kSortRadix) return;
   const long long out = static_cast<long long>(row) * k;
   if (k <= kRankSortMax) {
     // a winner's place: the winners above it (the keys are unique),
@@ -1554,7 +1586,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
     }
     return;
   }
-  if (WIDE) {
+  if (SORT == kSortBitonic) {
     bitonic_sort_desc_wide(keys, row_smem, k, tid, kRowThreads);
   } else {
     bitonic_sort_desc(keys, k, tid, kRowThreads);
@@ -1567,13 +1599,18 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 template <bool F32, int ITEMS>
 cudaError_t launch_row(const void* x, long long rows, int n, int c, int k,
                        int drop, void* out_vals, int* out_idx,
-                       unsigned long long* sort_keys, cudaStream_t stream) {
+                       unsigned long long* sort_keys, int sort,
+                       cudaStream_t stream) {
   const int p = pow2_at_least(k);
-  const bool wide = sort_keys != nullptr;
-  const size_t smem = static_cast<size_t>(wide ? kSortBlock : p) *
+  const size_t smem = static_cast<size_t>(sort == kSortShared    ? p
+                                          : sort == kSortBitonic ? kSortBlock
+                                                                 : 0) *
                       sizeof(unsigned long long);
-  const auto kernel = wide ? row_select_kernel<F32, ITEMS, true>
-                           : row_select_kernel<F32, ITEMS, false>;
+  const auto kernel = sort == kSortShared
+                          ? row_select_kernel<F32, ITEMS, kSortShared>
+                      : sort == kSortBitonic
+                          ? row_select_kernel<F32, ITEMS, kSortBitonic>
+                          : row_select_kernel<F32, ITEMS, kSortRadix>;
   // on the current device, every launch (a process may use several cards)
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1589,7 +1626,8 @@ cudaError_t launch_row(const void* x, long long rows, int n, int c, int k,
 template <bool F32>
 cudaError_t run_row(const void* x, long long rows, int n, int c, int k,
                     int drop, void* out_vals, int* out_idx,
-                    unsigned long long* sort_keys, cudaStream_t stream) {
+                    unsigned long long* sort_keys, int sort,
+                    cudaStream_t stream) {
   constexpr int V = F32 ? 4 : 8;
   const long long first = n < kRowTile ? n : kRowTile;
   const long long per = ((first + kRowThreads - 1) / kRowThreads + V - 1) /
@@ -1597,20 +1635,34 @@ cudaError_t run_row(const void* x, long long rows, int n, int c, int k,
   return per <= kRowItems / 2
              ? launch_row<F32, kRowItems / 2>(x, rows, n, c, k, drop,
                                               out_vals, out_idx, sort_keys,
-                                              stream)
+                                              sort, stream)
              : launch_row<F32, kRowItems>(x, rows, n, c, k, drop, out_vals,
-                                          out_idx, sort_keys, stream);
+                                          out_idx, sort_keys, sort, stream);
 }
 
-// The row design with its winners sorted in sort_keys (null: in shared
-// memory, k <= kSortOnChipMax).
+// Where a launch sorts the k winners (kSortShared, kSortRadix or
+// kSortBitonic) and whether it may: shared memory holds at most
+// kSortOnChipMax winners and needs no scratch; the radix sort takes any
+// k > 1 (below kSortOnChipMax for measurements only), the bitonic network
+// in scratch only k > kSortOnChipMax.
+bool sort_fits(int sort, int k, const void* sort_keys) {
+  switch (sort) {
+    case kSortShared: return sort_keys == nullptr && k <= kSortOnChipMax;
+    case kSortRadix: return sort_keys != nullptr && k > 1;
+    case kSortBitonic: return sort_keys != nullptr && k > kSortOnChipMax;
+    default: return false;
+  }
+}
+
+// The row design with its winners sorted as `sort` says (sort_keys null
+// for kSortShared).
 int rows_launch(const void* x, int batch, int n, int c, int k, int mode,
                 int drop, void* out_vals, int* out_idx, void* sort_keys,
-                int device, void* stream) {
+                int sort, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k < 1 || k > n || mode < 0 || mode > 2 ||
-      (sort_keys == nullptr) != (k <= kSortOnChipMax)) {
+      !sort_fits(sort, k, sort_keys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = static_cast<long long>(batch) * c;
@@ -1620,16 +1672,16 @@ int rows_launch(const void* x, int batch, int n, int c, int k, int mode,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* keys = static_cast<unsigned long long*>(sort_keys);
   err = mode == 2 ? run_row<true>(x, rows, n, c, k, drop, out_vals, out_idx,
-                                  keys, s)
+                                  keys, sort, s)
                   : run_row<false>(x, rows, n, c, k, drop, out_vals, out_idx,
-                                   keys, s);
+                                   keys, sort, s);
   return static_cast<int>(err);
 }
 
 int slab_launch(const void* x, int batch, int n, int c, int k, int mode,
                 int drop, int hbits, int capr, int levels, void* scratch,
                 long long scratch_bytes, void* out_vals, int* out_idx,
-                void* sort_keys, int device, void* stream) {
+                void* sort_keys, int sort, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(batch) * c;
@@ -1641,7 +1693,7 @@ int slab_launch(const void* x, int batch, int n, int c, int k, int mode,
       static_cast<long long>(n) * c >= (1ll << 31) || rows >= (1ll << 31) ||
       scratch_bytes < static_cast<long long>(l.total) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0 ||
-      (sort_keys == nullptr) != (k <= kSortOnChipMax)) {
+      !sort_fits(sort, k, sort_keys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int ibits = 1;
@@ -1667,10 +1719,560 @@ int slab_launch(const void* x, int batch, int n, int c, int k, int mode,
   a.active = reinterpret_cast<uint32_t*>(base + l.active);
   a.stamps = reinterpret_cast<unsigned long long*>(base + l.stamps);
   a.sort_keys = static_cast<unsigned long long*>(sort_keys);
-  a.sort_cap = pow2_at_least(k);
+  a.sort_cap = sort == kSortRadix ? k : pow2_at_least(k);
+  a.sort = sort;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = mode == 2 ? run_slab<true>(a, device, out_vals, out_idx, s)
                   : run_slab<false>(a, device, out_vals, out_idx, s);
+  return static_cast<int>(err);
+}
+
+// ----------------------------------------------------------------- radix
+//
+// The sort of the k winners past kSortOnChipMax ("wide" selections: a
+// user's pre_nms_top_k past 8,192, the skip_nms lane, a global lane), the
+// design that replaced the bitonic network through global memory. Replaces
+// no TPU kernel: XLA's lax.top_k returns its k in order, and this is that
+// order.
+//
+// Its floor on an H100 is the bytes of the passes: each reads the row's
+// keys and writes them once (2 x rows x k x key bytes); the flagship's 640
+// rows x 76,725 winners are 393 MB of 64-bit keys. A bitonic network
+// moves them ~20 times a row on one SM a row (12.0 ms there). So:
+//   - the keys are compacted to the V + I bits they hold (value key, then
+//     the index part: 32 bits in the packed lane at the flagship, then
+//     32-bit keys, half the bytes; 33 in bf16, 49 in f32), and sorted LSD
+//     by digits of at most kRadixBits bits, as even as they come (4, 5 and
+//     7 passes). One read of the winners (radix_prepare_kernel, its own
+//     CTAs a row: it keeps no order) writes the compact keys and builds
+//     every digit's histogram of the row.
+//   - a pass whose digit is the same for all k keys of a row (rows of one
+//     value, the index bits above the row's largest index) is skipped for
+//     that row: its keys stay in the buffer they are in.
+//   - each pass is a stable scatter (radix_scatter_kernel): a CTA walks
+//     its tiles of kRadixTile keys in order, the next tile streaming into
+//     shared memory (cp.async) while this one is ranked; each warp ranks
+//     its keys item by item: the lanes of a digit set their bits in the
+//     warp's word of the digit (one shared atomicOr a key, in place of a
+//     ballot a bit), and the highest of them adds their count to the
+//     warp's histogram, so that equal digits keep their order. The warps'
+//     counts give each key its place in the tile, the keys are staged
+//     there in shared memory and leave in runs of one digit (near-coalesced
+//     stores; stores straight from registers measured 1.7-1.9x slower) at
+//     the row's running offset of the digit, which carries from tile to
+//     tile. The digits go in descending order, so the sort is descending.
+//   - a row's tiles are split over `segments` CTAs when the rows cannot
+//     fill the card (a global lane's 8 or 1 rows): then a count launch
+//     (radix_count_kernel) gives each segment's digit counts before the
+//     scatter, whose offsets add those of the segments before it. By shape
+//     alone: radix_plan.
+//   - the last pass that moves a row's keys writes its values and indices
+//     instead of keys. The keys go back and forth between the winners'
+//     scratch and a second buffer of the same size, both the wrapper's.
+// What holds it (PERF.md): each tile's chain of ranks, barriers and stores
+// at kRadixCtasPerSm CTAs an SM, not the bytes: 1.8-2.7x the floor.
+// Launches a sort: a memset of the histograms, the prepare kernel, then a
+// scatter a pass (with segments, a count launch before each).
+
+constexpr int kRadixThreads = 256;           // a CTA: one bin a thread
+constexpr int kRadixWarps = kRadixThreads / 32;
+constexpr int kRadixItems = 16;              // keys a thread holds in a tile
+constexpr int kRadixTile = kRadixThreads * kRadixItems;   // 4,096 keys
+constexpr int kRadixBits = 8;                // a digit's most bits
+constexpr int kRadixBins = 1 << kRadixBits;
+constexpr int kRadixMaxPasses = 8;           // keys of up to 64 bits
+constexpr int kRadixTargetCtas = 512;        // a pass's CTAs aimed at
+constexpr int kRadixPrepareCtas = 2048;      // the prepare's CTAs aimed at
+constexpr int kRadixCtasPerSm = 2;           // the scatter's registers
+static_assert(kRadixThreads == kRadixBins, "one bin a thread");
+
+struct RadixPlan {
+  int key_bytes;      // 4 when the keys hold at most 32 bits, else 8
+  int passes;
+  int shift[kRadixMaxPasses], bits[kRadixMaxPasses];   // lowest digit first
+  int tiles;          // of kRadixTile keys, a row
+  int segments;       // CTAs a row
+  int seg_tiles;      // tiles a segment
+  int prep_segments;  // the prepare kernel's CTAs a row (no order to keep)
+  int prep_seg_tiles;
+  long long hist_words, count_words;   // the scratch, 32-bit words
+};
+
+// The sort's numbers for rows of k keys of key_bits bits; segments > 0
+// forces the CTAs a row (clamped to the tiles), for measurements.
+// retinanet_torch/ops/topk_kernel.py:radix_plan mirrors it.
+__host__ RadixPlan radix_plan(long long rows, int k, int key_bits,
+                              int segments) {
+  RadixPlan p{};
+  p.key_bytes = key_bits <= 32 ? 4 : 8;
+  p.passes = (key_bits + kRadixBits - 1) / kRadixBits;
+  const int base = key_bits / p.passes, extra = key_bits % p.passes;
+  int at = 0;
+  for (int i = 0; i < p.passes; ++i) {
+    p.bits[i] = base + (i < extra ? 1 : 0);
+    p.shift[i] = at;
+    at += p.bits[i];
+  }
+  p.tiles = (k + kRadixTile - 1) / kRadixTile;
+  long long s = segments > 0 ? segments
+                             : (kRadixTargetCtas + rows - 1) / rows;
+  s = s > p.tiles ? p.tiles : (s < 1 ? 1 : s);
+  p.seg_tiles = static_cast<int>((p.tiles + s - 1) / s);
+  p.segments = (p.tiles + p.seg_tiles - 1) / p.seg_tiles;
+  s = (kRadixPrepareCtas + rows - 1) / rows;
+  s = s > p.tiles ? p.tiles : s;
+  p.prep_seg_tiles = static_cast<int>((p.tiles + s - 1) / s);
+  p.prep_segments = (p.tiles + p.prep_seg_tiles - 1) / p.prep_seg_tiles;
+  p.hist_words = rows * p.passes * kRadixBins;
+  p.count_words = p.segments > 1 ? rows * p.segments * kRadixBins : 0;
+  return p;
+}
+
+struct RadixArgs {
+  unsigned long long* keys;   // rows x k: the winners, then a pass buffer
+  unsigned long long* alt;    // rows x k: the other pass buffer
+  uint32_t* hist;             // rows x passes x bins
+  uint32_t* counts;           // rows x segments x bins (segments > 1)
+  void* out_vals;
+  int* out_idx;
+  int k, vshift, ibits, drop;
+  int passes, segments, seg_tiles, tiles;
+  int prep_segments, prep_seg_tiles;
+  int pass, pshift, pbits;    // this launch's pass and its digit
+  int shift[kRadixMaxPasses], bits[kRadixMaxPasses];
+};
+
+// A winner (the select kernels' layout: the value key at bit vshift, the
+// index part 2^I - 1 - index in the low I bits) as its compact key.
+template <typename K>
+__device__ __forceinline__ K radix_compact(unsigned long long e, int vshift,
+                                           int ibits) {
+  const unsigned long long imask = (1ull << ibits) - 1ull;
+  return static_cast<K>(((e >> vshift) << ibits) | (e & imask));
+}
+
+template <typename K>
+__device__ __forceinline__ uint32_t radix_digit(K key, int shift, int bits) {
+  return static_cast<uint32_t>(key >> shift) & ((1u << bits) - 1u);
+}
+
+// A thread's run of equal digits: one shared atomic when the digit changes
+// (a row of one value costs a thread one atomic a digit, not one a key).
+__device__ __forceinline__ void radix_run(uint32_t* hist, uint32_t d,
+                                          uint32_t& run_d, uint32_t& run_n) {
+  if (d == run_d) {
+    ++run_n;
+    return;
+  }
+  if (run_n) atomicAdd(&hist[run_d], run_n);
+  run_d = d;
+  run_n = 1;
+}
+
+// The passes that leave a row's keys where they are (bit q: pass q's digit
+// is the same for all k keys), read from its histograms by the whole CTA.
+// k > 1 unique keys differ in some digit, so some pass moves them.
+__device__ uint32_t radix_skips(const RadixArgs& a, int row,
+                                uint32_t* s_mask) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *s_mask = 0u;
+  __syncthreads();
+  const uint32_t* h =
+      a.hist + static_cast<long long>(row) * a.passes * kRadixBins;
+  uint32_t m = 0;
+  for (int q = 0; q < a.passes; ++q) {
+    m |= static_cast<uint32_t>(h[q * kRadixBins + tid] ==
+                               static_cast<uint32_t>(a.k))
+         << q;
+  }
+  m = __reduce_or_sync(kFull, m);
+  if ((tid & 31) == 0 && m) atomicOr(s_mask, m);
+  __syncthreads();
+  return *s_mask;
+}
+
+// The buffer that holds a row's keys before pass `pass`: the prepare
+// kernel writes `alt`, and each pass that moves them swaps the two.
+template <typename K>
+__device__ __forceinline__ K* radix_source(const RadixArgs& a, long long base,
+                                           uint32_t skips) {
+  const uint32_t moved = __popc(~skips & ((1u << a.pass) - 1u));
+  return reinterpret_cast<K*>((moved & 1u) ? a.keys : a.alt) + base;
+}
+
+// CTA (row, segment of the prepare's own): the segment's winners as
+// compact keys into `alt`, and every digit's counts added to the row's
+// histograms.
+template <typename K>
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_prepare_kernel(RadixArgs a) {
+  __shared__ uint32_t hist[kRadixMaxPasses * kRadixBins];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / a.prep_segments;
+  const int seg = blockIdx.x % a.prep_segments;
+  for (int i = tid; i < a.passes * kRadixBins; i += kRadixThreads) {
+    hist[i] = 0u;
+  }
+  __syncthreads();
+  const long long base = static_cast<long long>(row) * a.k;
+  const unsigned long long* in = a.keys + base;
+  K* out = reinterpret_cast<K*>(a.alt) + base;
+  const long long lo =
+      static_cast<long long>(seg) * a.prep_seg_tiles * kRadixTile;
+  const long long hi =
+      min(lo + static_cast<long long>(a.prep_seg_tiles) * kRadixTile,
+          static_cast<long long>(a.k));
+  uint32_t run_d[kRadixMaxPasses], run_n[kRadixMaxPasses];
+#pragma unroll
+  for (int q = 0; q < kRadixMaxPasses; ++q) run_d[q] = run_n[q] = 0u;
+  // four loads in flight a thread
+  for (long long i0 = lo + tid; i0 < hi; i0 += 4 * kRadixThreads) {
+    unsigned long long e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long i = i0 + u * kRadixThreads;
+      e[u] = i < hi ? in[i] : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long i = i0 + u * kRadixThreads;
+      if (i < hi) {
+        const K key = radix_compact<K>(e[u], a.vshift, a.ibits);
+        out[i] = key;
+#pragma unroll
+        for (int q = 0; q < kRadixMaxPasses; ++q) {
+          if (q < a.passes) {
+            radix_run(hist + q * kRadixBins,
+                      radix_digit(key, a.shift[q], a.bits[q]), run_d[q],
+                      run_n[q]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRadixMaxPasses; ++q) {
+    if (q < a.passes && run_n[q]) {
+      atomicAdd(&hist[q * kRadixBins + run_d[q]], run_n[q]);
+    }
+  }
+  __syncthreads();
+  uint32_t* g = a.hist + static_cast<long long>(row) * a.passes * kRadixBins;
+  for (int i = tid; i < a.passes * kRadixBins; i += kRadixThreads) {
+    const uint32_t v = hist[i];
+    if (v) atomicAdd(&g[i], v);
+  }
+}
+
+// CTA (row, segment), segments > 1: the segment's counts of this pass's
+// digit, for the scatter's offsets.
+template <typename K>
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_count_kernel(RadixArgs a) {
+  __shared__ uint32_t hist[kRadixBins];
+  __shared__ uint32_t s_mask;
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / a.segments, seg = blockIdx.x % a.segments;
+  const uint32_t skips = radix_skips(a, row, &s_mask);
+  if ((skips >> a.pass) & 1u) return;
+  hist[tid] = 0u;
+  __syncthreads();
+  const long long base = static_cast<long long>(row) * a.k;
+  const K* src = radix_source<K>(a, base, skips);
+  const long long lo = static_cast<long long>(seg) * a.seg_tiles * kRadixTile;
+  const long long hi =
+      min(lo + static_cast<long long>(a.seg_tiles) * kRadixTile,
+          static_cast<long long>(a.k));
+  uint32_t run_d = 0u, run_n = 0u;
+  for (long long i0 = lo + tid; i0 < hi; i0 += 4 * kRadixThreads) {
+    K e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long i = i0 + u * kRadixThreads;
+      e[u] = i < hi ? src[i] : K(0);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i0 + u * kRadixThreads < hi) {
+        radix_run(hist, radix_digit(e[u], a.pshift, a.pbits), run_d, run_n);
+      }
+    }
+  }
+  if (run_n) atomicAdd(&hist[run_d], run_n);
+  __syncthreads();
+  a.counts[(static_cast<long long>(row) * a.segments + seg) * kRadixBins +
+           tid] = hist[tid];
+}
+
+// The exclusive sum of v over the CTA's threads in thread order; two
+// barriers.
+__device__ __forceinline__ uint32_t radix_scan(uint32_t v,
+                                               uint32_t* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t u = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  const uint32_t wt = lane < kRadixWarps ? warp_tot[lane] : 0u;
+  const uint32_t before = __reduce_add_sync(kFull, lane < warp ? wt : 0u);
+  __syncthreads();  // warp_tot is written again by the next call
+  return before + inc - v;
+}
+
+// A key of the last pass that moves the row's keys: its value and index
+// at the output's place `at`.
+template <typename K, bool F32>
+__device__ __forceinline__ void radix_write(const RadixArgs& a, K key,
+                                            long long at) {
+  const uint32_t imask = (1u << a.ibits) - 1u;
+  const uint32_t vkey = static_cast<uint32_t>(key >> a.ibits);
+  a.out_idx[at] = static_cast<int>(imask - static_cast<uint32_t>(key & imask));
+  if (F32) {
+    static_cast<unsigned int*>(a.out_vals)[at] = unorderable32(vkey);
+  } else {
+    static_cast<unsigned short*>(a.out_vals)[at] =
+        static_cast<unsigned short>(unorderable16(vkey << a.drop));
+  }
+}
+
+// cp.async of one key (4 or 8 bytes), global to shared memory.
+template <typename K>
+__device__ __forceinline__ void copy_async(K* dst, const K* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to),
+               "l"(src), "n"(sizeof(K)));
+}
+
+// CTA (row, segment): one stable pass over the segment's tiles, in order.
+// Thread t owns the bin 255 - t (descending digits in thread order). The
+// next tile streams into shared memory (cp.async) while this one is
+// ranked and written: dynamic shared memory, two tiles of keys.
+template <typename K, bool F32>
+__global__ void __launch_bounds__(kRadixThreads, kRadixCtasPerSm)
+    radix_scatter_kernel(RadixArgs a) {
+  extern __shared__ __align__(16) unsigned char radix_smem[];
+  K* loaded = reinterpret_cast<K*>(radix_smem);   // the next tile's keys
+  K* stage = loaded + kRadixTile;                 // this tile's, in order
+  __shared__ uint32_t warp_hist[kRadixWarps][kRadixBins];
+  __shared__ uint32_t tile_start[kRadixBins];
+  __shared__ uint32_t running[kRadixBins];
+  __shared__ uint32_t warp_tot[kRadixWarps];
+  __shared__ uint32_t s_mask;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x / a.segments, seg = blockIdx.x % a.segments;
+  const uint32_t skips = radix_skips(a, row, &s_mask);
+  if ((skips >> a.pass) & 1u) return;
+  const uint32_t all = (1u << a.passes) - 1u;
+  const bool last = ((~skips & all) >> (a.pass + 1)) == 0u;
+  const long long base = static_cast<long long>(row) * a.k;
+  const K* src = radix_source<K>(a, base, skips);
+  K* dst = reinterpret_cast<K*>(src == reinterpret_cast<K*>(a.alt) + base
+                                    ? a.keys
+                                    : a.alt) +
+           base;
+  const int shift = a.pshift, bits = a.pbits;
+  const int t0 = seg * a.seg_tiles;
+  const int t1 = min(t0 + a.seg_tiles, a.tiles);
+  auto fetch = [&](int t) {
+    const int tbase = t * kRadixTile;
+    const int n_tile = min(kRadixTile, a.k - tbase);
+    for (int i = tid; i < n_tile; i += kRadixThreads) {
+      copy_async(loaded + i, src + tbase + i);
+    }
+  };
+  fetch(t0);
+
+  // the row's offset of my bin: the keys of the bins above it, and those
+  // of my bin in the segments before this one
+  const int b = kRadixBins - 1 - tid;
+  const uint32_t total =
+      a.hist[(static_cast<long long>(row) * a.passes + a.pass) * kRadixBins +
+             b];
+  uint32_t before = 0;
+  for (int s = 0; s < seg; ++s) {
+    before += a.counts[(static_cast<long long>(row) * a.segments + s) *
+                           kRadixBins + b];
+  }
+  running[b] = radix_scan(total, warp_tot) + before;
+
+  uint32_t* wh = warp_hist[warp];
+  const uint32_t lower = (1u << lane) - 1u;
+  uint32_t cnt = 0u;  // my bin's keys in the tile before
+  for (int t = t0; t < t1; ++t) {
+    const int n_tile = min(kRadixTile, a.k - t * kRadixTile);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    running[b] += cnt;
+    // warp w holds the tile's keys [w * 32 * kRadixItems, ...), item j of
+    // lane l the key j * 32 + l of them: memory order is (warp, item, lane)
+    K key[kRadixItems];
+    uint32_t rank[kRadixItems];
+#pragma unroll
+    for (int j = 0; j < kRadixItems; ++j) {
+      const int i = (warp * kRadixItems + j) * 32 + lane;
+      key[j] = i < n_tile ? loaded[i] : K(0);
+    }
+    // the warps' digit words of step 1 live in `stage` until step 3
+    uint32_t* match = reinterpret_cast<uint32_t*>(stage);
+#pragma unroll
+    for (int w = 0; w < kRadixWarps; ++w) {
+      warp_hist[w][tid] = 0u;
+      match[w * kRadixBins + tid] = 0u;
+    }
+    __syncthreads();
+    if (t + 1 < t1) fetch(t + 1);
+    // 1. each key's rank among the warp's keys of its digit before it,
+    // item by item: the lanes of a digit set their bits in the warp's word
+    // of the digit, and the highest of them adds their count to the warp's
+    // histogram and clears the word
+    match += warp * kRadixBins;
+#pragma unroll
+    for (int j = 0; j < kRadixItems; ++j) {
+      const bool valid = (warp * kRadixItems + j) * 32 + lane < n_tile;
+      const uint32_t d = radix_digit(key[j], shift, bits);
+      if (valid) atomicOr(&match[d], 1u << lane);
+      __syncwarp();
+      const uint32_t peers = valid ? match[d] : 0u;
+      const int leader = 31 - __clz(peers);
+      const uint32_t upto = __popc(peers & (lower | (1u << lane)));
+      uint32_t seen = 0u;
+      if (lane == leader) {
+        seen = wh[d];
+        wh[d] = seen + upto;
+      }
+      // every lane has read the word once the shuffle is done
+      seen = __shfl_sync(kFull, seen, leader & 31);
+      if (lane == leader) match[d] = 0u;
+      rank[j] = seen + upto - 1u;
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. my bin: each warp's offset within it (in place), the tile's
+    // count, and its start in the tile (descending digits)
+    cnt = 0u;
+#pragma unroll
+    for (int w = 0; w < kRadixWarps; ++w) {
+      const uint32_t v = warp_hist[w][b];
+      warp_hist[w][b] = cnt;
+      cnt += v;
+    }
+    tile_start[b] = radix_scan(cnt, warp_tot);
+    __syncthreads();
+    // 3. the keys staged in their tile order
+#pragma unroll
+    for (int j = 0; j < kRadixItems; ++j) {
+      if ((warp * kRadixItems + j) * 32 + lane < n_tile) {
+        const uint32_t d = radix_digit(key[j], shift, bits);
+        stage[tile_start[d] + wh[d] + rank[j]] = key[j];
+      }
+    }
+    __syncthreads();
+    // 4. out in runs of one digit, at the row's running offsets (moved on
+    // by my bin's count after the next barrier)
+    for (int i = tid; i < n_tile; i += kRadixThreads) {
+      const K e = stage[i];
+      const uint32_t d = radix_digit(e, shift, bits);
+      const long long at = static_cast<long long>(running[d]) + i -
+                           static_cast<long long>(tile_start[d]);
+      if (last) {
+        radix_write<K, F32>(a, e, base + at);
+      } else {
+        dst[at] = e;
+      }
+    }
+  }
+}
+
+template <typename K, bool F32>
+cudaError_t run_radix(RadixArgs a, long long rows, cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>(rows * a.segments);
+  constexpr int kScatterSmem = 2 * kRadixTile * sizeof(K);
+  // on the current device, every launch (a process may use several cards)
+  cudaError_t err = cudaFuncSetAttribute(
+      radix_scatter_kernel<K, F32>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kScatterSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(
+      a.hist, 0, static_cast<size_t>(rows) * a.passes * kRadixBins * 4,
+      stream);
+  if (err != cudaSuccess) return err;
+  radix_prepare_kernel<K>
+      <<<static_cast<unsigned>(rows * a.prep_segments), kRadixThreads, 0,
+         stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  for (int q = 0; q < a.passes; ++q) {
+    a.pass = q;
+    a.pshift = a.shift[q];
+    a.pbits = a.bits[q];
+    if (a.segments > 1) {
+      radix_count_kernel<K><<<grid, kRadixThreads, 0, stream>>>(a);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    radix_scatter_kernel<K, F32><<<grid, kRadixThreads, kScatterSmem,
+                                   stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The radix sort of the winners that a kSortRadix select launch wrote to
+// keys (rows x k, the value key at bit vshift, vbits of it, the index part
+// in the low ibits), into out_vals and out_idx (rows x k, descending).
+int radix_launch(void* keys, void* alt, void* scratch,
+                 long long scratch_bytes, long long rows, int k, int vshift,
+                 int vbits, int ibits, int mode, int drop, int segments,
+                 void* out_vals, int* out_idx, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int want_vbits = mode == 2 ? 32 : 16 - (mode == 0 ? drop : 0);
+  if (rows < 1 || k < 2 || mode < 0 || mode > 2 || vbits != want_vbits ||
+      ibits < 1 || ibits > 31 || (1ll << ibits) < k ||
+      (vshift != ibits && vshift != 32) || vshift + vbits > 64 ||
+      segments < 0 || keys == nullptr || alt == nullptr ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const RadixPlan p = radix_plan(rows, k, vbits + ibits, segments);
+  if (rows * p.prep_segments >= (1ll << 31) ||
+      scratch_bytes < (p.hist_words + p.count_words) * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RadixArgs a{};
+  a.keys = static_cast<unsigned long long*>(keys);
+  a.alt = static_cast<unsigned long long*>(alt);
+  a.hist = static_cast<uint32_t*>(scratch);
+  a.counts = a.hist + p.hist_words;
+  a.out_vals = out_vals;
+  a.out_idx = out_idx;
+  a.k = k;
+  a.vshift = vshift;
+  a.ibits = ibits;
+  a.drop = mode == 0 ? drop : 0;
+  a.passes = p.passes;
+  a.segments = p.segments;
+  a.seg_tiles = p.seg_tiles;
+  a.tiles = p.tiles;
+  a.prep_segments = p.prep_segments;
+  a.prep_seg_tiles = p.prep_seg_tiles;
+  for (int q = 0; q < kRadixMaxPasses; ++q) {
+    a.shift[q] = p.shift[q];
+    a.bits[q] = p.bits[q];
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 2) {
+    err = run_radix<unsigned long long, true>(a, rows, s);
+  } else if (p.key_bytes == 4) {
+    err = run_radix<uint32_t, false>(a, rows, s);
+  } else {
+    err = run_radix<unsigned long long, false>(a, rows, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -1687,16 +2289,21 @@ int topk_rows_launch(const void* x, int batch, int n, int c, int k, int mode,
                      int drop, void* out_vals, int* out_idx, int device,
                      void* stream) {
   return rows_launch(x, batch, n, c, k, mode, drop, out_vals, out_idx,
-                     nullptr, device, stream);
+                     nullptr, kSortShared, device, stream);
 }
 
-// The same for k > kSortOnChipMax: sort_keys holds batch * c times the next
-// power of two >= k 64-bit keys.
+// The same with the winners in sort_keys. sort 1 (kSortRadix): sort_keys
+// holds batch * c times k 64-bit keys, the winners written unsorted for
+// topk_radix_sort_launch, which writes out_vals and out_idx. sort 2
+// (kSortBitonic, k > kSortOnChipMax): batch * c times the next power of two
+// >= k keys, sorted there by the bitonic network.
 int topk_rows_wide_launch(const void* x, int batch, int n, int c, int k,
                           int mode, int drop, void* out_vals, int* out_idx,
-                          void* sort_keys, int device, void* stream) {
+                          void* sort_keys, int sort, int device,
+                          void* stream) {
+  if (sort == kSortShared) return static_cast<int>(cudaErrorInvalidValue);
   return rows_launch(x, batch, n, c, k, mode, drop, out_vals, out_idx,
-                     sort_keys, device, stream);
+                     sort_keys, sort, device, stream);
 }
 
 // The row design's constants, for the wrapper's copy of them: kRowThreads,
@@ -1713,6 +2320,53 @@ void topk_row_constants(int* out) {
 void topk_sort_constants(int* out) {
   out[0] = kSortOnChipMax;
   out[1] = kSortBlock;
+}
+
+// The radix sort's constants: kRadixThreads, kRadixItems, kRadixBits,
+// kRadixMaxPasses, kRadixTargetCtas, kRadixPrepareCtas.
+void topk_radix_constants(int* out) {
+  out[0] = kRadixThreads;
+  out[1] = kRadixItems;
+  out[2] = kRadixBits;
+  out[3] = kRadixMaxPasses;
+  out[4] = kRadixTargetCtas;
+  out[5] = kRadixPrepareCtas;
+}
+
+// radix_plan's numbers: key bytes, passes, tiles, segments, tiles a
+// segment, the prepare's segments, then each pass's (shift, bits), then
+// the scratch's bytes.
+void topk_radix_plan(long long rows, int k, int key_bits, int segments,
+                     long long* out) {
+  const RadixPlan p = radix_plan(rows, k, key_bits, segments);
+  out[0] = p.key_bytes;
+  out[1] = p.passes;
+  out[2] = p.tiles;
+  out[3] = p.segments;
+  out[4] = p.seg_tiles;
+  out[5] = p.prep_segments;
+  for (int q = 0; q < p.passes; ++q) {
+    out[6 + 2 * q] = p.shift[q];
+    out[7 + 2 * q] = p.bits[q];
+  }
+  out[6 + 2 * p.passes] = (p.hist_words + p.count_words) * 4;
+}
+
+// The radix sort of a kSortRadix launch's winners: keys and alt (rows x k
+// 64-bit keys each; the winners in keys, both overwritten), scratch
+// (radix_plan's histograms and counts), the key layout (the value key of
+// vbits bits at bit vshift: ibits for the slab design, 32 for row; the
+// index part in the low ibits bits), segments (0: radix_plan's), the
+// outputs (rows x k). A memset and 2 + passes launches (2 + 2 x passes with
+// segments) on `stream`, as topk_rows_launch.
+int topk_radix_sort_launch(void* keys, void* alt, void* scratch,
+                           long long scratch_bytes, long long rows, int k,
+                           int vshift, int vbits, int ibits, int mode,
+                           int drop, int segments, void* out_vals,
+                           int* out_idx, int device, void* stream) {
+  return radix_launch(keys, alt, scratch, scratch_bytes, rows, k, vshift,
+                      vbits, ibits, mode, drop, segments, out_vals, out_idx,
+                      device, stream);
 }
 
 // Bytes of the slab design's scratch for these rows (the wrapper allocates
@@ -1732,19 +2386,19 @@ int topk_slab_launch(const void* x, int batch, int n, int c, int k, int mode,
                      int* out_idx, int device, void* stream) {
   return slab_launch(x, batch, n, c, k, mode, drop, hbits, capr, levels,
                      scratch, scratch_bytes, out_vals, out_idx, nullptr,
-                     device, stream);
+                     kSortShared, device, stream);
 }
 
-// The same for k > kSortOnChipMax, with sort_keys as in
-// topk_rows_wide_launch.
+// The same with the winners in sort_keys, sort as in topk_rows_wide_launch.
 int topk_slab_wide_launch(const void* x, int batch, int n, int c, int k,
                           int mode, int drop, int hbits, int capr,
                           int levels, void* scratch, long long scratch_bytes,
                           void* out_vals, int* out_idx, void* sort_keys,
-                          int device, void* stream) {
+                          int sort, int device, void* stream) {
+  if (sort == kSortShared) return static_cast<int>(cudaErrorInvalidValue);
   return slab_launch(x, batch, n, c, k, mode, drop, hbits, capr, levels,
                      scratch, scratch_bytes, out_vals, out_idx, sort_keys,
-                     device, stream);
+                     sort, device, stream);
 }
 
 const char* topk_error_string(int err) {

@@ -42,13 +42,21 @@ Two designs, picked by `topk_design` from the shape alone, both exact:
   design in numpy from them.
 
 Both designs take every k <= N, in every mode: the k winners are sorted by
-the CTA's bitonic network in shared memory up to SORT_ON_CHIP_MAX of them,
-and past it in a scratch of the wrapper's (`sort_width(k)` 64-bit keys a
-row), the network's passes of stride under SORT_BLOCK a block of keys at a
-time in shared memory and the others through global memory.
+the CTA's bitonic network in shared memory up to SORT_ON_CHIP_MAX of them.
+Past it the select launch writes them unsorted into a scratch of (rows, k)
+64-bit keys and the radix sort of `csrc/topk.cu` sorts them and writes the
+outputs (`radix_plan`: an LSD sort of the V + I bits the keys hold, 8-bit
+digits, 32-bit keys when they fit; one read for every digit's histogram,
+then a stable scatter a pass, a row's tiles in order on one CTA or split
+over several when the rows cannot fill the card; a pass whose digit is the
+same for a whole row skipped for it). `kernel.launches_by_sort["radix"]`
+counts those sorts. The bitonic network through global memory
+(`sort="bitonic"`: a scratch of `sort_width(k)` keys a row, the passes of
+stride under SORT_BLOCK a block at a time in shared memory) is on no path:
+the yardstick of `tools/topk_experiments.py --design wide`.
 
 A failed build or launch raises; neither design gives way to the other or
-to the plain version.
+to the plain version, nor one sort to the other.
 
 Build: `ops/cuda_build.py` compiles `csrc/topk.cu` with `nvcc` on first use
 and loads it with ctypes. Importing this module needs no `nvcc`.
@@ -58,7 +66,9 @@ device (the kernels for CUDA, `top_k_rows_plain` for the CPU) and has a
 fake implementation for its output shapes, so that `torch.export` can
 capture a serving graph with the selection in it. `kernel.launches` counts
 every selection, `kernel.launches_by[mode]` those of one mode and
-`kernel.launches_by_design[design]` those of one design.
+`kernel.launches_by_design[design]` those of one design and
+`kernel.launches_by_sort[sort]` the selections past SORT_ON_CHIP_MAX by
+their sort.
 """
 
 from __future__ import annotations
@@ -75,13 +85,28 @@ from retinanet_torch.ops.topk import check_rows, packed_layout, \
 
 # csrc/topk.cu's kSortOnChipMax and kSortBlock, as `topk_sort_constants`
 # returns them: up to SORT_ON_CHIP_MAX winners are sorted in shared memory
-# (the next power of two of them, 8 bytes each); past it, in a scratch of
-# (rows, next power of two >= k) keys, SORT_BLOCK keys of it at a time on
-# chip
-SORT_ON_CHIP_MAX = 16384
+# (the next power of two of them, 8 bytes each); past it by the radix sort
+# (or, asked, in a scratch of (rows, next power of two >= k) keys,
+# SORT_BLOCK keys of it at a time on chip)
+SORT_ON_CHIP_MAX = 8192
 SORT_BLOCK = 16384
 _MODE_CODE = {"packed": 0, "bf16": 1, "f32": 2}
 DESIGNS = ("row", "slab")
+# the sorts of more winners than SORT_ON_CHIP_MAX: csrc/topk.cu's
+# kSortRadix and kSortBitonic
+SORTS = {"radix": 1, "bitonic": 2}
+
+# The radix sort: csrc/topk.cu's kRadixThreads, kRadixItems, kRadixBits,
+# kRadixMaxPasses, kRadixTargetCtas and kRadixPrepareCtas, as
+# `topk_radix_constants` returns them.
+RADIX_THREADS = 256         # a CTA, one bin a thread
+RADIX_ITEMS = 16            # keys a thread holds in a tile
+RADIX_TILE = RADIX_THREADS * RADIX_ITEMS
+RADIX_BITS = 8              # a digit's most bits
+RADIX_BINS = 1 << RADIX_BITS
+RADIX_MAX_PASSES = 8
+RADIX_TARGET_CTAS = 512     # a pass's CTAs aimed at: rows x segments
+RADIX_PREPARE_CTAS = 2048   # the prepare's, which keeps no order
 
 # The row design: csrc/topk.cu's kRowThreads, kRowItems, kRowDigitBits,
 # kRankSortMax and kRankLanes, as `topk_row_constants` returns them.
@@ -110,6 +135,59 @@ def sort_width(k: int) -> int:
     """The keys the final sort of k winners runs over: the next power of
     two >= k."""
     return 1 << max(0, int(k - 1).bit_length())
+
+
+class RadixPlan(NamedTuple):
+    key_bits: int       # V + I: the bits the compact keys hold
+    key_bytes: int      # 4 when they fit 32 bits, else 8
+    digits: Tuple[Tuple[int, int], ...]   # (shift, bits), lowest first
+    tiles: int          # of RADIX_TILE keys, a row
+    segments: int       # CTAs a row
+    seg_tiles: int      # tiles a segment
+    prep_segments: int  # the prepare kernel's CTAs a row
+    scratch_bytes: int  # histograms (rows x passes x bins) and counts
+    #                     (rows x segments x bins when segments > 1)
+
+
+def radix_plan(rows: int, k: int, key_bits: int,
+               segments: Optional[int] = None) -> RadixPlan:
+    """The radix sort's numbers for rows of k keys of key_bits bits: the
+    digits as even as they come in ceil(key_bits / RADIX_BITS) passes, and
+    the CTAs a row, enough for RADIX_TARGET_CTAS CTAs a pass (one a row
+    once rows reach it), by shape alone; the prepare kernel's own CTAs a
+    row, enough for RADIX_PREPARE_CTAS. `segments` forces the CTAs a row
+    of the passes (clamped to the tiles), for measurements.
+    csrc/topk.cu:radix_plan."""
+    passes = -(-key_bits // RADIX_BITS)
+    base, extra = divmod(key_bits, passes)
+    digits, at = [], 0
+    for i in range(passes):
+        bits = base + (i < extra)
+        digits.append((at, bits))
+        at += bits
+    tiles = -(-k // RADIX_TILE)
+    s = segments if segments else -(-RADIX_TARGET_CTAS // rows)
+    s = max(1, min(s, tiles))
+    seg_tiles = -(-tiles // s)
+    s = -(-tiles // seg_tiles)
+    prep = min(-(-RADIX_PREPARE_CTAS // rows), tiles)
+    prep = -(-tiles // -(-tiles // prep))
+    words = rows * passes * RADIX_BINS + (rows * s * RADIX_BINS
+                                          if s > 1 else 0)
+    return RadixPlan(key_bits, 4 if key_bits <= 32 else 8, tuple(digits),
+                     tiles, s, seg_tiles, prep, 4 * words)
+
+
+def radix_layout(n: int, mode: str, design: str) -> Tuple[int, int, int]:
+    """(vshift, vbits, ibits) of the winners a design's select kernel
+    writes for the radix sort: the value key of vbits bits at bit vshift
+    (the slab design's unique key e = value key << I | (2^I - 1 - index);
+    the row design's value key << 32 | ~index), the index part in the low
+    I = ibits bits."""
+    drop = packed_layout(n)[1] if mode == "packed" else 0
+    vbits = 32 if mode == "f32" else 16 - drop
+    ibits = max(int(n - 1).bit_length(), 1)
+    return (ibits if design == "slab" else 32), vbits, ibits
 
 
 def topk_design(b: int, n: int, c: int, k: int) -> str:
@@ -196,7 +274,8 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.topk_rows_wide_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.topk_rows_wide_launch.restype = ctypes.c_int
     lib.topk_slab_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.topk_slab_scratch_bytes.restype = ctypes.c_longlong
@@ -208,8 +287,18 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.topk_slab_wide_launch.argtypes = [
         ctypes.c_void_p] + [ctypes.c_int] * 9 + [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.topk_slab_wide_launch.restype = ctypes.c_int
+    lib.topk_radix_sort_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_radix_sort_launch.restype = ctypes.c_int
+    lib.topk_radix_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.topk_radix_plan.restype = None
     lib.topk_error_string.argtypes = [ctypes.c_int]
     lib.topk_error_string.restype = ctypes.c_char_p
 
@@ -217,15 +306,19 @@ def declare(lib: ctypes.CDLL) -> None:
 class TopkLibrary(CudaLibrary):
     """`csrc/topk.cu` built, with its counts: a selection adds one to
     `launches`, to `launches_by[mode]` and to `launches_by_design[design]`
-    (the slab design's selection is two kernel launches)."""
+    (the slab design's selection is two kernel launches), and one past
+    SORT_ON_CHIP_MAX winners to `launches_by_sort[sort]` (a radix sort is a
+    memset and 2 + passes launches, 2 + 2 x passes with segments)."""
 
     def __init__(self, name: str = "topk", source=None):
         super().__init__(name, declare, source)
         self.launches_by_design: collections.Counter = collections.Counter()
+        self.launches_by_sort: collections.Counter = collections.Counter()
 
     def reset_counts(self) -> None:
         super().reset_counts()
         self.launches_by_design.clear()
+        self.launches_by_sort.clear()
 
 
 # the built library, and the counts of kernel launches
@@ -234,14 +327,19 @@ kernel = TopkLibrary()
 
 def launch(x: torch.Tensor, k: int, mode: str, design: Optional[str] = None,
            capacity: Optional[int] = None,
-           library: Optional[CudaLibrary] = None
+           library: Optional[CudaLibrary] = None,
+           sort: Optional[str] = None, segments: Optional[int] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One selection on a checked contiguous CUDA tensor x (B, N, C):
     values and int32 indices (B, C, k). `design` forces "row" or "slab"
     (default `topk_design`); `capacity` sets the slab design's candidate
     buffer; `library` is another build of `csrc/topk.cu` for
-    measurements."""
-    return _launch(x, k, mode, design, capacity, library)[:2]
+    measurements. `sort` forces how the winners are sorted, for
+    measurements: "radix" (the default past SORT_ON_CHIP_MAX; any k > 1)
+    or "bitonic" (the network through global memory, k > SORT_ON_CHIP_MAX
+    only); `segments` the radix sort's CTAs a row."""
+    return _launch(x, k, mode, design, capacity, library, sort,
+                   segments)[:2]
 
 
 def slab_trace(x: torch.Tensor, k: int, mode: str,
@@ -252,7 +350,8 @@ def slab_trace(x: torch.Tensor, k: int, mode: str,
     read of the slab and its choice) and of the final kernel, and the rows
     deep or ready after each level's choice, and of those the rows still
     deep, and the candidates written in all."""
-    _, _, scratch, plan = _launch(x, k, mode, "slab", capacity, library)
+    _, _, scratch, plan = _launch(x, k, mode, "slab", capacity, library,
+                                  None, None)
     torch.cuda.synchronize(x.device)
     _, _, states_at, active_at, stamps_at = plan.offsets
     b, _, c = x.shape
@@ -279,9 +378,15 @@ def slab_trace(x: torch.Tensor, k: int, mode: str,
             "candidates": written, "plan": plan._asdict()}
 
 
-def _launch(x, k, mode, design, capacity, library):
+def _launch(x, k, mode, design, capacity, library, sort, segments):
     library = library or kernel
     check_rows(x, k, mode)
+    sort = sort or ("radix" if k > SORT_ON_CHIP_MAX else None)
+    if sort is not None and sort not in SORTS:
+        raise ValueError(f"sort must be one of {tuple(SORTS)}, got {sort!r}")
+    if (sort == "bitonic" and k <= SORT_ON_CHIP_MAX) or (
+            sort == "radix" and k < 2):
+        raise ValueError(f"the {sort} sort does not take k={k}")
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous CUDA tensor")
     b, n, c = x.shape
@@ -298,21 +403,22 @@ def _launch(x, k, mode, design, capacity, library):
         return values, idx, scratch, plan
     lib = library.build()
     drop = packed_layout(n)[1] if mode == "packed" else 0
+    device = device_index(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    # past SORT_ON_CHIP_MAX winners the final sort runs in this scratch
-    sort_keys = (torch.empty((b * c, sort_width(k)), dtype=torch.int64,
-                             device=x.device)
-                 if k > SORT_ON_CHIP_MAX else None)
+    # the winners past the shared memory's sort: k a row for the radix
+    # sort, the next power of two for the bitonic network
+    sort_keys = (None if sort is None else torch.empty(
+        (b * c, k if sort == "radix" else sort_width(k)), dtype=torch.int64,
+        device=x.device))
     if design == "row" and sort_keys is None:
         err = lib.topk_rows_launch(
             x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
-            values.data_ptr(), idx.data_ptr(), device_index(x.device),
-            stream)
+            values.data_ptr(), idx.data_ptr(), device, stream)
     elif design == "row":
         err = lib.topk_rows_wide_launch(
             x.data_ptr(), b, n, c, k, _MODE_CODE[mode], drop,
             values.data_ptr(), idx.data_ptr(), sort_keys.data_ptr(),
-            device_index(x.device), stream)
+            SORTS[sort], device, stream)
     else:
         if n * c >= 2 ** 31:
             raise ValueError(f"an image of {n} x {c} elements is too large "
@@ -324,17 +430,31 @@ def _launch(x, k, mode, design, capacity, library):
                   plan.hist_bits, plan.capacity, plan.levels,
                   scratch.data_ptr(), plan.scratch_bytes, values.data_ptr(),
                   idx.data_ptr())
-        err = (lib.topk_slab_launch(*common, device_index(x.device), stream)
+        err = (lib.topk_slab_launch(*common, device, stream)
                if sort_keys is None else lib.topk_slab_wide_launch(
-                   *common, sort_keys.data_ptr(), device_index(x.device),
+                   *common, sort_keys.data_ptr(), SORTS[sort], device,
                    stream))
+    if err == 0 and sort == "radix":
+        vshift, vbits, ibits = radix_layout(n, mode, design)
+        rplan = radix_plan(b * c, k, vbits + ibits, segments)
+        alt = torch.empty_like(sort_keys)
+        hist = torch.empty(rplan.scratch_bytes, dtype=torch.uint8,
+                           device=x.device)
+        err = lib.topk_radix_sort_launch(
+            sort_keys.data_ptr(), alt.data_ptr(), hist.data_ptr(),
+            rplan.scratch_bytes, b * c, k, vshift, vbits, ibits,
+            _MODE_CODE[mode], drop, segments or 0, values.data_ptr(),
+            idx.data_ptr(), device, stream)
     if err != 0:
-        raise RuntimeError(f"top-k kernel ({design}, {mode}) launch failed: "
+        raise RuntimeError(f"top-k kernel ({design}, {mode}, sort {sort}) "
+                           "launch failed: "
                            + lib.topk_error_string(err).decode())
     library.launches += 1
     library.launches_by[mode] += 1
     if isinstance(library, TopkLibrary):
         library.launches_by_design[design] += 1
+        if sort is not None:
+            library.launches_by_sort[sort] += 1
     return values, idx, scratch, plan
 
 

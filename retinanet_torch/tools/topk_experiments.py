@@ -3,7 +3,8 @@ variants of `csrc/topk.cu`.
 
 `--design slab` (the default): the slab design's candidate buffer's
 capacity and its variants, each timed with its phases (the kernel's own
-%globaltimer stamps) beside the base build. Cases: the flagship's batch-8
+%globaltimer stamps) beside the base build, and with `--parent DIR` the
+slab design of another tree's `csrc/topk.cu`. Cases: the flagship's batch-8
 fused logits (the seeded model with the class bias at 0, as
 `chip_smoke.py` phase 16 makes them: ~2,400 distinct bf16 values in a row
 of 76,725, so the k-th value ties heavily) in the default ("packed") and
@@ -23,12 +24,18 @@ another tree's `csrc/topk.cu` (the same C interface), each timed twice in
 turns.
 
 `--design wide`: k past 8,192 winners on the flagship's batch-8 fused
-logits (k = 8,193, 10,000, 16,384 = the on-chip sort's last, 16,385 = the
-first sorted in global scratch, and 76,725 = every anchor) in "packed"
-and "f32": the row and slab designs (past 16,384 also the slab design
-with the wide sort's block of 4,096 and 8,192 keys) timed in turns
-beside `torch.topk` along the anchors, the plain version and the bytes
-bound; the slab design's phases from its stamps.
+logits (640 rows x 76,725) in "packed", "bf16" and "f32" (WIDE_KS: the
+on-chip sort's last k, 8,192, then the radix sort's k up to every
+anchor), and on the global lane at batch 8 and 1 (rows of 6,138,000,
+GLOBAL_KS): past SORT_ON_CHIP_MAX the radix sort on both
+designs, at 1, 2, 4 CTAs a row and a CTA a tile beside `radix_plan`'s
+pick, the bitonic network it replaced (`sort="bitonic"`), the variants of
+WIDE_VARIANTS (the select alone: its difference is the sort's time; 64-bit
+keys where 32 bits hold them), at k <= SORT_ON_CHIP_MAX the on-chip sort
+beside the radix sort; all timed in turns with `torch.topk` along the
+anchors;
+beside the plain version, the bytes bound and the radix sort's own floor
+(`radix_floor_ms`).
 
 A variant whose name starts with "cut:" computes something else and is
 timed only; every other one must equal the plain version, or the tool
@@ -41,6 +48,7 @@ exits 1.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from retinanet_torch.ops import topk_kernel as tk
+from retinanet_torch.ops.cuda_build import CudaLibrary
 from retinanet_torch.tools.kernel_variants import (build_all, card_line,
                                                    variant_library)
 
@@ -107,13 +116,17 @@ LAUNCH_FLOOR = [
      "  const unsigned row = blockIdx.x;\n")]
 PRIOR = -4.59511985
 SURVIVORS_K = 100
-WIDE_KS = (8193, 10000, 16384, 16385, 76725)
-# the wide sort's block of keys on chip (k > 16,384 only)
+WIDE_KS = (8192, 8193, 16384, 16385, 24576, 32768, 49152, 76725)
+GLOBAL_KS = (16385, 76725)
+# the radix sort's variants (k > SORT_ON_CHIP_MAX only)
 WIDE_VARIANTS = {
-    "sort block 4096": [("constexpr int kSortBlock = 16384;",
-                         "constexpr int kSortBlock = 4096;")],
-    "sort block 8192": [("constexpr int kSortBlock = 16384;",
-                         "constexpr int kSortBlock = 8192;")],
+    "cut: the select alone": [
+        ("  const RadixPlan p = radix_plan(rows, k, vbits + ibits, "
+         "segments);\n",
+         "  const RadixPlan p = radix_plan(rows, k, vbits + ibits, "
+         "segments);\n  if (rows > 0) return 0;\n")],
+    "64-bit keys": [("  p.key_bytes = key_bits <= 32 ? 4 : 8;",
+                     "  p.key_bytes = 8;")],
 }
 
 
@@ -123,6 +136,40 @@ def launch_floor_library():
     route: measurements only."""
     return variant_library(tk.kernel, tk.declare, "cut: launch floor",
                            LAUNCH_FLOOR)
+
+
+def declare_on_chip(lib) -> None:
+    """The launches of k <= SORT_ON_CHIP_MAX, whose C interface an older
+    tree's `csrc/topk.cu` shares (its wide launches differ)."""
+    lib.topk_rows_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_rows_launch.restype = ctypes.c_int
+    lib.topk_slab_launch.argtypes = [
+        ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.topk_slab_launch.restype = ctypes.c_int
+    lib.topk_error_string.argtypes = [ctypes.c_int]
+    lib.topk_error_string.restype = ctypes.c_char_p
+
+
+def parent_library(tree: str) -> CudaLibrary:
+    """Another tree's `retinanet_torch/csrc/topk.cu`, built for its
+    launches at k <= SORT_ON_CHIP_MAX."""
+    from pathlib import Path
+    return CudaLibrary("topk_parent", declare_on_chip, source=Path(tree)
+                       / "retinanet_torch" / "csrc" / "topk.cu")
+
+
+def select_alone_library():
+    """`csrc/topk.cu` with the radix sort returning at once: a wide
+    selection's select launch alone (its outputs unwritten), whose time
+    taken from the whole selection's is the sort's. On no route:
+    measurements only."""
+    name = "cut: the select alone"
+    return variant_library(tk.kernel, tk.declare, name, WIDE_VARIANTS[name])
 
 
 def capture_survivors(serve, images) -> torch.Tensor:
@@ -207,12 +254,9 @@ def time_row(x: torch.Tensor, libraries: dict, reps: int = 200) -> dict:
 
 
 def row_main(args, card: str) -> int:
-    from pathlib import Path
     libraries = {"row": tk.kernel}
     if args.parent:
-        libraries["parent row"] = tk.TopkLibrary(
-            "topk_parent", source=Path(args.parent) / "retinanet_torch"
-            / "csrc" / "topk.cu")
+        libraries["parent row"] = parent_library(args.parent)
     libraries.update({name: variant_library(tk.kernel, tk.declare, name, e)
                       for name, e in ROW_CUTS.items()})
     libraries["cut: launch floor"] = launch_floor_library()
@@ -311,64 +355,126 @@ def measure(x: torch.Tensor, k: int, mode: str, capacity=None,
                          for name, ns in trace["phase_ns"].items()}}
 
 
-def wide_main(args, card: str) -> int:
+def radix_floor_ms(x: torch.Tensor, k: int, mode: str, values,
+                   idx) -> float:
+    """The radix sort's own floor at 3.35 TB/s: its passes' bytes for these
+    winners (the selection's outputs `values`, `idx`): the prepare read of
+    the 64-bit winners and write of the compact keys, then for each row
+    every pass its digit does not skip reading and writing the keys, the
+    last writing values and int32 indices in their place."""
+    from retinanet_torch.ops.topk import value_key
+    b, n, c = x.shape
+    _, vbits, ibits = tk.radix_layout(n, mode, "slab")
+    plan = tk.radix_plan(b * c, k, vbits + ibits)
+    vkey = value_key(values, mode, n)
+    key = (vkey << ibits) | ((1 << ibits) - 1 - idx.long())
+    key = key.reshape(b * c, k)
+    moved = torch.zeros(b * c, dtype=torch.int64, device=x.device)
+    for shift, bits in plan.digits:
+        digit = (key >> shift) & ((1 << bits) - 1)
+        moved += (digit != digit[:, :1]).any(1).long()
+    kb = plan.key_bytes
+    per_key = (8 + kb + (2 * moved.clamp(min=1) - 1) * kb
+               + x.element_size() + 4)
+    return float(per_key.sum()) * k / 3.35e12 * 1e3
+
+
+def wide_case(x: torch.Tensor, k: int, mode: str, variants: dict,
+              card: str, sweep: bool = True, reps: int = 5) -> dict:
+    """One wide case, every run index- and value-exact to the plain
+    version (cuts timed only), timed twice in turns: past
+    SORT_ON_CHIP_MAX the radix sort on both designs, the bitonic network
+    and each of `variants` (built libraries, by name), with `sweep` the
+    radix sort at 1, 2, 4 CTAs a row and a CTA a tile too; else the
+    on-chip sort beside the radix sort."""
     from retinanet_torch.ops.topk import top_k_rows_plain
     from retinanet_torch.utils.benchmark import device_time_ms
+    b, n, c = x.shape
+    design = tk.topk_design(b, n, c, k)
+    other = "row" if design == "slab" else "slab"
+    runs = {}
+    if k > tk.SORT_ON_CHIP_MAX:
+        plan = tk.radix_plan(b * c, k, sum(tk.radix_layout(n, mode,
+                                                           design)[1:]))
+        runs["radix"] = lambda: tk.launch(x, k, mode)
+        runs["bitonic"] = lambda: tk.launch(x, k, mode, sort="bitonic")
+        runs[f"radix, {other}"] = lambda: tk.launch(x, k, mode,
+                                                    design=other)
+        for s in (sorted({1, 2, 4, plan.tiles} - {plan.segments})
+                  if sweep else ()):
+            runs[f"radix, {s} CTAs a row"] = (
+                lambda s=s: tk.launch(x, k, mode, segments=s))
+        for name, lib in variants.items():
+            if name == "64-bit keys" and plan.key_bytes == 8:
+                continue
+            runs[f"radix, {name}"] = (
+                lambda lib=lib: tk.launch(x, k, mode, library=lib))
+    else:
+        plan = None
+        runs["on chip"] = lambda: tk.launch(x, k, mode)
+        runs["radix"] = lambda: tk.launch(x, k, mode, sort="radix")
+    want = top_k_rows_plain(x, k, mode)
+    view = torch.int32 if mode == "f32" else torch.int16
+    exact = {}
+    for name, fn in runs.items():
+        if "cut:" in name:
+            continue
+        got = fn()
+        torch.cuda.synchronize()
+        exact[name] = (torch.equal(got[1], want[1]) and torch.equal(
+            got[0].view(view), want[0].view(view)))
+        del got
+    runs["torch.topk"] = lambda: torch.topk(x, k, dim=1)
+    times = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        times[name].append(device_time_ms(runs[name], reps=reps))
+    res = {"mode": mode, "shape": [b, n, c], "k": k, "design": design,
+           "card": card, "exact": exact, "ms": times,
+           "bound_ms": (x.numel() * x.element_size()
+                        + b * c * k * (x.element_size() + 4)) / 3.35e12
+           * 1e3}
+    if plan is not None:
+        res["plan"] = plan._asdict()
+        res["sort_floor_ms"] = radix_floor_ms(x, k, mode, *want)
+    del want
+    res["plain_ms"] = device_time_ms(lambda: top_k_rows_plain(x, k, mode),
+                                     reps=2)
+    return res
+
+
+def wide_main(args, card: str) -> int:
     variants = {name: variant_library(tk.kernel, tk.declare, name, edits)
                 for name, edits in WIDE_VARIANTS.items()}
     build_all([tk.kernel, *variants.values()])
     logits = flagship_logits(8)
+    bf = logits.to(torch.bfloat16)
+    cases = [(f"flagship {mode}", rows, k, mode)
+             for mode, rows in (("packed", bf), ("bf16", bf),
+                                ("f32", logits))
+             for k in WIDE_KS]
+    for batch in (8, 1):
+        for mode, rows in (("bf16", bf), ("f32", logits)):
+            flat = rows[:batch].reshape(batch, -1, 1)
+            cases += [(f"global lane, batch {batch}, {mode}", flat, k, mode)
+                      for k in GLOBAL_KS]
     results, failed = [], False
-    for mode, x in (("packed", logits.to(torch.bfloat16)), ("f32", logits)):
-        nbytes = x.numel() * x.element_size()
-        for k in WIDE_KS:
-            want = top_k_rows_plain(x, k, mode)
-            view = torch.int32 if mode == "f32" else torch.int16
-            runs = {d: (lambda d=d: tk.launch(x, k, mode, design=d))
-                    for d in tk.DESIGNS}
-            if k > tk.SORT_ON_CHIP_MAX:
-                for name, lib in variants.items():
-                    runs[f"slab, {name}"] = (
-                        lambda lib=lib: tk.launch(x, k, mode, design="slab",
-                                                  library=lib))
-            res = {"mode": mode, "shape": list(x.shape), "k": k,
-                   "card": card, "sort_in_scratch":
-                   k > tk.SORT_ON_CHIP_MAX}
-            for name, fn in runs.items():
-                got = fn()
-                torch.cuda.synchronize()
-                exact = (torch.equal(got[1], want[1]) and torch.equal(
-                    got[0].view(view), want[0].view(view)))
-                failed |= not exact
-                res[f"{name}_exact"] = exact
-            times = {name: [] for name in runs}
-            for name in [*runs, *reversed(runs)]:
-                times[name].append(device_time_ms(runs[name], reps=5))
-            for name, ms in times.items():
-                res[f"{name}_ms"] = ms
-            res["torch_topk_ms"] = device_time_ms(
-                lambda: torch.topk(x, k, dim=1), reps=5)
-            res["plain_ms"] = device_time_ms(
-                lambda: top_k_rows_plain(x, k, mode), reps=2)
-            b, _, c = x.shape
-            res["bound_ms"] = (nbytes + b * c * k * (x.element_size() + 4)
-                               ) / 3.35e12 * 1e3
-            trace = tk.slab_trace(x, k, mode)
-            res["slab_phase_ms"] = {p: ns / 1e6
-                                    for p, ns in trace["phase_ns"].items()}
-            results.append(res)
-            print(f"[wide] {mode} k={k}: "
-                  + ", ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ms)
-                              for name, ms in times.items())
-                  + f" ms, torch.topk {res['torch_topk_ms']:.4f}, plain "
-                  f"{res['plain_ms']:.3f}, bound {res['bound_ms']:.5f}; "
-                  "exact: " + ", ".join(
-                      f"{name} {res[f'{name}_exact']}" for name in runs)
-                  + "; "
-                  "slab phases "
-                  + ", ".join(f"{p} {v:.4f}"
-                              for p, v in res["slab_phase_ms"].items()),
-                  flush=True)
+    for label, x, k, mode in cases:
+        res = {"case": label, **wide_case(x, k, mode, variants, card)}
+        failed |= not all(res["exact"].values())
+        results.append(res)
+        print(f"[wide] {label} {res['shape']} k={k} ({res['design']}): "
+              + ", ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ms)
+                          + ("" if res["exact"].get(name, True)
+                             else " DIFFERS")
+                          for name, ms in res["ms"].items())
+              + f" ms; bound {res['bound_ms']:.5f}"
+              + (f", sort floor {res['sort_floor_ms']:.5f}"
+                 if "sort_floor_ms" in res else "")
+              + f", plain {res['plain_ms']:.3f}"
+              + (f"; plan {res['plan']['segments']} CTAs a row, "
+                 f"{len(res['plan']['digits'])} passes, "
+                 f"{res['plan']['key_bytes']}-byte keys"
+                 if "plan" in res else ""), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             for res in results:
@@ -381,8 +487,9 @@ def main(argv=None) -> int:
     parser.add_argument("--design", choices=("slab", "row", "wide"),
                         default="slab")
     parser.add_argument("--parent", default=None,
-                        help="a tree whose csrc/topk.cu's row design is "
-                             "timed beside this one's (--design row)")
+                        help="a tree whose csrc/topk.cu's row or slab "
+                             "design is timed beside this one's (--design "
+                             "row, slab)")
     parser.add_argument("--out", default=None, help="JSONL of the results")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -396,6 +503,8 @@ def main(argv=None) -> int:
         return wide_main(args, card)
     variants = {name: variant_library(tk.kernel, tk.declare, name, edits)
                 for name, edits in VARIANTS.items()}
+    if args.parent:
+        variants["parent"] = parent_library(args.parent)
     build_all([tk.kernel, *variants.values()])
     logits = flagship_logits(8)
     rng = np.random.default_rng(0)

@@ -165,7 +165,8 @@ def test_sort_constants_are_the_kernels():
     # sort's width (past SORT_ON_CHIP_MAX, a power of two) holds whole
     # blocks
     assert tk.SORT_ON_CHIP_MAX * 8 <= 227 * 1024
-    assert tk.SORT_BLOCK <= tk.SORT_ON_CHIP_MAX
+    assert tk.SORT_BLOCK * 8 <= 227 * 1024
+    assert tk.SORT_BLOCK <= tk.sort_width(tk.SORT_ON_CHIP_MAX + 1)
 
 
 @pytest.mark.parametrize("k,want", [(1, 1), (100, 128), (8192, 8192),
