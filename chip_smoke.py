@@ -141,14 +141,18 @@ JAX. Phases, each fatal on failure:
      stem kernels at most once a call of their design, no
      `quantize_words_kernel`, and `quantize_bytes_kernel` at most once a
      wgmma call (launches by kernel name), and the "depthwise_generic"
-     design
-     bit-equal at the first depthwise call through an input off 16-byte
-     alignment; (g) every distinct narrow shape (dense, 4 <= C <= 16) of
-     MobileDet-edge_tpu, MobileDet-gpu, EfficientNet-B2 and B3 at batch 8,
-     from their configs on `device="meta"`, on seeded inputs and weights:
-     bit-equal to the plain version, timed beside the mma_sync design at
-     the same shape (`tools/int8_conv_experiments.py:routed`), cuDNN bf16
-     and the bound;
+     design bit-equal at the first depthwise call through an input off
+     16-byte alignment, timed beside its bound, cuDNN bf16 and the
+     "depthwise" design on the same call aligned; (g) every distinct
+     narrow shape (dense, 4 <= C <= 16) of MobileDet-edge_tpu,
+     MobileDet-gpu, EfficientNet-B2 and B3 at batch 8, from their configs
+     on `device="meta"`, on seeded inputs and weights: bit-equal to the
+     plain version, timed beside the mma_sync design at the same shape
+     (`tools/int8_conv_experiments.py:routed`), cuDNN bf16 and the bound;
+     (h) seeded "depthwise_generic" calls at batch 8 of the branches no
+     config reaches (C % 8 != 0, 7x7/1, stride 3: `GENERIC_CALLS`), each
+     bit-equal to the plain version, timed beside its bound, the plain
+     version and cuDNN bf16;
  13. the host data path: (a) a COCO download folder written here
      (`annotations/instances_{train,val}2017.json`, scenes encoded by the
      port's JPEG route under COCO's 80 category ids, crowd boxes, an image
@@ -478,6 +482,15 @@ INT8_ZOO = (
     ("mobiledet-cpu 448", REPO / "configs" / "v3-8"
      / "mscoco-retinanet-mobiledet-cpu-448x448-30x-64.json",
      {"stem": 1, "narrow": 6, "wgmma": 93, "depthwise": 43}),
+)
+# phase 12 (h): "depthwise_generic" calls of the branches no config's
+# request reaches, at batch-8 sizes: (label, (N, H, W, C), k, stride),
+# "SAME" pads, an aligned bfloat16 input
+GENERIC_CALLS = (
+    ("C % 8 != 0 (two chunks, the second ragged)", (8, 128, 128, 36), 3,
+     1),
+    ("7x7/1", (8, 128, 128, 96), 7, 1),
+    ("stride 3", (8, 192, 192, 32), 3, 3),
 )
 # phase 12 (e), (f): requests in the trace that counts the int8 kernels
 INT8_PROFILED_REQUESTS = 3
@@ -3324,6 +3337,12 @@ def phase_export_int8(workdir: Path) -> tuple:
     record["max_abs_err"] = max(record["max_abs_err"], narrow_err)
     record["narrow_shapes"] = narrow_rows
     print(f"[int8] (g) took {time.perf_counter() - start:.1f} s")
+    # (h) the generic design's other branches at sizes a model would give it
+    start = time.perf_counter()
+    generic_rows, generic_err = phase_generic_calls()
+    record["max_abs_err"] = max(record["max_abs_err"], generic_err)
+    record["generic_calls"] = generic_rows
+    print(f"[int8] (h) took {time.perf_counter() - start:.1f} s")
     record["coco_on_goldens"] = scores
     return record, export_paths["nms_lanes"]
 
@@ -3473,8 +3492,9 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
     print(f"[int8] {label}: depthwise_generic at {list(x.shape)} k"
           f"{args[8]}/{args[5]} (input {x.element_size()} bytes off 16) "
           f"bit-equal, {generic_ms:.4f} ms; bound {generic_bound:.5f} ms "
-          f"(bytes), cuDNN bf16 depthwise {generic['cudnn_bf16_ms']:.4f} "
-          "ms at the shape")
+          f"(bytes), plain {generic['plain_ms']:.3f}, cuDNN bf16 depthwise "
+          f"{generic['cudnn_bf16_ms']:.4f} ms at the shape, \"depthwise\" "
+          f"on the same call aligned {generic['ms']:.4f} ms")
     stem = next(r for r in rows if r["design"] == "stem")
     return {"config": str(path.relative_to(REPO)), "calls": len(calls),
             "stem": {k: stem[k] for k in (
@@ -3492,7 +3512,76 @@ def int8_zoo_request(label: str, path: Path, want: dict) -> dict:
                                   "int8_launches_by_kernel": ran},
             "generic_ms": generic_ms, "generic_bound_ms": generic_bound,
             "generic_cudnn_bf16_ms": generic["cudnn_bf16_ms"],
+            "generic_plain_ms": generic["plain_ms"],
+            "generic_depthwise_aligned_ms": generic["ms"],
             "shape_table": table}
+
+
+def phase_generic_calls() -> tuple:
+    """Phase 12 (h): seeded "depthwise_generic" calls at batch-8 sizes of
+    its branches that no config's request reaches (C % 8 != 0, a 7x7
+    window, stride 3), each bit-equal to the plain version and timed
+    beside its bound, the plain version and cuDNN bf16 (the "depthwise"
+    design takes none of them). Returns (records, the largest |kernel -
+    plain|)."""
+    import torch.nn.functional as F
+    from retinanet_torch.models.layers import same_pads
+    from retinanet_torch.ops import int8_conv_kernel
+    from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,
+                                               pack_weights)
+    kernel = int8_conv_kernel.kernel
+    rows, max_err = [], 0.0
+    for i, (label, (n, h, w, c), k, stride) in enumerate(GENERIC_CALLS):
+        rng = np.random.default_rng(300 + i)
+        x = torch.from_numpy(rng.normal(0, 1.5, (n, h, w, c)).astype(
+            np.float32)).to(torch.bfloat16).cuda()
+        qw = torch.from_numpy(rng.integers(-127, 128, (c, 1, k, k))
+                              .astype(np.int8))
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(
+            np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(0, 1, c).astype(
+            np.float32)).cuda()
+        pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+        args = (x, pack_weights(qw, c).cuda(), scale, bias, 0.02, stride,
+                pads, c, k, k, torch.bfloat16)
+        design = int8_conv_kernel.int8_design(c, c, k, k, stride, c)
+        check(design == "depthwise_generic", f"{label} takes {design}")
+        before = kernel.launches_by["depthwise_generic"]
+        with torch.inference_mode():
+            got = int8_conv_kernel.launch(*args)
+            want = int8_conv2d_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        check(kernel.launches_by["depthwise_generic"] == before + 1
+              and torch.equal(got, want),
+              f"{label}: depthwise_generic differs from the plain version "
+              f"by {err}")
+        t_ops, t_bytes = int8_call_bound(x, bias, got, k, k, stride, pads, c)
+        xb = F.pad(x.permute(0, 3, 1, 2),
+                   (pads[2], pads[3], pads[0], pads[1]))
+        wb = qw.to(torch.bfloat16).cuda().contiguous(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            row = {"call": label, "x": [n, h, w, c], "k": k,
+                   "stride": stride, "max_abs_err": err,
+                   "ms": time_ms(lambda: int8_conv_kernel.launch(*args),
+                                 reps=5),
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "plain_ms": time_ms(lambda: int8_conv2d_plain(*args),
+                                       reps=1, warmup=0),
+                   "cudnn_bf16_ms": time_ms(
+                       lambda: F.conv2d(xb, wb, None, stride, 0, 1, c),
+                       reps=5),
+                   "depthwise_aligned_ms": None}
+        rows.append(row)
+        print(f"[int8] (h) {label} {list(x.shape)} {k}x{k}/{stride}: "
+              f"depthwise_generic bit-equal, {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.3f}, cuDNN bf16 {row['cudnn_bf16_ms']:.4f}"
+              "; \"depthwise\" takes no such call")
+    return rows, max_err
 
 
 def narrow_shapes(path: Path) -> dict:

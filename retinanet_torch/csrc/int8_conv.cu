@@ -157,11 +157,21 @@
 //     programmatic dependent launch: barriers and weights overlap the
 //     previous kernel's tail;
 //   * "depthwise_generic", every other depthwise conv (any window and
-//     stride, C not a multiple of 8, an unaligned input): the same tile
-//     and int8 planes, the box loaded and quantized by the threads' own
-//     loads, the window taken in blocks of at most 16 x 16 taps (each
-//     block's box quantized once, the sums kept in shared memory across
-//     blocks), int32 multiply-adds, plain stores.
+//     stride, C not a multiple of 8, an input off 16-byte alignment): the
+//     same function and bound (bytes), where TMA takes neither the input's
+//     base nor its pixel stride. The same items and int8 planes; a ring of
+//     raw boxes filled by the threads' cp.async copies of the 16-byte
+//     aligned units that cover each run of the box (a box row when one
+//     chunk holds every channel, else a pixel's chunk), on mbarriers, the
+//     next box's copies under this one's products; each element quantized
+//     once from its byte lead in the run (the division only near a tie,
+//     for a warp's list of such elements, a lane each);
+//     four taps of a window row a __dp4a against tap words built once a
+//     chunk in shared memory, a thread's 4 x 4 block of sums in registers
+//     across the window (windows in blocks of 16 x 16 taps only where the
+//     whole window's box fits no shared memory); a staging tile laid out
+//     as the output's runs at their 16-byte phase, stored in whole 16-byte
+//     units; persistent, PDL (PERF.md, B.4).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -222,6 +232,10 @@ struct Int8ConvArgs {
   // box's rows in the raw ring are raw_pitch bytes apart (its quantized
   // pixels are 4 bytes, K slots of one word; no TMA load, no flat view)
   int raw_pitch;
+  // depthwise_generic, with the depthwise fields: a raw box's runs are
+  // raw_pitch bytes apart, the tap words at w_off, the staging tile's runs
+  // out_pitch bytes apart at out_off
+  int out_pitch;
 };
 
 namespace {
@@ -233,6 +247,12 @@ constexpr int kPad = 4;        // mma_sync: words of padding a smem row
 constexpr int kThreads = 256;  // mma_sync: 8 warps, 2 x 4, each 64 x 32
 constexpr int kDwThreads = 256;  // depthwise: threads a CTA
 constexpr int kDwBlock = 4;     // depthwise: a thread's block, 4 x 4 outputs
+// depthwise_generic: a warp's list of the elements in doubt of a box
+// (ops/int8_conv_kernel.py: GEN_DOUBTS), after the box's barriers
+constexpr int kGenDoubts = 128;
+constexpr int kGenDoubtsOff = 64;
+// depthwise_generic: the window rows of the kernels specialised on (G, S)
+constexpr int kGenTapRows = 8;
 constexpr int kNarrowThreads = 256;  // narrow: threads a CTA, 8 warps
 constexpr int kUnitM = 2;  // narrow: m16 fragments of a warp's unit
 constexpr int kStemThreads = kNarrowThreads;  // stem: the same body's
@@ -730,6 +750,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_address(bar))
+               : "memory");
+}
+
+// When this thread's cp.async copies so far have landed, one arrival on
+// `bar` (which counts it among those it expects).
+__device__ __forceinline__ void copies_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_address(bar))
                : "memory");
 }
@@ -1449,89 +1477,660 @@ __global__ void __launch_bounds__(kDwThreads, 3)
   if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the stores
 }
 
-// The "depthwise_generic" design: any window and stride, any C, any
-// alignment. The same items and int8 planes; the threads load and quantize
-// each window block's box themselves (zeros outside the input and past C),
-// a thread sums its channel at the outputs p = worker, worker + workers,
-// ... of the tile with int32 multiply-adds, and keeps the sums in shared
-// memory (at out_off) across window blocks.
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kDwThreads)
+// The "depthwise_generic" design: any window (kh x kw), any stride, any C,
+// any alignment of the input. The items and int8 planes of "depthwise";
+// what TMA cannot take, the threads copy:
+//   * a ring of raw boxes filled by the threads' 16-byte cp.async copies
+//     (each thread arrives on the stage's mbarrier when its copies land),
+//     the next box's copies under this box's products. A box is runs: a
+//     box row of box_w x C elements when one chunk holds every channel
+//     (`rows`), else a pixel's cs channels. A run's copies are the 16-byte
+//     aligned units that cover its part in the input, so any alignment and
+//     any pixel stride is whole units; a unit that holds a byte of the
+//     input lies in the input's pages, and its bytes outside the view are
+//     never read back;
+//   * the box quantized once into the planes (`quantize_sure`: the division
+//     only for the elements within 3e-5 of a tie), four pixels of a row a
+//     word, each element read from its run's byte lead in shared memory;
+//     indices by multiply-high;
+//   * four taps of a window row a __dp4a: the CTA's chunk of weights built
+//     once into tap words in shared memory (one load serves four products
+//     of a block row); a thread keeps a 4 x 4 block of outputs in
+//     registers across the whole window; the input words of a block row
+//     are loaded once and shifted to each output's first tap (G, S known at
+//     compile time for windows of up to 8 columns at stride 1 or 2);
+//   * the epilogue requantizes into a staging tile laid out as the output's
+//     runs (a tile row of tw x C elements when one chunk holds every
+//     channel, else a pixel's cs channels), each run at its 16-byte phase in
+//     the output, so that the threads store whole 16-byte units where a run
+//     covers them and single elements at its ends.
+// Window blocks (taps_h x taps_w taps, the sums carried in registers, a
+// thread one block of outputs) only where the whole window's box fits no
+// shared memory. Persistent CTAs, a programmatic dependent launch.
+
+// What the generic kernel reads besides DwShape (ops/int8_conv_kernel.py:
+// depthwise_plan): a raw box is runs of raw_pitch bytes, the tap words
+// (kh x groups x chunk int32) at w_off, the staging runs out_pitch bytes
+// apart at out_off; the window in blocks_h x blocks_w blocks of taps.
+struct GenShape {
+  DwShape d;
+  int raw_pitch, w_off, out_pitch;
+  int rows;      // 1: a run is a box (tile) row, one chunk holds every C
+  int groups;    // tap words of a window row, ceil(kw / 4)
+  int blocks_w, blocks;
+};
+
+// A load unit: window block wb of item `item`, its box's origin in the
+// input (iy0, ix0: the tile's window origins minus the pads, plus the
+// block's first tap), the box's columns in the input [lo, hi), the
+// chunk's channels cs.
+struct GenBox {
+  int n, ty, tx, ci;
+  int r0, q0;
+  int iy0, ix0, lo, hi, cs;
+};
+
+__device__ __forceinline__ GenBox gen_box(const GenShape& g, int item,
+                                          int wb) {
+  const DwShape& s = g.d;
+  const DwItem d = dw_item(s, item);
+  GenBox b;
+  b.n = d.n;
+  b.ty = d.ty;
+  b.tx = d.tx;
+  b.ci = d.ci;
+  const int by = wb / g.blocks_w;  // once a box
+  b.r0 = by * s.taps_h;
+  b.q0 = (wb - by * g.blocks_w) * s.taps_w;
+  b.iy0 = b.ty * s.tile_h * s.stride - s.pad_t + b.r0;
+  b.ix0 = b.tx * s.tile_w * s.stride - s.pad_l + b.q0;
+  b.lo = max(0, -b.ix0);
+  b.hi = max(b.lo, min(s.box_w, s.w - b.ix0));  // empty: hi == lo
+  b.cs = min(s.chunk, s.c - b.ci * s.chunk);
+  return b;
+}
+
+// The first element of run 0 of box b (row 0, column 0, channel ci chunk)
+// as a byte address mod 2^32, as if the box lay whole in the input; a box
+// row adds row_step, a pixel pix_step.
+__device__ __forceinline__ unsigned gen_lead0(const void* t, unsigned e,
+                                              int h, int w, int c, int n,
+                                              int y, int x, int c0) {
+  return static_cast<unsigned>(reinterpret_cast<uintptr_t>(t)) +
+         (((static_cast<unsigned>(n) * static_cast<unsigned>(h) +
+            static_cast<unsigned>(y)) *
+               static_cast<unsigned>(w) +
+           static_cast<unsigned>(x)) *
+              static_cast<unsigned>(c) +
+          static_cast<unsigned>(c0)) *
+             e;
+}
+
+// This thread's copies of box b into `raw` (the caller arrives on the
+// stage's barrier): a warp a box row in the input, a lane a 16-byte unit;
+// the unit at input address U of a run lands at the run's slot +
+// (U - the unit that holds the run's first element as if the box lay whole
+// in the input), so that element e of the run sits at the slot + that
+// element's byte in its unit (its lead) + e bytes.
+template <typename TIn>
+__device__ __forceinline__ void gen_copy_box(const TIn* __restrict__ x,
+                                             uint8_t* raw,
+                                             const GenShape& g,
+                                             const GenBox& b) {
+  const DwShape& s = g.d;
+  if (b.hi <= b.lo) return;
+  constexpr long long kE = sizeof(TIn);
+  const int y0 = max(0, -b.iy0);
+  const int y1 = min(s.box_h, s.h - b.iy0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uintptr_t unit = ~static_cast<uintptr_t>(15);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+  if (g.rows) {
+    const long long span = static_cast<long long>(b.hi - b.lo) * s.c * kE;
+    for (int yy = y0 + warp; yy < y1; yy += kDwThreads / 32) {
+      // box column 0 of the row (before x where ix0 < 0: it wraps)
+      const uintptr_t col0 =
+          base + static_cast<uintptr_t>(
+                     ((static_cast<long long>(b.n) * s.h + b.iy0 + yy) * s.w +
+                      b.ix0) *
+                     s.c * kE);
+      const uintptr_t first = col0 + static_cast<uintptr_t>(b.lo * s.c * kE);
+      const uintptr_t src = first & unit;
+      const int bytes =
+          static_cast<int>(((first + static_cast<uintptr_t>(span) + 15) &
+                            unit) -
+                           src);
+      uint8_t* dst = raw + yy * g.raw_pitch +
+                     static_cast<int>(src - (col0 & unit));
+      for (int k = lane * 16; k < bytes; k += 32 * 16) {
+        copy16(dst + k, reinterpret_cast<const void*>(src + k), true);
+      }
+    }
+  } else {
+    // lanes over (pixel, unit) pairs of the row: units a slot holds `per`
+    const int per = g.raw_pitch >> 4;
+    const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(per) + 1;
+    const int pairs = (b.hi - b.lo) * per;
+    const uintptr_t bytes = static_cast<uintptr_t>(b.cs * kE);
+    for (int yy = y0 + warp; yy < y1; yy += kDwThreads / 32) {
+      const uintptr_t px0 =
+          base + static_cast<uintptr_t>(
+                     (((static_cast<long long>(b.n) * s.h + b.iy0 + yy) * s.w +
+                       b.ix0) *
+                          s.c +
+                      static_cast<long long>(b.ci) * s.chunk) *
+                     kE);
+      uint8_t* row = raw + yy * s.box_w * g.raw_pitch;
+      for (int u = lane; u < pairs; u += 32) {
+        const int p = static_cast<int>(
+            __umulhi(static_cast<unsigned>(u), magic));  // u / per
+        const int k = u - p * per;
+        const int xx = b.lo + p;
+        const uintptr_t first =
+            px0 + static_cast<uintptr_t>(static_cast<long long>(xx) * s.c *
+                                         kE);
+        const uintptr_t src = (first & unit) + 16 * k;
+        if (src < first + bytes) {
+          copy16(row + xx * g.raw_pitch + 16 * k,
+                 reinterpret_cast<const void*>(src), true);
+        }
+      }
+    }
+  }
+}
+
+// quantize(v, sc) in the low byte of the result, as quantize_sure, from
+// t = v * inv and its clamped rounding r, which lies within 1/2 of t where
+// |t| < 127, within 1 where |t| < 128, and at least 1 away where |t| >=
+// 128 (both clip): the byte is sure where |t - r| < 0.49997 or >= 1;
+// elsewhere (NaN too) only the division can decide. Returns |t - r|.
+__device__ __forceinline__ unsigned quantize_near(float v, Scale sc,
+                                                  float& d) {
+  const float t = __fmul_rn(v, sc.inv);  // v / s_a, within 3 * 2^-24 of it
+  const float tc = fminf(fmaxf(t, -127.0f), 127.0f);
+  const float m = __fadd_rn(tc, 12582912.0f);
+  d = fabsf(__fsub_rn(t, __fsub_rn(m, 12582912.0f)));
+  return __float_as_uint(m);
+}
+__device__ __forceinline__ bool in_doubt(float d) {
+  return !(d < 0.49997f) && !(d >= 1.0f);
+}
+
+// Raw box b -> the int8 planes q[c][yy][xx], each element quantized once;
+// zeros outside the input and past cs. A unit is eight pixels of a row x
+// one channel (channels fastest: a warp's reads are neighbours in a run,
+// its plane words on 32 banks), two words into the channel's plane. A
+// pixel's element is the previous one's plus the pixel step: C elements in
+// a run of box rows (kRows), a slot and the step of its lead in runs of
+// pixels. A unit wholly in the input loads without a check. The elements
+// in doubt (a few in a hundred where the input's values and s_a make
+// ties common) go to the warp's list in `doubts` ((unit << 3) | pixel;
+// past kGenDoubts their lane decides them at once), and when its units
+// are done the warp lets the division decide them, a lane each: one
+// round of the division a warp, not one a lane's element.
+template <typename TIn, bool kRows>
+__device__ __forceinline__ void gen_quantize_box(const TIn* __restrict__ x,
+                                                 const uint8_t* raw,
+                                                 uint8_t* q,
+                                                 unsigned* doubts,
+                                                 const GenShape& g,
+                                                 const GenBox& b, Scale sc) {
+  const DwShape& s = g.d;
+  constexpr int kE = sizeof(TIn);
+  constexpr int kPx = 8;  // pixels a unit
+  const int cshift = __ffs(s.chunk) - 1;  // the chunk is a power of two
+  const int x8s = (s.box_w + kPx - 1) / kPx;
+  // x8s = 1 (planes at most 4 wide): p itself
+  const unsigned x8s_magic =
+      x8s == 1 ? 0u : 0xFFFFFFFFu / static_cast<unsigned>(x8s) + 1;
+  const int units = (s.box_h * x8s) << cshift;
+  const unsigned lead0 = gen_lead0(x, kE, s.h, s.w, s.c, b.n, b.iy0, b.ix0,
+                                   kRows ? 0 : b.ci * s.chunk);
+  const unsigned row_step = static_cast<unsigned>(s.w) * s.c * kE;
+  const int pix_bytes = kRows ? s.c * kE : g.raw_pitch;
+  const unsigned lead_step = static_cast<unsigned>(s.c) * kE;
+  const int nx = b.hi - b.lo;
+  const int lane = threadIdx.x & 31;
+  unsigned* list = doubts + (threadIdx.x >> 5) * (kGenDoubts + 1);
+  // unit u: its channel's plane bytes, and its pixel j's element
+  struct Unit {
+    uint8_t* dst;
+    const uint8_t* src;
+    unsigned lead;
+    int x0;
+    bool live;
+  };
+  auto unit = [&](int u) {
+    Unit t;
+    const int c = u & (s.chunk - 1);
+    const int p = u >> cshift;
+    const int yy =
+        x8s == 1 ? p
+                 : static_cast<int>(__umulhi(static_cast<unsigned>(p),
+                                             x8s_magic));  // p / x8s
+    t.x0 = kPx * (p - yy * x8s);
+    t.live = static_cast<unsigned>(b.iy0 + yy) < static_cast<unsigned>(s.h) &&
+             c < b.cs;
+    t.lead = lead0 + static_cast<unsigned>(yy) * row_step;
+    t.src = kRows ? raw + yy * g.raw_pitch + (t.lead & 15) +
+                        (t.x0 * s.c + c) * kE
+                  : raw + (yy * s.box_w + t.x0) * g.raw_pitch + c * kE;
+    t.dst = q + c * s.plane_pitch + yy * s.row_pitch + t.x0;
+    return t;
+  };
+  auto at = [&](const Unit& t, int j) {
+    const uint8_t* e = t.src + j * pix_bytes;
+    if constexpr (!kRows) {
+      e += (t.lead + static_cast<unsigned>(t.x0 + j) * lead_step) & 15;
+    }
+    return to_float(*reinterpret_cast<const TIn*>(e));
+  };
+  for (int u = threadIdx.x; u < units; u += kDwThreads) {
+    const Unit t = unit(u);
+    float f[kPx];
+    if (t.live && t.x0 >= b.lo && t.x0 + kPx <= b.hi) {
+#pragma unroll
+      for (int j = 0; j < kPx; ++j) f[j] = at(t, j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPx; ++j) {
+        f[j] = t.live && static_cast<unsigned>(t.x0 + j - b.lo) <
+                             static_cast<unsigned>(nx)
+                   ? at(t, j)
+                   : 0.0f;
+      }
+    }
+    unsigned byte[kPx];
+    unsigned doubt = 0;  // bit j: pixel x0 + j in doubt
+#pragma unroll
+    for (int j = 0; j < kPx; ++j) {
+      float d;
+      byte[j] = quantize_near(f[j], sc, d);
+      if (in_doubt(d)) doubt |= 1u << j;
+    }
+    reinterpret_cast<unsigned*>(t.dst)[0] =
+        pack_low_bytes(byte[0], byte[1], byte[2], byte[3]);
+    reinterpret_cast<unsigned*>(t.dst)[1] =
+        pack_low_bytes(byte[4], byte[5], byte[6], byte[7]);
+    if (doubt != 0) {
+      int slot = static_cast<int>(
+          atomicAdd(list, static_cast<unsigned>(__popc(doubt))));
+      for (; doubt != 0; doubt &= doubt - 1, ++slot) {
+        const int j = __ffs(doubt) - 1;
+        if (slot < kGenDoubts) {
+          list[1 + slot] = (static_cast<unsigned>(u) << 3) | j;
+        } else {
+          t.dst[j] = static_cast<uint8_t>(quantize(at(t, j), sc));
+        }
+      }
+    }
+  }
+  // the warp's list: its words written above and the count whole
+  __syncwarp();
+  const int listed = min(static_cast<int>(list[0]), kGenDoubts);
+  for (int i = lane; i < listed; i += 32) {
+    const unsigned e = list[1 + i];
+    const Unit t = unit(static_cast<int>(e >> 3));
+    t.dst[e & 7] = static_cast<uint8_t>(quantize(at(t, e & 7), sc));
+  }
+  __syncwarp();
+  if (lane == 0) list[0] = 0;  // for the next box
+}
+
+// The products of a 4 x 4 block of outputs over a window block of `rows`
+// window rows x `groups` tap words a row. q0: the block's first byte in
+// this thread's plane (input row 4 by S, column 4 bx S of the box); wt:
+// the tap word of the block's first window row and group, `wrow` words to
+// the next window row, `wstep` to the next group. Output (j, i), window
+// row r reads input row j S + r, bytes S i + 4 g .. + 3 for group g: the
+// block row's words, loaded once, shifted to each output's first byte.
+// G, S > 0: known at compile time (`groups` and `stride` are then G, S,
+// and rows <= kGenTapRows): the block's tap words are read once into
+// registers, the rows unrolled.
+template <int G, int S>
+__device__ __forceinline__ void gen_products(int (&acc)[kDwBlock][kDwBlock],
+                                             const uint8_t* q0,
+                                             const int* wt, int wrow,
+                                             int wstep, int rows, int groups,
+                                             int stride, int row_pitch) {
+  if constexpr (G > 0 && S > 0) {
+    constexpr int kWords = ((3 * S + 4 * G) >> 2) + 1;
+    int wr[kGenTapRows][G];
+#pragma unroll
+    for (int r = 0; r < kGenTapRows; ++r) {
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        wr[r][gg] = r < rows ? wt[r * wrow + gg * wstep] : 0;
+      }
+    }
+#pragma unroll
+    for (int yy = 0; yy < 3 * S + kGenTapRows; ++yy) {
+      if (yy >= 3 * S + rows) break;
+      const int* row = reinterpret_cast<const int*>(q0 + yy * row_pitch);
+      int wd[kWords];
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) wd[k] = row[k];
+      int sh[kDwBlock][G];
+#pragma unroll
+      for (int i = 0; i < kDwBlock; ++i) {
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+          const int off = S * i + 4 * gg;
+          sh[i][gg] = (off & 3) == 0
+                          ? wd[off >> 2]
+                          : __funnelshift_r(wd[off >> 2], wd[(off >> 2) + 1],
+                                            8 * (off & 3));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kDwBlock; ++j) {
+        const int r = yy - j * S;
+        if (r < 0 || r >= kGenTapRows || r >= rows) continue;
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg) {
+#pragma unroll
+          for (int i = 0; i < kDwBlock; ++i) {
+            acc[j][i] = __dp4a(sh[i][gg], wr[r][gg], acc[j][i]);
+          }
+        }
+      }
+    }
+  } else {
+    const int in_rows = 3 * stride + rows;
+    for (int yy = 0; yy < in_rows; ++yy) {
+      const int* row = reinterpret_cast<const int*>(q0 + yy * row_pitch);
+      for (int gg = 0; gg < groups; ++gg) {
+        int sh[kDwBlock];
+#pragma unroll
+        for (int i = 0; i < kDwBlock; ++i) {
+          const int off = stride * i + 4 * gg;
+          sh[i] = __funnelshift_r(row[off >> 2], row[(off >> 2) + 1],
+                                  8 * (off & 3));
+        }
+#pragma unroll
+        for (int j = 0; j < kDwBlock; ++j) {
+          const int r = yy - j * stride;
+          if (static_cast<unsigned>(r) >= static_cast<unsigned>(rows)) {
+            continue;
+          }
+          const int wv = wt[r * wrow + gg * wstep];
+#pragma unroll
+          for (int i = 0; i < kDwBlock; ++i) {
+            acc[j][i] = __dp4a(sh[i], wv, acc[j][i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The epilogue of a 4 x 4 block of outputs, (oy0, ox0) its first in the
+// tile: those inside the tile (th x tw), requantized into their staging
+// runs. Output (oy, ox) of this thread's channel lands at base + oy
+// row_bytes + ox col_bytes + ((lead + oy lead_row + ox lead_col) & 15):
+// runs of tile rows (lead_col 0) or of pixels. kExact: every |acc| <
+// 2^22 (`exact_float`); bi_c is -0.0 without a bias (an add of -0.0 gives
+// every float back).
+template <bool kRows, bool kExact, bool kBf16>
+__device__ __forceinline__ void gen_epilogue(
+    const int (&acc)[kDwBlock][kDwBlock], uint8_t* base, int oy0, int ox0,
+    int th, int tw, float sc_c, float bi_c, unsigned lead, unsigned lead_row,
+    unsigned lead_col, int row_bytes, int col_bytes) {
+#pragma unroll
+  for (int j = 0; j < kDwBlock; ++j) {
+    const int oy = oy0 + j;
+    if (oy >= th) break;
+    const unsigned lj = lead + static_cast<unsigned>(oy) * lead_row;
+    uint8_t* row = base + oy * row_bytes;
+#pragma unroll
+    for (int i = 0; i < kDwBlock; ++i) {
+      const int ox = ox0 + i;
+      if (ox >= tw) break;
+      const float f =
+          kExact ? exact_float(acc[j][i]) : __int2float_rn(acc[j][i]);
+      const float v = __fadd_rn(__fmul_rn(f, sc_c), bi_c);
+      uint8_t* dst =
+          row + ox * col_bytes +
+          ((kRows ? lj : lj + static_cast<unsigned>(ox) * lead_col) & 15);
+      if constexpr (kBf16) {
+        store(reinterpret_cast<__nv_bfloat16*>(dst), v);
+      } else {
+        store(reinterpret_cast<float*>(dst), v);
+      }
+    }
+  }
+}
+
+// gen_epilogue for the call's output type and accumulator range
+template <bool kRows>
+__device__ __forceinline__ void gen_epilogue_of(
+    bool exact, bool bf16, const int (&acc)[kDwBlock][kDwBlock],
+    uint8_t* base, int oy0, int ox0, int th, int tw, float sc_c, float bi_c,
+    unsigned lead, unsigned lead_row, unsigned lead_col, int row_bytes,
+    int col_bytes) {
+  if (exact && bf16) {
+    gen_epilogue<kRows, true, true>(acc, base, oy0, ox0, th, tw, sc_c, bi_c,
+                                    lead, lead_row, lead_col, row_bytes,
+                                    col_bytes);
+  } else if (exact) {
+    gen_epilogue<kRows, true, false>(acc, base, oy0, ox0, th, tw, sc_c, bi_c,
+                                     lead, lead_row, lead_col, row_bytes,
+                                     col_bytes);
+  } else if (bf16) {
+    gen_epilogue<kRows, false, true>(acc, base, oy0, ox0, th, tw, sc_c, bi_c,
+                                     lead, lead_row, lead_col, row_bytes,
+                                     col_bytes);
+  } else {
+    gen_epilogue<kRows, false, false>(acc, base, oy0, ox0, th, tw, sc_c,
+                                      bi_c, lead, lead_row, lead_col,
+                                      row_bytes, col_bytes);
+  }
+}
+
+// A CTA walks its load units L = 0, 1, ... (item blockIdx.x + (L / blocks)
+// gridDim.x, window block L % blocks), box L in ring stage L % stages. A
+// thread takes channel cl of the chunk and the 4 x 4 blocks worker, worker
+// + workers, ... of the tile (one, when the window comes in blocks). y is
+// bfloat16 where y_bf16, else float32 (read at run time: the epilogue is
+// a small share of the work, and each type would double the kernels).
+template <typename TIn, int G, int S>
+__global__ void __launch_bounds__(kDwThreads, 3)
     int8_conv_dw_generic_kernel(const TIn* __restrict__ x,
                                 const int8_t* __restrict__ w,
                                 const float* __restrict__ scale,
                                 const float* __restrict__ bias,
-                                TOut* __restrict__ y, Scale sc, DwShape s) {
+                                void* __restrict__ y, int y_bf16, Scale sc,
+                                GenShape g) {
   extern __shared__ uint8_t smem_raw[];
-  int8_t* q = reinterpret_cast<int8_t*>(smem_raw + s.q_off);
-  int* sums = reinterpret_cast<int*>(smem_raw + s.out_off);
+  uint8_t* smem = smem_raw + ((128 - (smem_address(smem_raw) & 127)) & 127);
+  const DwShape& s = g.d;
+  const int raw_stride = s.q_off / s.stages;
+  uint8_t* q = smem + s.q_off;
+  int* wsm = reinterpret_cast<int*>(smem + g.w_off);
+  uint8_t* out = smem + s.out_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + s.bar_off);
+  unsigned* doubts =
+      reinterpret_cast<unsigned*>(smem + s.bar_off + kGenDoubtsOff);
   const int tid = threadIdx.x;
   const int workers = kDwThreads / s.chunk;
   const int worker = tid / s.chunk;
   const int cl = tid - worker * s.chunk;
-  const int outs = s.tile_h * s.tile_w;
-  const int box = s.box_h * s.box_w * s.chunk;
-  for (int item = blockIdx.x; item < s.items; item += gridDim.x) {
-    const DwItem d = dw_item(s, item);
-    const int c0 = d.ci * s.chunk;
-    const int ch = c0 + cl;
-    const int iy0 = d.ty * s.tile_h * s.stride - s.pad_t;
-    const int ix0 = d.tx * s.tile_w * s.stride - s.pad_l;
-    const TIn* x_img = x + static_cast<size_t>(d.n) * s.h * s.w * s.c;
-    for (int p = worker; p < outs; p += workers) sums[p * s.chunk + cl] = 0;
-    for (int r0 = 0; r0 < s.kh; r0 += s.taps_h) {
-      for (int wc0 = 0; wc0 < s.kw; wc0 += s.taps_w) {
-        __syncthreads();  // q is free
-        for (int u = tid; u < box; u += kDwThreads) {
-          const int c = u % s.chunk;
-          const int pix = u / s.chunk;
-          const int yy = pix / s.box_w;
-          const int xx = pix - yy * s.box_w;
-          const int iy = iy0 + r0 + yy;
-          const int ix = ix0 + wc0 + xx;
-          int v = 0;
-          if (iy >= 0 && iy < s.h && ix >= 0 && ix < s.w && c0 + c < s.c) {
-            v = quantize(to_float(x_img[(static_cast<size_t>(iy) * s.w + ix) *
-                                            s.c + c0 + c]),
-                         sc);
+  const int stride = S > 0 ? S : s.stride;
+  if ((tid & 31) == 0) doubts[(tid >> 5) * (kGenDoubts + 1)] = 0;
+  const int eo = y_bf16 ? 2 : 4;  // bytes of an output element
+
+  if (tid == 0) {
+    // a box: an arrival of every thread whose copies have landed
+    for (int i = 0; i < s.stages; ++i) mbar_init(&full[i], kDwThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // x is the previous kernel's output, and y may be memory that it still
+  // reads: every thread waits for that grid before it reads x or writes y
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();
+  const int loads =
+      (s.items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
+       1) /
+      static_cast<int>(gridDim.x) * g.blocks;
+  auto issue = [&](int load) {
+    const int it = load / g.blocks;
+    const GenBox nb = gen_box(g, blockIdx.x + it * gridDim.x,
+                              load - it * g.blocks);
+    gen_copy_box(x, smem + (load % s.stages) * raw_stride, g, nb);
+    copies_arrive(&full[load % s.stages]);
+  };
+  for (int i = 0; i < s.stages && i < loads; ++i) issue(i);
+
+  const int bcols = s.tile_w / kDwBlock;
+  const int tile_blocks = s.tile_h / kDwBlock * bcols;
+  const int wrow = g.groups * s.chunk;
+  // every |acc| < 2^22: float(acc) by an integer and a float add
+  const bool exact =
+      static_cast<long long>(s.kh) * s.kw * 127 * 128 < (1LL << 22);
+  int acc[kDwBlock][kDwBlock];
+  float sc_c = 0.0f, bi_c = 0.0f;
+  int chunk_now = -1;
+  for (int load = 0; load < loads; ++load) {
+    const int it = load / g.blocks;
+    const int wb = load - it * g.blocks;
+    const GenBox b = gen_box(g, blockIdx.x + it * gridDim.x, wb);
+    if (b.ci != chunk_now) {
+      // the chunk's tap words (the last products that read them ended at
+      // the barrier after them): word (r, gg) of channel c holds w[r][4 gg
+      // + k] at byte k, zeros past the window and past C
+      chunk_now = b.ci;
+      const int cshift = __ffs(s.chunk) - 1;
+      for (int i = tid; i < s.kh * wrow; i += kDwThreads) {
+        const int c = i & (s.chunk - 1);
+        const int rg = i >> cshift;
+        const int r = rg / g.groups;  // once a chunk
+        const int gg = rg - r * g.groups;
+        const int ch = b.ci * s.chunk + c;
+        unsigned word = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = 4 * gg + k;
+          if (col < s.kw && ch < s.c) {
+            word |= (static_cast<unsigned>(w[(r * s.kw + col) * s.c + ch]) &
+                     0xFFu)
+                    << (8 * k);
           }
-          q[c * s.plane_pitch + yy * s.row_pitch + xx] =
-              static_cast<int8_t>(v);
         }
-        __syncthreads();  // q is whole
-        const int rows = min(s.taps_h, s.kh - r0);
-        const int cols = min(s.taps_w, s.kw - wc0);
-        for (int p = worker; p < outs; p += workers) {
-          const int oy = p / s.tile_w;
-          const int ox = p - oy * s.tile_w;
-          const int8_t* qp = q + cl * s.plane_pitch +
-                             oy * s.stride * s.row_pitch + ox * s.stride;
-          int sum = 0;
-          if (ch < s.c) {
-            for (int r = 0; r < rows; ++r) {
-              for (int c = 0; c < cols; ++c) {
-                sum += static_cast<int>(qp[r * s.row_pitch + c]) *
-                       static_cast<int>(
-                           w[((r0 + r) * s.kw + wc0 + c) * s.c + ch]);
-              }
-            }
-          }
-          sums[p * s.chunk + cl] += sum;
+        wsm[i] = static_cast<int>(word);
+      }
+      const int ch = b.ci * s.chunk + cl;
+      sc_c = ch < s.c ? scale[ch] : 0.0f;
+      bi_c = ch < s.c && bias != nullptr ? bias[ch] : -0.0f;
+    }
+    const int st = load % s.stages;
+    mbar_wait(&full[st], (load / s.stages) & 1);
+    if (g.rows) {
+      gen_quantize_box<TIn, true>(x, smem + st * raw_stride, q, doubts, g, b,
+                                  sc);
+    } else {
+      gen_quantize_box<TIn, false>(x, smem + st * raw_stride, q, doubts, g,
+                                   b, sc);
+    }
+    __syncthreads();  // q and the tap words whole, the raw box free
+    if (load + s.stages < loads) issue(load + s.stages);
+
+    const int wrows = min(s.taps_h, s.kh - b.r0);
+    const int groups = (min(s.taps_w, s.kw - b.q0) + 3) >> 2;
+    const int* wt = wsm + (b.r0 * g.groups + (b.q0 >> 2)) * s.chunk + cl;
+    const uint8_t* qc = q + cl * s.plane_pitch;
+    const bool last = wb == g.blocks - 1;
+    const int oy0 = b.ty * s.tile_h;
+    const int ox0 = b.tx * s.tile_w;
+    const int th = min(s.tile_h, s.oh - oy0);  // the tile's outputs
+    const int tw = min(s.tile_w, s.ow - ox0);
+    // the staging tile's runs: where the first element of run 0 lies in
+    // its 16-byte unit of y, and what a tile row and a pixel add
+    const unsigned olead0 = gen_lead0(y, eo, s.oh, s.ow, s.c, b.n, oy0, ox0,
+                                      g.rows ? 0 : b.ci * s.chunk);
+    const unsigned orow_step = static_cast<unsigned>(s.ow) * s.c * eo;
+    const unsigned ocol_step = g.rows ? 0u : static_cast<unsigned>(s.c) * eo;
+    const int row_bytes = g.rows ? g.out_pitch : s.tile_w * g.out_pitch;
+    const int col_bytes = g.rows ? s.c * eo : g.out_pitch;
+    for (int bk = worker; bk < tile_blocks; bk += workers) {
+      const int by = bk / bcols;
+      const int bx = bk - by * bcols;
+      if (wb == 0) {
+#pragma unroll
+        for (int j = 0; j < kDwBlock; ++j) {
+#pragma unroll
+          for (int i = 0; i < kDwBlock; ++i) acc[j][i] = 0;
         }
       }
+      gen_products<G, S>(acc,
+                         qc + kDwBlock * by * stride * s.row_pitch +
+                             kDwBlock * bx * stride,
+                         wt, wrow, s.chunk, wrows, groups, stride,
+                         s.row_pitch);
+      if (!last || cl >= b.cs) continue;
+      uint8_t* base = out + cl * eo;
+      const int oyb = kDwBlock * by, oxb = kDwBlock * bx;
+      if (g.rows) {
+        gen_epilogue_of<true>(exact, y_bf16, acc, base, oyb, oxb, th, tw,
+                              sc_c, bi_c, olead0, orow_step, ocol_step,
+                              row_bytes, col_bytes);
+      } else {
+        gen_epilogue_of<false>(exact, y_bf16, acc, base, oyb, oxb, th, tw,
+                               sc_c, bi_c, olead0, orow_step, ocol_step,
+                               row_bytes, col_bytes);
+      }
     }
-    if (ch >= s.c) continue;
-    const float sc_c = scale[ch];
-    const float bi_c = bias != nullptr ? bias[ch] : 0.0f;
-    for (int p = worker; p < outs; p += workers) {
-      const int oy = d.ty * s.tile_h + p / s.tile_w;
-      const int ox = d.tx * s.tile_w + p % s.tile_w;
-      if (oy >= s.oh || ox >= s.ow) continue;
-      float v = __fmul_rn(__int2float_rn(sums[p * s.chunk + cl]), sc_c);
-      if (bias != nullptr) v = __fadd_rn(v, bi_c);
-      store(y + ((static_cast<size_t>(d.n) * s.oh + oy) * s.ow + ox) * s.c +
-                ch,
-            v);
+    __syncthreads();  // q free for the next box; the staging tile whole
+    if (!last) continue;
+    // the runs to y: a 16-byte unit of a run's cover a thread (runs of
+    // tile rows: a warp a row), whole where the run covers it, else the
+    // run's elements in it, two bytes at a time (an element of either type
+    // starts at an even byte)
+    const int per = g.out_pitch >> 4;  // units a run's slot holds
+    const uintptr_t unit_mask = ~static_cast<uintptr_t>(15);
+    auto store_unit = [&](const uint8_t* slot, uintptr_t first, int bytes,
+                          int k) {
+      const uintptr_t end = first + static_cast<uintptr_t>(bytes);
+      const uintptr_t dst = (first & unit_mask) + 16 * k;
+      if (dst >= end) return;
+      const uint8_t* src = slot + 16 * k;
+      if (dst >= first && dst + 16 <= end) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        return;
+      }
+#pragma unroll
+      for (int e = 0; e < 16; e += 2) {
+        if (dst + e >= first && dst + e < end) {
+          *reinterpret_cast<unsigned short*>(dst + e) =
+              *reinterpret_cast<const unsigned short*>(src + e);
+        }
+      }
+    };
+    const uintptr_t y0 =
+        reinterpret_cast<uintptr_t>(y) +
+        static_cast<uintptr_t>(
+            ((static_cast<long long>(b.n) * s.oh + oy0) * s.ow + ox0) * s.c *
+            eo);
+    const uintptr_t ypitch = static_cast<uintptr_t>(s.ow) * s.c * eo;
+    if (g.rows) {
+      for (int oy = tid >> 5; oy < th; oy += kDwThreads / 32) {
+        for (int k = tid & 31; k < per; k += 32) {
+          store_unit(out + oy * g.out_pitch, y0 + oy * ypitch, tw * s.c * eo,
+                     k);
+        }
+      }
+    } else {
+      const uintptr_t c0 = static_cast<uintptr_t>(b.ci * s.chunk * eo);
+      for (int u = tid; u < s.tile_h * s.tile_w * per; u += kDwThreads) {
+        const int run = u / per;
+        const int oy = run / s.tile_w;
+        const int ox = run - oy * s.tile_w;
+        if (oy >= th || ox >= tw) continue;
+        store_unit(out + run * g.out_pitch,
+                   y0 + oy * ypitch + static_cast<uintptr_t>(ox * s.c * eo) +
+                       c0,
+                   b.cs * eo, u - run * per);
+      }
     }
   }
 }
@@ -1755,14 +2354,6 @@ __device__ __forceinline__ StemBox stem_box(const NarrowShape& s,
   b.lo = max(b.ix0, 0);
   b.hi = min(b.ix0 + s.box_w, s.vw);
   return b;
-}
-
-// When this thread's cp.async copies so far have landed, one arrival on
-// `bar` (which counts it among those it expects).
-__device__ __forceinline__ void copies_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_address(bar))
-               : "memory");
 }
 
 // This thread's part of the input box of `item` into `raw` (the caller
@@ -2731,6 +3322,81 @@ int launch_dw_window(const CUtensorMap& xm, const CUtensorMap& ym,
   return static_cast<int>(cudaGetLastError());
 }
 
+GenShape gen_shape(const Int8ConvArgs& a) {
+  GenShape g;
+  g.d = dw_shape(a);
+  g.raw_pitch = a.raw_pitch;
+  g.w_off = a.w_off;
+  g.out_pitch = a.out_pitch;
+  g.rows = a.c <= a.dw_chunk;
+  g.groups = (a.kw + 3) / 4;
+  g.blocks_w = (a.kw + a.taps_w - 1) / a.taps_w;
+  g.blocks = (a.kh + a.taps_h - 1) / a.taps_h * g.blocks_w;
+  return g;
+}
+
+template <typename TIn, int G, int S>
+int launch_dw_generic_kernel(const TIn* x, const int8_t* w,
+                             const float* scale, const float* bias, void* y,
+                             int y_bf16, Scale sc, const GenShape& g,
+                             int smem, int device, cudaStream_t stream) {
+  auto kernel = int8_conv_dw_generic_kernel<TIn, G, S>;
+  static LaunchFacts facts;
+  const int resident = resident_ctas(kernel, facts, device, smem,
+                                     kDwThreads);
+  if (resident < 0) return -resident;
+  const int ctas = dw_grid(g.d, resident);
+  // a programmatic dependent launch: the prologue (barriers) overlaps the
+  // previous kernel's tail
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(ctas));
+  config.blockDim = dim3(kDwThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&config, kernel, x, w, scale,
+                                           bias, y, y_bf16, sc, g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The generic design: the tap words of a window row (G) and the stride
+// (S) known at compile time for a whole window of up to 8 x 8 taps at
+// stride 1 or 2, else read from the shape.
+template <typename TIn>
+int launch_dw_generic(const Int8ConvArgs& a, const TIn* x, const int8_t* w,
+                      const float* scale, const float* bias, void* y,
+                      int y_bf16, Scale sc, int device, cudaStream_t stream) {
+  const GenShape g = gen_shape(a);
+  const int tile_blocks = a.tile_h / kDwBlock * (a.tile_w / kDwBlock);
+  if (a.stages < 1 || a.tile_h % kDwBlock != 0 ||
+      a.tile_w % kDwBlock != 0 ||
+      (g.blocks > 1 && (a.taps_w % 4 != 0 ||
+                        tile_blocks > kDwThreads / a.dw_chunk))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g.blocks == 1 && a.stride <= 2 && g.groups <= 2 &&
+      a.kh <= kGenTapRows) {
+    switch (g.groups * 10 + a.stride) {
+#define GEN_CASE(G, S)                                                   \
+  case G * 10 + S:                                                       \
+    return launch_dw_generic_kernel<TIn, G, S>(                          \
+        x, w, scale, bias, y, y_bf16, sc, g, a.smem, device, stream);
+      GEN_CASE(1, 1)
+      GEN_CASE(1, 2)
+      GEN_CASE(2, 1)
+      GEN_CASE(2, 2)
+#undef GEN_CASE
+    }
+  }
+  return launch_dw_generic_kernel<TIn, 0, 0>(x, w, scale, bias, y, y_bf16,
+                                             sc, g, a.smem, device, stream);
+}
+
 template <typename TIn, typename TOut>
 int launch_depthwise(const Int8ConvArgs& a, const TIn* x, const void* w,
                      const float* scale, const float* bias, TOut* y,
@@ -2741,14 +3407,8 @@ int launch_depthwise(const Int8ConvArgs& a, const TIn* x, const void* w,
   }
   const int8_t* wq = static_cast<const int8_t*>(w);
   if (a.design == kDepthwiseGeneric) {
-    auto kernel = int8_conv_dw_generic_kernel<TIn, TOut>;
-    static LaunchFacts facts;
-    const int resident = resident_ctas(kernel, facts, device, a.smem,
-                                       kDwThreads);
-    if (resident < 0) return -resident;
-    kernel<<<static_cast<unsigned>(dw_grid(s, resident)), kDwThreads, a.smem,
-             stream>>>(x, wq, scale, bias, y, sc, s);
-    return static_cast<int>(cudaGetLastError());
+    return launch_dw_generic<TIn>(a, x, wq, scale, bias, y,
+                                  sizeof(TOut) == 2, sc, device, stream);
   }
   CUtensorMap xm, ym;
   int enc = encode_nhwc_map(x, sizeof(TIn) == 2, a.n, a.h, a.w, a.c,

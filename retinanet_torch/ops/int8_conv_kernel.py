@@ -82,7 +82,15 @@ DW_STAGES = 2            # raw boxes in the ring, at most
 # does) at the most stages
 DW_TILES = ((8, 32), (8, 16), (4, 32), (4, 16), (4, 8), (4, 4))
 DW_SMEM_BUDGET = SM_SMEM // 3 - 1024
-DW_TAP_BLOCK = 16        # "depthwise_generic": taps of a window block a side
+# "depthwise_generic": shared-memory budgets tried in order (three CTAs an
+# SM, then one) for the whole window's box; where none fits, the window in
+# blocks of DW_TAP_BLOCK taps a side (a multiple of 4: whole tap words)
+GENERIC_SMEM_BUDGETS = (DW_SMEM_BUDGET, SMEM_LIMIT)
+DW_TAP_BLOCK = 16
+# "depthwise_generic": a warp's list of a box's elements in doubt
+# (`kGenDoubts`), the lists `GEN_DOUBTS_OFF` bytes past the barriers
+GEN_DOUBTS = 128
+GEN_DOUBTS_OFF = 64
 
 # The narrow design (csrc/int8_conv.cu, "narrow")
 NARROW_MIN_CHANNELS = 4  # dense convs with fewer channels: the stem
@@ -226,18 +234,23 @@ def _align(a: int, b: int) -> int:
 @dataclass(frozen=True)
 class DepthwisePlan:
     """How a depthwise design walks a conv (the fields of the same names
-    in `Int8ConvArgs`). A work item is tile_h x tile_w output pixels of one
-    image x `chunk` channels; its input box, box_h x box_w pixels from
-    (oy0 * stride - pad_t, ox0 * stride - pad_l), is the tile plus its halo
-    for a window block of taps_h x taps_w taps (the whole window but in
-    "depthwise_generic"). The box is quantized into `chunk` int8 planes of
-    box_h rows of row_pitch bytes, plane_pitch bytes apart (plane_pitch / 4
-    odd, so that 32 channels read one word each on 32 banks). Shared
-    memory: `stages` raw boxes from 0, the planes at q_off, the staging
-    tile ("depthwise") or the int32 sums ("depthwise_generic") at
-    out_off, the stages' barriers at bar_off, `smem` bytes with 128 of
-    alignment slack. (The kernel sizes its persistent grid from the CTAs
-    the card holds.)"""
+    in `Int8ConvArgs`; `chunk` is its dw_chunk). A work item is tile_h x
+    tile_w output pixels of one image x `chunk` channels; its input box,
+    box_h x box_w pixels from (oy0 * stride - pad_t, ox0 * stride - pad_l),
+    is the tile plus its halo for a window block of taps_h x taps_w taps
+    (the whole window but where "depthwise_generic" takes it in blocks).
+    The box is quantized into `chunk` int8 planes of box_h rows of
+    row_pitch bytes, plane_pitch bytes apart (plane_pitch / 4 odd, so that
+    32 channels read one word each on 32 banks). Shared memory: `stages`
+    raw boxes from 0, the planes at q_off, the staging tile at out_off, the
+    stages' barriers at bar_off, `smem` bytes with 128 of alignment slack.
+    "depthwise_generic" also: a raw box is runs of raw_pitch bytes (a box
+    row of box_w x C elements when one chunk holds every channel, else a
+    pixel's chunk; each run's 16-byte units), the tap words (kh x
+    ceil(kw / 4) x chunk int32) at w_off, the staging tile's runs (a tile
+    row, or a pixel's chunk) out_pitch bytes apart, and the warps' lists of
+    elements in doubt GEN_DOUBTS_OFF bytes past bar_off. (The kernel sizes
+    its persistent grid from the CTAs the card holds.)"""
     tile_h: int
     tile_w: int
     chunk: int
@@ -252,11 +265,79 @@ class DepthwisePlan:
     out_off: int
     bar_off: int
     smem: int
+    raw_pitch: int = 0
+    w_off: int = 0
+    out_pitch: int = 0
 
 
 def _plane_pitch(box_h: int, row_pitch: int) -> int:
     pitch = box_h * row_pitch
     return pitch + 4 if (pitch // 4) % 2 == 0 else pitch
+
+
+def dw_chunk(c: int) -> int:
+    """Channels a depthwise work item takes: DW_CHUNK, or the power of two
+    (at least 8) that holds a smaller C."""
+    return DW_CHUNK if c >= DW_CHUNK else max(8, 1 << (c - 1).bit_length())
+
+
+def generic_words(stride: int, taps_w: int) -> int:
+    """int32 words of a block's input row that the generic kernel reads
+    from the block's first column: its 4 outputs' taps (bytes S i + 4 g ..
+    + 3 for the ceil(taps_w / 4) tap words g) and the word after each, which
+    the shift to an output's first byte takes."""
+    return (3 * stride + 4 * _ceil(taps_w, 4)) // 4 + 1
+
+
+def _generic_plan(c: int, oh: int, ow: int, kh: int, kw: int, stride: int,
+                  in_bytes: int, out_bytes: int) -> DepthwisePlan:
+    """"depthwise_generic": tiles of whole 4 x 4 blocks from DW_TILES (cut
+    to the plane) and the ring's depth, the first that fits a budget of
+    GENERIC_SMEM_BUDGETS, in order, with the whole window; where none fits,
+    the window in blocks of DW_TAP_BLOCK taps a side, in tiles of at most
+    one block a thread (whose sums stay in registers across the blocks)."""
+    s = stride
+    chunk = dw_chunk(c)
+    rows = c <= chunk  # a run is a box row, else a pixel's chunk
+    tiles = [(min(th, _align(oh, DW_BLOCK)), min(tw, _align(ow, DW_BLOCK)))
+             for th, tw in DW_TILES]
+    blocked = (min(kh, DW_TAP_BLOCK), min(kw, DW_TAP_BLOCK))
+    for taps_h, taps_w in dict.fromkeys(((kh, kw), blocked)):
+        for budget in GENERIC_SMEM_BUDGETS:
+            for th, tw in tiles:
+                if (taps_h, taps_w) != (kh, kw) and (
+                        (th // DW_BLOCK) * (tw // DW_BLOCK)
+                        > DW_THREADS // chunk):
+                    continue
+                box_h, box_w = (th - 1) * s + taps_h, (tw - 1) * s + taps_w
+                raw_pitch = _align((box_w * c if rows else chunk) * in_bytes
+                                   + 15, 16)
+                raw = _align((box_h if rows else box_h * box_w) * raw_pitch,
+                             128)
+                # a block row's reads, and the quantizer's words of 8
+                # pixels
+                row_pitch = max((tw - DW_BLOCK) * s
+                                + 4 * generic_words(s, taps_w),
+                                _align(box_w, 8))
+                plane_pitch = _plane_pitch(box_h, row_pitch)
+                out_pitch = _align((tw * c if rows else chunk) * out_bytes
+                                   + 15, 16)
+                out = (th if rows else th * tw) * out_pitch
+                for stages in range(DW_STAGES, 0, -1):
+                    q_off = stages * raw
+                    w_off = q_off + _align(chunk * plane_pitch, 128)
+                    out_off = w_off + _align(kh * _ceil(kw, 4) * chunk * 4,
+                                             128)
+                    bar_off = out_off + _align(out, 128)
+                    smem = (bar_off + GEN_DOUBTS_OFF + DW_THREADS // 32
+                            * (GEN_DOUBTS + 1) * 4 + 128)
+                    if smem <= budget:
+                        return DepthwisePlan(
+                            th, tw, chunk, box_h, box_w, taps_h, taps_w,
+                            row_pitch, plane_pitch, stages, q_off, out_off,
+                            bar_off, smem, raw_pitch, w_off, out_pitch)
+    raise ValueError(f"no depthwise_generic tile fits shared memory for a "
+                     f"{kh}x{kw} window at stride {stride} over {c} channels")
 
 
 def depthwise_plan(design: str, c: int, oh: int, ow: int, kh: int, kw: int,
@@ -270,47 +351,31 @@ def depthwise_plan(design: str, c: int, oh: int, ow: int, kh: int, kw: int,
     shared memory, at DW_STAGES raw boxes or fewer, fits DW_SMEM_BUDGET. A
     block's input row is read as `words` 4-byte words from its first
     column, so a row holds (tile_w - 4) * stride + 4 * words bytes.
-    "depthwise_generic": any tile, the window in blocks of at most
-    DW_TAP_BLOCK taps a side, no raw boxes (the threads load the box)."""
+    "depthwise_generic": `_generic_plan`."""
+    if design != "depthwise":
+        return _generic_plan(c, oh, ow, kh, kw, stride, in_bytes, out_bytes)
     s = stride
-    chunk = DW_CHUNK if c >= DW_CHUNK else max(8, 1 << (c - 1).bit_length())
-    for th, tw in DW_TILES + ((2, 2), (1, 1)):
-        if design == "depthwise":
-            if th % DW_BLOCK or tw % DW_BLOCK:
-                continue
-            th = min(th, _align(oh, DW_BLOCK))
-            tw = min(tw, _align(ow, DW_BLOCK))
-            taps_h, taps_w = kh, kw
-        else:
-            th, tw = min(th, oh), min(tw, ow)
-            taps_h, taps_w = min(kh, DW_TAP_BLOCK), min(kw, DW_TAP_BLOCK)
-        box_h, box_w = (th - 1) * s + taps_h, (tw - 1) * s + taps_w
-        if design == "depthwise":
-            if max(box_h, box_w) > 256:
-                continue
-            words = _ceil(3 * s + kw, 4)
-            row_pitch = (tw - DW_BLOCK) * s + 4 * words
-            raw = _align(box_h * box_w * chunk * in_bytes, 128)
-            out = th * tw * chunk * out_bytes
-            stage_counts = range(DW_STAGES, 0, -1)
-        else:
-            row_pitch = _align(box_w, 4)
-            raw = 0
-            out = th * tw * chunk * 4
-            stage_counts = (0,)
+    chunk = dw_chunk(c)
+    for th, tw in DW_TILES:
+        th = min(th, _align(oh, DW_BLOCK))
+        tw = min(tw, _align(ow, DW_BLOCK))
+        box_h, box_w = (th - 1) * s + kh, (tw - 1) * s + kw
+        if max(box_h, box_w) > 256:
+            continue
+        words = _ceil(3 * s + kw, 4)
+        row_pitch = (tw - DW_BLOCK) * s + 4 * words
+        raw = _align(box_h * box_w * chunk * in_bytes, 128)
+        out = th * tw * chunk * out_bytes
         plane_pitch = _plane_pitch(box_h, row_pitch)
-        for stages in stage_counts:
+        for stages in range(DW_STAGES, 0, -1):
             q_off = stages * raw
             out_off = q_off + _align(chunk * plane_pitch, 128)
             bar_off = out_off + _align(out, 128)
             smem = bar_off + 8 * stages + 128
             if smem <= DW_SMEM_BUDGET:
-                break
-        else:
-            continue
-        return DepthwisePlan(th, tw, chunk, box_h, box_w, taps_h, taps_w,
-                             row_pitch, plane_pitch, stages, q_off, out_off,
-                             bar_off, smem)
+                return DepthwisePlan(th, tw, chunk, box_h, box_w, kh, kw,
+                                     row_pitch, plane_pitch, stages, q_off,
+                                     out_off, bar_off, smem)
     raise ValueError(f"no {design} tile fits shared memory for a {kh}x{kw} "
                      f"window at stride {stride}")
 
@@ -608,7 +673,7 @@ class _Args(ctypes.Structure):
         "taps_w", "row_pitch", "plane_pitch", "stages", "q_off", "out_off",
         "bar_off", "smem", "flat", "w_off", "w_pitch", "sb_off", "tap_off",
         "k_steps", "o_pad", "o_box", "out_bufs", "tma_in", "tma_out",
-        "raw_pitch")]
+        "raw_pitch", "out_pitch")]
 
 
 # the built library, and the counts of kernel launches
@@ -668,6 +733,8 @@ def conv_args(x_shape, packed_shape, out_channels: int, stride: int,
         args.stages, args.q_off = plan.stages, plan.q_off
         args.out_off, args.bar_off = plan.out_off, plan.bar_off
         args.smem = plan.smem
+        args.raw_pitch, args.w_off = plan.raw_pitch, plan.w_off
+        args.out_pitch = plan.out_pitch
     return design, args, scratch
 
 

@@ -1,8 +1,9 @@
 """Int8 conv kernel experiments on the card: where the time of the wgmma,
-depthwise and narrow designs goes, at the shapes of the int8 lane.
+depthwise, generic and narrow designs goes, at the shapes of the int8 lane.
 
     python -m retinanet_torch.tools.int8_conv_experiments \
-        [--designs wgmma depthwise narrow] [--mma_peak]
+        [--designs wgmma depthwise generic narrow] [--mma_peak] \
+        [--parent DIR]
 
 Seven convs of a batch-8 flagship request, bfloat16 in and out, seeded
 inputs, and the 7x7/2 stem a second time on the wgmma design (routed there
@@ -34,6 +35,17 @@ products' floor of the narrow and stem designs.
 `routed`, `NARROW_ROUTES` and `STEM_ROUTES` also serve `chip_smoke.py`,
 which times each narrow call on mma_sync too, and each stem call on
 mma_sync and narrow.
+
+`--designs generic` runs the "depthwise_generic" calls of
+`GENERIC_SHAPES` (lite2's and MobileDet-cpu's first depthwise call through
+an input 2 bytes off 16-byte alignment, and the branches no config
+reaches) under its source variants and cuts (`GEN_VARIANTS`) and plan
+variants (`GEN_PLANS`), then times beside each: cuDNN bf16, the
+"depthwise" design on the same call aligned, the yardstick of copying the
+input into an aligned buffer and running "depthwise" on it (which the port
+never does), and, with `--parent DIR`, the generic design of the tree at
+DIR (its wrapper's plan and its `csrc/int8_conv.cu`, built beside), in
+turns: parent, kernel, kernel, parent.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import argparse
 import contextlib
 import ctypes
 import sys
+import types
 from pathlib import Path
 from typing import Dict
 
@@ -79,6 +92,15 @@ DW_SHAPES = (
     ("dw 64 x160 3x3/1", (8, 64, 64, 160), 3, 1),
     ("dw 32 x720 5x5/1", (8, 32, 32, 720), 5, 1),
     ("dw 4 x160 3x3/1", (8, 4, 4, 160), 3, 1),
+)
+# (label, (N, H, W, C), k, stride, the input's byte offset from a 16-byte
+# unit): "depthwise_generic" calls ("SAME" pads), batch 8
+GENERIC_SHAPES = (
+    ("lite2 dw 256 x32 3x3/1 +2B", (8, 256, 256, 32), 3, 1, 2),
+    ("mdc dw 224 x16 3x3/1 +2B", (8, 224, 224, 16), 3, 1, 2),
+    ("dw 128 x36 3x3/1", (8, 128, 128, 36), 3, 1, 0),
+    ("dw 128 x96 7x7/1", (8, 128, 128, 96), 7, 1, 0),
+    ("dw 192 x32 3x3/3", (8, 192, 192, 32), 3, 3, 0),
 )
 # (label, (N, H, W, C), O, k, stride, pads): dense convs with C <= 16 of
 # batch-8 requests (lite2 and MobileDet-cpu's 1x1 convs and a squeeze-excite
@@ -165,6 +187,68 @@ DW_VARIANTS: Dict[str, Edits] = {
     "cut: dw without stores": [
         ("      tma_store_4d(&y_map, out,",
          "      if (s.c < 0) tma_store_4d(&y_map, out,")],
+}
+# one-edit variants of the generic depthwise design (source)
+GEN_VARIANTS: Dict[str, Edits] = {
+    "gen: no programmatic dependent launch": [
+        ("early.val.programmaticStreamSerializationAllowed = 1;\n"
+         "  cudaLaunchConfig_t config = {};\n"
+         "  config.gridDim = dim3(static_cast<unsigned>(ctas));",
+         "early.val.programmaticStreamSerializationAllowed = 0;\n"
+         "  cudaLaunchConfig_t config = {};\n"
+         "  config.gridDim = dim3(static_cast<unsigned>(ctas));")],
+    "gen: G and S read from the shape (no specialised kernel)": [
+        ("  if (g.blocks == 1 && a.stride <= 2 && g.groups <= 2 &&\n"
+         "      a.kh <= kGenTapRows) {",
+         "  if (g.blocks == 1 && a.stride <= 2 && g.groups <= 2 &&\n"
+         "      a.kh <= kGenTapRows && a.c < 0) {")],
+    "gen: registers for 2 CTAs an SM": [
+        ("__global__ void __launch_bounds__(kDwThreads, 3)\n"
+         "    int8_conv_dw_generic_kernel(",
+         "__global__ void __launch_bounds__(kDwThreads, 2)\n"
+         "    int8_conv_dw_generic_kernel(")],
+    "cut: gen without copies": [
+        ("  if (b.hi <= b.lo) return;\n  constexpr long long kE",
+         "  if (b.hi <= b.lo || s.c > 0) return;\n  constexpr long long kE")],
+    "cut: gen without quantization": [
+        ("  for (int u = threadIdx.x; u < units; u += kDwThreads) {\n"
+         "    const Unit t = unit(u);",
+         "  for (int u = threadIdx.x; u < units && s.c < 0; "
+         "u += kDwThreads) {\n    const Unit t = unit(u);")],
+    "cut: gen without the divisions in doubt": [
+        ("      if (in_doubt(d)) doubt |= 1u << j;",
+         "      if (in_doubt(d) && s.c < 0) doubt |= 1u << j;")],
+    "cut: gen without products": [
+        ("      gen_products<G, S>(acc,", "      if (s.c < 0) gen_products<G, S>(acc,")],
+    "cut: gen without epilogue and stores": [
+        ("      if (!last || cl >= b.cs) continue;",
+         "      if (!last || cl >= b.cs || s.c > 0) continue;"),
+        ("    if (!last) continue;\n    // the runs to y",
+         "    if (!last || s.c > 0) continue;\n    // the runs to y")],
+    "cut: gen without stores": [
+        ("    if (!last) continue;\n    // the runs to y",
+         "    if (!last || s.c > 0) continue;\n    // the runs to y")],
+}
+# the copies alone, and everything but the copies and stores (the cuts'
+# edits together)
+GEN_VARIANTS["cut: gen copies alone"] = (
+    GEN_VARIANTS["cut: gen without quantization"]
+    + GEN_VARIANTS["cut: gen without products"]
+    + GEN_VARIANTS["cut: gen without epilogue and stores"])
+GEN_VARIANTS["cut: gen without copies and stores"] = (
+    GEN_VARIANTS["cut: gen without copies"]
+    + GEN_VARIANTS["cut: gen without stores"])
+# one-constant variants of the generic plan (ops/int8_conv_kernel.py)
+GEN_PLANS: Dict[str, Dict[str, object]] = {
+    "gen plan: ring of 1 box": {"DW_STAGES": 1},
+    "gen plan: tiles of 8 x 16 at most": {
+        "DW_TILES": ((8, 16), (4, 16), (4, 8), (4, 4))},
+    "gen plan: tiles of 4 x 32 first": {
+        "DW_TILES": ((4, 32), (4, 16), (4, 8), (4, 4))},
+    "gen plan: chunks of 16 channels": {"DW_CHUNK": 16},
+    "gen plan: two CTAs an SM": {
+        "GENERIC_SMEM_BUDGETS": (int8_conv_kernel.SM_SMEM // 2 - 1024,
+                                 int8_conv_kernel.SMEM_LIMIT)},
 }
 # one-edit variants of the narrow design (source)
 NARROW_VARIANTS: Dict[str, Edits] = {
@@ -319,6 +403,92 @@ def shape_args(shape, rng, groups: int = 1):
             pads, groups, k, k, torch.bfloat16)
 
 
+def generic_args(shape, rng):
+    """The arguments of `launch` for a call of GENERIC_SHAPES: the
+    bfloat16 input `offset` bytes past a 16-byte unit."""
+    label, (n, h, w, c), k, stride, offset = shape
+    x = torch.from_numpy(rng.normal(0, 1.5, (n, h, w, c)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device="cuda")
+    start = offset // x.element_size()
+    view = flat[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == offset
+    a = shape_args((label, (n, h, w, c), k, stride), rng, groups=c)
+    return (view,) + a[1:]
+
+
+def parent_module(tree: str):
+    """The int8 wrapper of the tree at `tree` (its plans, `conv_args` and
+    `launch`), its kernel built from that tree's `csrc/int8_conv.cu`; the
+    custom op it would register again is left out."""
+    path = Path(tree) / "retinanet_torch" / "ops" / "int8_conv_kernel.py"
+    text = path.read_text()
+    text = text[:text.index("\n@torch.library.custom_op")]
+    module = types.ModuleType("int8_conv_kernel_parent")
+    sys.modules[module.__name__] = module
+    exec(compile(text, str(path), "exec"), module.__dict__)
+    module.kernel = CudaLibrary(
+        "int8_conv_parent", module.declare,
+        source=Path(tree) / "retinanet_torch" / "csrc" / "int8_conv.cu")
+    return module
+
+
+def generic_yardsticks(cases, parent) -> None:
+    """Beside each generic call: cuDNN bf16, "depthwise" on the same call
+    aligned, copying the input aligned and then "depthwise", the parent's
+    generic design; in turns (parent, kernel, kernel, parent)."""
+    import torch.nn.functional as F
+    for label, _, a, want in cases:
+        x, packed, scale, bias, s_a, stride, pads, c, kh, kw, dt = a
+        aligned = x.contiguous().clone()
+        rest = a[1:]
+        row = {}
+        with torch.inference_mode():
+            def kernel_call():
+                return int8_conv_kernel.launch(x, *rest)
+            turns = [("kernel", kernel_call)]
+            if parent is not None:
+                got = parent.launch(x, *rest)
+                if not torch.equal(got, want):
+                    print(f"[int8 gen] {label}: the parent differs from "
+                          "plain", file=sys.stderr)
+                turns = [("parent", lambda: parent.launch(x, *rest)),
+                         ("kernel", kernel_call)]
+                turns = turns + turns[::-1]
+            for name, fn in turns:
+                row.setdefault(name, []).append(
+                    device_time_ms(fn, reps=20))
+            if int8_conv_kernel.int8_design(c, c, kh, kw, stride, c) == \
+                    "depthwise":
+                assert torch.equal(int8_conv_kernel.launch(aligned, *rest),
+                                   want)
+                row["depthwise aligned"] = [device_time_ms(
+                    lambda: int8_conv_kernel.launch(aligned, *rest),
+                    reps=20)]
+
+                def copy_then_depthwise():
+                    aligned.copy_(x)
+                    return int8_conv_kernel.launch(aligned, *rest)
+                row["copy + depthwise"] = [device_time_ms(
+                    copy_then_depthwise, reps=20)]
+            qw = packed.t().reshape(c, 1, kh, kw).to(torch.bfloat16)
+            xb = F.pad(x.permute(0, 3, 1, 2), (pads[2], pads[3], pads[0],
+                                               pads[1]))
+            wb = qw.contiguous(memory_format=torch.channels_last)
+            row["cuDNN bf16"] = [device_time_ms(
+                lambda: F.conv2d(xb, wb, None, stride, 0, 1, c), reps=20)]
+        n, h, w, _ = x.shape
+        oh, ow = want.shape[1:3]
+        nbytes = (n * h * w * c * x.element_size() + kh * kw * c + 8 * c
+                  + n * oh * ow * c * want.element_size())
+        print(f"[int8 gen] {label}: " + ", ".join(
+            f"{k} " + " / ".join(f"{v:.4f}" for v in vals)
+            for k, vals in row.items())
+            + f" ms; bound {nbytes / 3.35e12 * 1e3:.5f} ms (bytes at "
+            "3.35 TB/s)")
+
+
 def kernel_ms(fn, calls: int = 10) -> Dict[str, float]:
     """Device ms a call of each CUDA kernel that `fn` launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -342,10 +512,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--designs", nargs="+",
                     default=["wgmma", "depthwise", "narrow"],
-                    choices=["wgmma", "depthwise", "narrow"],
+                    choices=["wgmma", "depthwise", "generic", "narrow"],
                     help="whose shapes and variants to run")
     ap.add_argument("--mma_peak", action="store_true",
                     help="first the card's int8 mma.sync rate")
+    ap.add_argument("--parent", default=None,
+                    help="a tree whose generic design is timed beside "
+                         "(with --designs generic)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("int8_conv_experiments runs on the card only", file=sys.stderr)
@@ -367,6 +540,9 @@ def main(argv=None) -> int:
     if "depthwise" in args.designs:
         runs += [(n, e, {}, "depthwise") for n, e in DW_VARIANTS.items()]
         runs += [(n, None, c, "depthwise") for n, c in DW_PLANS.items()]
+    if "generic" in args.designs:
+        runs += [(n, e, {}, "generic") for n, e in GEN_VARIANTS.items()]
+        runs += [(n, None, c, "generic") for n, c in GEN_PLANS.items()]
     if "narrow" in args.designs:
         runs += [(n, e, {}, "narrow") for n, e in NARROW_VARIANTS.items()]
         runs += [(n, None, c, "narrow") for n, c in {**NARROW_PLANS,
@@ -375,7 +551,10 @@ def main(argv=None) -> int:
     libs.update({name: variant_library(base, int8_conv_kernel.declare, name,
                                        edits)
                  for name, edits, _, _ in runs if edits is not None})
-    build_all(libs.values())
+    parent = (parent_module(args.parent)
+              if args.parent and "generic" in args.designs else None)
+    build_all(list(libs.values())
+              + ([parent.kernel] if parent is not None else []))
     for name, lib in libs.items():
         entry = "?"
         for line in lib.build_log.splitlines():
@@ -385,7 +564,7 @@ def main(argv=None) -> int:
             if "registers" in line or "stack frame" in line:
                 print(f"[build] {name}: {entry}: {line.strip()}")
     # design -> [(label, the route, args, plain)]
-    cases = {"wgmma": [], "depthwise": [], "narrow": []}
+    cases = {"wgmma": [], "depthwise": [], "generic": [], "narrow": []}
     if "wgmma" in args.designs:
         for shape in SHAPES:
             routes = [{}] + ([{"WGMMA_MIN_CHANNELS": 1}]
@@ -403,6 +582,12 @@ def main(argv=None) -> int:
                                groups=shape[1][3])
                 cases["depthwise"].append((shape[0], {}, a,
                                            int8_conv2d_plain(*a)))
+    if "generic" in args.designs:
+        for i, shape in enumerate(GENERIC_SHAPES):
+            with torch.inference_mode():
+                a = generic_args(shape, np.random.default_rng(300 + i))
+                cases["generic"].append((shape[0], {}, a,
+                                         int8_conv2d_plain(*a)))
     if "narrow" in args.designs:
         for i, shape in enumerate(NARROW_SHAPES):
             stem = shape[1][3] < int8_conv_kernel.NARROW_MIN_CHANNELS
@@ -423,7 +608,8 @@ def main(argv=None) -> int:
                 with routed(route), plan_constants(constants), \
                         torch.inference_mode():
                     design = int8_conv_kernel.int8_design(
-                        x.shape[3], scale.shape[0], kh, kw, stride, groups)
+                        x.shape[3], scale.shape[0], kh, kw, stride, groups,
+                        x.data_ptr() % 16 == 0)
                     if (design_of == "narrow" and name != "base"
                             and (design not in ("narrow", "stem")
                                  or name in STEM_PLANS
@@ -440,6 +626,9 @@ def main(argv=None) -> int:
                 print(f"[int8 exp] {name:45s} {label:18s} {design:9s} "
                       f"{ms:.4f} ms ({parts})"
                       f"{'' if same else '  DIFFERS from plain'}")
+        if "generic" in args.designs:
+            int8_conv_kernel.kernel = base
+            generic_yardsticks(cases["generic"], parent)
     finally:
         int8_conv_kernel.kernel = base
     for what in failed:

@@ -5,7 +5,8 @@
     `lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
     bit for bit at every shape the kernel takes: stride 1 and 2, "SAME"
     with asymmetric pads, 1x1, 3x3, the 7x7 stem with C = 3, depthwise 1x1,
-    3x3 and 5x5 (C = 7 among them), C = 6, 24 and 40, the narrow design's
+    3x3, 5x5 and 7x7, a non-square 3x5 and stride 3 (C = 7 among them),
+    C = 6, 24 and 40, the narrow design's
     1x1, 3x3/2 and 5x5/2 at C = 4, 6, 8, 12 and 16, and the largest
     magnitude of the flagship (4,608 terms of 127 * -127).
   * The activation quantization and the epilogue equal the JAX
@@ -81,6 +82,11 @@ _CONV_CASES = [
     ("dw5x5_s2_same_asym_c16", 2, (11, 14), 16, 16, 5, 2, 16, "SAME"),
     ("dw1x1", 2, (6, 7), 24, 24, 1, 1, 24, (0, 0, 0, 0)),
     ("dw5x5_s1_c7", 1, (9, 8), 7, 7, 5, 1, 7, "SAME"),
+    # "depthwise_generic"'s other branches: a 7x7 window, a non-square 3x5
+    # (k as (kh, kw)), stride 3
+    ("dw7x7_s1_generic", 1, (12, 13), 16, 16, 7, 1, 16, "SAME"),
+    ("dw3x5_s1_generic", 2, (9, 10), 12, 12, (3, 5), 1, 12, "SAME"),
+    ("dw3x3_s3_generic", 2, (13, 14), 8, 8, 3, 3, 8, "SAME"),
     # the narrow design's classes (dense, 4 <= C <= 16): 1x1, 3x3/2 and
     # 5x5/2 "SAME" at C = 4, 6, 8, 12 and 16 where the cases above have
     # none
@@ -100,13 +106,21 @@ _CONV_CASES = [
 ]
 
 
+def _window(k):
+    """(kh, kw) of a case's window: k, or (kh, kw) where it is not
+    square."""
+    return (k, k) if isinstance(k, int) else k
+
+
 def _conv_inputs(case, seed):
     _, n, (h, w), c, o, k, stride, groups, pads = case
+    kh, kw = _window(k)
     rng = np.random.default_rng(seed)
     qx = rng.integers(-127, 128, (n, h, w, c)).astype(np.int8)
-    qw_hwio = rng.integers(-127, 128, (k, k, c // groups, o)).astype(np.int8)
+    qw_hwio = rng.integers(-127, 128, (kh, kw, c // groups, o)).astype(
+        np.int8)
     if pads == "SAME":
-        pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+        pads = same_pads(h, kh, stride) + same_pads(w, kw, stride)
     return qx, qw_hwio, pads
 
 
@@ -120,6 +134,7 @@ def _jax_acc(qx, qw_hwio, stride, padding, groups):
 @pytest.mark.parametrize("case", _CONV_CASES, ids=[c[0] for c in _CONV_CASES])
 def test_plain_accumulators_equal_lax_int8_conv(case):
     _, _, _, _, _, k, stride, groups, spec = case
+    kh, kw = _window(k)
     qx, qw_hwio, pads = _conv_inputs(case, seed=len(case[0]))
     # JAX's own "SAME" string where the case is SAME: the port's same_pads
     # must give lax's asymmetric split
@@ -134,11 +149,11 @@ def test_plain_accumulators_equal_lax_int8_conv(case):
     # implementation is the plain version
     packed = pack_weights(qw, groups)
     assert torch.equal(unpack_weights(packed, qw.shape[0],
-                                      qw.shape[1], k, k, groups), qw)
+                                      qw.shape[1], kh, kw, groups), qw)
     x = torch.from_numpy(np.random.default_rng(1).normal(
         0, 2, qx.shape).astype(np.float32))
     scale = torch.full((qw.shape[0],), 1e-3)
-    args = (x, packed, scale, None, 0.03, stride, pads, groups, k, k,
+    args = (x, packed, scale, None, 0.03, stride, pads, groups, kh, kw,
             torch.float32)
     assert torch.equal(int8_conv2d(*args), int8_conv2d_plain(*args))
 

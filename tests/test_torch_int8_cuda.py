@@ -18,7 +18,7 @@ from retinanet_torch.models.layers import same_pads  # noqa: E402
 from retinanet_torch.ops.int8_conv import (int8_conv2d_plain,  # noqa: E402
                                            pack_weights, tap_channels)
 from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
-    TILE_M, conv_args, int8_conv2d, kernel)
+    TILE_M, conv_args, int8_conv2d, int8_design, kernel)
 from retinanet_torch.tools.int8_conv_experiments import (  # noqa: E402
     STEM_ROUTES, plan_constants, routed)
 
@@ -67,6 +67,8 @@ _CASES = [
     ("dw7x7_g", 1, 20, 16, 16, 7, 1, 16, None),
     ("dw3x3_s3_g", 2, 17, 8, 8, 3, 3, 8, (1, 1, 1, 1)),
     ("dw19x19_s2_g", 1, 30, 12, 12, 19, 2, 12, None),
+    # a window in blocks of taps: its whole box fits no shared memory
+    ("dw48x48_g_blocks", 1, 20, 32, 32, 48, 1, 32, None),
     # narrow (c6_odd and c16_head above too): 1x1 runs across rows and
     # images with a ragged last item, tensor maps both ways (4,096 pixels
     # and more), more than one store box a pixel, 3x3/1 with edge tiles,
@@ -184,6 +186,22 @@ def test_cases_meet_every_branch():
     gen = [a for d, a in args.values() if d == "depthwise_generic"]
     assert any(a.c % 8 for a in gen) and any(a.stride > 2 for a in gen)
     assert any(a.taps_h < a.kh for a in gen)
+    # the generic design's own cases (any alignment, non-square windows):
+    # runs of box rows and of a pixel's chunk, every kernel of the
+    # launcher's (G, S), strides 1 to 4, both ring depths
+    gen = [conv_args((n, h, w, c), (kh * kw, c), c, stride,
+                     pads or same_pads(h, kh, stride) + same_pads(w, kw,
+                                                                  stride),
+                     c, kh, kw, nbytes, nbytes, False)[1]
+           for _, n, h, w, c, kh, kw, stride, pads in _GENERIC_CASES
+           for nbytes in (2, 4)]
+    assert {a.c <= a.dw_chunk for a in gen} == {True, False}
+    assert any(a.c > a.dw_chunk and a.c % a.dw_chunk for a in gen)
+    assert {_generic_kernel(a) for a in gen} == {(1, 1), (1, 2), (2, 1),
+                                                 (2, 2), (0, 0)}
+    assert {a.stride for a in gen} == {1, 2, 3, 4}
+    assert {a.stages for a in gen} == {1, 2}
+    assert any(a.kh != a.kw for a in gen)
     wg = {name: a for name, (d, a) in args.items() if d == "wgmma"}
     assert {a.tile_n for a in wg.values()} == {64, 128, 256}
     assert any(a.o % a.tile_n for a in wg.values())
@@ -418,3 +436,89 @@ def test_int8_depthwise_quantizes_bf16_ties_like_the_division(design, c,
     torch.cuda.synchronize()
     assert kernel.launches_by[design] == before + 1
     assert torch.equal(got, int8_conv2d_plain(x, *args))
+
+
+# "depthwise_generic" on its own: (name, N, H, W, C, kh, kw, stride, pads;
+# None "SAME"). C = 40 (two chunks, one ragged: a pixel's chunk a run), C =
+# 12 and 7 (box rows a run), 7x7 at stride 1 and 2, 3x5, 5x3, stride 3 and
+# 4, 19x19, lite2's 3x3/1 at C = 32, and planes 4 and 3 wide
+_GENERIC_CASES = [
+    ("g_c40_3x3", 2, 20, 23, 40, 3, 3, 1, None),
+    ("g_c12_3x3", 2, 30, 29, 12, 3, 3, 1, None),
+    ("g_c7_3x3_s2", 2, 21, 22, 7, 3, 3, 2, None),
+    ("g_c32_3x3", 2, 40, 36, 32, 3, 3, 1, None),
+    ("g_7x7_s1", 2, 30, 30, 32, 7, 7, 1, None),
+    ("g_7x7_s2", 2, 31, 30, 24, 7, 7, 2, None),
+    ("g_3x5_s1", 2, 21, 22, 16, 3, 5, 1, (1, 1, 2, 2)),
+    ("g_5x3_s2", 1, 19, 24, 20, 5, 3, 2, None),
+    ("g_3x3_s3", 2, 25, 26, 24, 3, 3, 3, None),
+    ("g_5x5_s4", 2, 33, 30, 16, 5, 5, 4, None),
+    ("g_19x19_s1", 1, 40, 40, 8, 19, 19, 1, None),
+    # planes at most 4 wide: a box row of one unit of 8 pixels
+    ("g_c12_4x4", 2, 4, 4, 12, 3, 3, 1, None),
+    ("g_c40_2x3", 3, 2, 3, 40, 3, 3, 1, None),
+]
+
+
+def _generic_kernel(args):
+    """(G, S) of the generic kernel the launcher picks (0: from the
+    shape)."""
+    groups = -(-args.kw // 4)
+    if (args.taps_h == args.kh and args.taps_w == args.kw
+            and args.stride <= 2 and groups <= 2
+            and args.kh <= 8):
+        return groups, args.stride
+    return 0, 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["in_f32", "in_bf16"])
+@pytest.mark.parametrize("case", _GENERIC_CASES,
+                         ids=[c[0] for c in _GENERIC_CASES])
+def test_int8_generic_every_byte_offset(case, in_dtype):
+    """The generic design at every byte offset an element of the input can
+    have (0 to 14 in bfloat16, 0 to 12 in float32; at 0 a call that
+    "depthwise" takes goes there), the bytes around the view NaN and +-inf
+    (the copies read whole 16-byte units, some of them outside the view:
+    never used), both output types, with and without bias: bit-equal to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the int8 conv kernel has no CPU "
+                    "mode")
+    _, n, h, w, c, kh, kw, stride, pads = case
+    if pads is None:
+        pads = same_pads(h, kh, stride) + same_pads(w, kw, stride)
+    rng = np.random.default_rng(len(case[0]))
+    x = torch.from_numpy(rng.normal(0, 1.5, (n, h, w, c)).astype(
+        np.float32)).to(in_dtype).cuda()
+    qw = torch.from_numpy(rng.integers(-127, 128, (c, 1, kh, kw))
+                          .astype(np.int8))
+    packed = pack_weights(qw, c).cuda()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, c).astype(
+        np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(0, 1, c).astype(np.float32)).cuda()
+    s_a = float(x.float().abs().max()) / 127.0 * 0.8  # some clipping
+    e = x.element_size()
+    for off in range(0, 16 // e):
+        flat = torch.full((x.numel() + 64,), float("nan"), dtype=in_dtype,
+                          device="cuda")
+        flat[::3] = float("inf")
+        flat[1::5] = float("-inf")
+        # the view `off` elements past a 16-byte unit of the buffer
+        start = off + (-flat.data_ptr() // e) % (16 // e) + 16 // e
+        view = flat[start:start + x.numel()].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == off * e
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for b in (bias, None):
+                args = (packed, scale, b, s_a, stride, pads, c, kh, kw,
+                        out_dtype)
+                design = int8_design(c, c, kh, kw, stride, c, off == 0)
+                before = kernel.launches_by[design]
+                got = int8_conv2d(view, *args)
+                torch.cuda.synchronize()
+                assert kernel.launches_by[design] == before + 1
+                want = int8_conv2d_plain(x, *args)
+                assert torch.equal(got, want), (
+                    off, out_dtype, (got.float() - want.float()).abs().max())

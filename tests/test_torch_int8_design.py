@@ -56,9 +56,10 @@ from retinanet_torch.ops.int8_conv import (  # noqa: E402
 from retinanet_torch.ops import \
     int8_conv_kernel as int8_conv_kernel_module  # noqa: E402
 from retinanet_torch.ops.int8_conv_kernel import (  # noqa: E402
-    CHUNKS, DW_BLOCK, DW_SMEM_BUDGET, DW_THREADS, NARROW_MAP_MIN_PIXELS,
+    CHUNKS, DW_BLOCK, DW_SMEM_BUDGET, DW_THREADS, GEN_DOUBTS,
+    GEN_DOUBTS_OFF, NARROW_MAP_MIN_PIXELS,
     NARROW_PIXEL, NARROW_SMEM_BUDGETS, NARROW_TILE_NS, SMEM_LIMIT, TILE_M,
-    TILE_NS, Im2colPlan, conv_args, int8_conv2d, int8_design,
+    TILE_NS, Im2colPlan, conv_args, generic_words, int8_conv2d, int8_design,
     narrow_staging_bytes, wgmma_chunk, wgmma_tile_n)
 from test_torch_threads import one_thread  # noqa: E402,F401
 
@@ -135,8 +136,10 @@ def _want_design(c, kh, kw, stride, groups):
 def _check_depthwise_args(args, c, in_bytes, out_bytes,
                           budget=DW_SMEM_BUDGET):
     """The plan's limits: shared memory, TMA's boxes and strides, the
-    block rows' reads inside a row, the planes' banks."""
-    assert args.smem <= budget <= SMEM_LIMIT
+    block rows' reads inside a row, the planes' banks; the generic
+    design's runs, tap words, staging runs and window blocks."""
+    assert args.smem <= (budget if args.design == 0 else SMEM_LIMIT)
+    assert budget <= SMEM_LIMIT
     assert DW_THREADS % args.dw_chunk == 0
     assert args.box_h == (args.tile_h - 1) * args.stride + args.taps_h
     assert args.box_w == (args.tile_w - 1) * args.stride + args.taps_w
@@ -167,9 +170,42 @@ def _check_depthwise_args(args, c, in_bytes, out_bytes,
         assert ((args.tile_w - DW_BLOCK) * args.stride + 4 * words
                 <= args.row_pitch)
     else:
-        assert args.stages == 0 and args.q_off == 0
-        sums = args.tile_h * args.tile_w * args.dw_chunk * 4
-        assert args.out_off + sums + 128 <= args.smem
+        def align(v, b):
+            return -(-v // b) * b
+        chunk = args.dw_chunk
+        rows = c <= chunk  # a run: a box (tile) row, else a pixel's chunk
+        assert args.tile_h % DW_BLOCK == 0 and args.tile_w % DW_BLOCK == 0
+        assert args.stages >= 1
+        run_in = (args.box_w * c if rows else chunk) * in_bytes
+        assert args.raw_pitch % 16 == 0 and args.raw_pitch >= run_in + 15
+        runs = args.box_h if rows else args.box_h * args.box_w
+        assert args.q_off == args.stages * align(runs * args.raw_pitch, 128)
+        # a block row's reads (its outputs' tap words and the next word),
+        # and the quantizer's words of 8 pixels
+        assert args.row_pitch == max(
+            (args.tile_w - DW_BLOCK) * args.stride
+            + 4 * generic_words(args.stride, args.taps_w),
+            align(args.box_w, 8))
+        assert args.w_off % 128 == 0 and args.out_off % 128 == 0
+        assert args.q_off + q_bytes <= args.w_off
+        taps = args.kh * -(-args.kw // 4) * chunk * 4
+        assert args.w_off + taps <= args.out_off
+        run_out = (args.tile_w * c if rows else chunk) * out_bytes
+        assert args.out_pitch % 16 == 0 and args.out_pitch >= run_out + 15
+        staging = (args.tile_h if rows else args.tile_h * args.tile_w) * \
+            args.out_pitch
+        assert args.out_off + staging <= args.bar_off
+        assert args.bar_off % 8 == 0
+        assert 8 * args.stages <= GEN_DOUBTS_OFF
+        # the warps' lists of elements in doubt, after the barriers
+        assert (args.bar_off + GEN_DOUBTS_OFF
+                + DW_THREADS // 32 * (GEN_DOUBTS + 1) * 4 + 128 <= args.smem)
+        if args.taps_h < args.kh or args.taps_w < args.kw:
+            # whole tap words a block; a thread's sums in registers across
+            # the blocks: one block of outputs a thread
+            assert args.taps_w % 4 == 0
+            assert (args.tile_h // DW_BLOCK) * (args.tile_w // DW_BLOCK) \
+                <= DW_THREADS // chunk
 
 
 def _check_narrow_args(args, in_bytes, out_bytes):
@@ -574,15 +610,29 @@ def test_experiment_edits_apply():
     variant names constants of the wrapper and gives a plan that fits."""
     from retinanet_torch.ops import int8_conv_kernel
     from retinanet_torch.tools.int8_conv_experiments import (
-        DW_PLANS, DW_SHAPES, DW_VARIANTS, NARROW_PLANS, NARROW_ROUTES,
-        NARROW_SHAPES, NARROW_VARIANTS, STEM_PLANS, STEM_ROUTES, VARIANTS,
-        plan_constants, routed)
+        DW_PLANS, DW_SHAPES, DW_VARIANTS, GEN_PLANS, GEN_VARIANTS,
+        GENERIC_SHAPES, NARROW_PLANS, NARROW_ROUTES, NARROW_SHAPES,
+        NARROW_VARIANTS, STEM_PLANS, STEM_ROUTES, VARIANTS, plan_constants,
+        routed)
     from retinanet_torch.tools.kernel_variants import variant_source
     kernel = int8_conv_kernel.kernel
-    for name, edits in {**VARIANTS, **DW_VARIANTS,
+    for name, edits in {**VARIANTS, **DW_VARIANTS, **GEN_VARIANTS,
                         **NARROW_VARIANTS}.items():
         source = variant_source(kernel, name, edits)
         assert source != kernel.source.read_text()
+    # the generic plan variants fit at every generic call of the tool, each
+    # a call the generic design takes
+    for name, changes in {"base": {}, **GEN_PLANS}.items():
+        for constant in changes:
+            assert hasattr(int8_conv_kernel, constant), (name, constant)
+        for label, (n, h, w, c), k, stride, offset in GENERIC_SHAPES:
+            pads = same_pads(h, k, stride) + same_pads(w, k, stride)
+            with plan_constants(changes):
+                design, args, _ = conv_args((n, h, w, c), (k * k, c), c,
+                                            stride, pads, c, k, k, 2, 2,
+                                            offset == 0)
+            assert design == "depthwise_generic", label
+            _check_depthwise_args(args, c, 2, 2)
     # the narrow plan variants fit at every narrow shape of the tool, and
     # each route sends its shapes to the other design
     for name, changes in NARROW_PLANS.items():
@@ -734,41 +784,288 @@ def depthwise_walk(qx, wq, args, pads):
     return acc
 
 
-def generic_walk(qx, wq, args, pads):
-    """int32 accumulators of the "depthwise_generic" kernel: each window
-    block's box quantized once into the planes, the tile's sums carried
-    across window blocks."""
+def generic_units(args, n, oh, ow, c):
+    """The generic kernel's load units in one CTA's order: for each item
+    (`_dw_items`), its window blocks (row-major), as (item tuple, r0, q0)."""
+    blocks_w = -(-args.kw // args.taps_w)
+    blocks_h = -(-args.kh // args.taps_h)
+    for item in _dw_items(args, n, oh, ow, c):
+        for wb in range(blocks_h * blocks_w):
+            yield item, wb // blocks_w * args.taps_h, \
+                wb % blocks_w * args.taps_w
+
+
+def generic_box(args, item, r0, q0, pads):
+    """`gen_box`: the box's origin in the input, its columns in the input
+    [lo, hi) (hi == lo where none is: a window block wholly right of the
+    input), the chunk's channels."""
+    img, ty, tx, ci = item
+    s = args.stride
+    iy0 = ty * args.tile_h * s - pads[0] + r0
+    ix0 = tx * args.tile_w * s - pads[2] + q0
+    lo = max(0, -ix0)
+    hi = max(lo, min(args.box_w, args.w - ix0))
+    cs = min(args.dw_chunk, args.c - ci * args.dw_chunk)
+    return iy0, ix0, lo, hi, cs
+
+
+def generic_copies(buf, x_off, args, in_bytes, item, iy0, ix0, lo, hi, cs):
+    """`gen_copy_box`: the 16-byte units the threads copy, as (slot byte,
+    input byte) pairs; `buf` holds the input from byte x_off (byte 0 of
+    buf 16-byte aligned). Each unit holds a byte of the input."""
+    img, _, _, ci = item
+    h, w, c, e = args.h, args.w, args.c, in_bytes
+    rows = c <= args.dw_chunk
+    nbytes = args.n * h * w * c * e
+    out = []
+    if hi <= lo:
+        return out
+    for yy in range(max(0, -iy0), min(args.box_h, h - iy0)):
+        if rows:
+            col0 = x_off + ((img * h + iy0 + yy) * w + ix0) * c * e
+            first = col0 + lo * c * e
+            src = first // 16 * 16
+            end = -(-(first + (hi - lo) * c * e) // 16) * 16
+            dst = yy * args.raw_pitch + src - col0 // 16 * 16
+            assert dst >= yy * args.raw_pitch
+            assert dst + end - src <= (yy + 1) * args.raw_pitch
+            out += [(dst + k, src + k) for k in range(0, end - src, 16)]
+        else:
+            per = args.raw_pitch // 16
+            for xx in range(lo, hi):
+                first = x_off + (((img * h + iy0 + yy) * w + ix0 + xx) * c
+                                 + ci * args.dw_chunk) * e
+                for k in range(per):
+                    src = first // 16 * 16 + 16 * k
+                    if src < first + cs * e:
+                        out.append(((yy * args.box_w + xx) * args.raw_pitch
+                                    + 16 * k, src))
+    for _, src in out:
+        assert src < x_off + nbytes and src + 16 > x_off, "a unit past x"
+        assert 0 <= src and src + 16 <= len(buf)
+    return out
+
+
+def generic_element_at(args, in_bytes, x_off, item, iy0, ix0, yy, xx, c):
+    """Where `gen_quantize_box` reads element (yy, xx, c) of the box in the
+    raw box: the run's slot, its lead mod 16, the element's place."""
+    img, _, _, ci = item
+    e = in_bytes
+    lead0 = x_off + ((img * args.h + iy0) * args.w + ix0) * args.c * e
+    if args.c > args.dw_chunk:
+        lead0 += ci * args.dw_chunk * e
+    lead = lead0 + yy * args.w * args.c * e
+    if args.c <= args.dw_chunk:
+        return yy * args.raw_pitch + lead % 16 + (xx * args.c + c) * e
+    return ((yy * args.box_w + xx) * args.raw_pitch
+            + (lead + xx * args.c * e) % 16 + c * e)
+
+
+def _decode(raw_bytes, in_bytes):
+    """float32 values of little-endian bfloat16 (2) or float32 (4) bytes."""
+    if in_bytes == 2:
+        bits = raw_bytes.view("<u2").astype(np.uint32) << 16
+        return bits.view(np.float32)
+    return raw_bytes.view("<f4").astype(np.float32)
+
+
+def generic_raw_box(buf, x_off, args, in_bytes, item, box, stage):
+    """One load into a ring stage (bytes, kept across loads): the copies
+    land; returns the stage and the mask of the bytes this load wrote."""
+    copies = generic_copies(buf, x_off, args, in_bytes, item, *box)
+    fresh = np.zeros(stage.shape, bool)
+    for dst, src in copies:
+        stage[dst:dst + 16] = buf[src:src + 16]
+        fresh[dst:dst + 16] = True
+    return fresh
+
+
+def generic_box_values(args, in_bytes, x_off, item, box, stage, fresh):
+    """The box's float32 values as `gen_quantize_box` reads them (zeros
+    outside the input and past cs), each from bytes this load wrote."""
+    iy0, ix0, lo, hi, cs = box
+    yy, xx, cc = np.meshgrid(np.arange(args.box_h), np.arange(args.box_w),
+                             np.arange(args.dw_chunk), indexing="ij")
+    # the kernel's test: (unsigned)(x - lo) < (unsigned)(hi - lo)
+    live = ((iy0 + yy >= 0) & (iy0 + yy < args.h)
+            & (((xx - lo) & 0xFFFFFFFF) < ((hi - lo) & 0xFFFFFFFF))
+            & (cc < cs))
+    vals = np.zeros(yy.shape, np.float32)
+    if live.any():
+        at = generic_element_at(args, in_bytes, x_off, item, iy0, ix0,
+                                yy[live], xx[live], cc[live])
+        idx = at[:, None] + np.arange(in_bytes)
+        assert fresh[idx].all(), "an element no copy of this box wrote"
+        vals[live] = _decode(np.ascontiguousarray(stage[idx]).reshape(-1),
+                             in_bytes)
+    return vals
+
+
+def generic_tap_words(wq, args, ci):
+    """The chunk's tap words as bytes (kh, ceil(kw / 4), chunk, 4):
+    w[r][4 g + k] at byte k, zeros past the window and past C."""
+    kh, kw, c, chunk = args.kh, args.kw, args.c, args.dw_chunk
+    groups = -(-kw // 4)
+    out = np.zeros((kh, groups * 4, chunk), np.int64)
+    cs = min(chunk, c - ci * chunk)
+    out[:, :kw, :cs] = wq.reshape(kh, kw, c)[:, :, ci * chunk:ci * chunk + cs]
+    return out.reshape(kh, groups, 4, chunk).transpose(0, 1, 3, 2)
+
+
+def _words(b):
+    """int32 words (little-endian) of bytes b (..., 4k) as uint64."""
+    b = b.astype(np.uint64)
+    return (b[..., 0::4] | b[..., 1::4] << 8 | b[..., 2::4] << 16
+            | b[..., 3::4] << 24)
+
+
+def _dp4a(word, wbytes):
+    """__dp4a(word, w, 0): the signed bytes of `word` dotted with wbytes
+    (..., 4) signed."""
+    parts = [((word >> np.uint64(8 * k)) & np.uint64(0xFF)).astype(np.int64)
+             for k in range(4)]
+    return sum(np.where(p > 127, p - 256, p) * wbytes[..., k]
+               for k, p in enumerate(parts))
+
+
+def generic_products(planes, taps, args, r0, q0, acc):
+    """`gen_products` over every 4 x 4 block of the tile and every channel
+    at once: acc (chunk, nby, nbx, 4, 4) += the window block's sums, from
+    the block rows' int32 words, shifted to each output's first byte."""
+    s, chunk = args.stride, args.dw_chunk
+    rows = min(args.taps_h, args.kh - r0)
+    groups = -(-min(args.taps_w, args.kw - q0) // 4)
+    nby, nbx = args.tile_h // DW_BLOCK, args.tile_w // DW_BLOCK
+    words = _words(planes)  # (chunk, box_h, row_pitch / 4)
+    by = np.arange(nby)[:, None]
+    bx = np.arange(nbx)[None, :]
+    for yy in range(3 * s + rows):
+        for gg in range(groups):
+            sh = []
+            for i in range(DW_BLOCK):
+                off = s * i + 4 * gg
+                k = bx * s + (off >> 2)
+                assert (k + 1 < words.shape[2]).all()
+                lo = words[:, DW_BLOCK * by * s + yy, k]
+                hi = words[:, DW_BLOCK * by * s + yy, k + 1]
+                sh.append(((hi << np.uint64(32) | lo)
+                           >> np.uint64(8 * (off & 3))) & np.uint64(0xFFFFFFFF))
+            for j in range(DW_BLOCK):
+                r = yy - j * s
+                if not 0 <= r < rows:
+                    continue
+                wt = taps[r0 + r, q0 // 4 + gg][:, None, None, :]
+                for i in range(DW_BLOCK):
+                    acc[:, :, :, j, i] += _dp4a(sh[i], wt)
+
+
+def generic_quantize(vals, s_a, planes):
+    """`gen_quantize_box` into the planes (chunk, box_h, row_pitch): two
+    words of eight pixels a row at a time, the bytes past them left as
+    they were."""
+    chunk, box_h, box_w = vals.shape[2], vals.shape[0], vals.shape[1]
+    q = quantize_byte_model(vals, s_a).astype(np.int64) & 0xFF
+    width = -(-box_w // 8) * 8
+    assert width <= planes.shape[2]
+    planes[:, :, :width] = 0
+    planes[:, :, :box_w] = q.transpose(2, 0, 1)
+
+
+def generic_store(acc_tile, args, item, y_vals, y_count, out_bytes):
+    """The epilogue's staging runs and the threads' 16-byte units to y:
+    y_vals / y_count indexed by y's bytes (an element's value at its first
+    byte); the tile's outputs past the plane are not staged."""
+    img, ty, tx, ci = item
+    c, chunk, e = args.c, args.dw_chunk, out_bytes
+    rows = c <= chunk
+    oy0, ox0 = ty * args.tile_h, tx * args.tile_w
+    th, tw = min(args.tile_h, args.oh - oy0), min(args.tile_w, args.ow - ox0)
+    cs = min(chunk, c - ci * chunk)
+    nruns = args.tile_h if rows else args.tile_h * args.tile_w
+    stage = np.full(nruns * args.out_pitch, -(1 << 40), np.int64)
+
+    def first_of(oy, ox):  # the run's first element in y (bytes)
+        if rows:
+            return ((img * args.oh + oy0 + oy) * args.ow + ox0) * c * e
+        return (((img * args.oh + oy0 + oy) * args.ow + ox0 + ox) * c
+                + ci * chunk) * e
+    oy, ox, cl = np.meshgrid(np.arange(th), np.arange(tw), np.arange(cs),
+                             indexing="ij")
+    first = first_of(oy, 0 if rows else ox)
+    run = oy if rows else oy * args.tile_w + ox
+    place = first % 16 + ((ox * c + cl) if rows else cl) * e
+    assert (place + e <= args.out_pitch).all()
+    stage[run * args.out_pitch + place] = acc_tile[oy, ox, cl]
+    per = args.out_pitch // 16
+    for run in range(nruns):
+        oy, ox = (run, 0) if rows else divmod(run, args.tile_w)
+        if oy >= th or ox >= tw:
+            continue
+        first = first_of(oy, ox)
+        end = first + (tw * c if rows else cs) * e
+        for k in range(per):
+            dst = first // 16 * 16 + 16 * k
+            if dst >= end:
+                continue
+            src = run * args.out_pitch + 16 * k
+            for b in range(0, 16, e):
+                if first <= dst + b < end:
+                    y_vals[dst + b] = stage[src + b]
+                    y_count[dst + b] += 1
+
+
+def generic_walk(qx, wq, args, pads, in_bytes=2, out_bytes=2,
+                 x_off=2, grid=3):
+    """int32 accumulators of the "depthwise_generic" kernel, walked as it
+    walks: the input (qx as bfloat16 or float32 values, quantized at s_a =
+    1, which gives qx back) x_off bytes past a 16-byte unit of a buffer of
+    NaN and inf; `grid` CTAs, each with its ring of raw boxes, its planes
+    and staging kept across its load units (noise at first); the copies,
+    the quantization, the tap words, the products and the store to y's
+    bytes, each as the kernel does them."""
     n, _, _, c = qx.shape
-    kh, kw, s = args.kh, args.kw, args.stride
     rng = np.random.default_rng(1)
-    acc = np.zeros((n, args.oh, args.ow, c), np.int64)
-    written = 0
+    e = in_bytes
+    xv = qx.astype(np.float32)
+    raw = (xv.view(np.uint32) >> 16).astype("<u2") if e == 2 else \
+        xv.astype("<f4")
+    pad = np.frombuffer(np.float32([np.nan, np.inf, -np.inf, np.nan] * 8)
+                        .tobytes(), np.uint8)
+    buf = np.concatenate([pad[:x_off], raw.view(np.uint8).reshape(-1),
+                          pad[:32]])
     chunk = args.dw_chunk
-    wfull = wq.reshape(kh, kw, c)
-    for img, ty, tx, ci in _dw_items(args, n, args.oh, args.ow, c):
-        c0 = ci * chunk
-        cs = min(chunk, c - c0)
-        sums = np.zeros((args.tile_h, args.tile_w, chunk), np.int64)
-        for r0 in range(0, kh, args.taps_h):
-            for q0 in range(0, kw, args.taps_w):
-                planes = _dw_planes(
-                    qx, args, img, ty * args.tile_h * s - pads[0] + r0,
-                    tx * args.tile_w * s - pads[2] + q0, c0, rng)
-                rows, cols = min(args.taps_h, kh - r0), min(args.taps_w,
-                                                            kw - q0)
-                wblock = np.zeros((chunk, rows, cols), np.int64)
-                wblock[:cs] = wfull[r0:r0 + rows, q0:q0 + cols,
-                                    c0:c0 + cs].transpose(2, 0, 1)
-                for oy in range(args.tile_h):
-                    for ox in range(args.tile_w):
-                        assert ox * s + cols <= args.box_w
-                        patch = planes[:, oy * s:oy * s + rows,
-                                       ox * s:ox * s + cols]
-                        sums[oy, ox] += (patch * wblock).sum((1, 2))
-        written += _store(acc, sums, img, ty * args.tile_h,
-                          tx * args.tile_w, c0)
-    assert written == acc.size
-    return acc
+    y_vals = np.zeros(n * args.oh * args.ow * c * out_bytes + 32, np.int64)
+    y_count = np.zeros_like(y_vals)
+    raw_stride = args.q_off // args.stages
+    units = list(generic_units(args, n, args.oh, args.ow, c))
+    blocks = -(-args.kh // args.taps_h) * -(-args.kw // args.taps_w)
+    items = len(units) // blocks
+    for cta in range(min(grid, items)):
+        mine = [u for k, u in enumerate(units) if (k // blocks) % grid == cta]
+        ring = rng.integers(0, 256, (args.stages, raw_stride), np.uint8)
+        planes = rng.integers(0, 256, (chunk, args.box_h, args.row_pitch),
+                              np.uint8)
+        for load, (item, r0, q0) in enumerate(mine):
+            box = generic_box(args, item, r0, q0, pads)
+            stage = ring[load % args.stages]
+            fresh = generic_raw_box(buf, x_off, args, e, item, box, stage)
+            vals = generic_box_values(args, e, x_off, item, box, stage,
+                                      fresh)
+            generic_quantize(vals, 1.0, planes)
+            if r0 == 0 and q0 == 0:
+                acc = np.zeros((chunk, args.tile_h // DW_BLOCK,
+                                args.tile_w // DW_BLOCK, DW_BLOCK, DW_BLOCK),
+                               np.int64)
+            generic_products(planes.astype(np.int64), generic_tap_words(
+                wq, args, item[3]), args, r0, q0, acc)
+            if (r0, q0) == ((args.kh - 1) // args.taps_h * args.taps_h,
+                            (args.kw - 1) // args.taps_w * args.taps_w):
+                tile = acc.transpose(1, 3, 2, 4, 0).reshape(
+                    args.tile_h, args.tile_w, chunk)
+                generic_store(tile, args, item, y_vals, y_count, out_bytes)
+    elem = np.arange(n * args.oh * args.ow * c) * out_bytes
+    assert (y_count[elem] == 1).all() and y_count.sum() == elem.size
+    return y_vals[elem].reshape(n, args.oh, args.ow, c)
 
 
 # (name, N, H, W, C, kh, kw, stride, pads or "SAME"): edge tiles in both
@@ -781,14 +1078,35 @@ _DW_WALKS = [
     ("1x1_s1", 2, 9, 17, 48, 1, 1, 1, (0, 0, 0, 0)),
     ("1x1_s2", 1, 15, 16, 24, 1, 1, 2, (0, 0, 0, 0)),
     ("3x3_s1_4x4", 3, 4, 4, 160, 3, 3, 1, "SAME"),
-    # depthwise_generic: C = 7, an odd window, kh != kw, stride 3, and a
-    # window past one block of taps
+    # depthwise_generic: C = 7, an odd window, kh != kw, stride 3, C = 40
+    # (two chunks, a pixel's chunk a run, the second ragged), a 19x17
+    # window (whole: its box fits), each kernel of the launcher's (G, S),
+    # and a window in blocks of taps (its whole box fits no budget)
     ("g5x5_s1_c7", 2, 15, 13, 7, 5, 5, 1, "SAME"),
     ("g7x7_s1", 1, 12, 20, 40, 7, 7, 1, "SAME"),
     ("g3x5_s1", 1, 9, 10, 16, 3, 5, 1, (1, 1, 2, 2)),
     ("g3x3_s3", 2, 14, 17, 8, 3, 3, 3, (1, 1, 1, 1)),
     ("g19x17_s2_blocks", 1, 23, 21, 12, 19, 17, 2, (9, 9, 8, 8)),
+    ("g3x3_s1_c12", 2, 11, 38, 12, 3, 3, 1, "SAME"),
+    ("g3x3_s2_c20", 1, 19, 22, 20, 3, 3, 2, "SAME"),
+    ("g5x5_s2_c36", 1, 17, 15, 36, 5, 5, 2, "SAME"),
+    ("g48x48_s1_blocks", 1, 12, 13, 32, 48, 48, 1, "SAME"),
+    # window blocks wholly right of the input (the second tile's last)
+    ("g48x48_s1_blocks_outside", 1, 8, 20, 32, 48, 48, 1, "SAME"),
+    # a plane 4 wide: a box row of one unit of 8 pixels
+    ("g3x3_s1_c12_4x4", 2, 4, 4, 12, 3, 3, 1, "SAME"),
 ]
+
+
+def _generic_kernel(args):
+    """(G, S) of the generic kernel the launcher picks (0: read from the
+    shape): the tap words of a window row and the stride, for a whole
+    window of up to 8 x 8 taps at stride 1 or 2."""
+    groups = -(-args.kw // 4)
+    whole = args.taps_h == args.kh and args.taps_w == args.kw
+    if whole and args.stride <= 2 and groups <= 2 and args.kh <= 8:
+        return groups, args.stride
+    return 0, 0
 
 
 @pytest.mark.parametrize("case", _DW_WALKS, ids=[t[0] for t in _DW_WALKS])
@@ -808,8 +1126,12 @@ def test_depthwise_walk_equals_conv(case, in_bytes, out_bytes):
                       else "depthwise")
     _check_depthwise_args(args, c, in_bytes, out_bytes)
     assert args.oh == conv_out_size(h, kh, stride, pads[0], pads[1])
-    walk = depthwise_walk if design == "depthwise" else generic_walk
-    got = walk(qx, packed.numpy(), args, pads)
+    if design == "depthwise":
+        got = depthwise_walk(qx, packed.numpy(), args, pads)
+    else:
+        # the input a few bytes past a 16-byte unit
+        got = generic_walk(qx, packed.numpy(), args, pads, in_bytes,
+                           out_bytes, x_off=len(name) * in_bytes % 16)
     want = int8_conv_acc(torch.from_numpy(qx), torch.from_numpy(qw), stride,
                          pads, c)
     np.testing.assert_array_equal(got, want.numpy())
@@ -817,8 +1139,11 @@ def test_depthwise_walk_equals_conv(case, in_bytes, out_bytes):
 
 def test_depthwise_walks_meet_every_branch():
     """The walks above reach: edge tiles in both axes, a ragged chunk, a
-    chunk narrower than 32, the plan's tiles and ring depths, and a window
-    in more than one block of taps."""
+    chunk narrower than 32, the plan's tiles and ring depths of both
+    designs, and of the generic design: runs of a box row and of a pixel's
+    chunk, every kernel of the launcher's (G, S), a window in more than one
+    block of taps, the larger budget, a thread's blocks one and several,
+    and a box wholly right of the input."""
     seen = set()
     for name, n, h, w, c, kh, kw, stride, pads in _DW_WALKS:
         if pads == "SAME":
@@ -832,12 +1157,116 @@ def test_depthwise_walks_meet_every_branch():
                      ("narrow_chunk", a.dw_chunk < 32),
                      ("tap_blocks", a.taps_h < kh or a.taps_w < kw),
                      ("tile", a.design, a.tile_h, a.tile_w),
-                     ("stages", a.stages)}
+                     ("stages", a.design, a.stages)}
+            if a.design == 3:
+                blocks = a.tile_h // DW_BLOCK * (a.tile_w // DW_BLOCK)
+                boxes = [generic_box(a, item, r0, q0, pads)
+                         for item, r0, q0 in generic_units(a, n, a.oh, a.ow,
+                                                           c)]
+                seen |= {("runs", "rows" if c <= a.dw_chunk else "pixels"),
+                         ("kernel", _generic_kernel(a)),
+                         ("big_budget", a.smem > DW_SMEM_BUDGET),
+                         ("blocks_a_thread", blocks > DW_THREADS
+                          // a.dw_chunk),
+                         ("box_outside", any(lo == hi
+                                             for _, _, lo, hi, _ in boxes))}
     for branch in ("edge_y", "edge_x", "ragged_chunk", "narrow_chunk",
-                   "tap_blocks"):
+                   "tap_blocks", "big_budget", "blocks_a_thread",
+                   "box_outside"):
         assert (branch, True) in seen, branch
     assert {("tile", 0, 8, 32), ("tile", 0, 8, 16), ("tile", 0, 4, 4)} <= seen
-    assert {("stages", 0), ("stages", 1), ("stages", 2)} <= seen
+    assert {("stages", d, n) for d in (0, 3) for n in (1, 2)} <= seen
+    assert {("runs", "rows"), ("runs", "pixels")} <= seen
+    assert {("kernel", k) for k in ((1, 1), (1, 2), (2, 1), (2, 2),
+                                    (0, 0))} <= seen
+
+
+def test_generic_constants_are_the_kernels():
+    """The plan's doubt lists and the (G, S) kernels' window rows mirror
+    `csrc/int8_conv.cu` (`kGenDoubts`, `kGenDoubtsOff`, `kGenTapRows`)."""
+    import re
+    source = (Path(__file__).resolve().parents[1] / "retinanet_torch"
+              / "csrc" / "int8_conv.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             source).group(1))
+    assert constant("kGenDoubts") == GEN_DOUBTS
+    assert constant("kGenDoubtsOff") == GEN_DOUBTS_OFF
+    assert constant("kGenTapRows") == 8  # `_generic_kernel`'s kh <= 8
+
+
+def _umulhi_div(n, d):
+    """n / d as the generic kernel takes it by a multiply-high: the magic
+    2^32 / d rounded up, and n itself where d = 1 (whose magic would be
+    0)."""
+    return n if d == 1 else (n * (0xFFFFFFFF // d + 1)) >> 32
+
+
+def test_generic_divisions_are_exact():
+    """The generic kernel's divisions by multiply-high (a unit's row by the
+    8-pixel units of a box row, a copy's pixel by a slot's 16-byte units)
+    are exact for every n < 2^32 / d, d = 1 included (a box row of one
+    unit: planes at most 4 wide), at the edge of that range too."""
+    rng = np.random.default_rng(0)
+    for d in list(range(1, 300)) + [1000, 4097, 65535]:
+        top = (1 << 32) // d - 1
+        ns = np.concatenate([np.arange(0, min(top, 5000)),
+                             rng.integers(0, top, 2000),
+                             [top]]).astype(object)
+        assert all(_umulhi_div(int(n), d) == int(n) // d for n in ns), d
+
+
+# (C, bytes of an element, the input's byte offset from a 16-byte unit):
+# every offset an element can have, C of one chunk (7 and 12: runs of box
+# rows) and of two (40: runs of a pixel's chunk, the second ragged)
+_LOADER_CASES = [(c, e, off) for c in (7, 12, 40) for e in (2, 4)
+                 for off in range(0, 16, e)]
+
+
+@pytest.mark.parametrize("c,in_bytes,x_off", _LOADER_CASES,
+                         ids=[f"c{c}_{'bf16' if e == 2 else 'f32'}_off{o}"
+                              for c, e, o in _LOADER_CASES])
+def test_generic_loader_rebuilds_every_box(c, in_bytes, x_off):
+    """The generic kernel's loader (`gen_copy_box`'s 16-byte units, which
+    land at each run's slot, and `gen_quantize_box`'s byte leads) rebuilds
+    every box of a 3x3 "SAME" conv exactly, the input x_off bytes past a
+    16-byte unit between bytes of NaN and inf: every element read is one
+    its box's copies wrote, each unit copied holds a byte of the input,
+    and the box's pixels outside the input and its channels past C are
+    zero."""
+    n, h, w, k = 2, 9, 11, 3
+    pads = same_pads(h, k, 1) + same_pads(w, k, 1)
+    rng = np.random.default_rng(c * 100 + x_off)
+    x = rng.normal(0, 3, (n, h, w, c)).astype(np.float32)
+    if in_bytes == 2:
+        x = (x.view(np.uint32) & 0xFFFF0000).view(np.float32)  # bfloat16
+        raw = (x.view(np.uint32) >> 16).astype("<u2")
+    else:
+        raw = x.astype("<f4")
+    pad = np.frombuffer(np.float32([np.nan, np.inf, -np.inf, np.nan] * 8)
+                        .tobytes(), np.uint8)
+    buf = np.concatenate([pad[:x_off], raw.view(np.uint8).reshape(-1),
+                          pad[:32]])
+    design, a, _ = conv_args((n, h, w, c), (k * k, c), c, 1, pads, c, k, k,
+                             in_bytes, 2, aligned=False)
+    assert design == "depthwise_generic"
+    xp = np.pad(x, ((0, 0), (a.box_h, a.box_h), (a.box_w, a.box_w),
+                    (0, a.dw_chunk)))
+    stages = rng.integers(0, 256, (a.stages, a.q_off // a.stages), np.uint8)
+    for load, (item, r0, q0) in enumerate(generic_units(a, n, a.oh, a.ow,
+                                                        c)):
+        box = generic_box(a, item, r0, q0, pads)
+        stage = stages[load % a.stages]
+        fresh = generic_raw_box(buf, x_off, a, in_bytes, item, box, stage)
+        got = generic_box_values(a, in_bytes, x_off, item, box, stage, fresh)
+        iy0, ix0, _, _, cs = box
+        c0 = item[3] * a.dw_chunk
+        want = xp[item[0], a.box_h + iy0:a.box_h + iy0 + a.box_h,
+                  a.box_w + ix0:a.box_w + ix0 + a.box_w, c0:c0 + a.dw_chunk]
+        want = np.where(np.arange(a.dw_chunk) < cs, want, 0)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.astype(np.float32).view(np.uint32))
 
 
 def quantize_byte_model(v: np.ndarray, s_a: float) -> np.ndarray:
